@@ -1,0 +1,1 @@
+"""See the package docstring of ``dr_tpu_torch``."""
