@@ -5,10 +5,10 @@ Run from the repository root:  ``python3 chip_smoke.py``  (``--quick``
 checks the kernels at small shapes only).  Phases:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the four CUDA kernels from ``dr_tpu_torch/csrc`` (``nvcc``);
+2. build the five CUDA kernels from ``dr_tpu_torch/csrc`` (``nvcc``);
 3. hold each kernel against its plain PyTorch version at the main-path
    shapes, on the card;
-4. the main path at full size on one rank: a 2^30-element f32
+4. the 1-D main path at full size on one rank: a 2^30-element f32
    ``distributed_vector``, 512 steps of ``stencil_iterate_matmul``
    (k_block=256, halo 512) and of ``stencil_iterate_blocked``
    (time_block=64, halo 1024), ``dot_n``, ``inclusive_scan`` and
@@ -17,7 +17,16 @@ checks the kernels at small shapes only).  Phases:
    versions;
 5. the same path on 4 logical ranks of the one card at n = 2^26 (ring
    exchanges and the scan's cross-rank carry), against a numpy oracle;
-6. per-kernel times from CUDA events beside their bounds, the plain
+6. the 2-D heat path on one rank: a 16384 x 16384 f32 ``dense_matrix``,
+   ``stencil2d_iterate_blocked`` (520 steps, time_block=16: 33 K5
+   passes) and ``stencil2d_n`` (32 passes); launch counts around this
+   phase, results against the plain versions;
+7. the 2-D path on 4 logical ranks (a 2x2 grid) at 8192 x 8192: the
+   tiled ``stencil2d_iterate`` in block and block-cyclic layouts and the
+   single-tile blocked path against a float64 recurrence, ``gemm``
+   against a float64 product, and a ``distributed_mdarray`` transpose and
+   ``submdspan``, bit-exact;
+8. per-kernel times from CUDA events beside their bounds, the plain
    versions' and one library call's times, and the peak device memory.
 
 Exits non-zero on any failure.  The last line of standard output is
@@ -47,6 +56,9 @@ K_BLOCK, MM_HALO = 256, 512
 T_BLOCK, BLK_HALO = 64, 1024
 STEPS = 512
 DOT_ROUNDS = 8
+M2D, T2D = 16384, 16          # the 2-D main path's matrix and time block
+STEPS2D, ITERS2D = 520, 32    # 32 full passes + one of 8; 32 passes
+M4, STEPS4, CYC_TILE = 8192, 64, 1024  # the 2-D four-rank phase
 
 
 def log(*a):
@@ -139,11 +151,23 @@ def f64_dot(x, y, salt, chunk=1 << 26):
                for i in range(0, x.numel(), chunk))
 
 
-def kernel_checks(dt, n, gen, results):
+def heat_tol(w, steps, scale):
+    """Bound on |f32 result - exact| after ``steps`` 3x3 steps with
+    nonnegative weights summing to at most 1: a step rounds each of its
+    nnz products and nnz-1 sums once, each by at most 2^-24 of a partial
+    sum no larger than the data's largest |value| (``scale``; such a step
+    never raises it), and such a step does not grow an earlier error.
+    Two f32 results of the same steps differ by at most twice this."""
+    nnz = int(np.count_nonzero(np.asarray(w)))
+    return steps * (2 * nnz - 1) * 2.0 ** -24 * scale
+
+
+def kernel_checks(dt, n, m2d, gen, results):
     """Phase 3: every kernel against its plain version, same inputs."""
     import torch
     from dr_tpu_torch.ops import (reduce_pallas, scan_pallas,
-                                  stencil_matmul, stencil_pallas)
+                                  stencil2d_pallas, stencil_matmul,
+                                  stencil_pallas)
     dev = torch.device("cuda", 0)
 
     # K1 at the main path's row: tolerance — the kernel sums 1025 taps
@@ -219,6 +243,40 @@ def kernel_checks(dt, n, gen, results):
           2 ** -6 * float(r2.float().abs().max()))
     del x, got, ref
 
+    # K5 at the 2-D main path's pass (the cross template): FMA-contracted
+    # sums against the plain version's separately rounded ones, within
+    # twice heat_tol; then all nine taps (the full template) with m off
+    # the kernel's 128-row tile
+    w = dt.heat_step_weights(0.25)
+    xp = torch.randn((m2d + 2 * T2D, m2d), generator=gen, device=dev)
+    got = stencil2d_pallas.blocked_stencil2d_padded(xp, m2d, w, T2D, T2D)
+    ref = stencil2d_pallas.plain_blocked2d(xp, m2d, w, T2D, T2D)
+    torch.cuda.synchronize()
+    results["stencil2d_blocked"]["max_abs_err"] = e = max_err(got, ref)
+    check("K5 stencil2d_blocked", e,
+          2 * heat_tol(w, T2D, float(xp.abs().max())))
+    del got, ref, xp
+    wf = ((0.05, 0.1, 0.05), (0.1, 0.4, 0.1), (0.05, 0.1, 0.05))
+    q = m2d // 4 + 77
+    xp = torch.randn((q + 10, m2d), generator=gen, device=dev)
+    got = stencil2d_pallas.blocked_stencil2d_padded(xp, q, wf, 5, 5)
+    ref = stencil2d_pallas.plain_blocked2d(xp, q, wf, 5, 5)
+    check("K5 stencil2d_blocked full 3x3", max_err(got, ref),
+          2 * heat_tol(wf, 5, float(xp.abs().max())))
+    del got, ref, xp
+
+
+def stepper(dt, times):
+    """A context manager adding each step's host-clock seconds, ended by
+    a fence, to ``times[name]``."""
+    @contextlib.contextmanager
+    def step(name):
+        t0 = time.perf_counter()
+        yield
+        dt.fence()
+        times[name] = times.get(name, 0.0) + time.perf_counter() - t0
+    return step
+
 
 def main_path(dt, n, seed, times=None, keep_inputs=False):
     """The main path on the current runtime; returns the source vector
@@ -226,17 +284,9 @@ def main_path(dt, n, seed, times=None, keep_inputs=False):
     dict) gets each step's host-clock seconds, each ended by a fence.
     ``keep_inputs`` also returns the dot operands (as "x" and "y")."""
     import torch
-    times = {} if times is None else times
+    step = stepper(dt, {} if times is None else times)
     dev = dt.devices()[0]
     gen = torch.Generator(device=dev).manual_seed(seed)
-
-    @contextlib.contextmanager
-    def step(name):
-        t0 = time.perf_counter()
-        yield
-        dt.fence()
-        times[name] = times.get(name, 0.0) + time.perf_counter() - t0
-
     out = {}
     with step("data"):
         src = torch.randn(n, generator=gen, device=dev)
@@ -359,6 +409,148 @@ def four_ranks(dt, n, seed, device="cuda:0"):
           4 * f32_ulp(d))
 
 
+def main_path_2d(dt, m, seed, times=None):
+    """Phase 6: the 2-D heat path on the current runtime's one rank;
+    returns the source matrix and both results, on the card."""
+    import torch
+    step = stepper(dt, {} if times is None else times)
+    dev = dt.devices()[0]
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    w = dt.heat_step_weights(0.25)
+    out = {}
+    with step("data"):
+        src = torch.randn((m, m), generator=gen, device=dev)
+        M = dt.dense_matrix.from_array(src)
+    with step("stencil2d_iterate_blocked"):
+        dt.stencil2d_iterate_blocked(M, w, STEPS2D, time_block=T2D)
+    out["blocked"] = M.to_array()
+    del M
+    with step("data"):
+        M = dt.dense_matrix.from_array(src)
+    with step("stencil2d_n"):
+        dt.stencil2d_n(M, w, ITERS2D, time_block=T2D)
+    out["n"] = M.to_array()
+    return src, out
+
+
+def compare_2d(dt, src, got, ref, tag):
+    """Kernel route vs plain route of the 2-D path: each within twice
+    heat_tol of the other, finite and of the matrix's shape."""
+    w = dt.heat_step_weights(0.25)
+    scale = float(src.abs().max())
+    for k, steps in (("blocked", STEPS2D), ("n", ITERS2D * T2D)):
+        assert got[k].shape == src.shape, (k, got[k].shape)
+        check(f"{tag} {k}", max_err(got[k], ref[k]),
+              2 * heat_tol(w, steps, scale))
+
+
+def heat_reference(u, w, steps):
+    """``steps`` Jacobi steps of a 3x3 stencil with frozen edges in
+    float64, written here independently of the port."""
+    import torch
+    u = u.double().clone()
+    m, n = u.shape
+    w = np.asarray(w, dtype=np.float64)
+    for _ in range(steps):
+        acc = torch.zeros_like(u[1:-1, 1:-1])
+        for di in range(3):
+            for dj in range(3):
+                if w[di, dj]:
+                    acc += float(w[di, dj]) * u[di:di + m - 2, dj:dj + n - 2]
+        u[1:-1, 1:-1] = acc
+    return u
+
+
+def check_equal(name, got, want):
+    import torch
+    ok = got.shape == want.shape and bool(torch.equal(got, want))
+    log(f"  {name}: bit-exact {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: not bit-exact")
+
+
+def four_ranks_2d(dt, m, seed, kernels, device="cuda:0"):
+    """Phase 7: the 2-D path on 4 logical ranks of one device (a 2x2
+    grid) against float64 references."""
+    import torch
+    dt.init(dt.get_duplicated_devices(4, [device]))
+    times = {}
+    step = stepper(dt, times)
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    w = dt.heat_step_weights(0.25)
+    src = torch.randn((m, m), generator=gen, device=device)
+    scale = float(src.abs().max())
+    blocked_steps = 2 * T2D + T2D // 2
+    ref_b = heat_reference(src, w, blocked_steps)
+    ref = heat_reference(ref_b, w, STEPS4 - blocked_steps)
+    cyclic = dt.block_cyclic(tile=(CYC_TILE, CYC_TILE))
+    for name, part in (("block", None), ("cyclic", cyclic)):
+        A = dt.dense_matrix.from_array(src, part)
+        B = dt.dense_matrix.from_array(src, part)
+        assert A.grid_shape == (2, 2), A.grid_shape
+        with step(f"stencil2d_iterate {name}"):
+            dt.stencil2d_iterate(A, B, w, STEPS4)
+        check(f"4 ranks stencil2d_iterate {name} ({A.grid_tiles} tiles) "
+              "vs float64", max_err(A.to_array(), ref),
+              heat_tol(w, STEPS4, scale))
+        del A, B
+    # the blocked path on a single-tile matrix under this runtime: two
+    # K5 passes of 16 and one of 8
+    k5 = kernels.launches["stencil2d_blocked"]
+    S = dt.dense_matrix.from_array(src, dt.block_cyclic(grid=(1, 1)))
+    with step("stencil2d_iterate_blocked single tile"):
+        dt.stencil2d_iterate_blocked(S, w, blocked_steps, time_block=T2D)
+    check("4 ranks single-tile stencil2d_iterate_blocked vs float64",
+          max_err(S.to_array(), ref_b), heat_tol(w, blocked_steps, scale))
+    if kernels.launches["stencil2d_blocked"] - k5 != 3:
+        raise AssertionError("single-tile blocked path did not launch K5 "
+                             "three times")
+    del S, ref, ref_b
+    # gemm: an f32 product of length-k dots is within k * 2^-24 of
+    # (|A||B|)_ij of the exact one (TF32 off)
+    ga = torch.randn((m, m), generator=gen, device=device)
+    gb = torch.randn((m, m), generator=gen, device=device)
+    exact = torch.matmul(ga.double(), gb.double())
+    mag = torch.matmul(ga.double().abs(), gb.double().abs())
+    for name, part in (("block", None), ("cyclic", cyclic)):
+        A = dt.dense_matrix.from_array(ga, part)
+        B = dt.dense_matrix.from_array(gb, part)
+        with step(f"gemm {name}"):
+            C = dt.gemm(A, B)
+        rel = float(((C.to_array().double() - exact).abs() / mag).max())
+        check(f"4 ranks gemm {name} vs float64 (relative to |A||B|)", rel,
+              m * 2.0 ** -24)
+        del A, B, C
+    del exact, mag
+    # distributed_mdarray: the graft entry's (2P, 6, 5) cube
+    cube = torch.arange(8 * 6 * 5, dtype=torch.float32,
+                        device=device).reshape(8, 6, 5)
+    M3 = dt.distributed_mdarray.from_array(cube)
+    T3 = dt.distributed_mdarray((5, 8, 6))
+    dt.transpose(T3, M3, axes=(2, 0, 1))
+    check_equal("4 ranks mdarray transpose(2, 0, 1)", T3.to_array(),
+                cube.permute(2, 0, 1))
+    check_equal("4 ranks mdarray submdspan",
+                M3.submdspan(slice(1, 8), slice(2, 5), slice(0, 3))
+                .to_array(), cube[1:, 2:5, 0:3])
+    log("  4-rank 2-D seconds by step: " + json.dumps(times))
+
+
+def composed_taps2d(w, steps):
+    """The 3x3 weights composed with themselves ``steps`` times in
+    float64: one cross-correlation with this kernel equals ``steps``
+    unmasked steps."""
+    w = np.asarray(w, dtype=np.float64)
+    c = np.ones((1, 1))
+    for _ in range(steps):
+        out = np.zeros((c.shape[0] + 2, c.shape[1] + 2))
+        for di in range(3):
+            for dj in range(3):
+                out[di:di + c.shape[0], dj:dj + c.shape[1]] += w[di, dj] * c
+        c = out
+    return c
+
+
 def timings(n, gen, results):
     """Phase 6: kernel, plain and library times at the main-path shapes."""
     import torch
@@ -418,6 +610,26 @@ def timings(n, gen, results):
     r["bound_ms"], r["bound_by"] = bound(2 * n * f, 2.0 * n)
     del x
 
+    import dr_tpu_torch as dt
+    from dr_tpu_torch.ops import stencil2d_pallas
+    m = M2D
+    w = dt.heat_step_weights(0.25)
+    xp = torch.randn((m + 2 * T2D, m), generator=gen, device=dev)
+    r = results["stencil2d_blocked"]
+    r["ms"] = events_ms(lambda: stencil2d_pallas.blocked_stencil2d_padded(
+        xp, m, w, T2D, T2D), 10)
+    r["plain_ms"] = events_ms(lambda: stencil2d_pallas.plain_blocked2d(
+        xp, m, w, T2D, T2D), 2)
+    # one library call for the same T steps without the frozen edges:
+    # conv2d (a cross-correlation) with the composed (2T+1)^2 kernel
+    taps = torch.from_numpy(composed_taps2d(w, T2D).astype(np.float32)).to(
+        dev)[None, None]
+    r["library_ms"] = events_ms(lambda: F.conv2d(xp[None, None], taps), 3)
+    nnz = int(np.count_nonzero(np.asarray(w)))
+    r["bound_ms"], r["bound_by"] = bound(
+        2 * (m + 2 * T2D) * m * f, float(T2D) * (2 * nnz - 1) * (m - 2) ** 2)
+    del xp
+
 
 def main(argv):
     try:
@@ -464,14 +676,17 @@ def main(argv):
                         "dr_tpu/ops/reduce_pallas.py:64"),
         "chunked_cumsum": ("dr_tpu_torch/csrc/scan.cu",
                            "dr_tpu/ops/scan_pallas.py:244"),
+        "stencil2d_blocked": ("dr_tpu_torch/csrc/stencil2d_blocked.cu",
+                              "dr_tpu/ops/stencil2d_pallas.py:48"),
     }
     results = {k: {"name": k, "route": "cuda", "source": s,
                    "replaces": rp} for k, (s, rp) in replaces.items()}
 
     n = 1 << (20 if quick else 30)
+    m2d = 2048 if quick else M2D
     gen = torch.Generator(device="cuda").manual_seed(seed)
-    log(f"phase 3: kernels vs plain versions at n={n}")
-    kernel_checks(dt, n, gen, results)
+    log(f"phase 3: kernels vs plain versions at n={n}, {m2d}x{m2d}")
+    kernel_checks(dt, n, m2d, gen, results)
     torch.cuda.synchronize()
     if quick:
         log(json.dumps({"quick": True, "checked": list(results)}))
@@ -488,9 +703,10 @@ def main(argv):
     log(f"  main path {time.perf_counter() - t0:.2f} s, launches {counts}")
     log("  main path seconds by step: " + json.dumps(steps))
     peak = torch.cuda.max_memory_allocated()
-    for k, c in counts.items():
-        results[k]["launches"] = c
-        if c <= 0:
+    for k in ("stencil_matmul", "stencil_blocked", "chunked_dot",
+              "chunked_cumsum"):
+        results[k]["launches"] = counts[k]
+        if counts[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the "
                                  "main path")
     with plain_versions(kernels):
@@ -504,12 +720,42 @@ def main(argv):
     dt.final()
     torch.cuda.empty_cache()
 
-    log("phase 6: timings")
+    log(f"phase 6: 2-D heat path, 1 rank on cuda:0, {M2D}x{M2D}")
+    dt.init(["cuda:0"])
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    steps = {}
+    src, got = main_path_2d(dt, M2D, seed, steps)
+    counts = dict(kernels.launches)
+    log(f"  2-D path {time.perf_counter() - t0:.2f} s, launches {counts}")
+    log("  2-D path seconds by step: " + json.dumps(steps))
+    peak2 = torch.cuda.max_memory_allocated()
+    want = -(-STEPS2D // T2D) + ITERS2D
+    results["stencil2d_blocked"]["launches"] = counts["stencil2d_blocked"]
+    if counts["stencil2d_blocked"] != want:
+        raise AssertionError(f"K5 launched {counts['stencil2d_blocked']} "
+                             f"times on the 2-D path, expected {want}")
+    with plain_versions(kernels):
+        _, ref = main_path_2d(dt, M2D, seed)
+    compare_2d(dt, src, got, ref, "2-D path")
+    del src, got, ref
+    dt.final()
+    torch.cuda.empty_cache()
+
+    log(f"phase 7: 2-D path, 4 ranks on cuda:0, {M4}x{M4}")
+    four_ranks_2d(dt, M4, seed, kernels)
+    dt.final()
+    torch.cuda.empty_cache()
+
+    log("phase 8: timings")
     timings(n, gen, results)
-    log(f"peak device memory (main path): {peak} bytes "
+    log(f"peak device memory (1-D main path): {peak} bytes "
         f"({peak / 2 ** 30:.2f} GiB)")
+    log(f"peak device memory (2-D path): {peak2} bytes "
+        f"({peak2 / 2 ** 30:.2f} GiB)")
     order = ("stencil_matmul", "stencil_blocked", "chunked_dot",
-             "chunked_cumsum")
+             "chunked_cumsum", "stencil2d_blocked")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

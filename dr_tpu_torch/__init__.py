@@ -7,10 +7,10 @@ mirror it (``dr_tpu_torch/parallel/halo.py`` is the counterpart of
 a ``distributed_vector`` keeps one padded row tensor per rank on that
 rank's device, and collectives are tensor copies between rank rows.
 
-The kernels of the 1-D stencil -> dot -> scan path are hand-written CUDA
-for ``sm_90a`` (``dr_tpu_torch/csrc``), built at first use.  A CUDA
-tensor takes the kernel or raises; a CPU tensor takes the kernel's plain
-PyTorch version.  ``init()`` takes the visible CUDA devices and raises
+The kernels of the 1-D stencil -> dot -> scan path and of the 2-D heat
+stencil are hand-written CUDA for ``sm_90a`` (``dr_tpu_torch/csrc``),
+built at first use.  A CUDA tensor takes the kernel or raises; a CPU
+tensor takes the kernel's plain PyTorch version.  ``init()`` takes the visible CUDA devices and raises
 without one; the CPU runs only when named (``init(["cpu"] * 8)``).
 
 Public surface of this slice:
@@ -28,6 +28,12 @@ Public surface of this slice:
 - halo:       ``halo_bounds / span_halo / halo_ops / halo``
 - stencils:   ``stencil_transform / stencil_iterate /
   stencil_iterate_matmul / stencil_iterate_blocked``
+- 2-D:        ``dense_matrix``, ``matrix_entry``, ``Index2D``,
+  ``block_cyclic``, ``row_tiles``, ``factor``, ``tile``,
+  ``distributed_mdarray``, ``distributed_mdspan``, ``transpose``,
+  ``stencil2d_transform / stencil2d_iterate /
+  stencil2d_iterate_blocked / stencil2d_n``, ``heat_step_weights``,
+  ``gemm``
 """
 
 from .parallel.runtime import (init, final, finalize, runtime, nprocs,
@@ -52,6 +58,15 @@ from .algorithms.scan import inclusive_scan, exclusive_scan, inclusive_scan_n
 from .algorithms.stencil import (stencil_transform, stencil_iterate,
                                  stencil_iterate_blocked,
                                  stencil_iterate_matmul)
+from .containers.partition import (tile, matrix_partition, block_cyclic,
+                                   row_tiles, factor)
+from .containers.dense_matrix import dense_matrix, matrix_entry, Index2D
+from .containers.mdarray import (distributed_mdarray, distributed_mdspan,
+                                 transpose)
+from .algorithms.stencil2d import (stencil2d_transform, stencil2d_iterate,
+                                   stencil2d_iterate_blocked, stencil2d_n,
+                                   heat_step_weights)
+from .algorithms.gemv import gemm
 
 __version__ = "0.1.0"
 
@@ -70,4 +85,9 @@ __all__ = [
     "inclusive_scan", "exclusive_scan", "inclusive_scan_n",
     "stencil_transform", "stencil_iterate", "stencil_iterate_blocked",
     "stencil_iterate_matmul",
+    "tile", "matrix_partition", "block_cyclic", "row_tiles", "factor",
+    "dense_matrix", "matrix_entry", "Index2D",
+    "distributed_mdarray", "distributed_mdspan", "transpose",
+    "stencil2d_transform", "stencil2d_iterate", "stencil2d_iterate_blocked",
+    "stencil2d_n", "heat_step_weights", "gemm",
 ]

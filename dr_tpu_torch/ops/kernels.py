@@ -41,6 +41,7 @@ SOURCES = {
     "stencil_blocked": "stencil_blocked.cu",
     "chunked_dot": "dot.cu",
     "chunked_cumsum": "scan.cu",
+    "stencil2d_blocked": "stencil2d_blocked.cu",
 }
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -51,6 +52,8 @@ _SIGNATURES = {
                            _L, _L, _L, _I, _P],
     "dr_chunked_dot": [_P, _P, _L, _I, _P, _P, _I, _P, _P],
     "dr_chunked_cumsum": [_P, _L, _I, _P, _P, _P, _L, _P, _P],
+    "dr_stencil2d_blocked": [_P, _P, ctypes.POINTER(ctypes.c_float), _I,
+                             _L, _L, _I, _I, _P],
 }
 
 launches = {name: 0 for name in SOURCES}

@@ -10,11 +10,11 @@ of ``dr_tpu/parallel/collectives.py`` is not ported yet.
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["ring_shift", "all_gather", "psum"]
+__all__ = ["ring_shift", "ppermute", "all_gather", "psum"]
 
 
 def ring_shift(sends: Sequence[torch.Tensor], devices, step: int,
@@ -31,6 +31,18 @@ def ring_shift(sends: Sequence[torch.Tensor], devices, step: int,
             out.append(None)
             continue
         out.append(sends[src % p].to(devices[r], non_blocking=True))
+    return out
+
+
+def ppermute(sends: Sequence[Optional[torch.Tensor]],
+             pairs: Sequence[Tuple[int, int]],
+             devices) -> List[Optional[torch.Tensor]]:
+    """``recv[dst] = sends[src]`` moved to ``devices[dst]`` for every
+    ``(src, dst)`` pair (``lax.ppermute``); an entry no pair reaches is
+    None."""
+    out: List[Optional[torch.Tensor]] = [None] * len(devices)
+    for src, dst in pairs:
+        out[dst] = sends[src].to(devices[dst], non_blocking=True)
     return out
 
 

@@ -1,4 +1,4 @@
-"""The four CUDA kernels against their plain PyTorch versions, on the
+"""The five CUDA kernels against their plain PyTorch versions, on the
 card.  Marked ``gpu``; each test decides in a fixture whether a card is
 present and skips without one (run on the card with
 ``python -m pytest -m gpu tests/test_torch_*.py``)."""
@@ -8,11 +8,14 @@ import pytest
 import torch
 
 from dr_tpu_torch.ops import (kernels, reduce_pallas, scan_pallas,
-                              stencil_matmul, stencil_pallas)
+                              stencil2d_pallas, stencil_matmul,
+                              stencil_pallas)
 
 pytestmark = pytest.mark.gpu
 
 W5 = (0.05, 0.25, 0.4, 0.25, 0.05)
+HEAT = ((0.0, 0.25, 0.0), (0.25, 0.0, 0.25), (0.0, 0.25, 0.0))
+FULL3 = ((0.05, 0.1, 0.05), (0.1, 0.4, 0.1), (0.05, 0.1, 0.05))
 
 
 @pytest.fixture
@@ -121,11 +124,76 @@ def test_scan_and_dot_n_launch_the_kernels_at_any_length(cuda, n, halo):
         dt.final()
 
 
+def _k5_tol(w, T, x):
+    """Twice the bound on an f32 result's distance from the exact one
+    after T steps of nonnegative weights summing to 1: each step rounds
+    its nnz products and nnz-1 sums, each by <= 2^-24 of max|x|."""
+    nnz = int(np.count_nonzero(np.asarray(w)))
+    return 2 * T * (2 * nnz - 1) * 2.0 ** -24 * float(x.abs().max())
+
+
+@pytest.mark.parametrize("m,n,T,w,band", [
+    (1000, 128, 1, HEAT, None),      # m off the 128-row tile
+    (517, 384, 5, FULL3, None),      # all nine taps
+    (300, 16384, 16, HEAT, 100),     # the main path's width and T
+    (1234, 384, 16, FULL3, 617),     # an explicit band
+    (131, 128, 70, HEAT, None),      # T past MAX_T: two launches
+])
+def test_k5_kernel_matches_plain(cuda, m, n, T, w, band):
+    dev, gen = cuda
+    xp = torch.randn((m + 2 * T, n), generator=gen, device=dev)
+    before = kernels.launches["stencil2d_blocked"]
+    got = stencil2d_pallas.blocked_stencil2d_padded(xp, m, w, T, T,
+                                                    band=band)
+    torch.cuda.synchronize()
+    assert kernels.launches["stencil2d_blocked"] == \
+        before + -(-T // stencil2d_pallas.MAX_T)
+    ref = stencil2d_pallas.plain_blocked2d(xp, m, w, T, T)
+    # FMA-contracted sums vs separately rounded ones
+    assert float((got - ref).abs().max()) <= _k5_tol(w, T, xp)
+    # pad rows pass through; edge rows and columns stay frozen
+    assert torch.equal(got[:T + 1], xp[:T + 1])
+    assert torch.equal(got[T + m - 1:], xp[T + m - 1:])
+    assert torch.equal(got[:, [0, n - 1]], xp[:, [0, n - 1]])
+
+
+def test_k5_path_launches_once_per_pass(cuda):
+    """stencil2d_iterate_blocked and stencil2d_n on a card matrix: one K5
+    launch per pass, remainder pass included."""
+    import dr_tpu_torch as dt
+    dev, gen = cuda
+    dt.init(["cuda:0"])
+    try:
+        src = torch.randn((333, 256), generator=gen, device=dev)
+        w = dt.heat_step_weights(0.25)
+        M = dt.dense_matrix.from_array(src)
+        k5 = kernels.launches["stencil2d_blocked"]
+        dt.stencil2d_iterate_blocked(M, w, 21, time_block=8)
+        dt.stencil2d_n(M, w, 2, time_block=8)
+        torch.cuda.synchronize()
+        assert kernels.launches["stencil2d_blocked"] == k5 + 3 + 2
+        xp = torch.nn.functional.pad(src, (0, 0, 8, 8))
+        ref = stencil2d_pallas.plain_blocked2d(xp, 333, w, 8, 8)
+        for t in (8, 5, 8, 8):
+            ref = stencil2d_pallas.plain_blocked2d(ref, 333, w, t, 8)
+        got = M.to_array()
+        assert float((got - ref[8:8 + 333]).abs().max()) <= \
+            _k5_tol(w, 37, src)
+    finally:
+        dt.final()
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     dev, _ = cuda
     row = torch.zeros((1, 2 * 1024 + 2048), dtype=torch.float64, device=dev)
     with pytest.raises(ValueError):
         stencil_pallas.blocked_stencil_row(row, 2048, 1024, W5, 4)
+    grid = torch.zeros((64 + 8, 128), dtype=torch.float64, device=dev)
+    with pytest.raises(ValueError):
+        stencil2d_pallas.blocked_stencil2d_padded(grid, 64, HEAT, 4, 4)
+    with pytest.raises(ValueError):
+        stencil2d_pallas.blocked_stencil2d_padded(grid.bfloat16(), 64, HEAT,
+                                                  4, 4)
     x = torch.zeros(1024, dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         scan_pallas.chunked_cumsum(x)

@@ -41,7 +41,8 @@ def _imports(path):
 def test_port_files_exist():
     names = {p.name for p in PORT_FILES}
     assert {"runtime.py", "halo.py", "stencil_matmul.py", "scan_pallas.py",
-            "chip_smoke.py"} <= names
+            "dense_matrix.py", "stencil2d.py", "stencil2d_pallas.py",
+            "mdarray.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -1,7 +1,9 @@
-"""The whole slice end to end on 8 CPU ranks, both packages fed the same
-numpy state: halo'd vector -> periodic exchange -> iterated 5-point
-stencil (stepwise, composed K1 and blocked K2 paths) -> dot / dot_n ->
-inclusive and exclusive scans and inclusive_scan_n."""
+"""The port's slices end to end on CPU ranks, both packages fed the same
+numpy state.  1-D, on 8 ranks: halo'd vector -> periodic exchange ->
+iterated 5-point stencil (stepwise, composed K1 and blocked K2 paths) ->
+dot / dot_n -> inclusive and exclusive scans and inclusive_scan_n.
+2-D, on 4 ranks: the tiled heat stencil, the K5 path, gemm and the
+mdarray transpose."""
 
 import jax
 import numpy as np
@@ -87,3 +89,73 @@ def test_slice_end_to_end_on_8_ranks():
     dt.inclusive_scan_n(tx, to, 2)
     ref = dr_tpu.to_numpy(jo)
     assert np.abs(dt.to_numpy(to) - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+def test_2d_slice_end_to_end_on_4_ranks():
+    """The 2-D heat slice on a 2x2 grid of 4 CPU ranks, both packages fed
+    the same numpy state: tiled heat stencil in block and block-cyclic
+    layouts, the single-tile blocked path (K5's plain version here, the
+    interpret-mode Pallas kernel in dr_tpu), gemm, and a 3-D mdarray
+    transpose and submdspan."""
+    from dr_tpu.algorithms.stencil2d import (stencil2d_iterate_blocked,
+                                             stencil2d_n)
+    dr_tpu.init(jax.devices()[:4])
+    dt.init(["cpu"] * 4)
+    m = 40
+    src = np.random.default_rng(2027).standard_normal((m, 128)) \
+        .astype(np.float32)
+    w = dr_tpu.heat_step_weights(0.25)
+
+    # tiled path: block (one tile per rank) and cyclic (8x16 tiles); the
+    # state enters the port from dr_tpu's stored arrays, bit-exact
+    for tile in (None, (8, 16)):
+        jp = None if tile is None else dr_tpu.block_cyclic(tile=tile)
+        JA = dr_tpu.dense_matrix.from_array(src, jp)
+        JB = dr_tpu.dense_matrix.from_array(src, jp)
+        TA = dt.dense_matrix.from_reference_state(JA.layout,
+                                                  np.asarray(JA._data))
+        TB = dt.dense_matrix.from_reference_state(JB.layout,
+                                                  np.asarray(JB._data))
+        assert TA.grid_shape == (2, 2)
+        jr = dr_tpu.stencil2d_iterate(JA, JB, w, steps=9)
+        tr = dt.stencil2d_iterate(TA, TB, w, steps=9)
+        np.testing.assert_allclose(tr.materialize(), jr.materialize(),
+                                   rtol=1e-5, atol=1e-6)
+
+    # K5 path on a single tile: remainder pass, then the fused loop;
+    # rtol 2e-4 / atol 2e-5 as tests/test_stencil2d_blocked.py
+    one = dr_tpu.block_cyclic(grid=(1, 1))
+    J = dr_tpu.dense_matrix.from_array(src, one)
+    T = dt.dense_matrix.from_array(src, dt.block_cyclic(grid=(1, 1)))
+    stencil2d_iterate_blocked(J, w, 7, time_block=3, band=8)
+    dt.stencil2d_iterate_blocked(T, w, 7, time_block=3, band=8)
+    stencil2d_n(J, w, 2, time_block=4)
+    dt.stencil2d_n(T, w, 2, time_block=4)
+    np.testing.assert_allclose(T.materialize(), J.materialize(),
+                               rtol=2e-4, atol=2e-5)
+
+    # gemm on the stepped state, block and cyclic: f32 products
+    a = J.materialize()[:, :32]
+    for tile in (None, (8, 8)):
+        jp = None if tile is None else dr_tpu.block_cyclic(tile=tile)
+        tp = None if tile is None else dt.block_cyclic(tile=tile)
+        JC = dr_tpu.gemm(dr_tpu.dense_matrix.from_array(a.T.copy(), jp),
+                         dr_tpu.dense_matrix.from_array(a, jp))
+        TC = dt.gemm(dt.dense_matrix.from_array(a.T.copy(), tp),
+                     dt.dense_matrix.from_array(a, tp))
+        np.testing.assert_allclose(TC.materialize(), JC.materialize(),
+                                   rtol=1e-5, atol=1e-5)
+
+    # mdarray: the (2P, 6, 5) cube, transpose and window bit-exact
+    cube = np.arange(8 * 6 * 5, dtype=np.float32).reshape(8, 6, 5)
+    JM = dr_tpu.distributed_mdarray.from_array(cube)
+    TM = dt.distributed_mdarray.from_array(cube)
+    JT, TT = dr_tpu.distributed_mdarray((5, 8, 6)), \
+        dt.distributed_mdarray((5, 8, 6))
+    dr_tpu.transpose(JT, JM, axes=(2, 0, 1))
+    dt.transpose(TT, TM, axes=(2, 0, 1))
+    np.testing.assert_array_equal(TT.materialize(),
+                                  np.asarray(JT.to_array()))
+    np.testing.assert_array_equal(
+        TM.submdspan(slice(1, 8), slice(2, 5), slice(0, 3)).materialize(),
+        JM.submdspan(slice(1, 8), slice(2, 5), slice(0, 3)).materialize())
