@@ -5,9 +5,12 @@ Run from the repository root:  ``python3 chip_smoke.py``  (``--quick``
 checks the kernels at small shapes only).  Phases:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the five CUDA kernels from ``dr_tpu_torch/csrc`` (``nvcc``);
+2. build the seven CUDA kernels from ``dr_tpu_torch/csrc`` (``nvcc``);
 3. hold each kernel against its plain PyTorch version at the main-path
-   shapes, on the card;
+   shapes, on the card (K6 and K7 bit for bit: K6 at M in {256, 4096,
+   2^15}, keys-only and KV; K7 at nseg in {1, 127, 128, 129, 2^15} over
+   int32, f32, bf16, 8- and 16-bit integer and bool columns, and at
+   n = 2^30 in one segment);
 4. the 1-D main path at full size on one rank: a 2^30-element f32
    ``distributed_vector``, 512 steps of ``stencil_iterate_matmul``
    (k_block=256, halo 512) and of ``stencil_iterate_blocked``
@@ -27,7 +30,18 @@ checks the kernels at small shapes only).  Phases:
    against a float64 product, and a ``distributed_mdarray`` transpose and
    ``submdspan``, bit-exact;
 8. per-kernel times from CUDA events beside their bounds, the plain
-   versions' and one library call's times, and the peak device memory.
+   versions' and one library call's times;
+9. the sort path on one rank at 2^28 f32 keys: ``sort`` (ascending and
+   descending), ``is_sorted``, ``sort_by_key`` with an int32 iota
+   payload, ``argsort``, ``reduce`` min / max / int32 sum; launch counts
+   around this phase (K7 once per reduce, K6 none: the blocks are above
+   its cap), results against numpy sorting the same encoding;
+10. the sort path on 4 logical ranks at 2^26 over a distribution with
+    an empty rank: keys-only, a window, key-value, and the seconds of
+    each phase of the sample sort;
+11. the K6 path: 8 ranks x 16384 keys and 4 ranks x 2^15, ``sort``,
+    ``sort_by_key`` and ``sort_n(8)``; K6 launches once per rank and
+    sort; and the peak device memory of the paths.
 
 Exits non-zero on any failure.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel
@@ -35,6 +49,7 @@ table as one JSON object.
 """
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -59,6 +74,8 @@ DOT_ROUNDS = 8
 M2D, T2D = 16384, 16          # the 2-D main path's matrix and time block
 STEPS2D, ITERS2D = 520, 32    # 32 full passes + one of 8; 32 passes
 M4, STEPS4, CYC_TILE = 8192, 64, 1024  # the 2-D four-rank phase
+SORT_LOG2 = 28   # the sort path on one rank: 1 GiB of f32 keys
+SORT4_LOG2 = 26  # on four ranks, cut so its numpy oracle stays short
 
 
 def log(*a):
@@ -105,6 +122,13 @@ def plain_versions(kernels):
         yield
     finally:
         kernels.on_cuda = saved
+
+
+def release(torch):
+    """Free what the last phase left: a halo-bearing vector and its halo
+    refer to each other, so only the cycle collector frees them."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def check(name, err, tol):
@@ -264,6 +288,150 @@ def kernel_checks(dt, n, m2d, gen, results):
     check("K5 stencil2d_blocked full 3x3", max_err(got, ref),
           2 * heat_tol(wf, 5, float(xp.abs().max())))
     del got, ref, xp
+
+
+def bit_diff(got, want):
+    """(same bits?, max |got - want| in float64 over the non-NaN cells);
+    a NaN matches a NaN at the same position."""
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False, float("inf")
+    if got.is_floating_point():
+        gn, wn = torch.isnan(got), torch.isnan(want)
+        if not torch.equal(gn, wn):
+            return False, float("inf")
+        got, want = got.masked_fill(gn, 0), want.masked_fill(wn, 0)
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    same = torch.equal(got.view(ints[got.element_size()]),
+                       want.view(ints[want.element_size()]))
+    return same, (max_err(got, want) if got.numel() else 0.0)
+
+
+def check_bits(name, got, want, worst):
+    """Bit-for-bit check of kernel against plain; ``worst`` (a one-item
+    list) keeps the largest difference seen."""
+    same, err = bit_diff(got, want)
+    worst[0] = max(worst[0], err)
+    if not same:
+        log(f"  {name}: FAIL (max_abs_err={err!r})")
+        raise AssertionError(f"{name}: kernel and plain version differ")
+
+
+def k6_inputs(n, gen, dev):
+    """Keys of the sort's int32 encoding: random, heavy duplicates, keys
+    at the dtype max (the pad key), and f32 values with NaN and +-0."""
+    import torch
+    from dr_tpu_torch.algorithms.sort import _encode
+    imax = torch.iinfo(torch.int32).max
+    rnd = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    dup = torch.randint(0, 8, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    top = rnd.clone()
+    top[::8] = imax
+    f = torch.randn(n, generator=gen, device=dev)
+    f[1::7] = 0.0
+    f[2::7] = -0.0
+    f[3::11] = float("nan")
+    return {"random": rnd, "duplicates": dup, "max": top,
+            "f32 keys-only": _encode(f, distinct_zeros=True)[0],
+            "f32": _encode(f)[0]}
+
+
+def k6_checks(gen, results, device="cuda:0"):
+    """Phase 3, K6: bit for bit against torch.sort of the same encoding,
+    keys-only and (key, gid) pairs, at M in {256, 4096, 2^15}, full and
+    padded blocks (the KV 2^15 block crosses the shared-memory tile)."""
+    import torch
+    from dr_tpu_torch.ops import sort_pallas
+    dev = torch.device(device)
+    imax = torch.iinfo(torch.int32).max
+    worst = [0.0]
+    for M in (256, 4096, 1 << 15):
+        for n in (M, M - 37):
+            for kind, keys in k6_inputs(n, gen, dev).items():
+                gid = torch.randperm(n, generator=gen, device=dev).to(
+                    torch.int32)
+                if kind == "max":  # pad-like pairs: identical, at the max
+                    gid[-5:] = imax
+                    keys = keys.clone()
+                    keys[-5:] = imax
+                got = sort_pallas.sort_keys(keys)
+                check_bits(f"K6 keys M={M} n={n} {kind}", got,
+                           sort_pallas.plain_sort_keys(keys), worst)
+                gk, gg = sort_pallas.sort_kv(keys, gid)
+                rk, rg = sort_pallas.plain_sort_kv(keys, gid)
+                check_bits(f"K6 kv keys M={M} n={n} {kind}", gk, rk, worst)
+                check_bits(f"K6 kv gids M={M} n={n} {kind}", gg, rg, worst)
+    log("  K6 bitonic_sort: 30 keys-only and 30 KV blocks bit-exact ok")
+    results["bitonic_sort"]["max_abs_err"] = worst[0]
+
+
+def k7_columns(n, gen, dev):
+    """Four int32 columns (sum, prod, min, max), four float ones (f32
+    and bf16 min/max) with +-0, NaN and infinities, and eight 8- and
+    16-bit integer and bool ones (reduce's narrow containers)."""
+    import torch
+    i = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
+                      device=dev, dtype=torch.int32)
+    i8, u8, i16 = i.to(torch.int8), (i >> 8).to(torch.uint8), \
+        (i >> 16).to(torch.int16)
+    tf = (i & 7) != 0
+    f = torch.randn(n, generator=gen, device=dev)
+    special = torch.tensor([0.0, -0.0, float("nan"), float("inf"),
+                            float("-inf")], device=dev)
+    pos = torch.randint(0, n, (max(n // 8, 1),), generator=gen, device=dev)
+    f[pos] = special[torch.randint(0, 5, pos.shape, generator=gen,
+                                   device=dev)]
+    b = f.to(torch.bfloat16)
+    return ([(i, "sum"), (i, "prod"), (i, "min"), (i, "max")],
+            [(f, "min"), (f, "max"), (b, "min"), (b, "max")],
+            [(i8, "sum"), (i8 | 1, "prod"), (u8, "min"), (i16, "max")],
+            [(tf, "sum"), (tf, "prod"), (i16, "sum"), (u8, "max")])
+
+
+def k7_checks(n, gen, results, device="cuda:0"):
+    """Phase 3, K7: bit for bit against its plain version, NaN matching
+    NaN: nseg in {1, 127, 128, 129, 2^15} x n in {1, 1000, 2^15} with
+    out-of-range ids and empty segments, then ``n`` elements in one
+    segment without ids (reduce's use)."""
+    import torch
+    from dr_tpu_torch.ops import segred_pallas as sr
+    dev = torch.device(device)
+    worst = [0.0]
+    for nseg in (1, 127, 128, 129, 1 << 15):
+        for m in (1, 1000, 1 << 15):
+            ids = torch.randint(-2, nseg + 2, (m,), generator=gen,
+                                device=dev, dtype=torch.int32)
+            for cols in k7_columns(m, gen, dev):
+                got = sr.segmented(ids, nseg, cols)
+                ref = sr.plain_segmented(ids, nseg, cols)
+                for (v, op), g, r in zip(cols, got, ref):
+                    check_bits(f"K7 {v.dtype} {op} nseg={nseg} n={m}", g, r,
+                               worst)
+    # n elements, one segment: |randn| with +0.0 and -0.0 planted, so
+    # min is -0.0; then a NaN, which both min and max must propagate;
+    # and the int32 sum of the same bits (modulo 2^32)
+    x = torch.randn(n, generator=gen, device=dev).abs_()
+    x[n // 3] = 0.0
+    x[n // 2] = -0.0
+    x[n - 1] = 0.0
+    for tag in ("+-0", "NaN"):
+        cols = ((x, "min"), (x, "max"))
+        got = sr.segmented(None, 1, cols)
+        ref = sr.plain_segmented(None, 1, cols)
+        for (v, op), g, r in zip(cols, got, ref):
+            check_bits(f"K7 f32 {op} n={n} one segment {tag}", g, r, worst)
+        if tag == "+-0" and not torch.signbit(got[0]).item():
+            raise AssertionError("K7 min over +-0 is not -0.0")
+        x[n // 5] = float("nan")
+    xi = x.view(torch.int32)
+    check_bits(f"K7 int32 sum n={n} one segment",
+               sr.segmented(None, 1, ((xi, "sum"),))[0],
+               sr.plain_segmented(None, 1, ((xi, "sum"),))[0], worst)
+    log(f"  K7 segred: bit-exact ok at nseg 1..2^15 and n={n}")
+    results["segred"]["max_abs_err"] = worst[0]
+    del x, xi
 
 
 def stepper(dt, times):
@@ -536,6 +704,237 @@ def four_ranks_2d(dt, m, seed, kernels, device="cuda:0"):
     log("  4-rank 2-D seconds by step: " + json.dumps(times))
 
 
+def encoded_host(dt_sort, t, distinct_zeros=True):
+    """The sort's int32 order keys of a card tensor, on the host."""
+    return dt_sort._encode(t, distinct_zeros=distinct_zeros)[0].cpu().numpy()
+
+
+def check_true(name, ok):
+    log(f"  {name}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(name)
+
+
+def check_stable(name, src, keys, pay, descending=False):
+    """``pay`` is the stable sort permutation of ``src`` and ``keys`` the
+    keys in that order: a permutation, ``src[pay]`` equal to ``keys``
+    bit for bit (zeros as one key), and rising (falling when descending)
+    inside every run of equal keys.  With the keys checked against numpy
+    this fixes the result."""
+    import torch
+    from dr_tpu_torch.algorithms import sort as dt_sort
+    p = pay.long()
+    perm = torch.equal(torch.sort(p).values,
+                       torch.arange(p.numel(), device=p.device))
+    k = dt_sort._encode(keys)[0]
+    same = torch.equal(dt_sort._encode(src[p])[0], k)
+    tie = k[1:] == k[:-1]
+    step = p[1:] - p[:-1]
+    order = bool(((step < 0) if descending else (step > 0))[tie].all())
+    check_true(f"{name}: permutation, keys, stable ties", perm and same
+               and order)
+
+
+def sort_path(dt, n, seed, times):
+    """Phase 9: the sort path on the current runtime's one rank: sort
+    (ascending, then descending) with is_sorted after each, sort_by_key
+    with an int32 iota payload, argsort, and reduce min / max / int32
+    sum.  Returns the results on the card and the source."""
+    import torch
+    step = stepper(dt, times)
+    dev = dt.devices()[0]
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    out = {}
+    with step("data"):
+        src = torch.randn(n, generator=gen, device=dev)
+        v = dt.distributed_vector.from_array(src)
+    with step("sort"):
+        dt.sort(v)
+    with step("is_sorted"):
+        out["up_sorted"] = dt.is_sorted(v)
+    out["asc"] = v.to_array().clone()
+    with step("sort descending"):
+        dt.sort(v, descending=True)
+    with step("is_sorted"):
+        out["down_sorted"] = dt.is_sorted(v)
+    out["desc"] = v.to_array().clone()
+    del v
+    with step("data"):
+        k = dt.distributed_vector.from_array(src)
+        pay = dt.distributed_vector(n, np.int32)
+        dt.iota(pay, 0)
+    with step("sort_by_key"):
+        dt.sort_by_key(k, pay)
+    out["kv_keys"], out["kv_pay"] = k.to_array().clone(), \
+        pay.to_array().clone()
+    del k, pay
+    with step("data"):
+        a = dt.distributed_vector.from_array(src)
+    with step("argsort"):
+        idx = dt.argsort(a)
+    out["argsort"] = idx.to_array().clone()
+    with step("reduce min"):
+        out["min"] = dt.reduce(a, op=min)
+    with step("reduce max"):
+        out["max"] = dt.reduce(a, op=max)
+    with step("reduce int32 sum"):
+        out["isum"] = dt.reduce(idx)
+    return src, out
+
+
+def check_sort_path(src, out):
+    """Phase 9's results against numpy sorting the same encoding."""
+    import torch
+    from dr_tpu_torch.algorithms import sort as dt_sort
+    n = src.numel()
+    want = np.sort(encoded_host(dt_sort, src))
+    check_true("sort vs numpy (bits)",
+               np.array_equal(encoded_host(dt_sort, out["asc"]), want))
+    check_true("sort descending vs numpy (bits)",
+               np.array_equal(encoded_host(dt_sort, out["desc"]), want[::-1]))
+    check_true("is_sorted after sort, not after descending",
+               out["up_sorted"] and not out["down_sorted"])
+    # sort_by_key gives both zeros one key (-0.0 is key -1, +0.0 key 0)
+    check_true("sort_by_key keys vs numpy (bits)", np.array_equal(
+        encoded_host(dt_sort, out["kv_keys"], False),
+        np.where(want == -1, 0, want)))
+    check_stable("sort_by_key payload", src, out["kv_keys"], out["kv_pay"])
+    check_true("argsort equals the sort_by_key permutation",
+               torch.equal(out["argsort"], out["kv_pay"]))
+    host = src.cpu().numpy()
+    for op in ("min", "max"):
+        ref = np.float32(getattr(np, op)(host))
+        check_true(f"reduce {op} vs numpy (bits)", np.float32(out[op])
+                   .view(np.int32) == ref.view(np.int32))
+    # the iota permutation's sum modulo 2^32, as an int32
+    isum = (n * (n - 1) // 2 + 2 ** 31) % 2 ** 32 - 2 ** 31
+    check_true("reduce int32 sum (modulo 2^32)", out["isum"] == isum)
+
+
+@contextlib.contextmanager
+def no_host_sync(name, device):
+    """Fail if the body makes a synchronizing CUDA call: the sort keeps
+    its matrices, counts and splitters on the card."""
+    import torch
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        if cuda:
+            torch.cuda.set_sync_debug_mode(0)
+    log(f"  {name}: {'no synchronizing call' if cuda else 'ran'}")
+
+
+def sort_four_ranks(dt, n, seed, kernels, device="cuda:0"):
+    """Phase 10: 4 logical ranks of one device, a block_distribution
+    with a zero-size rank: keys-only ascending and descending, a window
+    across the empty rank, key-value with the payload on an even
+    distribution, and the per-phase seconds of both programs."""
+    import torch
+    from dr_tpu_torch.algorithms import sort as dt_sort
+    dt.init(dt.get_duplicated_devices(4, [device]))
+    gen = torch.Generator(device=device).manual_seed(seed + 6)
+    sizes = [n // 2, 0, n // 4, n - n // 2 - n // 4]
+    src = torch.randn(n, generator=gen, device=device)
+    k6 = kernels.launches["bitonic_sort"]
+    want = np.sort(encoded_host(dt_sort, src))
+    v = dt.distributed_vector.from_array(src, distribution=sizes)
+    with no_host_sync("4 ranks sort", device):
+        dt.sort(v)
+    check_true("4 ranks sort vs numpy (bits)",
+               np.array_equal(encoded_host(dt_sort, v.to_array()), want))
+    dt.sort(v, descending=True)
+    check_true("4 ranks sort descending vs numpy (bits)", np.array_equal(
+        encoded_host(dt_sort, v.to_array()), want[::-1]))
+    check_true("4 ranks is_sorted", not dt.is_sorted(v))
+    del v
+    b, e = n // 8, n - n // 8 - 5
+    w = dt.distributed_vector.from_array(src, distribution=sizes)
+    dt.sort(w[b:e])
+    ref = encoded_host(dt_sort, src)
+    ref[b:e] = np.sort(ref[b:e])
+    check_true("4 ranks window sort vs numpy (bits)",
+               np.array_equal(encoded_host(dt_sort, w.to_array()), ref))
+    check_true("4 ranks is_sorted window", dt.is_sorted(w[b:e]))
+    del w
+    keys = torch.randint(0, 1000, (n,), generator=gen, device=device).float()
+    kd = dt.distributed_vector.from_array(keys, distribution=sizes)
+    pd = dt.distributed_vector(n, np.int32)
+    dt.iota(pd, 0)
+    with no_host_sync("4 ranks sort_by_key", device):
+        dt.sort_by_key(kd, pd, descending=True)
+    kv_want = np.sort(encoded_host(dt_sort, keys, False))[::-1]
+    check_true("4 ranks sort_by_key descending keys vs numpy (bits)",
+               np.array_equal(encoded_host(dt_sort, kd.to_array(), False),
+                              kv_want))
+    check_stable("4 ranks sort_by_key descending payload", keys,
+                 kd.to_array(), pd.to_array(), descending=True)
+    del kd, pd
+    if kernels.launches["bitonic_sort"] != k6:
+        raise AssertionError("K6 launched on blocks above its cap")
+    phases = {}
+    for name, names in (("keys", dt_sort.SORT_PHASES),
+                        ("kv", dt_sort.SORTKV_PHASES)):
+        prev = 0.0
+        for ph in names:
+            kd = dt.distributed_vector.from_array(src, distribution=sizes)
+            pd = dt.distributed_vector(n, np.int32)
+            dt.fence()
+            t0 = time.perf_counter()
+            if name == "keys":
+                dt_sort.sort_phases_n(kd, ph, 1)
+            else:
+                dt_sort.sort_by_key_phases_n(kd, pd, ph, 1)
+            dt.fence()
+            t = time.perf_counter() - t0
+            phases[f"{name} {ph}"] = t - prev
+            prev = t
+            del kd, pd
+    log("  4-rank sort seconds by phase (prefix differences): "
+        + json.dumps(phases))
+
+
+K6_GEOMS = ((8, 16384), (4, 1 << 15))  # ranks x keys per rank
+K6_ROUNDS = 8
+
+
+def k6_path(dt, seed, device="cuda:0"):
+    """Phase 11: the sort at the JAX package's K6 geometry (bench.py's
+    16384 keys per rank on 8 ranks) and at the cap (2^15 on 4 ranks):
+    sort, sort_by_key and sort_n(8), against numpy; returns the number
+    of sorts times ranks, the K6 launches the phase must make."""
+    import torch
+    from dr_tpu_torch.algorithms import sort as dt_sort
+    want_launches = 0
+    for ranks, per in K6_GEOMS:
+        dt.init(dt.get_duplicated_devices(ranks, [device]))
+        gen = torch.Generator(device=device).manual_seed(seed + ranks)
+        n = ranks * per
+        src = torch.randn(n, generator=gen, device=device)
+        want = np.sort(encoded_host(dt_sort, src))
+        v = dt.distributed_vector.from_array(src)
+        dt.sort(v)
+        check_true(f"K6 path {ranks}x{per} sort vs numpy (bits)",
+                   np.array_equal(encoded_host(dt_sort, v.to_array()), want))
+        keys = torch.randint(0, 50, (n,), generator=gen,
+                             device=device).float()
+        kd = dt.distributed_vector.from_array(keys)
+        pd = dt.distributed_vector(n, np.int32)
+        dt.iota(pd, 0)
+        dt.sort_by_key(kd, pd)
+        check_stable(f"K6 path {ranks}x{per} sort_by_key", keys,
+                     kd.to_array(), pd.to_array())
+        w = dt.distributed_vector.from_array(src)
+        dt.sort_n(w, K6_ROUNDS)
+        check_true(f"K6 path {ranks}x{per} sort_n({K6_ROUNDS}) vs numpy",
+                   np.array_equal(encoded_host(dt_sort, w.to_array()), want))
+        want_launches += ranks * (2 + K6_ROUNDS)
+    return want_launches
+
+
 def composed_taps2d(w, steps):
     """The 3x3 weights composed with themselves ``steps`` times in
     float64: one cross-correlation with this kernel equals ``steps``
@@ -631,6 +1030,74 @@ def timings(n, gen, results):
     del xp
 
 
+def bitonic_ops(M):
+    """Operations of a bitonic network over M keys: M/2 compare-exchanges
+    in each of log2(M) (log2(M) + 1) / 2 stages, 2 each (a min and a
+    max)."""
+    lg = int(math.log2(M))
+    return 2.0 * (M // 2) * lg * (lg + 1) // 2
+
+
+def sort_timings(gen, results):
+    """Phase 8, K6 and K7: kernel, plain and library times.  K6 at the
+    K6 path's blocks: 16384 keys (the row) and 2^15, keys-only and KV;
+    the library call is torch.sort of the same keys (of the packed
+    int64 pairs for KV).  K7 at reduce's shape, 2^30 f32 in one segment
+    (library torch.amin), and at n = nseg = 2^15 (library
+    scatter_reduce)."""
+    import torch
+    from dr_tpu_torch.ops import segred_pallas as sr
+    from dr_tpu_torch.ops import sort_pallas
+    dev = torch.device("cuda", 0)
+    one_sm = FP32_FLOP_PER_S / 132
+    for M in (K6_GEOMS[0][1], 1 << 15):
+        keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (M,), generator=gen,
+                             device=dev, dtype=torch.int32)
+        gid = torch.randperm(M, generator=gen, device=dev).to(torch.int32)
+        packed = (keys.long() << 32) | (gid.long() + (1 << 31))
+        row = {
+            "ms": events_ms(lambda: sort_pallas.sort_keys(keys), 50),
+            "plain_ms": events_ms(lambda: sort_pallas.plain_sort_keys(keys),
+                                  50),
+            "library_ms": events_ms(lambda: torch.sort(keys), 50)}
+        row["bound_ms"], row["bound_by"] = bound(2 * M * 4, bitonic_ops(M))
+        kv = {
+            "ms": events_ms(lambda: sort_pallas.sort_kv(keys, gid), 50),
+            "plain_ms": events_ms(lambda: sort_pallas.plain_sort_kv(keys,
+                                                                    gid), 50),
+            "library_ms": events_ms(lambda: torch.sort(packed), 50)}
+        kv["bound_ms"], kv["bound_by"] = bound(4 * M * 4, bitonic_ops(M))
+        floor = bitonic_ops(M) / one_sm * 1e3
+        log(f"  K6 M={M} keys-only {json.dumps(row)}; KV {json.dumps(kv)}; "
+            f"one-SM floor {floor!r} ms")
+        if M == K6_GEOMS[0][1]:
+            results["bitonic_sort"].update(row)
+    n = 1 << 30
+    x = torch.randn(n, generator=gen, device=dev)
+    r = results["segred"]
+    r["ms"] = events_ms(lambda: sr.segmented(None, 1, ((x, "min"),)), 10)
+    r["plain_ms"] = events_ms(lambda: sr.plain_segmented(
+        None, 1, ((x, "min"),)), 3)
+    r["library_ms"] = events_ms(lambda: torch.amin(x), 10)
+    r["bound_ms"], r["bound_by"] = bound(4 * n + 4, float(n))
+    del x
+    m = 1 << 15
+    ids = torch.randint(0, m, (m,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    vals = torch.randint(-1000, 1000, (m,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    lids = ids.long()
+    small = {
+        "ms": events_ms(lambda: sr.segmented(ids, m, ((vals, "sum"),)), 50),
+        "plain_ms": events_ms(lambda: sr.plain_segmented(
+            ids, m, ((vals, "sum"),)), 50),
+        "library_ms": events_ms(lambda: torch.zeros(
+            m, dtype=torch.int32, device=dev).scatter_reduce_(
+                0, lids, vals, "sum"), 50)}
+    small["bound_ms"], small["bound_by"] = bound(m * 8 + m * 4, float(m))
+    log(f"  K7 n=nseg=2^15 int32 sum {json.dumps(small)}")
+
+
 def main(argv):
     try:
         import torch
@@ -678,6 +1145,10 @@ def main(argv):
                            "dr_tpu/ops/scan_pallas.py:244"),
         "stencil2d_blocked": ("dr_tpu_torch/csrc/stencil2d_blocked.cu",
                               "dr_tpu/ops/stencil2d_pallas.py:48"),
+        "bitonic_sort": ("dr_tpu_torch/csrc/bitonic_sort.cu",
+                         "dr_tpu/ops/sort_pallas.py:87"),
+        "segred": ("dr_tpu_torch/csrc/segred.cu",
+                   "dr_tpu/ops/segred_pallas.py:89"),
     }
     results = {k: {"name": k, "route": "cuda", "source": s,
                    "replaces": rp} for k, (s, rp) in replaces.items()}
@@ -687,6 +1158,8 @@ def main(argv):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     log(f"phase 3: kernels vs plain versions at n={n}, {m2d}x{m2d}")
     kernel_checks(dt, n, m2d, gen, results)
+    k6_checks(gen, results)
+    k7_checks(n, gen, results)
     torch.cuda.synchronize()
     if quick:
         log(json.dumps({"quick": True, "checked": list(results)}))
@@ -695,6 +1168,8 @@ def main(argv):
     log(f"phase 4: main path, 1 rank on cuda:0, n={n}")
     dt.init(["cuda:0"])
     torch.cuda.reset_peak_memory_stats()
+    log(f"  device memory live at the start: "
+        f"{torch.cuda.memory_allocated()} bytes")
     kernels.reset_counts()
     t0 = time.perf_counter()
     steps = {}
@@ -713,16 +1188,18 @@ def main(argv):
         _, ref = main_path(dt, n, seed)
     compare_paths(got, ref, "main path")
     del src, got, ref
-    torch.cuda.empty_cache()
+    release(torch)
 
     log("phase 5: main path, 4 ranks on cuda:0, n=2^26")
     four_ranks(dt, 1 << 26, seed)
     dt.final()
-    torch.cuda.empty_cache()
+    release(torch)
 
     log(f"phase 6: 2-D heat path, 1 rank on cuda:0, {M2D}x{M2D}")
     dt.init(["cuda:0"])
     torch.cuda.reset_peak_memory_stats()
+    log(f"  device memory live at the start: "
+        f"{torch.cuda.memory_allocated()} bytes")
     kernels.reset_counts()
     t0 = time.perf_counter()
     steps = {}
@@ -741,21 +1218,66 @@ def main(argv):
     compare_2d(dt, src, got, ref, "2-D path")
     del src, got, ref
     dt.final()
-    torch.cuda.empty_cache()
+    release(torch)
 
     log(f"phase 7: 2-D path, 4 ranks on cuda:0, {M4}x{M4}")
     four_ranks_2d(dt, M4, seed, kernels)
     dt.final()
-    torch.cuda.empty_cache()
+    release(torch)
 
     log("phase 8: timings")
     timings(n, gen, results)
+    sort_timings(gen, results)
+    release(torch)
+
+    log(f"phase 9: sort path, 1 rank on cuda:0, n=2^{SORT_LOG2} f32")
+    dt.init(["cuda:0"])
+    torch.cuda.reset_peak_memory_stats()
+    log(f"  device memory live at the start: "
+        f"{torch.cuda.memory_allocated()} bytes")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    steps = {}
+    src, out = sort_path(dt, 1 << SORT_LOG2, seed, steps)
+    counts = dict(kernels.launches)
+    log(f"  sort path {time.perf_counter() - t0:.2f} s, launches {counts}")
+    log("  sort path seconds by step: " + json.dumps(steps))
+    peak3 = torch.cuda.max_memory_allocated()
+    results["segred"]["launches"] = counts["segred"]
+    if counts["segred"] != 3 or counts["bitonic_sort"] != 0:
+        raise AssertionError(f"sort path launched K7 {counts['segred']} "
+                             f"times (expected 3, one per reduce) and K6 "
+                             f"{counts['bitonic_sort']} (expected 0)")
+    check_sort_path(src, out)
+    del src, out
+    dt.final()
+    release(torch)
+
+    log(f"phase 10: sort path, 4 ranks on cuda:0, n=2^{SORT4_LOG2}")
+    sort_four_ranks(dt, 1 << SORT4_LOG2, seed, kernels)
+    dt.final()
+    release(torch)
+
+    log("phase 11: K6 path, 8 ranks x 16384 and 4 ranks x 2^15 on cuda:0")
+    kernels.reset_counts()
+    want = k6_path(dt, seed)
+    counts = dict(kernels.launches)
+    log(f"  K6 path launches {counts}")
+    results["bitonic_sort"]["launches"] = counts["bitonic_sort"]
+    if counts["bitonic_sort"] != want:
+        raise AssertionError(f"K6 launched {counts['bitonic_sort']} times "
+                             f"on the K6 path, expected {want}")
+    dt.final()
+    release(torch)
+
     log(f"peak device memory (1-D main path): {peak} bytes "
         f"({peak / 2 ** 30:.2f} GiB)")
     log(f"peak device memory (2-D path): {peak2} bytes "
         f"({peak2 / 2 ** 30:.2f} GiB)")
+    log(f"peak device memory (sort path): {peak3} bytes "
+        f"({peak3 / 2 ** 30:.2f} GiB)")
     order = ("stencil_matmul", "stencil_blocked", "chunked_dot",
-             "chunked_cumsum", "stencil2d_blocked")
+             "chunked_cumsum", "stencil2d_blocked", "bitonic_sort", "segred")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

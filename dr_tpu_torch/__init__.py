@@ -7,8 +7,9 @@ mirror it (``dr_tpu_torch/parallel/halo.py`` is the counterpart of
 a ``distributed_vector`` keeps one padded row tensor per rank on that
 rank's device, and collectives are tensor copies between rank rows.
 
-The kernels of the 1-D stencil -> dot -> scan path and of the 2-D heat
-stencil are hand-written CUDA for ``sm_90a`` (``dr_tpu_torch/csrc``),
+The kernels of the 1-D stencil -> dot -> scan path, of the 2-D heat
+stencil, of the sort's local phase and of ``reduce``'s min/max/integer
+route are hand-written CUDA for ``sm_90a`` (``dr_tpu_torch/csrc``),
 built at first use.  A CUDA tensor takes the kernel or raises; a CPU
 tensor takes the kernel's plain PyTorch version.  ``init()`` takes the visible CUDA devices and raises
 without one; the CPU runs only when named (``init(["cpu"] * 8)``).
@@ -25,6 +26,8 @@ Public surface of this slice:
 - algorithms: ``fill / iota / copy / for_each / transform / to_numpy /
   reduce / transform_reduce / dot / dot_n / inclusive_scan /
   exclusive_scan / inclusive_scan_n``
+- sort:       ``sort / sort_by_key / argsort / is_sorted / sort_n /
+  sort_by_key_n``
 - halo:       ``halo_bounds / span_halo / halo_ops / halo``
 - stencils:   ``stencil_transform / stencil_iterate /
   stencil_iterate_matmul / stencil_iterate_blocked``
@@ -67,6 +70,8 @@ from .algorithms.stencil2d import (stencil2d_transform, stencil2d_iterate,
                                    stencil2d_iterate_blocked, stencil2d_n,
                                    heat_step_weights)
 from .algorithms.gemv import gemm
+from .algorithms.sort import (sort, sort_by_key, argsort, is_sorted, sort_n,
+                              sort_by_key_n)
 
 __version__ = "0.1.0"
 
@@ -90,4 +95,5 @@ __all__ = [
     "distributed_mdarray", "distributed_mdspan", "transpose",
     "stencil2d_transform", "stencil2d_iterate", "stencil2d_iterate_blocked",
     "stencil2d_n", "heat_step_weights", "gemm",
+    "sort", "sort_by_key", "argsort", "is_sorted", "sort_n", "sort_by_key_n",
 ]

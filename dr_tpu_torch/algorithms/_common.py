@@ -8,8 +8,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["layout_geometry", "working_geometry", "window_cols",
-           "uniform_layout",
+from ..parallel.collectives import ordered_maximum, ordered_minimum
+
+__all__ = ["layout_geometry", "working_geometry", "window_geometry",
+           "effective_sizes", "window_cols", "uniform_layout",
            "f32_accumulable", "MONOID_COMBINE", "identity_for"]
 
 
@@ -46,6 +48,29 @@ def working_geometry(layout):
     return p, S, cap, prev, nxt, n, starts, sizes
 
 
+def window_geometry(layout, off, wn):
+    """The logical window [off, off+wn) intersected with each rank's
+    owned span, as an uneven block distribution of length ``wn``:
+    (p, S, cap, prev, nxt, wn, vstarts, wsize, wstart) with ``wstart``
+    each rank's local offset of its window slice, ``wsize`` its width and
+    ``vstarts`` the exclusive prefix of the widths."""
+    p, _, cap, prev, nxt, n, starts, sizes = working_geometry(layout)
+    wstart = np.clip(off - starts, 0, sizes)
+    wsize = np.clip(off + wn - starts, 0, sizes) - wstart
+    vstarts = np.concatenate(([0], np.cumsum(wsize)[:-1]))
+    S = max(int(wsize.max(initial=0)), 1)
+    return p, S, cap, prev, nxt, wn, vstarts, wsize, wstart
+
+
+def effective_sizes(starts, sizes, n):
+    """True per-rank valid counts: a rank whose window lies at or beyond
+    ``n`` owns no cells, whatever its nominal width (``working_geometry``
+    reports the nominal ``seg`` for every rank of a uniform layout).
+    Window geometries are exact already; this leaves them unchanged."""
+    return np.minimum(np.asarray(sizes),
+                      np.clip(n - np.asarray(starts), 0, None))
+
+
 def window_cols(layout, off, n, r):
     """Rank r's owned cells inside the logical window [off, off+n) as a
     column range ``(c0, c1)`` of its padded row (``c0 == c1`` when it
@@ -64,8 +89,8 @@ def window_cols(layout, off, n, r):
 MONOID_COMBINE = {
     "add": torch.add,
     "mul": torch.mul,
-    "min": torch.minimum,
-    "max": torch.maximum,
+    "min": ordered_minimum,
+    "max": ordered_maximum,
 }
 
 
@@ -77,5 +102,7 @@ def identity_for(kind: str, dtype):
         return 1
     if dtype.is_floating_point:
         return float("inf") if kind == "min" else float("-inf")
+    if dtype == torch.bool:
+        return kind == "min"
     info = torch.iinfo(dtype)
     return info.max if kind == "min" else info.min

@@ -3,16 +3,23 @@
 ``mhp/algorithms/cpu_algorithms.hpp:103-140``, ``shp/algorithms/
 reduce.hpp``, ``examples/shp/dot_product.cpp``).
 
-Each rank reduces its owned window cells with a torch reduction (the
-JAX package leaves these to XLA), the per-rank partials are folded in
-rank order, and the result is valid everywhere.  ``dot_n`` of
-f32/bf16/f16 containers runs its rounds through the K3 kernel
+Each rank reduces its owned window cells, the per-rank partials are
+folded in rank order, and the result is valid everywhere.  A plain
+container or window (no view ops, no zip) whose monoid is order-free at
+the bit level (min/max over any dtype of at most 4 bytes, or add/mul
+over integers and bool) reduces each rank's cells with one K7 launch
+(``ops/segred_pallas.py``, one segment), whatever the length; other
+reductions are torch reductions (the JAX package leaves them to XLA).
+min/max order -0.0 below +0.0 and propagate NaN, as XLA's do, in the
+partials and in the fold.  add/mul over bool and integers narrower than
+32 bits accumulate in int32, as ``jnp.sum``/``jnp.prod`` do (an unsigned
+result is read modulo 2^32, jnp's uint32).  ``dot_n`` of f32/bf16/f16
+containers runs its rounds through the K3 kernel
 (``ops/reduce_pallas.py``) on each rank's owned window cells, whatever
 the length, halo or window, with the salt read from a device scalar, so
 the loop never waits for the host.
 
-Not ported yet: identityless custom-op folds, and the K7 route the JAX
-package takes for min/max/integer monoids (a torch reduction here).
+Not ported yet: identityless custom-op folds.
 """
 
 from __future__ import annotations
@@ -26,7 +33,7 @@ from ._common import MONOID_COMBINE, f32_accumulable, identity_for, \
     window_cols
 from .elementwise import _apply_ops, _resolve
 from ..containers.distributed_vector import _as_tensor
-from ..ops import reduce_pallas
+from ..ops import reduce_pallas, segred_pallas
 from ..parallel import collectives
 from ..views import views as _v
 
@@ -46,16 +53,49 @@ def _classify_op(op) -> Optional[str]:
     return None
 
 
+def _acc_dtype(kind, dtype: torch.dtype) -> torch.dtype:
+    """The dtype the monoid accumulates ``dtype`` in: int32 for add/mul
+    over bool and integers narrower than 32 bits, else ``dtype``."""
+    if kind in ("add", "mul") and not dtype.is_floating_point \
+            and not dtype.is_complex and dtype.itemsize < 4:
+        return torch.int32
+    return dtype
+
+
 def _vec_reduce(kind, v: torch.Tensor) -> torch.Tensor:
-    """The monoid's reduction of one tensor, in its own dtype."""
+    """The monoid's reduction of one tensor, in :func:`_acc_dtype`."""
+    dt = _acc_dtype(kind, v.dtype)
     if v.numel() == 0:
-        return torch.tensor(identity_for(kind, v.dtype), dtype=v.dtype,
+        return torch.tensor(identity_for(kind, dt), dtype=dt,
                             device=v.device)
     if kind == "add":
-        return v.sum(dtype=v.dtype)
+        return v.sum(dtype=dt)
     if kind == "mul":
-        return v.prod(dtype=v.dtype)
-    return v.min() if kind == "min" else v.max()
+        return v.prod(dtype=dt)
+    m = v.amin() if kind == "min" else v.amax()
+    if not v.is_floating_point():
+        return m
+    # a zero result takes XLA's sign: -0.0 for min if any -0.0 is there,
+    # +0.0 for max if any +0.0 is
+    zeros = v == 0
+    neg = (zeros & torch.signbit(v)).any() if kind == "min" \
+        else ~(zeros & ~torch.signbit(v)).any()
+    signed = torch.where(neg, -0.0, 0.0).to(v.dtype)
+    return torch.where(m == 0, signed, m)
+
+
+_KIND_TO_SEGRED = {"add": "sum", "mul": "prod", "min": "min", "max": "max"}
+
+
+def _k7_takes(chains, kind, zip_op) -> bool:
+    """K7 serves a plain single-container chain whose monoid is
+    order-free at the bit level, in a dtype the kernel takes (the JAX
+    package's 8-byte columns are interpret-only)."""
+    if zip_op is not None or len(chains) != 1 or chains[0].ops:
+        return False
+    dt = chains[0].cont.dtype
+    return dt in segred_pallas.KERNEL_DTYPES and segred_pallas.eligible(
+        chains[0].n, 1, ((dt, _KIND_TO_SEGRED[kind]),))
 
 
 def _fused_reduce(chains, kind, zip_op=None) -> torch.Tensor:
@@ -64,16 +104,30 @@ def _fused_reduce(chains, kind, zip_op=None) -> torch.Tensor:
     rank 0's device."""
     c0 = chains[0]
     cont = c0.cont
+    k7 = _k7_takes(chains, kind, zip_op)
     parts = []
     for r in range(cont.nshards):
         a, b = window_cols(cont.layout, c0.off, c0.n, r)
         vals = [_apply_ops(c.cont._rows[r][0, a:b], c.ops) for c in chains]
         v = vals[0] if zip_op is None else zip_op(*vals)
-        parts.append(_vec_reduce(kind, v))
+        src = v.dtype
+        if k7:
+            v = v.to(_acc_dtype(kind, src))
+            parts.append(segred_pallas.segmented(
+                None, 1, ((v, _KIND_TO_SEGRED[kind]),))[0][0])
+        else:
+            parts.append(_vec_reduce(kind, v))
     dev = cont.runtime.devices[0]
     acc = parts[0].to(dev)
     for p in parts[1:]:
         acc = MONOID_COMBINE[kind](acc, p.to(dev))
+    return _unsigned_wrap(acc, src)
+
+
+def _unsigned_wrap(acc: torch.Tensor, src: torch.dtype) -> torch.Tensor:
+    """An int32 add/mul result of unsigned ``src`` read modulo 2^32."""
+    if acc.dtype == torch.int32 and src in (torch.uint8, torch.uint16):
+        return acc.to(torch.int64) & 0xFFFFFFFF
     return acc
 
 
@@ -114,7 +168,7 @@ def reduce_async(r, op: Callable = None) -> torch.Tensor:
     arr = r.to_array() if hasattr(r, "to_array") else _as_tensor(r)
     assert not isinstance(arr, tuple), \
         "reduce over a zip needs a transform to combine components"
-    return _vec_reduce(kind, arr)
+    return _unsigned_wrap(_vec_reduce(kind, arr), arr.dtype)
 
 
 def reduce(r, init=None, op: Callable = None):

@@ -42,6 +42,8 @@ SOURCES = {
     "chunked_dot": "dot.cu",
     "chunked_cumsum": "scan.cu",
     "stencil2d_blocked": "stencil2d_blocked.cu",
+    "bitonic_sort": "bitonic_sort.cu",
+    "segred": "segred.cu",
 }
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -54,6 +56,9 @@ _SIGNATURES = {
     "dr_chunked_cumsum": [_P, _L, _I, _P, _P, _P, _L, _P, _P],
     "dr_stencil2d_blocked": [_P, _P, ctypes.POINTER(ctypes.c_float), _I,
                              _L, _L, _I, _I, _P],
+    "dr_bitonic_sort": [_P, _P, _L, _I, _P, _P, _P],
+    "dr_segred": [_P, _L, _I, _I, ctypes.POINTER(_L), ctypes.POINTER(_I),
+                  ctypes.POINTER(_I), ctypes.POINTER(_L), _P, _P],
 }
 
 launches = {name: 0 for name in SOURCES}

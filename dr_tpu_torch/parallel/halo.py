@@ -19,8 +19,6 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-import torch
-
 from . import collectives
 
 __all__ = ["halo_bounds", "span_halo", "halo_ops"]
@@ -56,9 +54,9 @@ def _combine(op: str, owned, incoming):
     if op == halo_ops.plus:
         return owned + incoming
     if op == halo_ops.max:
-        return torch.maximum(owned, incoming)
+        return collectives.ordered_maximum(owned, incoming)
     if op == halo_ops.min:
-        return torch.minimum(owned, incoming)
+        return collectives.ordered_minimum(owned, incoming)
     if op == halo_ops.multiplies:
         return owned * incoming
     raise ValueError(f"unknown halo reduction op: {op}")

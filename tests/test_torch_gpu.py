@@ -1,15 +1,17 @@
-"""The five CUDA kernels against their plain PyTorch versions, on the
+"""The seven CUDA kernels against their plain PyTorch versions, on the
 card.  Marked ``gpu``; each test decides in a fixture whether a card is
 present and skips without one (run on the card with
 ``python -m pytest -m gpu tests/test_torch_*.py``)."""
+
+import operator
 
 import numpy as np
 import pytest
 import torch
 
 from dr_tpu_torch.ops import (kernels, reduce_pallas, scan_pallas,
-                              stencil2d_pallas, stencil_matmul,
-                              stencil_pallas)
+                              segred_pallas, sort_pallas, stencil2d_pallas,
+                              stencil_matmul, stencil_pallas)
 
 pytestmark = pytest.mark.gpu
 
@@ -201,3 +203,197 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         reduce_pallas.chunked_dot(x, x)
     assert np.isfinite(float(reduce_pallas.chunked_dot(
         x.float(), x.float())))
+
+
+def _same_bits(got, want):
+    """Bit-equal, a NaN matching a NaN at the same position."""
+    if got.is_floating_point():
+        gn, wn = torch.isnan(got), torch.isnan(want)
+        assert torch.equal(gn, wn)
+        got, want = got.masked_fill(gn, 0), want.masked_fill(wn, 0)
+    ints = {2: torch.int16, 4: torch.int32}
+    assert torch.equal(got.view(ints[got.element_size()]),
+                       want.view(ints[want.element_size()]))
+
+
+@pytest.mark.parametrize("M", [256, 1 << 15])
+@pytest.mark.parametrize("short", [0, 37])
+@pytest.mark.parametrize("kv", [False, True])
+def test_k6_kernel_matches_plain(cuda, M, short, kv):
+    """Bit for bit against torch.sort of the same keys; KV at 2^15 runs
+    the stage that crosses the shared-memory tile in device memory."""
+    dev, gen = cuda
+    n = M - short
+    keys = torch.randint(-3, 3, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    keys[::5] = torch.iinfo(torch.int32).max
+    if not kv:
+        got = _launched("bitonic_sort", lambda: sort_pallas.sort_keys(keys))
+        assert torch.equal(got, sort_pallas.plain_sort_keys(keys))
+        return
+    gid = torch.randperm(n, generator=gen, device=dev).to(torch.int32)
+    gk, gg = _launched("bitonic_sort",
+                       lambda: sort_pallas.sort_kv(keys, gid))
+    rk, rg = sort_pallas.plain_sort_kv(keys, gid)
+    assert torch.equal(gk, rk) and torch.equal(gg, rg)
+
+
+@pytest.mark.parametrize("nseg", [1, 129, 1 << 15])
+def test_k7_kernel_signed_zeros_nan_and_ids(cuda, nseg):
+    """Every eligible column against the plain version, bit for bit:
+    +-0.0 and NaN in f32 and bf16, int32 wraparound, out-of-range ids
+    and empty segments."""
+    dev, gen = cuda
+    n = 5000
+    ids = torch.randint(-2, nseg + 2, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    f = torch.randn(n, generator=gen, device=dev)
+    f[::3] = 0.0
+    f[1::3] = -0.0
+    f[::97] = float("nan")
+    i = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
+                      device=dev, dtype=torch.int32)
+    for cols in (((i, "sum"), (i, "prod"), (i, "min"), (i, "max")),
+                 ((f, "min"), (f, "max"), (f.bfloat16(), "min"),
+                  (f.bfloat16(), "max"))):
+        got = _launched("segred",
+                        lambda: segred_pallas.segmented(ids, nseg, cols))
+        for g, r in zip(got, segred_pallas.plain_segmented(ids, nseg, cols)):
+            _same_bits(g, r)
+    lo = segred_pallas.segmented(None, 1, ((f[1:3], "min"),))[0]
+    assert torch.signbit(lo).item()  # min(-0.0, randn or +-0) is -0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.uint8,
+                                   torch.bool])
+@pytest.mark.parametrize("nseg", [1, 129])
+def test_k7_kernel_narrow_columns(cuda, dtype, nseg):
+    """8- and 16-bit integer and bool columns, read in their own width,
+    against the plain version bit for bit: sums and products wrap modulo
+    the column's width (bool: "any" and "all"), min/max exact; and a
+    ``reduce`` of such a container takes K7 on every rank and equals the
+    CPU's result."""
+    import dr_tpu_torch as dt
+    dev, gen = cuda
+    n = 5000
+    ids = torch.randint(-2, nseg + 2, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    if dtype == torch.bool:
+        v = torch.rand(n, generator=gen, device=dev) < 0.9
+    else:
+        info = torch.iinfo(dtype)
+        v = torch.randint(info.min, info.max + 1, (n,), generator=gen,
+                          device=dev, dtype=torch.int32).to(dtype)
+    cols = ((v, "sum"), (v, "prod"), (v, "min"), (v, "max"))
+    got = _launched("segred", lambda: segred_pallas.segmented(ids, nseg, cols))
+    for g, r in zip(got, segred_pallas.plain_segmented(ids, nseg, cols)):
+        assert g.dtype == dtype and torch.equal(g, r)
+    odd = v if dtype == torch.bool else v | 1
+    for where in ("cuda:0", "cpu"):
+        dt.init(dt.get_duplicated_devices(3, [where]))
+        try:
+            c = dt.distributed_vector.from_array(odd.to(where))
+            before = kernels.launches["segred"]
+            res = [dt.reduce(c, op=op) for op in (None, operator.mul, min,
+                                                  max)]
+            if where == "cpu":
+                assert res == on_card
+            else:
+                on_card = res
+                assert kernels.launches["segred"] - before == 4 * 3
+        finally:
+            dt.final()
+
+
+def test_sort_path_launch_counts(cuda):
+    """On 4 ranks of one card: one K6 launch per rank and sort while a
+    rank's block is within the cap, none above it; one K7 launch per
+    rank and eligible reduce; results against torch.sort."""
+    import dr_tpu_torch as dt
+    dev, gen = cuda
+    dt.init(dt.get_duplicated_devices(4, ["cuda:0"]))
+    try:
+        for n, k6 in ((4 * 5000, 4), (4 * 40000, 0)):
+            src = torch.randn(n, generator=gen, device=dev)
+            v = dt.distributed_vector.from_array(src)
+            before = dict(kernels.launches)
+            dt.sort(v)
+            pay = dt.distributed_vector(n, np.int32)
+            dt.iota(pay, 0)
+            dt.sort_by_key(dt.distributed_vector.from_array(src), pay)
+            lo, hi = dt.reduce(v, op=min), dt.reduce(v, op=max)
+            isum = dt.reduce(pay)
+            torch.cuda.synchronize()
+            assert kernels.launches["bitonic_sort"] - \
+                before["bitonic_sort"] == 2 * k6
+            assert kernels.launches["segred"] - before["segred"] == 3 * 4
+            ref = torch.sort(src).values
+            assert torch.equal(v.to_array(), ref)
+            assert torch.equal(pay.to_array().long(),
+                               torch.sort(src, stable=True).indices)
+            assert (lo, hi) == (float(ref[0]), float(ref[-1]))
+            # the int32 sum wraps modulo 2^32
+            assert isum == (n * (n - 1) // 2 + 2 ** 31) % 2 ** 32 - 2 ** 31
+    finally:
+        dt.final()
+
+
+def test_sort_kernels_refuse_what_they_do_not_take(cuda):
+    """float64 keys: the K6 wrapper raises on a CUDA tensor (8-byte keys
+    are interpret-only in the JAX package), and the sort takes
+    torch.sort for them; K7 refuses 8-byte columns and float sums."""
+    import dr_tpu_torch as dt
+    dev, gen = cuda
+    x = torch.randn(1000, generator=gen, device=dev, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        sort_pallas.sort_keys(x)
+    with pytest.raises(ValueError):
+        sort_pallas.sort_keys(x.view(torch.int64))
+    with pytest.raises(ValueError):
+        segred_pallas.segmented(None, 1, ((x, "min"),))
+    with pytest.raises(ValueError):
+        segred_pallas.segmented(None, 1, ((x.float(), "sum"),))
+    dt.init(["cuda:0"])
+    try:
+        v = dt.distributed_vector.from_array(x)
+        k6 = kernels.launches["bitonic_sort"]
+        dt.sort(v)
+        torch.cuda.synchronize()
+        assert kernels.launches["bitonic_sort"] == k6
+        assert torch.equal(v.to_array(), torch.sort(x).values)
+    finally:
+        dt.final()
+
+
+@pytest.mark.parametrize("per", [3000, 40000])
+def test_sort_never_waits_for_the_host(cuda, per):
+    """Under ``set_sync_debug_mode("error")`` a sort, a descending sort,
+    a window sort and key-value sorts (4 ranks, one of them empty; K6
+    blocks and torch.sort blocks) make no synchronizing call: the send
+    matrices, counts and splitters stay on the card."""
+    import dr_tpu_torch as dt
+    dev, gen = cuda
+    dt.init(dt.get_duplicated_devices(4, ["cuda:0"]))
+    try:
+        sizes = [2 * per, 0, per, per]
+        n = sum(sizes)
+        src = torch.randn(n, generator=gen, device=dev)
+        v = dt.distributed_vector.from_array(src, distribution=sizes)
+        k = dt.distributed_vector.from_array(src.round())
+        pay = dt.distributed_vector(n, np.int32)
+        dt.iota(pay, 0)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dt.sort(v)
+            dt.sort(v, descending=True)
+            dt.sort(v[5:n - 7])
+            dt.sort_by_key(k, pay)
+            dt.sort_by_key(k[3:n - 2], pay[1:n - 4], descending=True)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ref = torch.sort(src).values.flip(0)
+        ref[5:n - 7] = torch.sort(ref[5:n - 7]).values
+        assert torch.equal(v.to_array(), ref)
+    finally:
+        dt.final()

@@ -80,3 +80,25 @@ def test_exchange_n_and_async_forms():
     assert dt.halo(t[2:9]) is t.halo()
     with pytest.raises(ValueError):
         dt.distributed_vector(10).halo()
+
+
+@pytest.mark.parametrize("op", ["min", "max"])
+def test_reduce_min_max_signed_zeros_and_nan(op):
+    """Ghost and owned cells of +-0.0 and NaN fold as XLA's min/max do
+    (-0.0 below +0.0, NaN propagates): bit-exact against dr_tpu,
+    compared as int32 with NaN matching NaN."""
+    _init_both(4)
+    j, t = _pair(32, 2, 2, True, seed=3)
+    rows = np.asarray(j._data).copy()
+    vals = np.array([0.0, -0.0, np.nan, 1.0], np.float32)
+    rows[:] = vals[np.random.default_rng(5).integers(0, 4, rows.shape)]
+    j._data = jax.device_put(rows, j._data.sharding)
+    t = dt.from_reference_state(j.layout, j.halo_bounds, rows)
+    dr_tpu.halo(j).reduce(op)
+    dt.halo(t).reduce(op)
+    got = np.concatenate([r.numpy() for r in t.rows])
+    ref = np.asarray(j._data)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(ref))
+    ok = ~np.isnan(ref)
+    np.testing.assert_array_equal(got[ok].view(np.int32),
+                                  ref[ok].view(np.int32))

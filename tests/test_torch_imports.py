@@ -42,7 +42,8 @@ def test_port_files_exist():
     names = {p.name for p in PORT_FILES}
     assert {"runtime.py", "halo.py", "stencil_matmul.py", "scan_pallas.py",
             "dense_matrix.py", "stencil2d.py", "stencil2d_pallas.py",
-            "mdarray.py", "chip_smoke.py"} <= names
+            "mdarray.py", "sort.py", "sort_pallas.py", "segred_pallas.py",
+            "order_keys.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -313,3 +313,53 @@ def test_scan_of_a_zip_transform_takes_the_k4_wrapper(monkeypatch):
     assert calls == [n]
     np.testing.assert_allclose(dt.to_numpy(to), dr_tpu.to_numpy(jo),
                                **SCAN_TOL)
+
+
+# ------------------------------------------------- signed zeros and NaN
+
+def _f32_bits(x):
+    return np.asarray(x, np.float32).reshape(1).view(np.int32)[0]
+
+
+@pytest.mark.parametrize("P", [2, 4])
+@pytest.mark.parametrize("src", [[-0.0, 0.0, 1.0, 2.0], [1.0, 2.0, -0.0, 0.0],
+                                 [0.0, -0.0, -1.0, -2.0],
+                                 [-1.0, -2.0, 0.0, -0.0]])
+@pytest.mark.parametrize("op", [min, max])
+def test_reduce_min_max_signed_zero_bits(P, src, op):
+    """XLA's min orders -0.0 below +0.0 and its max +0.0 above -0.0: the
+    port's min/max (each rank's partial and the fold of the partials)
+    give dr_tpu's result bit for bit, compared as int32, on plain
+    containers and through a view chain."""
+    _init_both(P)
+    arr = np.asarray(src, np.float32)
+    j, t = _pair(arr)
+    for jr, tr in ((j, t), (jviews.transform(j, lambda x: x * 1.0),
+                            tviews.transform(t, lambda x: x * 1.0))):
+        ref = dr_tpu.reduce(jr, op=op)
+        got = dt.reduce(tr, op=op)
+        assert _f32_bits(got) == _f32_bits(ref), (got, ref)
+
+
+@pytest.mark.parametrize("P", [2, 3, 4])
+@pytest.mark.parametrize("src", [[0.0, 0.0, -0.0, 3.0], [-0.0, -0.0, 0.0, -1.0],
+                                 [-0.0, np.nan, 1.0, 0.0],
+                                 [1.0, 2.0, 3.0, np.nan]])
+@pytest.mark.parametrize("op", [min, max])
+def test_reduce_min_max_any_ranks_match_one_shard_reference(P, src, op):
+    """On P ranks the port gives what dr_tpu gives on ONE shard (XLA's
+    single reduce: -0.0 below +0.0, NaN propagates), compared as int32
+    with NaN matching NaN.  dr_tpu's own cross-shard fold on the CPU mesh
+    can pick +0.0 over a shard's -0.0 and drops a shard whose partial is
+    NaN (ROADMAP.md section 3), so P ranks are held to one shard."""
+    arr = np.asarray(src, np.float32)
+    dr_tpu.init(jax.devices()[:1])
+    ref = dr_tpu.reduce(dr_tpu.distributed_vector.from_array(arr), op=op)
+    dt.init(["cpu"] * P)
+    t = dt.distributed_vector.from_array(arr)
+    for tr in (t, tviews.transform(t, lambda x: x * 1.0)):
+        got = dt.reduce(tr, op=op)
+        if np.isnan(ref):
+            assert np.isnan(got)
+        else:
+            assert _f32_bits(got) == _f32_bits(ref), (got, ref)
