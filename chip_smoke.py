@@ -5,7 +5,7 @@ Run from the repository root:  ``python3 chip_smoke.py``  (``--quick``
 checks the kernels at small shapes only).  Phases:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the seven CUDA kernels from ``dr_tpu_torch/csrc`` (``nvcc``);
+2. build the eight CUDA kernels from ``dr_tpu_torch/csrc`` (``nvcc``);
 3. hold each kernel against its plain PyTorch version at the main-path
    shapes, on the card (K6 and K7 bit for bit: K6 at M in {256, 4096,
    2^15}, keys-only and KV; K7 at nseg in {1, 127, 128, 129, 2^15} over
@@ -41,7 +41,22 @@ checks the kernels at small shapes only).  Phases:
     each phase of the sample sort;
 11. the K6 path: 8 ranks x 16384 keys and 4 ranks x 2^15, ``sort``,
     ``sort_by_key`` and ``sort_n(8)``; K6 launches once per rank and
-    sort; and the peak device memory of the paths.
+    sort; and the peak device memory of the paths;
+12. ring attention on one rank at Llama-3-8B's attention geometry and a
+    32k-token context (B = 1, S = 32768, 32 q heads, 8 K/V heads, d =
+    128, bf16), causal and not: one K9 launch per call, the output
+    against the plain version on the card and against a float64 dense
+    oracle on 64 query rows per head, ms per call, effective TFLOP/s and
+    the peak device memory;
+13. the same causal call on 4 ranks of the card (16 K9 launches, serial
+    equal to pipelined bit for bit, the output against phase 12's), the
+    f32 blockwise route at S = 4096 (h = 8, hkv = 2) with and without
+    ``q_chunk`` against float64, and ``ring_attention_n`` at bench.py's
+    shape (S = 8192, h = 8, causal): TFLOP/s from 2 and 18 iterations.
+
+Phase 3 also holds K9 (``flash_update``) against its plain version at
+small shapes, and phase 8 times it at BH = 32, s = skv = 32768, group 4,
+causal, beside ``F.scaled_dot_product_attention`` as the library call.
 
 Exits non-zero on any failure.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel
@@ -61,10 +76,12 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
-# dense float32 rate outside the tensor cores
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, the
+# dense float32 rate outside the tensor cores and the dense bf16
+# tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+BF16_TC_FLOP_PER_S = 989e12
 
 W5 = (0.05, 0.25, 0.4, 0.25, 0.05)  # the bench's 5-point stencil
 K_BLOCK, MM_HALO = 256, 512
@@ -76,6 +93,13 @@ STEPS2D, ITERS2D = 520, 32    # 32 full passes + one of 8; 32 passes
 M4, STEPS4, CYC_TILE = 8192, 64, 1024  # the 2-D four-rank phase
 SORT_LOG2 = 28   # the sort path on one rank: 1 GiB of f32 keys
 SORT4_LOG2 = 26  # on four ranks, cut so its numpy oracle stays short
+# ring attention: Llama-3-8B's attention (32 q heads, 8 K/V heads, head
+# dim 128) at a 32k-token context; bench.py's ring_attention_n shape
+RA_S, RA_H, RA_HKV, RA_D = 32768, 32, 8, 128
+RA4_P = 4
+RA_F32 = (4096, 8, 2)              # S, h, hkv of the f32 blockwise check
+RAN_S, RAN_H, RAN_ITERS = 8192, 8, (2, 18)
+ORACLE_ROWS = 64
 
 
 def log(*a):
@@ -106,9 +130,9 @@ def events_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound(bytes_moved, flops):
+def bound(bytes_moved, flops, peak=FP32_FLOP_PER_S):
     tb = bytes_moved / HBM_BYTES_PER_S * 1e3
-    tf = flops / FP32_FLOP_PER_S * 1e3
+    tf = flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -1098,6 +1122,314 @@ def sort_timings(gen, results):
     log(f"  K7 n=nseg=2^15 int32 sum {json.dumps(small)}")
 
 
+# ------------------------------------------------------- ring attention
+
+def k9_operands(gen, dev, BH, group, s, skv, d):
+    """bf16 q/k/v from ``gen`` and the zero (m, l, acc) state."""
+    import torch
+    q = torch.randn((BH, s, d), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((BH // group, skv, d), generator=gen,
+                        device=dev).bfloat16() for _ in range(2))
+    state = (torch.full((BH, s, 1), float("-inf"), device=dev),
+             torch.zeros((BH, s, 1), device=dev),
+             torch.zeros((BH, s, d), device=dev))
+    return q, k, v, state
+
+
+def normalized(state):
+    import torch
+    m, l, acc = state
+    return acc / torch.where(l > 0, l, 1.0)
+
+
+def check_allclose(name, got, want, rtol, atol, quiet=False):
+    """|got - want| <= atol + rtol |want| everywhere, both finite where
+    ``want`` is; returns the max |got - want|.  ``quiet`` logs only a
+    failure."""
+    import torch
+    assert got.shape == want.shape and got.dtype == want.dtype, name
+    g, w = got.double(), want.double()
+    same_inf = torch.equal(torch.isneginf(g), torch.isneginf(w))
+    fin = torch.isfinite(w)
+    ex = float(((g - w).abs() - (atol + rtol * w.abs()))[fin].max()) \
+        if fin.any() else 0.0
+    e = float((g - w).abs()[fin].max()) if fin.any() else 0.0
+    ok = same_inf and bool(torch.isfinite(g[fin]).all()) and ex <= 0
+    if not (ok and quiet):
+        log(f"  {name}: max_abs_err={e!r} (rtol {rtol}, atol {atol}) "
+            f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: outside tolerance")
+    return e
+
+
+#: bf16 outputs of two orders of the same f32 math: the flash tolerance
+#: (2e-3, a bf16 rounding of p may flip between the orders) plus one
+#: bf16 ulp of the value (2^-7 relative) for the final rounding
+BF16_OUT = dict(rtol=2e-3 + 2.0 ** -7, atol=2e-3)
+
+
+def k9_close(tag, got, ref):
+    """K9's state against its plain version's: m within 1e-6 (one max of
+    d-term logits summed in two orders; the difference grows with d, so
+    d / 256 times that above d = 256), l within 1e-5 relative (as much
+    wider above d = 256), acc / l within rtol = atol = 2e-3 (a bf16
+    rounding of p may flip between the orders); returns the acc / l
+    error."""
+    wide = max(1.0, got[2].shape[-1] / 256)
+    check_allclose(f"{tag} m", got[0], ref[0], 1e-6 * wide, 1e-6 * wide,
+                   quiet=True)
+    check_allclose(f"{tag} l", got[1], ref[1], 1e-5 * wide, 0.0, quiet=True)
+    return check_allclose(f"{tag} acc / l", normalized(got), normalized(ref),
+                          2e-3, 2e-3, quiet=True)
+
+
+#: phase 3's K9 shapes (s, d, group): d = 768 stages Q and K in 6 chunks
+K9_CHECKS = ((1024, 128, 4), (384, 256, 1), (256, 768, 2))
+
+
+def k9_checks(gen, results, device="cuda:0"):
+    """Phase 3, K9 against its plain version (:func:`k9_close`): causal
+    and not, GQA, d = 128, 256 and 768, offsets (0, 0), (2s, s) and
+    (s, 2s) (wholly future when causal), and a chained second update."""
+    import torch
+    from dr_tpu_torch.ops import flash_attention as fa
+    worst = 0.0
+    for s, d, group in K9_CHECKS:
+        for causal in (True, False):
+            for q_off, k_off in ((0, 0), (2 * s, s), (s, 2 * s)):
+                tag = (f"K9 s={s} d={d} group={group} causal={causal} "
+                       f"offsets=({q_off}, {k_off})")
+                q, k, v, st = k9_operands(gen, device, 8, group, s, s, d)
+                got = fa.flash_update(q, k, v, *st, q_off, k_off,
+                                      causal=causal)
+                ref = fa.plain_flash_update(q, k, v, *st, q_off, k_off,
+                                            causal=causal)
+                if causal and (q_off, k_off) == (s, 2 * s):
+                    check_true(f"{tag}: the state stays zero",
+                               bool(torch.isneginf(got[0]).all())
+                               and not bool(got[1].any())
+                               and not bool(got[2].any()))
+                k2, v2 = k.flip(1).contiguous(), v.flip(1).contiguous()
+                got2 = fa.flash_update(q, k2, v2, *got, q_off, 0,
+                                       causal=causal)
+                ref2 = fa.plain_flash_update(q, k2, v2, *ref, q_off, 0,
+                                             causal=causal)
+                for step, g, r in ((1, got, ref), (2, got2, ref2)):
+                    worst = max(worst, k9_close(f"{tag} update {step}", g, r))
+    log(f"  K9 flash_update: {6 * len(K9_CHECKS)} chained pairs of updates "
+        f"within tolerance (s, d, group) {K9_CHECKS}, acc / l max_abs_err "
+        f"{worst!r}")
+    results["flash_update"]["max_abs_err"] = worst
+
+
+def flash_timings(gen, results):
+    """Phase 8, K9: one update from zero state at BH = 32, s = skv =
+    32768, d = 128, group 4, causal, offsets 0 (phase 12's call); the
+    library call is F.scaled_dot_product_attention on the same tensors
+    (GQA, causal), timed only.  At this shape the kernel's state, causal
+    and not, is held against its plain version's (:func:`k9_close`)."""
+    import torch
+    import torch.nn.functional as F
+    from dr_tpu_torch.ops import flash_attention as fa
+    BH, group, s, d = RA_H, RA_H // RA_HKV, RA_S, RA_D
+    q, k, v, st = k9_operands(gen, "cuda:0", BH, group, s, s, d)
+    r = results["flash_update"]
+    errs = {}
+    for causal in (True, False):
+        got = fa.flash_update(q, k, v, *st, 0, 0, causal=causal)
+        ref = fa.plain_flash_update(q, k, v, *st, 0, 0, causal=causal)
+        errs[causal] = k9_close(f"K9 BH={BH} s=skv={s} causal={causal}",
+                                got, ref)
+        del got, ref
+    log(f"  K9 at the timed shape vs plain (m 1e-6, l 1e-5 relative, acc / l "
+        f"2e-3): acc / l max_abs_err causal {errs[True]!r}, non-causal "
+        f"{errs[False]!r}")
+    r["max_abs_err"] = max(r.get("max_abs_err", 0.0), *errs.values())
+    r["ms"] = events_ms(lambda: fa.flash_update(q, k, v, *st, 0, 0,
+                                                causal=True), 5)
+    r["plain_ms"] = events_ms(lambda: fa.plain_flash_update(
+        q, k, v, *st, 0, 0, causal=True), 1)
+    q4, k4, v4 = (x.view(1, -1, s, d) for x in (q, k, v))
+    r["library_ms"] = events_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, enable_gqa=True), 5)
+    ideal = 2.0 * BH * s * s * d          # the causal triangle, two products
+    moved = (BH * s * d * 2 + 2 * (BH // group) * s * d * 2   # q, k, v
+             + 2 * (2 * BH * s * 4 + BH * s * d * 4))          # state in, out
+    r["bound_ms"], r["bound_by"] = bound(moved, ideal, BF16_TC_FLOP_PER_S)
+    done = BH * fa.causal_computed_flops(s, s, d, fa.BLOCK_Q, fa.BLOCK_K)
+    nc = events_ms(lambda: fa.flash_update(q, k, v, *st, 0, 0,
+                                           causal=False), 3)
+    log(f"  K9 causal {r['ms']!r} ms: {ideal / r['ms'] / 1e9!r} effective "
+        f"TFLOP/s, {done / r['ms'] / 1e9!r} TFLOP/s of the tiles it runs; "
+        f"non-causal {nc!r} ms, {2 * ideal / nc / 1e9!r} TFLOP/s; "
+        f"SDPA {r['library_ms']!r} ms")
+
+
+def ra_inputs(seed, S, h, hkv, d, device, dtype):
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn((1, S, h, d), generator=gen, device=device).to(dtype)
+    k, v = (torch.randn((1, S, hkv, d), generator=gen, device=device)
+            .to(dtype) for _ in range(2))
+    return q, k, v
+
+
+def dense_rows(q, k, v, rows, causal):
+    """float64 attention of the chosen query rows of every head (rows:
+    (h, R) sequence positions), written here independently of the port;
+    returns (h, R, d)."""
+    import torch
+    _, S, h, d = q.shape
+    group = h // k.shape[2]
+    outs = []
+    for hh in range(h):
+        qr = q[0, rows[hh], hh].double()                   # (R, d)
+        kh = k[0, :, hh // group].double()
+        vh = v[0, :, hh // group].double()
+        logits = qr @ kh.T / math.sqrt(d)
+        if causal:
+            pos = torch.arange(S, device=q.device)
+            logits = logits.masked_fill(pos[None, :] > rows[hh][:, None],
+                                        float("-inf"))
+        outs.append(torch.softmax(logits, -1) @ vh)
+    return torch.stack(outs)
+
+
+def check_oracle_rows(name, out, q, k, v, rows, causal, rtol, atol):
+    """``out`` at the chosen rows against :func:`dense_rows`."""
+    import torch
+    want = dense_rows(q, k, v, rows, causal)
+    got = torch.stack([out[0, rows[hh], hh].double()
+                       for hh in range(out.shape[2])])
+    check_allclose(f"{name} vs float64", got, want, rtol, atol)
+
+
+def ring_one_rank(dt, kernels, seed, results, S=RA_S, device="cuda:0"):
+    """Phase 12: ring attention on one rank, causal then non-causal;
+    returns the inputs and the causal output for phase 13."""
+    import torch
+    cuda = torch.device(device).type == "cuda"
+    dt.init([device])
+    q, k, v = ra_inputs(seed + 12, S, RA_H, RA_HKV, RA_D, device,
+                        torch.bfloat16)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    out = {c: dt.ring_attention(q, k, v, causal=c) for c in (True, False)}
+    dt.fence()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    log(f"  ring attention 1 rank, S={S}: both calls {wall:.3f} s, "
+        f"launches {counts}")
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    if cuda:
+        results["flash_update"]["launches"] = counts["flash_update"]
+        if counts["flash_update"] != 2:
+            raise AssertionError(f"K9 launched {counts['flash_update']} "
+                                 "times for two one-rank calls, expected 2")
+        log(f"  peak device memory (ring attention, 1 rank): {peak} bytes "
+            f"({peak / 2 ** 30:.2f} GiB; {live} live at the start)")
+        for c in (True, False):
+            ms = events_ms(lambda: dt.ring_attention(q, k, v, causal=c), 3)
+            flops = 2.0 * S * S * RA_H * RA_D * (1 if c else 2)
+            log(f"  ring attention 1 rank causal={c}: {ms!r} ms per call, "
+                f"{flops / ms / 1e9!r} effective TFLOP/s")
+    gen = torch.Generator(device=device).manual_seed(seed + 13)
+    rows = torch.randint(0, S, (RA_H, ORACLE_ROWS), generator=gen,
+                         device=device)
+    worst = 0.0
+    for c in (True, False):
+        assert out[c].shape == q.shape and out[c].dtype == torch.bfloat16
+        with plain_versions(kernels):
+            ref = dt.ring_attention(q, k, v, causal=c)
+        worst = max(worst, check_allclose(
+            f"ring attention 1 rank causal={c} vs plain", out[c], ref,
+            **BF16_OUT))
+        del ref
+        # the flash math against float64 of the bf16 inputs: the
+        # reference's bound (tests/test_ring_attention.py:104)
+        check_oracle_rows(f"ring attention 1 rank causal={c}", out[c], q, k,
+                          v, rows, c, 5e-2, 5e-3)
+    if cuda:
+        results["flash_update"]["max_abs_err"] = max(
+            results["flash_update"].get("max_abs_err", 0.0), worst)
+    return (q, k, v), out[True], peak
+
+
+def ring_four_ranks(dt, kernels, seed, qkv, one_rank, device="cuda:0",
+                    f32=RA_F32, ran=(RAN_S, RAN_H, RAN_ITERS)):
+    """Phase 13: 4 ranks of one device: the causal call of phase 12
+    (16 K9 launches, serial == pipelined), the f32 blockwise route
+    against float64, ring_attention_n's rate."""
+    import torch
+    cuda = torch.device(device).type == "cuda"
+    P = RA4_P
+    dt.init(dt.get_duplicated_devices(P, [device]))
+    q, k, v = qkv
+    kernels.reset_counts()
+    got = dt.ring_attention(q, k, v, causal=True)
+    dt.fence()
+    n = kernels.launches["flash_update"]
+    log(f"  ring attention {P} ranks S={q.shape[1]}: K9 launches {n}")
+    if cuda and n != P * P:
+        raise AssertionError(f"K9 launched {n} times on {P} ranks, "
+                             f"expected {P * P}")
+    check_allclose(f"ring attention {P} ranks vs 1 rank", got, one_rank,
+                   **BF16_OUT)
+    serial = dt.ring_attention(q, k, v, causal=True, schedule="serial")
+    check_equal(f"ring attention {P} ranks serial vs pipelined", serial, got)
+    if cuda:
+        ms = events_ms(lambda: dt.ring_attention(q, k, v, causal=True), 3)
+        flops = 2.0 * q.shape[1] ** 2 * q.shape[2] * q.shape[3]
+        log(f"  ring attention {P} ranks causal: {ms!r} ms per call, "
+            f"{flops / ms / 1e9!r} effective TFLOP/s")
+    del got, serial
+    # the f32 blockwise route (TF32 off): the reference's dense bound
+    S, h, hkv = f32
+    fq, fk, fv = ra_inputs(seed + 14, S, h, hkv, RA_D, device, torch.float32)
+    rows = torch.arange(S, device=device).expand(h, S)
+    for causal in (True, False):
+        full = dt.ring_attention(fq, fk, fv, causal=causal)
+        chunked = dt.ring_attention(fq, fk, fv, causal=causal, q_chunk=256)
+        for tag, o in (("", full), (" q_chunk=256", chunked)):
+            check_oracle_rows(f"f32 ring {P} ranks S={S} h={h} hkv={hkv} "
+                              f"causal={causal}{tag}", o, fq, fk, fv, rows,
+                              causal, 2e-3, 2e-3)
+        # the reference's chunked-vs-unchunked bound
+        check_allclose(f"f32 ring causal={causal} q_chunk vs unchunked",
+                       chunked, full, 2e-4, 2e-5)
+    del fq, fk, fv, full, chunked
+    # ring_attention_n at bench.py's shape: the rate from the difference
+    # of two chain lengths (K9 launches iters * P * P)
+    S, h, iters = ran
+    nq, nk, nv = ra_inputs(seed + 15, S, h, h, RA_D, device, torch.bfloat16)
+    secs = {}
+    for it in iters:
+        dt.fence()
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        out = dt.ring_attention_n(nq, nk, nv, it, causal=True)
+        dt.fence()
+        secs[it] = time.perf_counter() - t0
+        n = kernels.launches["flash_update"]
+        if cuda and n != it * P * P:
+            raise AssertionError(f"ring_attention_n({it}) launched K9 {n} "
+                                 f"times, expected {it * P * P}")
+        check_true(f"ring_attention_n({it}) finite, shape {tuple(out.shape)}",
+                   bool(torch.isfinite(out.float()).all())
+                   and out.shape == nq.shape)
+    a, b = iters
+    per = (secs[b] - secs[a]) / (b - a)
+    flops = 2.0 * S * S * h * RA_D
+    log(f"  ring_attention_n {P} ranks S={S} h={h} causal: seconds "
+        f"{json.dumps(secs)}, {per * 1e3!r} ms per iteration, "
+        f"{flops / per / 1e12!r} TFLOP/s (host clock)")
+
+
 def main(argv):
     try:
         import torch
@@ -1149,6 +1481,9 @@ def main(argv):
                          "dr_tpu/ops/sort_pallas.py:87"),
         "segred": ("dr_tpu_torch/csrc/segred.cu",
                    "dr_tpu/ops/segred_pallas.py:89"),
+        # one kernel for the resident (:242) and streaming (:150) variants
+        "flash_update": ("dr_tpu_torch/csrc/flash_attention.cu",
+                         "dr_tpu/ops/flash_attention.py:242,150"),
     }
     results = {k: {"name": k, "route": "cuda", "source": s,
                    "replaces": rp} for k, (s, rp) in replaces.items()}
@@ -1160,6 +1495,7 @@ def main(argv):
     kernel_checks(dt, n, m2d, gen, results)
     k6_checks(gen, results)
     k7_checks(n, gen, results)
+    k9_checks(gen, results)
     torch.cuda.synchronize()
     if quick:
         log(json.dumps({"quick": True, "checked": list(results)}))
@@ -1228,6 +1564,7 @@ def main(argv):
     log("phase 8: timings")
     timings(n, gen, results)
     sort_timings(gen, results)
+    flash_timings(gen, results)
     release(torch)
 
     log(f"phase 9: sort path, 1 rank on cuda:0, n=2^{SORT_LOG2} f32")
@@ -1270,14 +1607,29 @@ def main(argv):
     dt.final()
     release(torch)
 
+    log(f"phase 12: ring attention, 1 rank on cuda:0, S={RA_S}, "
+        f"h={RA_H}, hkv={RA_HKV}, d={RA_D}, bf16")
+    qkv, one_rank, peak4 = ring_one_rank(dt, kernels, seed, results)
+    dt.final()
+    release(torch)
+
+    log(f"phase 13: ring attention, {RA4_P} ranks on cuda:0")
+    ring_four_ranks(dt, kernels, seed, qkv, one_rank)
+    del qkv, one_rank
+    dt.final()
+    release(torch)
+
     log(f"peak device memory (1-D main path): {peak} bytes "
         f"({peak / 2 ** 30:.2f} GiB)")
     log(f"peak device memory (2-D path): {peak2} bytes "
         f"({peak2 / 2 ** 30:.2f} GiB)")
     log(f"peak device memory (sort path): {peak3} bytes "
         f"({peak3 / 2 ** 30:.2f} GiB)")
+    log(f"peak device memory (ring attention, 1 rank): {peak4} bytes "
+        f"({peak4 / 2 ** 30:.2f} GiB)")
     order = ("stencil_matmul", "stencil_blocked", "chunked_dot",
-             "chunked_cumsum", "stencil2d_blocked", "bitonic_sort", "segred")
+             "chunked_cumsum", "stencil2d_blocked", "bitonic_sort", "segred",
+             "flash_update")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

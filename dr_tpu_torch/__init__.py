@@ -8,9 +8,9 @@ a ``distributed_vector`` keeps one padded row tensor per rank on that
 rank's device, and collectives are tensor copies between rank rows.
 
 The kernels of the 1-D stencil -> dot -> scan path, of the 2-D heat
-stencil, of the sort's local phase and of ``reduce``'s min/max/integer
-route are hand-written CUDA for ``sm_90a`` (``dr_tpu_torch/csrc``),
-built at first use.  A CUDA tensor takes the kernel or raises; a CPU
+stencil, of the sort's local phase, of ``reduce``'s min/max/integer
+route and of ring attention's flash update are hand-written CUDA for
+``sm_90a`` (``dr_tpu_torch/csrc``), built at first use.  A CUDA tensor takes the kernel or raises; a CPU
 tensor takes the kernel's plain PyTorch version.  ``init()`` takes the visible CUDA devices and raises
 without one; the CPU runs only when named (``init(["cpu"] * 8)``).
 
@@ -28,6 +28,9 @@ Public surface of this slice:
   exclusive_scan / inclusive_scan_n``
 - sort:       ``sort / sort_by_key / argsort / is_sorted / sort_n /
   sort_by_key_n``
+- attention:  ``ring_attention / ring_attention_n`` (sequence-parallel
+  ring attention; ``ops.ring_attention.ring_self_attention``), on the
+  ring schedules of ``parallel/pipeline.py``
 - halo:       ``halo_bounds / span_halo / halo_ops / halo``
 - stencils:   ``stencil_transform / stencil_iterate /
   stencil_iterate_matmul / stencil_iterate_blocked``
@@ -72,6 +75,7 @@ from .algorithms.stencil2d import (stencil2d_transform, stencil2d_iterate,
 from .algorithms.gemv import gemm
 from .algorithms.sort import (sort, sort_by_key, argsort, is_sorted, sort_n,
                               sort_by_key_n)
+from .ops.ring_attention import ring_attention, ring_attention_n
 
 __version__ = "0.1.0"
 
@@ -96,4 +100,5 @@ __all__ = [
     "stencil2d_transform", "stencil2d_iterate", "stencil2d_iterate_blocked",
     "stencil2d_n", "heat_step_weights", "gemm",
     "sort", "sort_by_key", "argsort", "is_sorted", "sort_n", "sort_by_key_n",
+    "ring_attention", "ring_attention_n",
 ]

@@ -44,6 +44,7 @@ SOURCES = {
     "stencil2d_blocked": "stencil2d_blocked.cu",
     "bitonic_sort": "bitonic_sort.cu",
     "segred": "segred.cu",
+    "flash_update": "flash_attention.cu",
 }
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -59,6 +60,7 @@ _SIGNATURES = {
     "dr_bitonic_sort": [_P, _P, _L, _I, _P, _P, _P],
     "dr_segred": [_P, _L, _I, _I, ctypes.POINTER(_L), ctypes.POINTER(_I),
                   ctypes.POINTER(_I), ctypes.POINTER(_L), _P, _P],
+    "dr_flash_update": [_P] * 9 + [_I] * 5 + [_L, _L, _I, _P],
 }
 
 launches = {name: 0 for name in SOURCES}

@@ -1,4 +1,4 @@
-"""The seven CUDA kernels against their plain PyTorch versions, on the
+"""The eight CUDA kernels against their plain PyTorch versions, on the
 card.  Marked ``gpu``; each test decides in a fixture whether a card is
 present and skips without one (run on the card with
 ``python -m pytest -m gpu tests/test_torch_*.py``)."""
@@ -9,9 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from dr_tpu_torch.ops import (kernels, reduce_pallas, scan_pallas,
-                              segred_pallas, sort_pallas, stencil2d_pallas,
-                              stencil_matmul, stencil_pallas)
+from dr_tpu_torch.ops import (flash_attention, kernels, reduce_pallas,
+                              scan_pallas, segred_pallas, sort_pallas,
+                              stencil2d_pallas, stencil_matmul, stencil_pallas)
 
 pytestmark = pytest.mark.gpu
 
@@ -395,5 +395,169 @@ def test_sort_never_waits_for_the_host(cuda, per):
         ref = torch.sort(src).values.flip(0)
         ref[5:n - 7] = torch.sort(ref[5:n - 7]).values
         assert torch.equal(v.to_array(), ref)
+    finally:
+        dt.final()
+
+
+# --------------------------------------------------------------- K9
+
+def _k9_operands(gen, dev, BH, group, s, skv, d):
+    q = torch.randn((BH, s, d), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((BH // group, skv, d), generator=gen,
+                        device=dev).bfloat16() for _ in range(2))
+    state = (torch.full((BH, s, 1), float("-inf"), device=dev),
+             torch.zeros((BH, s, 1), device=dev),
+             torch.zeros((BH, s, d), device=dev))
+    return q, k, v, state
+
+
+def _k9_close(got, want):
+    """m: the same max of d-term logits summed in two orders (1e-6; the
+    difference grows with d, so d / 256 times that above d = 256); l: f32
+    sums of p in two orders (1e-5 relative, as much wider above d = 256);
+    acc / l: a bf16 rounding of p may flip between the orders (rtol =
+    atol = 2e-3)."""
+    (gm, gl, ga), (wm, wl, wa) = got, want
+    wide = max(1.0, ga.shape[-1] / 256)
+    assert torch.equal(torch.isneginf(gm), torch.isneginf(wm))
+    fin = torch.isfinite(wm)
+    torch.testing.assert_close(gm[fin], wm[fin], rtol=1e-6 * wide,
+                               atol=1e-6 * wide)
+    torch.testing.assert_close(gl, wl, rtol=1e-5 * wide, atol=0)
+    torch.testing.assert_close(ga / torch.where(gl > 0, gl, 1.0),
+                               wa / torch.where(wl > 0, wl, 1.0),
+                               rtol=2e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("s,d", [(256, 128), (384, 128), (256, 256),
+                                 (128, 640), (256, 768)])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("group", [1, 2])
+@pytest.mark.parametrize("offs", ["zero", "past", "future"])
+def test_k9_kernel_matches_plain(cuda, s, d, causal, group, offs):
+    """One update from zero state at offsets (0, 0), (2s, s) (a past
+    block) or (s, 2s) (wholly future under the causal mask), then a
+    second, chained update against another block at offset 0."""
+    dev, gen = cuda
+    q, k, v, state = _k9_operands(gen, dev, 4, group, s, s, d)
+    q_off, k_off = {"zero": (0, 0), "past": (2 * s, s),
+                    "future": (s, 2 * s)}[offs]
+    got = _launched("flash_update", lambda: flash_attention.flash_update(
+        q, k, v, *state, q_off, k_off, causal=causal))
+    want = flash_attention.plain_flash_update(q, k, v, *state, q_off, k_off,
+                                              causal=causal)
+    _k9_close(got, want)
+    if causal and offs == "future":
+        assert torch.isneginf(got[0]).all()
+        assert not got[1].any() and not got[2].any()
+    k2, v2 = (x.flip(1).contiguous() for x in (k, v))
+    got = flash_attention.flash_update(q, k2, v2, *got, q_off, 0,
+                                       causal=causal)
+    want = flash_attention.plain_flash_update(q, k2, v2, *want, q_off, 0,
+                                              causal=causal)
+    _k9_close(got, want)
+
+
+def test_k9_refuses_what_it_does_not_take(cuda):
+    dev, gen = cuda
+    q, k, v, state = _k9_operands(gen, dev, 2, 1, 128, 128, 128)
+    with pytest.raises(ValueError):   # f32 q/k/v
+        flash_attention.flash_update(q.float(), k.float(), v.float(), *state,
+                                     0, 0, causal=True)
+    with pytest.raises(ValueError):   # skv % 128
+        flash_attention.flash_update(q, k[:, :64].contiguous(),
+                                     v[:, :64].contiguous(), *state, 0, 0,
+                                     causal=True)
+    q64, k64, v64, st64 = _k9_operands(gen, dev, 2, 1, 128, 128, 64)
+    with pytest.raises(ValueError):   # d % 128
+        flash_attention.flash_update(q64, k64, v64, *st64, 0, 0, causal=True)
+    with pytest.raises(ValueError):   # not contiguous
+        flash_attention.flash_update(q.transpose(1, 2).contiguous()
+                                     .transpose(1, 2), k, v, *state, 0, 0,
+                                     causal=True)
+
+
+def _ring_inputs(gen, S, h, hkv, d, dev):
+    q = torch.randn((1, S, h, d), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((1, S, hkv, d), generator=gen, device=dev).bfloat16()
+            for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_attention_on_card_matches_cpu_ranks(cuda, causal):
+    """4 ranks of one card (K9, P*P launches; iters*P*P for the chained
+    form) against the port on 4 CPU ranks (the plain version): bf16
+    outputs within the flash tolerance plus one bf16 ulp (2^-7)."""
+    import dr_tpu_torch as dt
+    dev, gen = cuda
+    P, s, h, hkv, d = 4, 256, 4, 2, 128
+    q, k, v = _ring_inputs(gen, P * s, h, hkv, d, dev)
+    out = {}
+    for where in ("cpu", "cuda:0"):
+        dt.init(dt.get_duplicated_devices(P, [where]))
+        try:
+            before = kernels.launches["flash_update"]
+            out[where] = dt.ring_attention(*(x.to(where) for x in (q, k, v)),
+                                           causal=causal)
+            if where != "cpu":
+                torch.cuda.synchronize()
+                assert kernels.launches["flash_update"] - before == P * P
+                before = kernels.launches["flash_update"]
+                qq, kk, vv = (x[:, :, :hkv].contiguous() for x in (q, q, v))
+                dt.ring_attention_n(qq, kk, vv, 3, causal=causal)
+                torch.cuda.synchronize()
+                assert kernels.launches["flash_update"] - before == 3 * P * P
+        finally:
+            dt.final()
+    got, want = out["cuda:0"].float().cpu(), out["cpu"].float()
+    assert out["cuda:0"].device.type == "cuda"
+    torch.testing.assert_close(got, want, rtol=2e-3 + 2.0 ** -7, atol=2e-3)
+
+
+def test_wide_heads_take_k9_on_the_ring(cuda):
+    """A head dim past the 128 columns staged at a time (d = 768) takes
+    the flash ring on the card (P*P K9 launches), within the flash
+    tolerance of the port on CPU ranks."""
+    import dr_tpu_torch as dt
+    dev, gen = cuda
+    P, s, h, d = 2, 128, 2, 768
+    q, k, v = _ring_inputs(gen, P * s, h, h, d, dev)
+    out = {}
+    for where in ("cpu", "cuda:0"):
+        dt.init(dt.get_duplicated_devices(P, [where]))
+        try:
+            before = kernels.launches["flash_update"]
+            out[where] = dt.ring_attention(*(x.to(where) for x in (q, k, v)),
+                                           causal=True)
+            if where != "cpu":
+                torch.cuda.synchronize()
+                assert kernels.launches["flash_update"] - before == P * P
+        finally:
+            dt.final()
+    torch.testing.assert_close(out["cuda:0"].float().cpu(),
+                               out["cpu"].float(), rtol=2e-3 + 2.0 ** -7,
+                               atol=2e-3)
+
+
+def test_ring_attention_never_waits_for_the_host(cuda):
+    """Under ``set_sync_debug_mode("error")`` the flash ring (both
+    schedules, GQA) and the f32 blockwise ring make no synchronizing
+    call: offsets are host integers, the state stays on the card."""
+    import dr_tpu_torch as dt
+    dev, gen = cuda
+    dt.init(dt.get_duplicated_devices(4, ["cuda:0"]))
+    try:
+        q, k, v = _ring_inputs(gen, 4 * 128, 4, 2, 128, dev)
+        qf, kf, vf = (x.float() for x in (q, k, v))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            a = dt.ring_attention(q, k, v, causal=True, schedule="serial")
+            b = dt.ring_attention(q, k, v, causal=True, schedule="pipelined")
+            dt.ring_attention(qf, kf, vf, causal=True, q_chunk=64)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert torch.equal(a, b)
     finally:
         dt.final()

@@ -43,7 +43,8 @@ def test_port_files_exist():
     assert {"runtime.py", "halo.py", "stencil_matmul.py", "scan_pallas.py",
             "dense_matrix.py", "stencil2d.py", "stencil2d_pallas.py",
             "mdarray.py", "sort.py", "sort_pallas.py", "segred_pallas.py",
-            "order_keys.py", "chip_smoke.py"} <= names
+            "order_keys.py", "pipeline.py", "flash_attention.py",
+            "ring_attention.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
