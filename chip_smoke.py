@@ -5,12 +5,13 @@ Run from the repository root:  ``python3 chip_smoke.py``  (``--quick``
 checks the kernels at small shapes only).  Phases:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the eight CUDA kernels from ``dr_tpu_torch/csrc`` (``nvcc``);
+2. build the eight CUDA sources from ``dr_tpu_torch/csrc`` (``nvcc``;
+   K8 runs on K7's library);
 3. hold each kernel against its plain PyTorch version at the main-path
    shapes, on the card (K6 and K7 bit for bit: K6 at M in {256, 4096,
    2^15}, keys-only and KV; K7 at nseg in {1, 127, 128, 129, 2^15} over
    int32, f32, bf16, 8- and 16-bit integer and bool columns, and at
-   n = 2^30 in one segment);
+   n = 2^30 in one segment; K8 at n = 2^30 over 1024 and 2^15 bins);
 4. the 1-D main path at full size on one rank: a 2^30-element f32
    ``distributed_vector``, 512 steps of ``stencil_iterate_matmul``
    (k_block=256, halo 512) and of ``stencil_iterate_blocked``
@@ -52,7 +53,18 @@ checks the kernels at small shapes only).  Phases:
     equal to pipelined bit for bit, the output against phase 12's), the
     f32 blockwise route at S = 4096 (h = 8, hkv = 2) with and without
     ``q_chunk`` against float64, and ``ring_attention_n`` at bench.py's
-    shape (S = 8192, h = 8, causal): TFLOP/s from 2 and 18 iterations.
+    shape (S = 8192, h = 8, causal): TFLOP/s from 2 and 18 iterations;
+14. the relational path on one rank: bench.py's pipeline (f32 fact keys,
+    fan-in 16, a permuted dimension table; join -> groupby sum -> top_k
+    8, and a 16-bin histogram of the joined values) at n_fact = 2^26 over
+    2^22 keys, a 1024-bin histogram of 2^30 f32 normals, and bench.py's
+    kernel geometry (8192 int32 keys a rank: K6, K7 and K8 once a rank);
+    K7 launches 0 times on the 2^26 groupby (above its cap); every result
+    against torch or numpy oracles that do not use the port's code;
+15. the same on 4 ranks of the card at n_fact = 2^24: the partition
+    join (the default above 2^18 rows) equal bit for bit to the forced
+    broadcast join, an outer join with keys missing on both sides, and
+    the kernel geometry.
 
 Phase 3 also holds K9 (``flash_update``) against its plain version at
 small shapes, and phase 8 times it at BH = 32, s = skv = 32768, group 4,
@@ -100,6 +112,10 @@ RA4_P = 4
 RA_F32 = (4096, 8, 2)              # S, h, hkv of the f32 blockwise check
 RAN_S, RAN_H, RAN_ITERS = 8192, 8, (2, 18)
 ORACLE_ROWS = 64
+K8_BINS = 1024         # K8's timed shape: 2^30 ids over 1024 bins
+# the relational pipeline: 2^26 fact rows (about TPC-H SF 10's lineitem)
+# over 2^22 keys (bench.py's fan-in 16) on one rank; 2^24 on 4 ranks
+REL_FACT_LOG2, REL_CARD_LOG2, REL4_FACT_LOG2 = 26, 22, 24
 
 
 def log(*a):
@@ -1430,6 +1446,355 @@ def ring_four_ranks(dt, kernels, seed, qkv, one_rank, device="cuda:0",
         f"{flops / per / 1e12!r} TFLOP/s (host clock)")
 
 
+# ------------------------------------------------------------- relational
+
+def k8_checks(n, gen, results, device="cuda:0"):
+    """Phase 3, K8: bit for bit against its plain version (scatter_add_):
+    n random ids over 1024 bins with 0/1 counts, then 2^15 bins with
+    out-of-range ids on both sides, then n ids in one bin."""
+    import torch
+    from dr_tpu_torch.ops import hist_pallas
+    dev = torch.device(device)
+    worst = [0.0]
+    for bins, lo, hi in ((K8_BINS, 0, K8_BINS), (1 << 15, -3, (1 << 15) + 3),
+                         (1, 0, 1)):
+        ids = torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        cnt = torch.randint(0, 2, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        check_bits(f"K8 bins={bins} n={n}", hist_pallas.bincount(ids, cnt, bins),
+                   hist_pallas.plain_bincount(ids, cnt, bins), worst)
+        del ids, cnt
+    log(f"  K8 hist: bit-exact ok at 1024, 2^15 and 1 bins, n={n}")
+    results["hist"]["max_abs_err"] = worst[0]
+
+
+def hist_timings(gen, results):
+    """Phase 8, K8: 2^30 random int32 ids over 1024 bins, counts all
+    one (so torch.bincount, the library call, computes the same
+    function): kernel, plain and library times; the bound reads the ids
+    and counts once and writes the bins."""
+    import torch
+    from dr_tpu_torch.ops import hist_pallas
+    dev = torch.device("cuda", 0)
+    n, bins = 1 << 30, K8_BINS
+    ids = torch.randint(0, bins, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    ones = torch.ones(n, dtype=torch.int32, device=dev)
+    check_true("K8 equals torch.bincount", torch.equal(
+        hist_pallas.bincount(ids, ones, bins),
+        torch.bincount(ids, minlength=bins).to(torch.int32)))
+    r = results["hist"]
+    r["ms"] = events_ms(lambda: hist_pallas.bincount(ids, ones, bins), 10)
+    r["plain_ms"] = events_ms(lambda: hist_pallas.plain_bincount(
+        ids, ones, bins), 3)
+    r["library_ms"] = events_ms(lambda: torch.bincount(ids, minlength=bins),
+                                10)
+    r["bound_ms"], r["bound_by"] = bound(8 * n + 4 * bins, float(n))
+    # few bins: 16 addresses for every warp's shared atomics (phase 14's
+    # 16-bin histogram of the joined values)
+    few, m = ids[:1 << 26] % 16, 1 << 26
+    row = {"ms": events_ms(lambda: hist_pallas.bincount(few, ones[:m], 16),
+                           10),
+           "library_ms": events_ms(lambda: torch.bincount(few, minlength=16),
+                                   10),
+           "bound_ms": bound(8 * m + 64, float(m))[0]}
+    log(f"  K8 n=2^26 bins=16: {json.dumps(row)}")
+    del few
+    log(f"  K8 n=2^30 bins={bins}: {json.dumps({k: r[k] for k in ('ms', 'plain_ms', 'library_ms', 'bound_ms')})}")
+
+
+def relational_data(n_fact, ncard, seed, dev, shift=0):
+    """The bench's pipeline data (bench.py:910-931) on the card: f32 fact
+    keys over ``ncard`` keys (fan-in n_fact / ncard), N(0,1) fact values,
+    a permuted one-row-per-key dimension table (keys ``shift`` up)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    fk = torch.randint(0, ncard, (n_fact,), generator=gen,
+                       device=dev).float()
+    fv = torch.randn(n_fact, generator=gen, device=dev)
+    dk = (torch.randperm(ncard, generator=gen, device=dev) + shift).float()
+    dv = torch.randn(ncard, generator=gen, device=dev)
+    return fk, fv, dk, dv
+
+
+def relational_path(dt, data, times):
+    """join -> groupby sum over the joined rows -> top_k 8 of the groups,
+    then a 16-bin histogram of the joined values over [-3, 3]
+    (bench.py:933-961, 1012-1014) on the current runtime."""
+    step = stepper(dt, times)
+    fk, fv, dk, dv = data
+    n_fact = fk.numel()
+    with step("data"):
+        F, FV, D, DV = (dt.distributed_vector.from_array(a) for a in data)
+        cap = 2 * n_fact  # dim keys are unique: <= 1 match per fact row
+        jk, jl, jr, gk, gv = (dt.distributed_vector(cap) for _ in range(5))
+        tv = dt.distributed_vector(8)
+        ti = dt.distributed_vector(8, np.int32)
+        hb = dt.distributed_vector(16, np.int32)
+    with step("join"):
+        m = dt.join(F, FV, D, DV, jk, jl, jr)
+    with step("groupby"):
+        ng = dt.groupby_aggregate(jk[0:m], jl[0:m], gk, gv, agg="sum")
+    with step("top_k"):
+        dt.top_k(gv[0:ng], tv, ti)
+    with step("histogram"):
+        dt.histogram(jl[0:m], hb, -3.0, 3.0)
+    return {"m": m, "ng": ng, "jk": jk.to_array()[:m],
+            "jl": jl.to_array()[:m], "jr": jr.to_array()[:m],
+            "gk": gk.to_array()[:ng], "gv": gv.to_array()[:ng],
+            "tv": tv.to_array(), "ti": ti.to_array(), "hb": hb.to_array()}
+
+
+def hist_oracle(x, bins, lo, hi):
+    """numpy's bucket rule in f32 torch ops (right edge in the last
+    bucket, out-of-range dropped), counted by torch.bincount.  The edges
+    are f32 tensors on the card: divided by a Python scalar, torch's
+    CUDA division multiplies by the reciprocal, which rounds otherwise."""
+    import torch
+    lo, hi = (torch.tensor(v, device=x.device) for v in (lo, hi))
+    inr = (x >= lo) & (x <= hi)
+    b = torch.floor((x[inr] - lo) * bins / (hi - lo)).long().clamp(
+        max=bins - 1)
+    return torch.bincount(b, minlength=bins).to(torch.int32)
+
+
+def join_oracle(data, fill=None):
+    """Rows of join(fact, dim) ordered by (key, source, position), built
+    from torch ops alone: every fact row (its dimension value, or
+    ``fill`` where the key has none), and under ``fill`` (an outer join)
+    the unmatched dimension rows after them in key order."""
+    import torch
+    fk, fv, dk, dv = data
+    top = int(max(fk.max(), dk.max())) + 1
+    dv_by = torch.zeros(top, device=fk.device)
+    has = torch.zeros(top, dtype=torch.bool, device=fk.device)
+    dv_by[dk.long()] = dv
+    has[dk.long()] = True
+    if fill is None:
+        keys, lv, rv = fk, fv, dv_by[fk.long()]
+    else:
+        present = torch.zeros(top, dtype=torch.bool, device=fk.device)
+        present[fk.long()] = True
+        ru = ~present[dk.long()]
+        keys = torch.cat([fk, dk[ru]])
+        lv = torch.cat([fv, torch.full_like(dv[ru], fill)])
+        rv = torch.cat([torch.where(has[fk.long()], dv_by[fk.long()], fill),
+                        dv[ru]])
+    order = torch.sort(keys, stable=True).indices
+    return keys[order], lv[order], rv[order]
+
+
+def check_relational(tag, data, out):
+    """The pipeline's results against oracles independent of the port:
+    joined rows bit for bit, groups and counts bit for bit, each group's
+    f32 sum within the recursive-summation bound (count * 2^-24 * the
+    sum of |values|) of its float64 sum, top_k's indices equal to a
+    stable descending sort of the groups' sums (and to the float64
+    sums' top 8), the histogram bit for bit."""
+    import torch
+    fk, fv, dk, dv = data
+    check_true(f"{tag} join count", out["m"] == fk.numel())
+    for name, got, want in zip(("keys", "left", "right"),
+                               (out["jk"], out["jl"], out["jr"]),
+                               join_oracle(data)):
+        check_true(f"{tag} join {name} (bits)", torch.equal(
+            got.view(torch.int32), want.view(torch.int32)))
+    uk, inv, cnt = torch.unique(fk, return_inverse=True, return_counts=True)
+    check_true(f"{tag} groupby count", out["ng"] == uk.numel())
+    check_true(f"{tag} groupby keys (bits)", torch.equal(out["gk"], uk))
+    s64 = torch.zeros(uk.numel(), dtype=torch.float64,
+                      device=fk.device).index_add_(0, inv, fv.double())
+    a64 = torch.zeros_like(s64).index_add_(0, inv, fv.double().abs())
+    err = (out["gv"].double() - s64).abs()
+    tol = cnt.double() * 2.0 ** -24 * a64 + 1e-30
+    check_true(f"{tag} groupby sums within count * 2^-24 * sum|v| "
+               f"(max err {float(err.max())!r})", bool((err <= tol).all()))
+    idx = torch.sort(out["gv"], descending=True, stable=True).indices[:8]
+    check_true(f"{tag} top_k indices (bits)", torch.equal(
+        out["ti"], idx.to(torch.int32)))
+    check_true(f"{tag} top_k values (bits)",
+               torch.equal(out["tv"], out["gv"][idx]))
+    check_true(f"{tag} top_k vs float64 sums' top 8", torch.equal(
+        torch.sort(s64, descending=True, stable=True).indices[:8], idx))
+    check_true(f"{tag} histogram (bits)",
+               torch.equal(out["hb"], hist_oracle(fv, 16, -3.0, 3.0)))
+
+
+def relational_geometry(dt, ranks, seed, kernels, device="cuda:0"):
+    """The bench's kernel geometry (bench.py:1029-1051): 8192 int32 keys
+    in [0, 512) a rank with int32 values, groupby sum (K6 sorts each
+    rank's block once, K7 reduces it once) and a 256-bin histogram over
+    [-4, 4] (K8 once a rank), against numpy.  A CPU rehearsal launches
+    nothing."""
+    import torch
+    dt.init(dt.get_duplicated_devices(ranks, [device]))
+    want = ranks if torch.device(device).type == "cuda" else 0
+    rng = np.random.default_rng(seed)
+    nk = 8192 * ranks
+    keys = rng.integers(0, 512, nk).astype(np.int32)
+    vals = rng.integers(0, 99, nk).astype(np.int32)
+    hv = rng.standard_normal(nk).astype(np.float32)
+    gk, gv, hvv = (dt.distributed_vector.from_array(a)
+                   for a in (keys, vals, hv))
+    ok = dt.distributed_vector(1024, np.int32)
+    ov = dt.distributed_vector(1024, np.int32)
+    hb = dt.distributed_vector(256, np.int32)
+    dt.fence()
+    before = dict(kernels.launches)
+    ng = dt.groupby_aggregate(gk, gv, ok, ov, agg="sum")
+    dt.histogram(hvv, hb, -4.0, 4.0)
+    dt.fence()
+    got = {k: kernels.launches[k] - before[k] for k in before}
+    log(f"  kernel geometry {ranks} x 8192: launches {got}")
+    for k in ("segred", "hist", "bitonic_sort"):
+        if got[k] != want:
+            raise AssertionError(f"{k} launched {got[k]} times at the "
+                                 f"kernel geometry, expected {want}")
+    uk, inv = np.unique(keys, return_inverse=True)
+    sums = np.bincount(inv, weights=vals).astype(np.int32)
+    check_true(f"geometry {ranks} ranks groupby vs numpy", ng == len(uk)
+               and np.array_equal(dt.to_numpy(ok)[:ng], uk)
+               and np.array_equal(dt.to_numpy(ov)[:ng], sums))
+    x = hv[(hv >= -4.0) & (hv <= 4.0)]
+    b = np.minimum(np.floor((x - np.float32(-4.0)) * np.float32(256)
+                            / np.float32(8.0)).astype(np.int64), 255)
+    check_true(f"geometry {ranks} ranks histogram vs numpy",
+               np.array_equal(dt.to_numpy(hb), np.bincount(b, minlength=256)))
+
+
+def relational_one_rank(dt, kernels, seed, results, device="cuda:0",
+                        sizes=(REL_FACT_LOG2, REL_CARD_LOG2, 30)):
+    """Phase 14: the pipeline at n_fact = 2^26 over 2^22 keys (timed on
+    its second run), a 1024-bin
+    histogram of 2^30 f32 normals over [-4, 4], and the kernel geometry,
+    on one rank; returns the peak device memory.  ``sizes`` (the log2 of
+    n_fact, of ncard and of the histogram's length) and ``device="cpu"``
+    rehearse it on the CPU."""
+    import torch
+    cuda = torch.device(device).type == "cuda"
+    dt.init([device])
+    n_fact, ncard = 1 << sizes[0], 1 << sizes[1]
+    data = relational_data(n_fact, ncard, seed + 14, device)
+    # one warm run, as bench.py's: the first launch of each of torch's
+    # kernels loads its module
+    relational_path(dt, data, {})
+    release(torch)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    times = {}
+    t0 = time.perf_counter()
+    out = relational_path(dt, data, times)
+    step = stepper(dt, times)
+    with step("data"):
+        x = torch.randn(1 << sizes[2], generator=torch.Generator(
+            device=device).manual_seed(seed + 15), device=device)
+        hx = dt.distributed_vector.from_array(x)
+        hb = dt.distributed_vector(K8_BINS, np.int32)
+    with step("histogram 2^30"):
+        dt.histogram(hx, hb, -4.0, 4.0)
+    counts = dict(kernels.launches)
+    log(f"  relational path {time.perf_counter() - t0:.2f} s, launches "
+        f"{counts}")
+    log("  relational path seconds by step: " + json.dumps(times))
+    stages = times["join"] + times["groupby"] + times["top_k"]
+    log(f"  pipeline {stages * 1e3!r} ms for {n_fact} fact rows: "
+        f"{n_fact / stages!r} rows/s; joined {out['m']}, groups {out['ng']}")
+    if counts["segred"] != 0 or counts["hist"] != 2 * cuda:
+        raise AssertionError(
+            f"relational path launched K7 {counts['segred']} times "
+            f"(expected 0: 2^26 scratch keys a rank are above its cap) "
+            f"and K8 {counts['hist']} (expected 2, one a histogram)")
+    check_relational("1 rank", data, out)
+    check_true(f"histogram 2^{sizes[2]} (bits)", torch.equal(
+        hb.to_array(), hist_oracle(x, K8_BINS, -4.0, 4.0)))
+    del out, data, x, hx, hb
+    release(torch)
+    relational_geometry(dt, 1, seed, kernels, device)
+    results["hist"]["launches"] = kernels.launches["hist"]
+    return torch.cuda.max_memory_allocated() if cuda else 0
+
+
+@contextlib.contextmanager
+def broadcast_max(value):
+    saved = os.environ.get("DR_GPU_JOIN_BROADCAST_MAX")
+    os.environ["DR_GPU_JOIN_BROADCAST_MAX"] = str(value)
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["DR_GPU_JOIN_BROADCAST_MAX"]
+        else:
+            os.environ["DR_GPU_JOIN_BROADCAST_MAX"] = saved
+
+
+def join_both_routes(dt, data, how, fill, tag):
+    """One join on the default route (partition: more than 2^18 rows on
+    4 ranks) and on the forced broadcast route: equal bit for bit;
+    returns the rows and the two routes."""
+    import torch
+    from dr_tpu_torch.algorithms import relational as rel
+    res = []
+    for forced in (False, True):
+        F, FV, D, DV = (dt.distributed_vector.from_array(a) for a in data)
+        cap = 2 * (data[0].numel() + data[2].numel())
+        outs = [dt.distributed_vector(cap) for _ in range(3)]
+        with contextlib.ExitStack() as st:
+            if forced:
+                st.enter_context(broadcast_max(1 << 30))
+            dt.fence()
+            t0 = time.perf_counter()
+            m = dt.join(F, FV, D, DV, *outs, how=how, fill=fill)
+            dt.fence()
+            secs = time.perf_counter() - t0
+        route = rel.last_join_route()
+        log(f"  {tag} {how} join {route['impl']}: {secs * 1e3!r} ms, "
+            f"route {json.dumps(route)}")
+        res.append((m, [o.to_array()[:m].view(torch.int32) for o in outs],
+                    route))
+    (m0, rows0, r0), (m1, rows1, r1) = res
+    if r0["impl"] != "partition" or r1["impl"] != "broadcast":
+        raise AssertionError(f"{tag}: routes {r0['impl']}, {r1['impl']}")
+    check_true(f"{tag} {how}: partition gathers fewer rows a device than "
+               "broadcast", r0["gathered_rows_per_device"]
+               < r1["gathered_rows_per_device"])
+    check_true(f"{tag} {how}: partition equals broadcast (bits)", m0 == m1
+               and all(a.equal(b) for a, b in zip(rows0, rows1)))
+    return m0, rows0
+
+
+def relational_four_ranks(dt, kernels, seed, device="cuda:0",
+                          fact_log2=REL4_FACT_LOG2):
+    """Phase 15: 4 ranks of one card at n_fact = 2^24 over 2^20 keys: the
+    pipeline (partition join), the join on both routes, an outer join
+    with keys missing on both sides on both routes, and the kernel
+    geometry."""
+    import torch
+    dt.init(dt.get_duplicated_devices(4, [device]))
+    n_fact, ncard = 1 << fact_log2, 1 << (fact_log2 - 4)
+    data = relational_data(n_fact, ncard, seed + 16, device)
+    times = {}
+    out = relational_path(dt, data, times)
+    log("  4-rank relational path seconds by step: " + json.dumps(times))
+    check_relational("4 ranks", data, out)
+    del out
+    join_both_routes(dt, data, "inner", 0, "4 ranks")
+    # dimension keys shifted up by ncard / 2: fact keys below it and
+    # dimension keys above the fact range have no partner
+    odata = relational_data(n_fact, ncard, seed + 17, device,
+                            shift=ncard // 2)
+    m, rows = join_both_routes(dt, odata, "outer", -1.0, "4 ranks")
+    want = join_oracle(odata, fill=-1.0)
+    check_true("4 ranks outer join count", m == want[0].numel())
+    for name, got, w in zip(("keys", "left", "right"), rows, want):
+        check_true(f"4 ranks outer join {name} vs oracle (bits)",
+                   torch.equal(got, w.view(torch.int32)))
+    del data, odata, rows, want
+    release(torch)
+    relational_geometry(dt, 4, seed, kernels, device)
+
+
 def main(argv):
     try:
         import torch
@@ -1481,6 +1846,9 @@ def main(argv):
                          "dr_tpu/ops/sort_pallas.py:87"),
         "segred": ("dr_tpu_torch/csrc/segred.cu",
                    "dr_tpu/ops/segred_pallas.py:89"),
+        # K8 is K7's kernel with one int32 sum column, counted on its own
+        "hist": ("dr_tpu_torch/csrc/segred.cu",
+                 "dr_tpu/ops/hist_pallas.py:32"),
         # one kernel for the resident (:242) and streaming (:150) variants
         "flash_update": ("dr_tpu_torch/csrc/flash_attention.cu",
                          "dr_tpu/ops/flash_attention.py:242,150"),
@@ -1495,6 +1863,7 @@ def main(argv):
     kernel_checks(dt, n, m2d, gen, results)
     k6_checks(gen, results)
     k7_checks(n, gen, results)
+    k8_checks(n, gen, results)
     k9_checks(gen, results)
     torch.cuda.synchronize()
     if quick:
@@ -1564,6 +1933,7 @@ def main(argv):
     log("phase 8: timings")
     timings(n, gen, results)
     sort_timings(gen, results)
+    hist_timings(gen, results)
     flash_timings(gen, results)
     release(torch)
 
@@ -1619,6 +1989,18 @@ def main(argv):
     dt.final()
     release(torch)
 
+    log(f"phase 14: relational path, 1 rank on cuda:0, "
+        f"n_fact=2^{REL_FACT_LOG2}, ncard=2^{REL_CARD_LOG2}")
+    peak5 = relational_one_rank(dt, kernels, seed, results)
+    dt.final()
+    release(torch)
+
+    log(f"phase 15: relational path, 4 ranks on cuda:0, "
+        f"n_fact=2^{REL4_FACT_LOG2}")
+    relational_four_ranks(dt, kernels, seed)
+    dt.final()
+    release(torch)
+
     log(f"peak device memory (1-D main path): {peak} bytes "
         f"({peak / 2 ** 30:.2f} GiB)")
     log(f"peak device memory (2-D path): {peak2} bytes "
@@ -1627,9 +2009,11 @@ def main(argv):
         f"({peak3 / 2 ** 30:.2f} GiB)")
     log(f"peak device memory (ring attention, 1 rank): {peak4} bytes "
         f"({peak4 / 2 ** 30:.2f} GiB)")
+    log(f"peak device memory (relational path, 1 rank): {peak5} bytes "
+        f"({peak5 / 2 ** 30:.2f} GiB)")
     order = ("stencil_matmul", "stencil_blocked", "chunked_dot",
              "chunked_cumsum", "stencil2d_blocked", "bitonic_sort", "segred",
-             "flash_update")
+             "hist", "flash_update")
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

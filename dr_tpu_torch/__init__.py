@@ -9,7 +9,8 @@ rank's device, and collectives are tensor copies between rank rows.
 
 The kernels of the 1-D stencil -> dot -> scan path, of the 2-D heat
 stencil, of the sort's local phase, of ``reduce``'s min/max/integer
-route and of ring attention's flash update are hand-written CUDA for
+route and the groupby's segmented reduce, of the histogram's bincount and
+of ring attention's flash update are hand-written CUDA for
 ``sm_90a`` (``dr_tpu_torch/csrc``), built at first use.  A CUDA tensor takes the kernel or raises; a CPU
 tensor takes the kernel's plain PyTorch version.  ``init()`` takes the visible CUDA devices and raises
 without one; the CPU runs only when named (``init(["cpu"] * 8)``).
@@ -28,6 +29,9 @@ Public surface of this slice:
   exclusive_scan / inclusive_scan_n``
 - sort:       ``sort / sort_by_key / argsort / is_sorted / sort_n /
   sort_by_key_n``
+- relational: ``join`` (inner/left/right/outer, broadcast and partition
+  merges), ``groupby_aggregate``, ``unique``, ``histogram``, ``top_k``,
+  ``join_auto / groupby_auto / unique_auto`` (``AutoResult``)
 - attention:  ``ring_attention / ring_attention_n`` (sequence-parallel
   ring attention; ``ops.ring_attention.ring_self_attention``), on the
   ring schedules of ``parallel/pipeline.py``
@@ -76,6 +80,9 @@ from .algorithms.gemv import gemm
 from .algorithms.sort import (sort, sort_by_key, argsort, is_sorted, sort_n,
                               sort_by_key_n)
 from .ops.ring_attention import ring_attention, ring_attention_n
+from .algorithms.relational import (join, groupby_aggregate, unique,
+                                    histogram, top_k, join_auto,
+                                    groupby_auto, unique_auto, AutoResult)
 
 __version__ = "0.1.0"
 
@@ -101,4 +108,6 @@ __all__ = [
     "stencil2d_n", "heat_step_weights", "gemm",
     "sort", "sort_by_key", "argsort", "is_sorted", "sort_n", "sort_by_key_n",
     "ring_attention", "ring_attention_n",
+    "join", "groupby_aggregate", "unique", "histogram", "top_k",
+    "join_auto", "groupby_auto", "unique_auto", "AutoResult",
 ]

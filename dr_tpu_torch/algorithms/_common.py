@@ -1,7 +1,8 @@
 """Shared helpers for the algorithm layer: layout and window geometry,
 owned-cell column ranges, monoid tables (counterpart of
 ``dr_tpu/algorithms/_common.py``).  Geometry is numpy over the layout's
-Python ints, so nothing here touches a device."""
+Python ints; only :func:`owned_window_mask` builds tensors, on the device
+it is given."""
 
 from __future__ import annotations
 
@@ -11,7 +12,8 @@ import torch
 from ..parallel.collectives import ordered_maximum, ordered_minimum
 
 __all__ = ["layout_geometry", "working_geometry", "window_geometry",
-           "effective_sizes", "window_cols", "uniform_layout",
+           "effective_sizes", "window_cols", "owned_window_mask",
+           "uniform_layout",
            "f32_accumulable", "MONOID_COMBINE", "identity_for"]
 
 
@@ -84,6 +86,18 @@ def window_cols(layout, off, n, r):
     if hi <= lo:
         return prev, prev
     return prev + lo - s0, prev + hi - s0
+
+
+def owned_window_mask(layout, off, n, r, device):
+    """``(mask, gid)`` over rank r's padded row, on ``device``: ``gid`` is
+    each cell's global logical index (int64), ``mask`` selects the owned
+    cells inside the logical window [off, off+n) (the columns of
+    :func:`window_cols`).  The per-rank form of the JAX package's
+    ``(nshards, width)`` grids, for algorithms that work on whole rows."""
+    _, cap, prev, nxt, _, starts, _ = layout_geometry(layout)
+    c0, c1 = window_cols(layout, off, n, r)
+    col = torch.arange(prev + cap + nxt, device=device)
+    return (col >= c0) & (col < c1), col + (int(starts[r]) - prev)
 
 
 MONOID_COMBINE = {

@@ -12,7 +12,10 @@ PyTorch version that sits beside each kernel.  There is no fallback: a
 missing ``nvcc``, a failed build or a failed launch raises.
 
 ``launches[name]`` counts the launches of each kernel; a wrapper adds
-one where it launches, and nowhere else.
+one where it launches, and nowhere else.  A kernel that serves as
+another's entry point counts under its own name: ``hist`` (K8, a
+histogram's bincount) launches the ``segred`` library and is counted as
+``hist`` alone.
 """
 
 from __future__ import annotations
@@ -27,8 +30,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCES", "launches", "reset_counts", "library", "build_all",
-           "launch", "on_cuda", "stream_of", "ptr"]
+__all__ = ["SOURCES", "COUNTERS", "launches", "reset_counts", "library",
+           "build_all", "launch", "on_cuda", "stream_of", "ptr"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -63,7 +66,9 @@ _SIGNATURES = {
     "dr_flash_update": [_P] * 9 + [_I] * 5 + [_L, _L, _I, _P],
 }
 
-launches = {name: 0 for name in SOURCES}
+#: the launch counters: one per source, and K8 on segred's library
+COUNTERS = tuple(SOURCES) + ("hist",)
+launches = {name: 0 for name in COUNTERS}
 
 _libs: dict = {}
 #: seconds the last build_all() spent compiling
@@ -160,14 +165,14 @@ def ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
-def launch(name: str, symbol: str, device, *args) -> None:
+def launch(name: str, symbol: str, device, *args, counter=None) -> None:
     """Call one C entry point of kernel ``name`` on ``device`` (its last
     argument is the stream), raise if the launch was refused, and count
-    it."""
+    it under ``counter`` (default ``name``)."""
     fn = getattr(library(name), symbol)
     with torch.cuda.device(device):
         err = fn(*args)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch "
                            f"(cudaError {err})")
-    launches[name] += 1
+    launches[counter or name] += 1

@@ -154,7 +154,9 @@ def plain_segmented(segid, nseg: int, cols):
 
 # ------------------------------------------------------------------ kernel
 
-def _kernel_segmented(segid, nseg, cols):
+def _kernel_segmented(segid, nseg, cols, counter="segred"):
+    """One ``dr_segred`` launch, counted under ``counter`` (K8 counts its
+    bincounts as ``hist``)."""
     cols = _columns(cols)
     if not 1 <= len(cols) <= MAX_COLS:
         raise ValueError(f"the K7 kernel takes 1 to {MAX_COLS} columns")
@@ -185,7 +187,7 @@ def _kernel_segmented(segid, nseg, cols):
     ops = (ctypes.c_int * k)(*[_OP_CODE[op] for _, op in cols])
     kernels.launch("segred", "dr_segred", dev, kernels.ptr(segid), n, nseg,
                    k, vals, dtypes, ops, optrs, keys.data_ptr(),
-                   kernels.stream_of(keys))
+                   kernels.stream_of(keys), counter=counter)
     return tuple(outs)
 
 

@@ -561,3 +561,76 @@ def test_ring_attention_never_waits_for_the_host(cuda):
         assert torch.equal(a, b)
     finally:
         dt.final()
+
+
+# ------------------------------------------------------------------ K8
+
+def _k8_ids(kind, n, bins, gen, dev):
+    if kind == "random":
+        return torch.randint(0, bins, (n,), generator=gen, device=dev,
+                             dtype=torch.int32)
+    if kind == "one bin":
+        return torch.full((n,), bins // 2, dtype=torch.int32, device=dev)
+    # out of range on both sides: those elements count nowhere
+    return torch.randint(-3, bins + 3, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+
+
+@pytest.mark.parametrize("bins", [1, 1024, 1 << 15])
+@pytest.mark.parametrize("kind", ["random", "one bin", "out of range"])
+@pytest.mark.parametrize("n", [0, 1000, 1 << 20])
+def test_k8_kernel_matches_plain(cuda, bins, kind, n):
+    """K8 (K7's kernel with one int32 sum column, counted as ``hist``)
+    against ``scatter_add_``, bit for bit."""
+    from dr_tpu_torch.ops import hist_pallas
+    dev, gen = cuda
+    ids = _k8_ids(kind, n, bins, gen, dev)
+    cnt = torch.randint(0, 2, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    seg = kernels.launches["segred"]
+    got = _launched("hist", lambda: hist_pallas.bincount(ids, cnt, bins))
+    assert kernels.launches["segred"] == seg
+    assert torch.equal(got, hist_pallas.plain_bincount(ids, cnt, bins))
+
+
+def test_relational_kernel_routes_on_card(cuda):
+    """At the bench's kernel geometry a groupby launches K7 and its sort
+    K6 once per rank and a histogram K8 once per rank; int64 keys (an
+    8-byte key column) and a float sum take the torch route; every
+    result equals the same op on CPU ranks."""
+    import dr_tpu_torch as dt
+    rng = np.random.default_rng(3)
+    P = 4
+    keys = rng.integers(0, 512, P * 8192).astype(np.int32)
+    vals = rng.integers(0, 99, P * 8192).astype(np.int32)
+    hv = rng.standard_normal(P * 8192).astype(np.float32)
+
+    def run(devs):
+        dt.init(devs)
+        gk = dt.distributed_vector.from_array(keys)
+        ok = dt.distributed_vector(1024, np.int32)
+        ov = dt.distributed_vector(1024, np.int32)
+        before = dict(kernels.launches)
+        ng = dt.groupby_aggregate(gk, dt.distributed_vector.from_array(vals),
+                                  ok, ov, agg="sum")
+        hb = dt.distributed_vector(256, np.int32)
+        dt.histogram(dt.distributed_vector.from_array(hv), hb, -4.0, 4.0)
+        counts = {k: kernels.launches[k] - before[k] for k in before}
+        lk = dt.distributed_vector.from_array(keys.astype(np.int64))
+        o64 = dt.distributed_vector(1024, np.int64)
+        of = dt.distributed_vector(1024, np.float32)
+        before = dict(kernels.launches)
+        ng64 = dt.groupby_aggregate(lk, dt.distributed_vector.from_array(hv),
+                                    o64, of, agg="sum")
+        torch.cuda.synchronize()
+        assert kernels.launches["segred"] == before["segred"]
+        return (ng, dt.to_numpy(ok), dt.to_numpy(ov), dt.to_numpy(hb),
+                ng64, dt.to_numpy(o64), dt.to_numpy(of)), counts
+
+    got, counts = run(dt.get_duplicated_devices(P, ["cuda:0"]))
+    assert counts["segred"] == P and counts["hist"] == P \
+        and counts["bitonic_sort"] == P, counts
+    want, _ = run(["cpu"] * P)
+    for g, w in zip(got[:6], want[:6]):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_allclose(got[6], want[6], rtol=1e-5, atol=1e-5)

@@ -1,5 +1,5 @@
 """The port stands alone: no file of ``dr_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX or the JAX package, and ``init()`` never
+``chip_smoke.py``) imports JAX, the JAX package or pandas, and ``init()`` never
 falls back to the CPU on its own.
 
 The import check is static (the AST of every file): a runtime
@@ -21,7 +21,7 @@ PORT_FILES = sorted((REPO / "dr_tpu_torch").rglob("*.py")) + \
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "dr_tpu")
+    return top in ("jax", "jaxlib", "dr_tpu", "pandas")
 
 
 def _imports(path):
@@ -44,7 +44,8 @@ def test_port_files_exist():
             "dense_matrix.py", "stencil2d.py", "stencil2d_pallas.py",
             "mdarray.py", "sort.py", "sort_pallas.py", "segred_pallas.py",
             "order_keys.py", "pipeline.py", "flash_attention.py",
-            "ring_attention.py", "chip_smoke.py"} <= names
+            "ring_attention.py", "relational.py", "hist_pallas.py",
+            "resilience.py", "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -58,6 +59,7 @@ def test_forbidden_rule_itself():
     assert _forbidden("jax.numpy") and _forbidden("dr_tpu.ops.kernels")
     assert _forbidden("dr_tpu") and not _forbidden("dr_tpu_torch.ops")
     assert not _forbidden("torch") and not _forbidden("numpy")
+    assert _forbidden("pandas")
 
 
 def test_init_without_devices_needs_cuda():
