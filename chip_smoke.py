@@ -67,8 +67,11 @@ checks the kernels at small shapes only).  Phases:
     the kernel geometry.
 
 Phase 3 also holds K9 (``flash_update``) against its plain version at
-small shapes, and phase 8 times it at BH = 32, s = skv = 32768, group 4,
-causal, beside ``F.scaled_dot_product_attention`` as the library call.
+small shapes (d = 128 and 256 on the wgmma kernel, d = 768 on the
+mma.sync one; s = 200, a ragged q tile; the causal diagonal inside a
+tile), and phase 8 times it at BH = 32, s = skv = 32768, group 4,
+causal, beside ``F.scaled_dot_product_attention`` as the library call,
+and at d = 256, s = skv = 16384 on a line of its own.
 
 Exits non-zero on any failure.  The last line of standard output is
 ``{"ok": true, "device": {...}}``; the line before it is the kernel
@@ -1200,23 +1203,30 @@ def k9_close(tag, got, ref):
                           2e-3, 2e-3, quiet=True)
 
 
-#: phase 3's K9 shapes (s, d, group): d = 768 stages Q and K in 6 chunks
-K9_CHECKS = ((1024, 128, 4), (384, 256, 1), (256, 768, 2))
+#: phase 3's K9 shapes (s, d, group): d = 128 and 256 take the wgmma
+#: kernel (s = 200 is not a multiple of its 128-row q tile), d = 768 the
+#: mma.sync kernel, which stages Q and K in 6 chunks
+K9_CHECKS = ((1024, 128, 4), (200, 128, 4), (384, 256, 1), (384, 256, 2),
+             (256, 768, 2))
 
 
 def k9_checks(gen, results, device="cuda:0"):
     """Phase 3, K9 against its plain version (:func:`k9_close`): causal
-    and not, GQA, d = 128, 256 and 768, offsets (0, 0), (2s, s) and
-    (s, 2s) (wholly future when causal), and a chained second update."""
+    and not, GQA, d = 128, 256 and 768, offsets (0, 0), (2s, s), (s, 2s)
+    (wholly future when causal) and (s + 37, s) (the causal diagonal
+    inside a tile), and a chained second update."""
     import torch
     from dr_tpu_torch.ops import flash_attention as fa
     worst = 0.0
     for s, d, group in K9_CHECKS:
         for causal in (True, False):
-            for q_off, k_off in ((0, 0), (2 * s, s), (s, 2 * s)):
+            for q_off, k_off in ((0, 0), (2 * s, s), (s, 2 * s),
+                                 (s + 37, s)):
                 tag = (f"K9 s={s} d={d} group={group} causal={causal} "
                        f"offsets=({q_off}, {k_off})")
-                q, k, v, st = k9_operands(gen, device, 8, group, s, s, d)
+                # the K/V block's length is a multiple of 128 (the rule)
+                skv = -(-s // 128) * 128
+                q, k, v, st = k9_operands(gen, device, 8, group, s, skv, d)
                 got = fa.flash_update(q, k, v, *st, q_off, k_off,
                                       causal=causal)
                 ref = fa.plain_flash_update(q, k, v, *st, q_off, k_off,
@@ -1233,7 +1243,7 @@ def k9_checks(gen, results, device="cuda:0"):
                                              causal=causal)
                 for step, g, r in ((1, got, ref), (2, got2, ref2)):
                     worst = max(worst, k9_close(f"{tag} update {step}", g, r))
-    log(f"  K9 flash_update: {6 * len(K9_CHECKS)} chained pairs of updates "
+    log(f"  K9 flash_update: {8 * len(K9_CHECKS)} chained pairs of updates "
         f"within tolerance (s, d, group) {K9_CHECKS}, acc / l max_abs_err "
         f"{worst!r}")
     results["flash_update"]["max_abs_err"] = worst
@@ -1251,16 +1261,18 @@ def flash_timings(gen, results):
     BH, group, s, d = RA_H, RA_H // RA_HKV, RA_S, RA_D
     q, k, v, st = k9_operands(gen, "cuda:0", BH, group, s, s, d)
     r = results["flash_update"]
-    errs = {}
+    errs, lerrs = {}, {}
     for causal in (True, False):
         got = fa.flash_update(q, k, v, *st, 0, 0, causal=causal)
         ref = fa.plain_flash_update(q, k, v, *st, 0, 0, causal=causal)
         errs[causal] = k9_close(f"K9 BH={BH} s=skv={s} causal={causal}",
                                 got, ref)
+        lerrs[causal] = l_rel_err(got, ref)
         del got, ref
     log(f"  K9 at the timed shape vs plain (m 1e-6, l 1e-5 relative, acc / l "
         f"2e-3): acc / l max_abs_err causal {errs[True]!r}, non-causal "
-        f"{errs[False]!r}")
+        f"{errs[False]!r}; l max relative error causal {lerrs[True]!r}, "
+        f"non-causal {lerrs[False]!r}")
     r["max_abs_err"] = max(r.get("max_abs_err", 0.0), *errs.values())
     r["ms"] = events_ms(lambda: fa.flash_update(q, k, v, *st, 0, 0,
                                                 causal=True), 5)
@@ -1280,6 +1292,50 @@ def flash_timings(gen, results):
         f"TFLOP/s, {done / r['ms'] / 1e9!r} TFLOP/s of the tiles it runs; "
         f"non-causal {nc!r} ms, {2 * ideal / nc / 1e9!r} TFLOP/s; "
         f"SDPA {r['library_ms']!r} ms")
+    del q, k, v, st, q4, k4, v4
+    flash_timings_d256(gen)
+
+
+def l_rel_err(got, ref):
+    """max |l - l_ref| / l_ref over the rows that attended."""
+    lg, lr = got[1].double(), ref[1].double()
+    pos = lr > 0
+    return float(((lg - lr).abs()[pos] / lr[pos]).max())
+
+
+def flash_timings_d256(gen):
+    """Phase 8, K9 at d = 256: BH = 32, s = skv = 16384, group 4, zero
+    state.  The non-causal update (every row attends 16384 keys) is held
+    against its plain version (:func:`k9_close`); the causal one is timed
+    beside SDPA on the same tensors, logged on its own line.  (Causal at
+    this size, a row attending a few keys can show one bf16 flip of p
+    above acc / l's 2e-3, the mma.sync design too; phase 3 holds the causal
+    d = 256 path at s = 384.)"""
+    import torch.nn.functional as F
+    from dr_tpu_torch.ops import flash_attention as fa
+    BH, group, s, d = RA_H, RA_H // RA_HKV, RA_S // 2, 2 * RA_D
+    q, k, v, st = k9_operands(gen, "cuda:0", BH, group, s, s, d)
+    got = fa.flash_update(q, k, v, *st, 0, 0, causal=False)
+    ref = fa.plain_flash_update(q, k, v, *st, 0, 0, causal=False)
+    err = k9_close(f"K9 d={d} BH={BH} s=skv={s} causal=False", got, ref)
+    lerr = l_rel_err(got, ref)
+    del got, ref
+    ms = events_ms(lambda: fa.flash_update(q, k, v, *st, 0, 0,
+                                           causal=True), 5)
+    nc = events_ms(lambda: fa.flash_update(q, k, v, *st, 0, 0,
+                                           causal=False), 3)
+    q4, k4, v4 = (x.view(1, -1, s, d) for x in (q, k, v))
+    sdpa = events_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True, enable_gqa=True), 5)
+    ideal = 2.0 * BH * s * s * d
+    moved = (BH * s * d * 2 + 2 * (BH // group) * s * d * 2
+             + 2 * (2 * BH * s * 4 + BH * s * d * 4))
+    bms, by = bound(moved, ideal, BF16_TC_FLOP_PER_S)
+    log(f"  K9 d={d} BH={BH} s=skv={s} group={group}: causal {ms!r} ms, "
+        f"{ideal / ms / 1e9!r} effective TFLOP/s; non-causal {nc!r} ms; "
+        f"SDPA causal {sdpa!r} ms; bound {bms!r} ms ({by}); non-causal "
+        f"vs plain: acc / l max_abs_err {err!r}, l max relative error "
+        f"{lerr!r}")
 
 
 def ra_inputs(seed, S, h, hkv, d, device, dtype):

@@ -11,15 +11,19 @@ with ``BH % BHkv == 0`` (grouped-query: q head b reads K/V head
 ``q_off``/``k_off`` are the GLOBAL sequence offsets of the q shard and of
 the K/V block; the causal mask is ``q_off + row >= k_off + col``.
 
-Routes: CUDA tensors take ``csrc/flash_attention.cu`` (both products on
-the tensor cores with ``mma.sync`` m16n8k16 bf16, the online softmax in
-f32 registers, K/V streamed through shared memory in 64-key tiles and
-Q/K 128 columns of d at a time, so any ``d % 128 == 0`` fits: the
-counterpart of both the resident ``_build`` and the streaming
-``_build_streaming`` TPU kernels) and raise on what the kernel does not
-take; CPU tensors take :func:`plain_flash_update`, the same update in
-plain PyTorch over the same 64-key tiles.  The kernel allocates new
-outputs; the inputs are left as they were.
+Routes: CUDA tensors take ``csrc/flash_attention.cu`` and raise on what
+the kernel does not take; CPU tensors take :func:`plain_flash_update`,
+the same update in plain PyTorch over the kernel's key tiles.  At
+``d = 128`` and ``256`` the kernel is a persistent, warp-specialised
+Hopper kernel: TMA loads of K/V tiles into a two-stage ring behind
+mbarriers, both products on ``wgmma`` (``bf16(p) V`` with p from
+registers), 128-row q tiles and any number of heads.  Larger
+``d % 128 == 0`` take an ``mma.sync`` kernel that stages Q and K 128
+columns of d at a time; one C entry point picks by d, and either is one
+launch of ``flash_update``.  Together they are the counterpart of both
+the resident ``_build`` and the streaming ``_build_streaming`` TPU
+kernels.  The kernel allocates new outputs; the inputs are left as they
+were.
 
 Not carried over: ``pick_blocks``, ``resident_fits``, ``use_streaming``
 and the ``DR_TPU_FLASH_BQ``/``_BK``/``DR_TPU_FLASH_STREAM`` knobs, which
@@ -35,11 +39,12 @@ import torch
 from . import kernels
 
 __all__ = ["flash_update", "plain_flash_update", "kernel_shape_ok",
-           "causal_computed_flops", "BLOCK_Q", "BLOCK_K"]
+           "causal_computed_flops", "tiles", "BLOCK_Q", "BLOCK_K"]
 
-#: the kernel's q-row and key tiles (csrc/flash_attention.cu BQ, BK)
-BLOCK_Q = 64
-BLOCK_K = 64
+#: the kernel's q-row and key tiles at d = 128 (csrc/flash_attention.cu
+#: HBQ and Tiles<128>::BK)
+BLOCK_Q = 128
+BLOCK_K = 128
 _NEG_INF = float("-inf")
 
 
@@ -47,6 +52,15 @@ def kernel_shape_ok(d: int, skv: int) -> bool:
     """The kernel path's shape rule (the JAX package's ``pick_blocks``
     gate): lane-aligned head dim and K/V length."""
     return d % 128 == 0 and skv % 128 == 0
+
+
+def tiles(d: int) -> tuple:
+    """The kernel's ``(q rows, keys)`` tile at head dim ``d``: the wgmma
+    kernel's 128 x 128 at d = 128 and 128 x 64 at d = 256, the mma.sync
+    kernel's 64 x 64 above."""
+    if d == 128:
+        return BLOCK_Q, BLOCK_K
+    return (128, 64) if d == 256 else (64, 64)
 
 
 def causal_computed_flops(s: int, skv: int, d: int, bq: int, bk: int,
@@ -86,14 +100,16 @@ def _check(q, k, v, m, l, acc):
 
 
 def plain_flash_update(q, k, v, m, l, acc, q_off: int, k_off: int, *,
-                       causal: bool, block_k: int = BLOCK_K):
+                       causal: bool, block_k: int | None = None):
     """Plain PyTorch version of :func:`flash_update`: the JAX package's
-    ``_block_update`` over ``block_k``-key tiles (the kernel's), with the
+    ``_block_update`` over ``block_k``-key tiles (by default the kernel's,
+    :func:`tiles`), with the
     bf16 inputs upcast (exactly) to f32 for f32 matmuls, ``p`` rounded to
     bf16 for the PV product, and the tiles wholly in the future of every
     q row skipped (a fully masked tile leaves the state unchanged)."""
     BH, s, d, skv, group = _check(q, k, v, m, l, acc)
     BHkv = BH // group
+    block_k = block_k or tiles(d)[1]
     scale = 1.0 / (d ** 0.5)
     # q head b reads kv head b // group: fold the group into the rows
     qf = q.float().reshape(BHkv, group * s, d)
@@ -133,8 +149,6 @@ def _kernel_flash_update(q, k, v, m, l, acc, q_off, k_off, causal):
     if not kernel_shape_ok(d, skv):
         raise ValueError(f"the K9 kernel takes d % 128 == 0 and "
                          f"skv % 128 == 0, not d={d}, skv={skv}")
-    if BH > 65535:
-        raise ValueError("the K9 kernel takes at most 65535 q heads")
     ts = (q, k, v, m, l, acc)
     dev = q.device
     if any(t.device != dev or not t.is_contiguous() or t.data_ptr() % 16

@@ -429,19 +429,22 @@ def _k9_close(got, want):
                                rtol=2e-3, atol=2e-3)
 
 
-@pytest.mark.parametrize("s,d", [(256, 128), (384, 128), (256, 256),
-                                 (128, 640), (256, 768)])
+@pytest.mark.parametrize("s,d", [(256, 128), (384, 128), (200, 128),
+                                 (256, 256), (128, 640), (256, 768)])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("group", [1, 2])
-@pytest.mark.parametrize("offs", ["zero", "past", "future"])
+@pytest.mark.parametrize("group", [1, 2, 4])
+@pytest.mark.parametrize("offs", ["zero", "past", "future", "diagonal"])
 def test_k9_kernel_matches_plain(cuda, s, d, causal, group, offs):
     """One update from zero state at offsets (0, 0), (2s, s) (a past
-    block) or (s, 2s) (wholly future under the causal mask), then a
-    second, chained update against another block at offset 0."""
+    block), (s, 2s) (wholly future under the causal mask) or (s + 37, s)
+    (the causal diagonal inside a tile), then a second, chained update
+    against another block at offset 0.  s = 200 is not a multiple of the
+    128-row q tile; group 4 is Llama-3-8B's."""
     dev, gen = cuda
-    q, k, v, state = _k9_operands(gen, dev, 4, group, s, s, d)
+    skv = -(-s // 128) * 128   # the K/V block's length: a multiple of 128
+    q, k, v, state = _k9_operands(gen, dev, 4, group, s, skv, d)
     q_off, k_off = {"zero": (0, 0), "past": (2 * s, s),
-                    "future": (s, 2 * s)}[offs]
+                    "future": (s, 2 * s), "diagonal": (s + 37, s)}[offs]
     got = _launched("flash_update", lambda: flash_attention.flash_update(
         q, k, v, *state, q_off, k_off, causal=causal))
     want = flash_attention.plain_flash_update(q, k, v, *state, q_off, k_off,
@@ -475,6 +478,54 @@ def test_k9_refuses_what_it_does_not_take(cuda):
         flash_attention.flash_update(q.transpose(1, 2).contiguous()
                                      .transpose(1, 2), k, v, *state, 0, 0,
                                      causal=True)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_k9_takes_more_than_65535_heads(cuda, causal):
+    """65536 q heads (group 4, s = skv = 128, d = 128) in one launch: the
+    persistent grid walks (q tile, head), so no grid dimension caps the
+    heads.  Every head's state equals, bit for bit, the same heads
+    launched 16384 at a time, and matches the plain version: m and l
+    under :func:`_k9_close`'s limits, acc / l under its 2e-3 where every
+    row attends all 128 keys (non-causal).  Causal, acc / l is held to
+    float64 attention under the reference's flash bound instead
+    (tests/test_ring_attention.py): at 2^16 heads, rows that attend a
+    few keys show single bf16 flips of p above 2e-3 (the mma.sync design
+    does on the same inputs too: tools/k9_probe.py)."""
+    dev, gen = cuda
+    BH, group, s, d = 65536, 4, 128, 128
+    q, k, v, state = _k9_operands(gen, dev, BH, group, s, s, d)
+    got = _launched("flash_update", lambda: flash_attention.flash_update(
+        q, k, v, *state, 0, 0, causal=causal))
+    n, nk = 16384, 16384 // group
+    parts = [flash_attention.flash_update(
+        q[i:i + n], k[i // group:i // group + nk],
+        v[i // group:i // group + nk], *(x[i:i + n] for x in state), 0, 0,
+        causal=causal) for i in range(0, BH, n)]
+    for j in range(3):
+        assert torch.equal(got[j], torch.cat([p[j] for p in parts]))
+    del parts
+    want = flash_attention.plain_flash_update(q, k, v, *state, 0, 0,
+                                              causal=causal)
+    if not causal:
+        _k9_close(got, want)
+        return
+    fin = torch.isfinite(want[0])
+    torch.testing.assert_close(got[0][fin], want[0][fin], rtol=1e-6,
+                               atol=1e-6)
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0)
+    del want
+    out = got[2] / got[1]
+    mask = torch.ones((s, s), dtype=torch.bool, device=dev).tril()
+    for i in range(0, BH, 4096):
+        qb = q[i:i + 4096].double()
+        kb, vb = (x[i // group:(i + 4096) // group].double()
+                  .repeat_interleave(group, 0) for x in (k, v))
+        logits = (qb @ kb.transpose(1, 2) / d ** 0.5).masked_fill(
+            ~mask, float("-inf"))
+        torch.testing.assert_close(out[i:i + 4096].double(),
+                                   torch.softmax(logits, -1) @ vb,
+                                   rtol=5e-2, atol=5e-3)
 
 
 def _ring_inputs(gen, S, h, hkv, d, dev):
@@ -538,6 +589,38 @@ def test_wide_heads_take_k9_on_the_ring(cuda):
     torch.testing.assert_close(out["cuda:0"].float().cpu(),
                                out["cpu"].float(), rtol=2e-3 + 2.0 ** -7,
                                atol=2e-3)
+
+
+def test_ring_attention_with_more_than_65535_heads(cuda):
+    """B * h = 2048 * 32 = 65536 q heads on one card rank take the flash
+    ring (one K9 launch), and rows of the first and last batch elements
+    match float64 attention within the reference's flash bound
+    (tests/test_ring_attention.py)."""
+    import dr_tpu_torch as dt
+    dev, gen = cuda
+    B, S, h, hkv, d = 2048, 128, 32, 8, 128
+    q = torch.randn((B, S, h, d), generator=gen, device=dev).bfloat16()
+    k, v = (torch.randn((B, S, hkv, d), generator=gen,
+                        device=dev).bfloat16() for _ in range(2))
+    dt.init(["cuda:0"])
+    try:
+        before = kernels.launches["flash_update"]
+        out = dt.ring_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert kernels.launches["flash_update"] - before == 1
+    finally:
+        dt.final()
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    mask = torch.ones((S, S), dtype=torch.bool, device=dev).tril()
+    for b in (0, B - 1):
+        qb = q[b].double().transpose(0, 1)                 # (h, S, d)
+        kb, vb = (x[b].double().transpose(0, 1)
+                  .repeat_interleave(h // hkv, 0) for x in (k, v))
+        logits = (qb @ kb.transpose(1, 2) / d ** 0.5).masked_fill(
+            ~mask, float("-inf"))
+        want = torch.softmax(logits, -1) @ vb
+        torch.testing.assert_close(out[b].double().transpose(0, 1), want,
+                                   rtol=5e-2, atol=5e-3)
 
 
 def test_ring_attention_never_waits_for_the_host(cuda):

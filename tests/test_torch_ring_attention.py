@@ -311,7 +311,8 @@ def test_one_streaming_kernel_matches_both_pallas_variants(causal,
                                                            monkeypatch):
     """The port's one K-tile loop is the counterpart of the resident and
     the streaming TPU kernels: it matches both, at zero and at ring
-    offsets, and its 64-key tiles match 128-key ones."""
+    offsets, and its 128-key tiles (the kernel's at d = 128) match 64-key
+    ones."""
     rng = np.random.default_rng(21)
     BH, s, d = 4, 256, 128
     q, k, v = (_randn(rng, BH, s, d) for _ in range(3))
@@ -328,7 +329,7 @@ def test_one_streaming_kernel_matches_both_pallas_variants(causal,
                                     interpret=True)
             _check_state(got, want)
         wide = tfa.plain_flash_update(tq, tk, tv, *_torch_state(jstate),
-                                      *offs, causal=causal, block_k=128)
+                                      *offs, causal=causal, block_k=64)
         _check_state(got, wide)
 
 
