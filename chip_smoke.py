@@ -9,9 +9,12 @@ checks the kernels at small shapes only).  Phases:
    K8 runs on K7's library);
 3. hold each kernel against its plain PyTorch version at the main-path
    shapes, on the card (K6 and K7 bit for bit: K6 at M in {256, 4096,
-   2^15}, keys-only and KV; K7 at nseg in {1, 127, 128, 129, 2^15} over
-   int32, f32, bf16, 8- and 16-bit integer and bool columns, and at
-   n = 2^30 in one segment; K8 at n = 2^30 over 1024 and 2^15 bins);
+   2^15}, keys-only and KV, one block a call, and batches of 8 and 133
+   blocks at M in {256, 4096, 16384, 2^15}; K7 at nseg in {1, 127, 128,
+   129, 2^15} over int32, f32, bf16, 8- and 16-bit integer and bool
+   columns, at n = 2^30 in one segment, and on columns that start 0 to
+   15 elements past a 16-byte boundary with ragged tails; K8 at
+   n = 2^30 over 1024 and 2^15 bins);
 4. the 1-D main path at full size on one rank: a 2^30-element f32
    ``distributed_vector``, 512 steps of ``stencil_iterate_matmul``
    (k_block=256, halo 512) and of ``stencil_iterate_blocked``
@@ -41,8 +44,9 @@ checks the kernels at small shapes only).  Phases:
     an empty rank: keys-only, a window, key-value, and the seconds of
     each phase of the sample sort;
 11. the K6 path: 8 ranks x 16384 keys and 4 ranks x 2^15, ``sort``,
-    ``sort_by_key`` and ``sort_n(8)``; K6 launches once per rank and
-    sort; and the peak device memory of the paths;
+    ``sort_by_key`` and ``sort_n(8)``; K6 launches once per sort (the
+    ranks share the card, so their blocks are one batch); and the peak
+    device memory of the paths;
 12. ring attention on one rank at Llama-3-8B's attention geometry and a
     32k-token context (B = 1, S = 32768, 32 q heads, 8 K/V heads, d =
     128, bf16), causal and not: one K9 launch per call, the output
@@ -58,7 +62,8 @@ checks the kernels at small shapes only).  Phases:
     fan-in 16, a permuted dimension table; join -> groupby sum -> top_k
     8, and a 16-bin histogram of the joined values) at n_fact = 2^26 over
     2^22 keys, a 1024-bin histogram of 2^30 f32 normals, and bench.py's
-    kernel geometry (8192 int32 keys a rank: K6, K7 and K8 once a rank);
+    kernel geometry (8192 int32 keys a rank: K7 and K8 once a rank, K6
+    once);
     K7 launches 0 times on the 2^26 groupby (above its cap); every result
     against torch or numpy oracles that do not use the port's code;
 15. the same on 4 ranks of the card at n_fact = 2^24: the partition
@@ -384,7 +389,9 @@ def k6_inputs(n, gen, dev):
 def k6_checks(gen, results, device="cuda:0"):
     """Phase 3, K6: bit for bit against torch.sort of the same encoding,
     keys-only and (key, gid) pairs, at M in {256, 4096, 2^15}, full and
-    padded blocks (the KV 2^15 block crosses the shared-memory tile)."""
+    padded blocks (the KV 2^15 block runs on a two-block cluster), then
+    batches of 8 and 133 blocks (more than the SMs) at M in {256, 4096,
+    16384, 2^15}."""
     import torch
     from dr_tpu_torch.ops import sort_pallas
     dev = torch.device(device)
@@ -406,7 +413,31 @@ def k6_checks(gen, results, device="cuda:0"):
                 rk, rg = sort_pallas.plain_sort_kv(keys, gid)
                 check_bits(f"K6 kv keys M={M} n={n} {kind}", gk, rk, worst)
                 check_bits(f"K6 kv gids M={M} n={n} {kind}", gg, rg, worst)
-    log("  K6 bitonic_sort: 30 keys-only and 30 KV blocks bit-exact ok")
+    # batches: one launch sorts every row; 133 rows are more than the SMs
+    for M in (256, 4096, 16384, 1 << 15):
+        for n in (M, M - 37):
+            for b in (8, 133):
+                keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (b, n),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)
+                keys[:, ::3] = torch.randint(-3, 3, keys[:, ::3].shape,
+                                             generator=gen, device=dev,
+                                             dtype=torch.int32)
+                keys[:, 1::11] = imax
+                gid = torch.argsort(torch.rand((b, n), generator=gen,
+                                               device=dev), dim=1).to(
+                    torch.int32)
+                keys[:, -5:] = imax  # pad-like pairs
+                gid[:, -5:] = imax
+                check_bits(f"K6 batch {b}x{n} keys",
+                           sort_pallas.sort_keys(keys),
+                           sort_pallas.plain_sort_keys(keys), worst)
+                gk, gg = sort_pallas.sort_kv(keys, gid)
+                rk, rg = sort_pallas.plain_sort_kv(keys, gid)
+                check_bits(f"K6 batch {b}x{n} kv keys", gk, rk, worst)
+                check_bits(f"K6 batch {b}x{n} kv gids", gg, rg, worst)
+    log("  K6 bitonic_sort: 30 keys-only and 30 KV blocks, 16 keys-only "
+        "and 16 KV batches bit-exact ok")
     results["bitonic_sort"]["max_abs_err"] = worst[0]
 
 
@@ -472,9 +503,54 @@ def k7_checks(n, gen, results, device="cuda:0"):
     check_bits(f"K7 int32 sum n={n} one segment",
                sr.segmented(None, 1, ((xi, "sum"),))[0],
                sr.plain_segmented(None, 1, ((xi, "sum"),))[0], worst)
-    log(f"  K7 segred: bit-exact ok at nseg 1..2^15 and n={n}")
+    k7_unaligned(gen, dev, worst)
+    log(f"  K7 segred: bit-exact ok at nseg 1..2^15 and n={n}, unaligned "
+        f"starts and ragged tails")
     results["segred"]["max_abs_err"] = worst[0]
     del x, xi
+
+
+def k7_unaligned(gen, dev, worst):
+    """K7 on columns that start 0 to 3 elements (f32, bf16) or 0 to 15
+    (int8, bool) past a 16-byte boundary, ids at the same and at another
+    offset, n in {1, 15, 17, 2^20 + 3} (ragged tails) and nseg in {none,
+    1, 127, 1024, 1025, 2^15} (every route of the kernel), NaN and +-0.0
+    in the floats: bit for bit against the plain version."""
+    import torch
+    from dr_tpu_torch.ops import segred_pallas as sr
+    for n in (1, 15, 17, (1 << 20) + 3):
+        base = n + 16
+        f = torch.randn(base, generator=gen, device=dev)
+        special = torch.tensor([0.0, -0.0, float("nan"), float("inf"),
+                                float("-inf")], device=dev)
+        pos = torch.randint(0, base, (max(base // 8, 1),), generator=gen,
+                            device=dev)
+        f[pos] = special[torch.randint(0, 5, pos.shape, generator=gen,
+                                       device=dev)]
+        h = f.bfloat16()
+        i8 = torch.randint(-128, 128, (base,), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int8)
+        tf = torch.rand(base, generator=gen, device=dev) < 0.7
+        for nseg in (None, 1, 127, 1024, 1025, 1 << 15):
+            ids = None if nseg is None else torch.randint(
+                -2, nseg + 2, (base,), generator=gen, device=dev,
+                dtype=torch.int32)
+            for off in range(16):
+                calls = [((i8[off:off + n], "sum"), (i8[off:off + n], "max"),
+                          (tf[off:off + n], "sum"), (tf[off:off + n], "min"))]
+                if off < 4:
+                    calls.append(((f[off:off + n], "min"),
+                                  (f[off:off + n], "max"),
+                                  (h[off:off + n], "min"),
+                                  (h[off:off + n], "max")))
+                for j, cols in enumerate(calls):
+                    io = (off + j) % 4
+                    seg = None if ids is None else ids[io:io + n]
+                    got = sr.segmented(seg, nseg or 1, cols)
+                    ref = sr.plain_segmented(seg, nseg or 1, cols)
+                    for (v, op), g, r in zip(cols, got, ref):
+                        check_bits(f"K7 {v.dtype} {op} n={n} nseg={nseg} "
+                                   f"offset={off}", g, r, worst)
 
 
 def stepper(dt, times):
@@ -948,7 +1024,8 @@ def k6_path(dt, seed, device="cuda:0"):
     """Phase 11: the sort at the JAX package's K6 geometry (bench.py's
     16384 keys per rank on 8 ranks) and at the cap (2^15 on 4 ranks):
     sort, sort_by_key and sort_n(8), against numpy; returns the number
-    of sorts times ranks, the K6 launches the phase must make."""
+    of sorts, the K6 launches the phase must make (the ranks share one
+    device, so each sort sorts their blocks in one batch)."""
     import torch
     from dr_tpu_torch.algorithms import sort as dt_sort
     want_launches = 0
@@ -974,7 +1051,7 @@ def k6_path(dt, seed, device="cuda:0"):
         dt.sort_n(w, K6_ROUNDS)
         check_true(f"K6 path {ranks}x{per} sort_n({K6_ROUNDS}) vs numpy",
                    np.array_equal(encoded_host(dt_sort, w.to_array()), want))
-        want_launches += ranks * (2 + K6_ROUNDS)
+        want_launches += 2 + K6_ROUNDS
     return want_launches
 
 
@@ -1083,38 +1160,49 @@ def bitonic_ops(M):
 
 def sort_timings(gen, results):
     """Phase 8, K6 and K7: kernel, plain and library times.  K6 at the
-    K6 path's blocks: 16384 keys (the row) and 2^15, keys-only and KV;
-    the library call is torch.sort of the same keys (of the packed
-    int64 pairs for KV).  K7 at reduce's shape, 2^30 f32 in one segment
-    (library torch.amin), and at n = nseg = 2^15 (library
+    K6 path's blocks: 16384 keys (the row) and 2^15, keys-only and KV,
+    and the K6 path's batch of 8 x 16384 in one launch; the library call
+    is torch.sort of the same keys (of the packed int64 pairs for KV);
+    each row also gives its one-SM floor, the compare-exchanges of one
+    row at one SM's share of the fp32 rate (the floor of a design that
+    gives each row one SM).  K7 at reduce's shape, 2^30 f32 in one
+    segment (library torch.amin), and at n = nseg = 2^15 (library
     scatter_reduce)."""
     import torch
     from dr_tpu_torch.ops import segred_pallas as sr
     from dr_tpu_torch.ops import sort_pallas
     dev = torch.device("cuda", 0)
     one_sm = FP32_FLOP_PER_S / 132
-    for M in (K6_GEOMS[0][1], 1 << 15):
-        keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (M,), generator=gen,
+    for b, M in ((1, K6_GEOMS[0][1]), (1, 1 << 15),
+                 (K6_GEOMS[0][0], K6_GEOMS[0][1])):
+        shape = (M,) if b == 1 else (b, M)
+        keys = torch.randint(-2 ** 31, 2 ** 31 - 1, shape, generator=gen,
                              device=dev, dtype=torch.int32)
-        gid = torch.randperm(M, generator=gen, device=dev).to(torch.int32)
+        gid = torch.argsort(torch.rand(shape, generator=gen, device=dev),
+                            dim=-1).to(torch.int32)
         packed = (keys.long() << 32) | (gid.long() + (1 << 31))
+        floor = bitonic_ops(M) / one_sm * 1e3
         row = {
             "ms": events_ms(lambda: sort_pallas.sort_keys(keys), 50),
             "plain_ms": events_ms(lambda: sort_pallas.plain_sort_keys(keys),
                                   50),
             "library_ms": events_ms(lambda: torch.sort(keys), 50)}
-        row["bound_ms"], row["bound_by"] = bound(2 * M * 4, bitonic_ops(M))
+        row["bound_ms"], row["bound_by"] = bound(2 * b * M * 4,
+                                                 b * bitonic_ops(M))
+        row["one_sm_ms"] = floor
         kv = {
             "ms": events_ms(lambda: sort_pallas.sort_kv(keys, gid), 50),
             "plain_ms": events_ms(lambda: sort_pallas.plain_sort_kv(keys,
                                                                     gid), 50),
             "library_ms": events_ms(lambda: torch.sort(packed), 50)}
-        kv["bound_ms"], kv["bound_by"] = bound(4 * M * 4, bitonic_ops(M))
-        floor = bitonic_ops(M) / one_sm * 1e3
-        log(f"  K6 M={M} keys-only {json.dumps(row)}; KV {json.dumps(kv)}; "
-            f"one-SM floor {floor!r} ms")
-        if M == K6_GEOMS[0][1]:
-            results["bitonic_sort"].update(row)
+        kv["bound_ms"], kv["bound_by"] = bound(4 * b * M * 4,
+                                               b * bitonic_ops(M))
+        kv["one_sm_ms"] = floor
+        log(f"  K6 {b}x{M} keys-only {json.dumps(row)}; KV {json.dumps(kv)}")
+        if (b, M) == (1, K6_GEOMS[0][1]):
+            results["bitonic_sort"].update(
+                {k: row[k] for k in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by")})
     n = 1 << 30
     x = torch.randn(n, generator=gen, device=dev)
     r = results["segred"]
@@ -1679,10 +1767,10 @@ def check_relational(tag, data, out):
 
 def relational_geometry(dt, ranks, seed, kernels, device="cuda:0"):
     """The bench's kernel geometry (bench.py:1029-1051): 8192 int32 keys
-    in [0, 512) a rank with int32 values, groupby sum (K6 sorts each
-    rank's block once, K7 reduces it once) and a 256-bin histogram over
-    [-4, 4] (K8 once a rank), against numpy.  A CPU rehearsal launches
-    nothing."""
+    in [0, 512) a rank with int32 values, groupby sum (K6 sorts the
+    ranks' blocks in one batch, K7 reduces each rank's once) and a
+    256-bin histogram over [-4, 4] (K8 once a rank), against numpy.  A
+    CPU rehearsal launches nothing."""
     import torch
     dt.init(dt.get_duplicated_devices(ranks, [device]))
     want = ranks if torch.device(device).type == "cuda" else 0
@@ -1703,10 +1791,11 @@ def relational_geometry(dt, ranks, seed, kernels, device="cuda:0"):
     dt.fence()
     got = {k: kernels.launches[k] - before[k] for k in before}
     log(f"  kernel geometry {ranks} x 8192: launches {got}")
-    for k in ("segred", "hist", "bitonic_sort"):
-        if got[k] != want:
+    wants = {"segred": want, "hist": want, "bitonic_sort": min(want, 1)}
+    for k, w in wants.items():
+        if got[k] != w:
             raise AssertionError(f"{k} launched {got[k]} times at the "
-                                 f"kernel geometry, expected {want}")
+                                 f"kernel geometry, expected {w}")
     uk, inv = np.unique(keys, return_inverse=True)
     sums = np.bincount(inv, weights=vals).astype(np.int32)
     check_true(f"geometry {ranks} ranks groupby vs numpy", ng == len(uk)

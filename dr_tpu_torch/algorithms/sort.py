@@ -7,9 +7,10 @@ phase for phase:
 1. local sort of each rank's owned (or window) cells as monotone order
    keys, padded to the widest rank ``S`` with the pad key; with a
    payload, the global index rides along as a tiebreak channel (the pair
-   order is total).  Blocks of up to 2^15 keys take K6
-   (``ops/sort_pallas.py``); larger ones ``torch.sort`` (the JAX
-   package's ``lax.sort``);
+   order is total).  The blocks of the ranks that share a device are
+   one ``(b, S)`` batch and one call: K6 (``ops/sort_pallas.py``) for
+   blocks of up to 2^15 keys, ``torch.sort`` (the JAX package's
+   ``lax.sort``) for larger ones;
 2. regular samples: ``p-1`` evenly spaced keys of each rank's run,
    gathered, sorted, and every ``p-1``-th taken as the ``p-1`` splitters;
 3. bucket exchange: each destination's keys are one contiguous run of
@@ -104,14 +105,46 @@ def _const(values, dev) -> torch.Tensor:
     return t
 
 
-def _local_sort(kv: torch.Tensor, gid):
-    """Phase 1's sort of one rank's padded block: K6 where eligible."""
-    k6 = sort_pallas.eligible(kv.numel(), kv.dtype)
-    if gid is None:
-        return (sort_pallas.sort_keys(kv) if k6
-                else sort_pallas.plain_sort_keys(kv)), None
-    return sort_pallas.sort_kv(kv, gid) if k6 \
-        else sort_pallas.plain_sort_kv(kv, gid)
+def _local_sort(geo, with_gid: bool, distinct_zeros: bool):
+    """Phase 1: every rank's cells as order keys (and, ``with_gid``, their
+    global indices), padded to the widest rank ``S`` with the pad key (and
+    GMAX), the ranks of one device written into one ``(b, S)`` batch and
+    sorted by one call: K6 where eligible.  Returns the per-rank rows of
+    keys and gids (None without ``with_gid``), and the pad key."""
+    p, S, devs = geo.p, geo.S, geo.cont.runtime.devices
+    groups = {}
+    for r in range(p):
+        groups.setdefault(devs[r], []).append(r)
+    xs, gs, big = [None] * p, [None] * p, None
+    for dev, ranks in groups.items():
+        keys = [_encode(geo.cells(r), distinct_zeros) for r in ranks]
+        big = keys[0][1]
+        kb = torch.full((len(ranks), S), big, dtype=keys[0][0].dtype,
+                        device=dev)
+        gb = torch.full((len(ranks), S), GMAX, dtype=torch.int32,
+                        device=dev) if with_gid else None
+        for i, (r, (k, _)) in enumerate(zip(ranks, keys)):
+            nv = int(geo.nvalid[r])
+            kb[i, :nv] = k
+            if with_gid:
+                g0 = int(geo.starts[r])
+                gb[i, :nv] = torch.arange(g0, g0 + nv, dtype=torch.int32,
+                                          device=dev)
+        if len(ranks) == 1:  # one block: torch.sort's 1-D path, not (1, S)
+            kb, gb = kb[0], (gb[0] if with_gid else None)
+        k6 = sort_pallas.eligible(S, kb.dtype)
+        if with_gid:
+            x, g = (sort_pallas.sort_kv if k6
+                    else sort_pallas.plain_sort_kv)(kb, gb)
+        else:
+            x, g = (sort_pallas.sort_keys if k6
+                    else sort_pallas.plain_sort_keys)(kb), None
+        if len(ranks) == 1:
+            x, g = x[None], (g[None] if with_gid else None)
+        for i, r in enumerate(ranks):
+            xs[r] = x[i]
+            gs[r] = g[i] if with_gid else None
+    return xs, gs, big
 
 
 class _Geo:
@@ -229,20 +262,7 @@ def _sort_chains(kc, vc, descending, stop_after=None):
     # --- phase 1: local sort of the order keys (+ the gid channel).  A
     # truncated program writes the keys of its last phase back and
     # leaves the payload alone.
-    xs, gs = [], []
-    for r in range(p):
-        k, big = _encode(geo.cells(r), distinct_zeros=vc is None)
-        kv = _padded(k, S, big)
-        gid = None
-        if vc is not None:
-            nv = int(geo.nvalid[r])
-            gid = torch.full((S,), GMAX, dtype=torch.int32, device=devs[r])
-            g0 = int(geo.starts[r])
-            gid[:nv] = torch.arange(g0, g0 + nv, dtype=torch.int32,
-                                    device=devs[r])
-        x, g = _local_sort(kv, gid)
-        xs.append(x)
-        gs.append(g)
+    xs, gs, big = _local_sort(geo, vc is not None, distinct_zeros=vc is None)
     if stop_after == "local_sort":
         return finish(xs)
 

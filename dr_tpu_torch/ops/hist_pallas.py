@@ -12,6 +12,8 @@ agree bit for bit.
 
 On the card each element of a histogram's unsorted ids is one shared-
 memory atomic (K7's run-length fold only helps runs of equal ids); the
+ids and counts are read 16 bytes at a time, and a call makes one launch
+where the blocks' bin tables fit K7's partials (16 bins), two above; the
 bound is the bytes of the ids and counts, read once.
 
 Eligibility is ``1 <= bins <= 2^15`` (the kernel's per-block key table)

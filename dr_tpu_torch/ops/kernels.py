@@ -60,9 +60,10 @@ _SIGNATURES = {
     "dr_chunked_cumsum": [_P, _L, _I, _P, _P, _P, _L, _P, _P],
     "dr_stencil2d_blocked": [_P, _P, ctypes.POINTER(ctypes.c_float), _I,
                              _L, _L, _I, _I, _P],
-    "dr_bitonic_sort": [_P, _P, _L, _I, _P, _P, _P],
+    "dr_bitonic_sort": [_P, _P, _L, _I, _L, _P, _P, _P],
     "dr_segred": [_P, _L, _I, _I, ctypes.POINTER(_L), ctypes.POINTER(_I),
                   ctypes.POINTER(_I), ctypes.POINTER(_L), _P, _P],
+    "dr_segred_workspace_ints": [],
     "dr_flash_update": [_P] * 9 + [_I] * 5 + [_L, _L, _I, _P],
 }
 
@@ -170,8 +171,11 @@ def launch(name: str, symbol: str, device, *args, counter=None) -> None:
     argument is the stream), raise if the launch was refused, and count
     it under ``counter`` (default ``name``)."""
     fn = getattr(library(name), symbol)
-    with torch.cuda.device(device):
+    if device.index is None or device.index == torch.cuda.current_device():
         err = fn(*args)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch "
                            f"(cudaError {err})")

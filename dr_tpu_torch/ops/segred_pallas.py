@@ -22,8 +22,8 @@ keys of ``ops/order_keys.py`` (bf16/f16 widened exactly to f32), -0.0
 (key -1) below +0.0 (key 0), and a NaN maps to INT32_MIN for min and
 INT32_MAX for max, past every other key, so the fold propagates it.
 
-Routes: CUDA tensors take ``csrc/segred.cu`` (shared-memory atomics on
-the keys, one launch per call); CPU tensors take
+Routes: CUDA tensors take ``csrc/segred.cu`` (one launch a call with
+no ids or few segments, two with many; see its note); CPU tensors take
 :func:`plain_segmented`.  The JAX package's ``n <= 2^15`` cap was the
 VMEM footprint of its ``(128, n)`` mask and is dropped; the
 ``nseg <= 2^15`` cap stays (the kernel's per-block key table).
@@ -154,9 +154,24 @@ def plain_segmented(segid, nseg: int, cols):
 
 # ------------------------------------------------------------------ kernel
 
+#: the kernel's workspace, one a (device index, stream): zeroed when
+#: made, zero again after every call (csrc/segred.cu), so a call on one
+#: stream never shares a ticket or a key table with a call on another
+_WORKSPACES: dict = {}
+
+
+def _workspace(dev: torch.device, stream: int) -> torch.Tensor:
+    ws = _WORKSPACES.get((dev.index, stream))
+    if ws is None:
+        ints = kernels.library("segred").dr_segred_workspace_ints()
+        ws = _WORKSPACES[(dev.index, stream)] = torch.zeros(
+            ints, dtype=torch.int32, device=dev)
+    return ws
+
+
 def _kernel_segmented(segid, nseg, cols, counter="segred"):
-    """One ``dr_segred`` launch, counted under ``counter`` (K8 counts its
-    bincounts as ``hist``)."""
+    """One ``dr_segred`` call (one launch, two with many segments),
+    counted under ``counter`` (K8 counts its bincounts as ``hist``)."""
     cols = _columns(cols)
     if not 1 <= len(cols) <= MAX_COLS:
         raise ValueError(f"the K7 kernel takes 1 to {MAX_COLS} columns")
@@ -180,14 +195,15 @@ def _kernel_segmented(segid, nseg, cols, counter="segred"):
                          "columns' length")
     k = len(cols)
     outs = [torch.empty(nseg, dtype=v.dtype, device=dev) for v, _ in cols]
-    keys = torch.empty((k, nseg), dtype=torch.int32, device=dev)
     vals = (ctypes.c_longlong * k)(*[v.data_ptr() for v, _ in cols])
     optrs = (ctypes.c_longlong * k)(*[o.data_ptr() for o in outs])
     dtypes = (ctypes.c_int * k)(*[KERNEL_DTYPES[v.dtype] for v, _ in cols])
     ops = (ctypes.c_int * k)(*[_OP_CODE[op] for _, op in cols])
+    stream = kernels.stream_of(outs[0])
     kernels.launch("segred", "dr_segred", dev, kernels.ptr(segid), n, nseg,
-                   k, vals, dtypes, ops, optrs, keys.data_ptr(),
-                   kernels.stream_of(keys), counter=counter)
+                   k, vals, dtypes, ops, optrs,
+                   _workspace(dev, stream).data_ptr(), stream,
+                   counter=counter)
     return tuple(outs)
 
 

@@ -211,7 +211,7 @@ def _same_bits(got, want):
         gn, wn = torch.isnan(got), torch.isnan(want)
         assert torch.equal(gn, wn)
         got, want = got.masked_fill(gn, 0), want.masked_fill(wn, 0)
-    ints = {2: torch.int16, 4: torch.int32}
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
     assert torch.equal(got.view(ints[got.element_size()]),
                        want.view(ints[want.element_size()]))
 
@@ -221,7 +221,7 @@ def _same_bits(got, want):
 @pytest.mark.parametrize("kv", [False, True])
 def test_k6_kernel_matches_plain(cuda, M, short, kv):
     """Bit for bit against torch.sort of the same keys; KV at 2^15 runs
-    the stage that crosses the shared-memory tile in device memory."""
+    on the two-block cluster."""
     dev, gen = cuda
     n = M - short
     keys = torch.randint(-3, 3, (n,), generator=gen, device=dev,
@@ -236,6 +236,126 @@ def test_k6_kernel_matches_plain(cuda, M, short, kv):
                        lambda: sort_pallas.sort_kv(keys, gid))
     rk, rg = sort_pallas.plain_sort_kv(keys, gid)
     assert torch.equal(gk, rk) and torch.equal(gg, rg)
+
+
+@pytest.mark.parametrize("b", [1, 8, 133])
+@pytest.mark.parametrize("M", [256, 4096, 16384, 1 << 15])
+@pytest.mark.parametrize("short", [0, 37])
+@pytest.mark.parametrize("kv", [False, True])
+def test_k6_batched_kernel_matches_plain(cuda, b, M, short, kv):
+    """One launch sorts every row of a (b, n) batch bit for bit as the
+    plain version does, 133 rows being more than the card's SMs; keys
+    with duplicates and at the pad, pad-like (INT32_MAX, INT32_MAX)
+    pairs; KV at 2^15 runs the two-block cluster."""
+    dev, gen = cuda
+    n = M - short
+    imax = torch.iinfo(torch.int32).max
+    keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (b, n), generator=gen,
+                         device=dev, dtype=torch.int32)
+    keys[:, ::3] = torch.randint(-3, 3, keys[:, ::3].shape, generator=gen,
+                                 device=dev, dtype=torch.int32)
+    keys[:, 1::11] = imax
+    if not kv:
+        got = _launched("bitonic_sort", lambda: sort_pallas.sort_keys(keys))
+        assert got.shape == (b, n)
+        assert torch.equal(got, sort_pallas.plain_sort_keys(keys))
+        return
+    gid = torch.argsort(torch.rand((b, n), generator=gen, device=dev),
+                        dim=1).to(torch.int32)
+    keys[:, -3:] = imax
+    gid[:, -3:] = imax
+    gk, gg = _launched("bitonic_sort",
+                       lambda: sort_pallas.sort_kv(keys, gid))
+    rk, rg = sort_pallas.plain_sort_kv(keys, gid)
+    assert gk.shape == gg.shape == (b, n)
+    assert torch.equal(gk, rk) and torch.equal(gg, rg)
+
+
+def _k7_column(kind, base, gen, dev):
+    """A column of ``kind`` over ``base`` elements: f32 and bf16 with
+    NaN, +-0.0 and infinities planted; int8 of the full range; bool."""
+    if kind in ("float32", "bfloat16"):
+        f = torch.randn(base, generator=gen, device=dev)
+        special = torch.tensor([0.0, -0.0, float("nan"), float("inf"),
+                                float("-inf")], device=dev)
+        pos = torch.randint(0, base, (max(base // 8, 1),), generator=gen,
+                            device=dev)
+        f[pos] = special[torch.randint(0, 5, pos.shape, generator=gen,
+                                       device=dev)]
+        return f if kind == "float32" else f.bfloat16()
+    if kind == "int8":
+        return torch.randint(-128, 128, (base,), generator=gen, device=dev,
+                             dtype=torch.int32).to(torch.int8)
+    return torch.rand(base, generator=gen, device=dev) < 0.7
+
+
+@pytest.mark.parametrize("n", [1, 15, 17, (1 << 20) + 3])
+@pytest.mark.parametrize("nseg", [None, 1, 127, 1024, 1025, 1 << 15])
+def test_k7_unaligned_starts_and_ragged_tails(cuda, n, nseg):
+    """Columns that start 0 to 3 elements (f32, bf16) or 0 to 15 (int8,
+    bool) past a 16-byte boundary, ids at the same and at another
+    offset, ragged tails; one launch a call (counted once), against the
+    plain version bit for bit, NaN and +-0.0 included."""
+    dev, gen = cuda
+    base = n + 16
+    cols = {k: _k7_column(k, base, gen, dev)
+            for k in ("float32", "bfloat16", "int8", "bool")}
+    ids = None if nseg is None else torch.randint(
+        -2, nseg + 2, (base,), generator=gen, device=dev, dtype=torch.int32)
+    for off in range(16):
+        calls = []
+        if off < 4:
+            f, h = cols["float32"][off:off + n], cols["bfloat16"][off:off + n]
+            calls.append(((f, "min"), (f, "max"), (h, "min"), (h, "max")))
+        i8, tf = cols["int8"][off:off + n], cols["bool"][off:off + n]
+        calls.append(((i8, "sum"), (i8, "max"), (tf, "sum"), (tf, "min")))
+        for j, c in enumerate(calls):
+            io = (off + j) % 4  # the ids aligned with the values, or not
+            seg = None if ids is None else ids[io:io + n]
+            got = _launched("segred", lambda: segred_pallas.segmented(
+                seg, nseg or 1, c))
+            for g, r in zip(got, segred_pallas.plain_segmented(
+                    seg, nseg or 1, c)):
+                _same_bits(g, r)
+
+
+@pytest.mark.parametrize("nseg", [None, 16, 1 << 15])
+def test_k7_back_to_back_and_on_two_streams(cuda, nseg):
+    """The workspace's ticket and key table are left zero by every call:
+    calls back to back on one stream, and calls queued on two streams
+    without waiting for each other, each equal their plain version
+    (nseg None, 16 and 2^15 take the one-segment, the two-stage and the
+    global-atomic routes)."""
+    dev, gen = cuda
+    n = (1 << 20) + 5
+    x = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
+                      device=dev, dtype=torch.int32)
+    f = torch.randn(n, generator=gen, device=dev)
+    ids = None if nseg is None else torch.randint(
+        0, nseg, (n,), generator=gen, device=dev, dtype=torch.int32)
+    want = [segred_pallas.plain_segmented(ids, nseg or 1, c)
+            for c in (((x, "sum"),), ((f, "min"), (x, "max")))]
+    got = [segred_pallas.segmented(ids, nseg or 1, c)
+           for c in (((x, "sum"),), ((f, "min"), (x, "max")))] * 1
+    got += [segred_pallas.segmented(ids, nseg or 1, c)
+            for c in (((x, "sum"),), ((f, "min"), (x, "max")))]
+    other = torch.cuda.Stream(dev)
+    torch.cuda.synchronize()
+    main = torch.cuda.current_stream(dev)
+    on_two = []
+    for _ in range(3):
+        on_two.append(segred_pallas.segmented(ids, nseg or 1, ((x, "sum"),)))
+        with torch.cuda.stream(other):
+            on_two.append(segred_pallas.segmented(
+                ids, nseg or 1, ((f, "min"), (x, "max"))))
+    main.wait_stream(other)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want * 2):
+        for a, b in zip(g, w):
+            _same_bits(a, b)
+    for i, g in enumerate(on_two):
+        for a, b in zip(g, want[i % 2]):
+            _same_bits(a, b)
 
 
 @pytest.mark.parametrize("nseg", [1, 129, 1 << 15])
@@ -306,14 +426,15 @@ def test_k7_kernel_narrow_columns(cuda, dtype, nseg):
 
 
 def test_sort_path_launch_counts(cuda):
-    """On 4 ranks of one card: one K6 launch per rank and sort while a
-    rank's block is within the cap, none above it; one K7 launch per
-    rank and eligible reduce; results against torch.sort."""
+    """On 4 ranks of one card: one K6 launch per sort (the four ranks'
+    blocks are one batch) while a rank's block is within the cap, none
+    above it; one K7 launch per rank and eligible reduce; results
+    against torch.sort."""
     import dr_tpu_torch as dt
     dev, gen = cuda
     dt.init(dt.get_duplicated_devices(4, ["cuda:0"]))
     try:
-        for n, k6 in ((4 * 5000, 4), (4 * 40000, 0)):
+        for n, k6 in ((4 * 5000, 1), (4 * 40000, 0)):
             src = torch.randn(n, generator=gen, device=dev)
             v = dt.distributed_vector.from_array(src)
             before = dict(kernels.launches)
@@ -677,8 +798,9 @@ def test_k8_kernel_matches_plain(cuda, bins, kind, n):
 
 
 def test_relational_kernel_routes_on_card(cuda):
-    """At the bench's kernel geometry a groupby launches K7 and its sort
-    K6 once per rank and a histogram K8 once per rank; int64 keys (an
+    """At the bench's kernel geometry a groupby launches K7 once per
+    rank and its sort K6 once (the ranks share the card, so their blocks
+    are one batch), and a histogram K8 once per rank; int64 keys (an
     8-byte key column) and a float sum take the torch route; every
     result equals the same op on CPU ranks."""
     import dr_tpu_torch as dt
@@ -712,7 +834,7 @@ def test_relational_kernel_routes_on_card(cuda):
 
     got, counts = run(dt.get_duplicated_devices(P, ["cuda:0"]))
     assert counts["segred"] == P and counts["hist"] == P \
-        and counts["bitonic_sort"] == P, counts
+        and counts["bitonic_sort"] == 1, counts
     want, _ = run(["cpu"] * P)
     for g, w in zip(got[:6], want[:6]):
         np.testing.assert_array_equal(g, w)

@@ -321,3 +321,50 @@ def test_reduce_nan_propagates(P, dtype):
         for r in (t, dt.views.transform(t, lambda v: v * 1.0)):
             assert np.isnan(dt.reduce(r, op=min))
             assert np.isnan(dt.reduce(r, op=max))
+
+
+UNALIGNED = [("float32", min, "min"), ("float32", max, "max"),
+             ("int32", None, "add"), ("int32", min, "min"),
+             ("int32", max, "max"), ("bfloat16", min, "min"),
+             ("int8", max, "max"), ("int16", None, "add")]
+
+
+@pytest.mark.parametrize("P", [1, 3])
+@pytest.mark.parametrize("dtype,op,kind", UNALIGNED)
+def test_reduce_k7_unaligned_windows_match_reference(monkeypatch, P, dtype,
+                                                     op, kind):
+    """Windows that start at odd columns of a halo-bearing vector: the
+    row slices ``reduce`` hands K7 (``c.cont._rows[r][0, a:b]``) start off
+    any 16-byte boundary and end in ragged tails, which the kernel reads
+    with a scalar head and tail around its vector loads; the result
+    equals ``dr_tpu.reduce`` bit for bit, one K7 call a rank."""
+    _init_both(P)
+    calls = _counting(monkeypatch)
+    rng = np.random.default_rng(P * 100 + len(dtype) + len(kind))
+    n = 71
+    if dtype in ("int8", "int16"):
+        src = _narrow_values(rng, n, dtype, "sum")
+    else:
+        src = _values(rng, n, "int32" if dtype == "int32" else "float32",
+                      nan=False)
+        if dtype != "int32":
+            src[src == 0] = 1.5  # signed zeros: test_torch_reduce_scan.py
+    if dtype == "bfloat16":
+        j = dr_tpu.distributed_vector(n, dtype=jnp.bfloat16,
+                                      halo=dr_tpu.halo_bounds(3, 2))
+        j.assign_array(src.astype(jnp.bfloat16))
+        t = dt.distributed_vector(n, dtype="bfloat16",
+                                  halo=dt.halo_bounds(3, 2))
+        t.assign_array(torch.from_numpy(src).to(torch.bfloat16))
+    else:
+        j = dr_tpu.distributed_vector.from_array(
+            src, halo=dr_tpu.halo_bounds(3, 2))
+        t = dt.distributed_vector.from_array(src, halo=dt.halo_bounds(3, 2))
+    npdt = {"float32": np.float32, "bfloat16": np.float32}.get(dtype,
+                                                               np.int64)
+    for a, b in ((1, 70), (3, 64), (5, 66), (7, 9), (2, 3)):
+        before = len(calls)
+        ref = dr_tpu.reduce(j[a:b], op=op)
+        got = dt.reduce(t[a:b], op=op)
+        assert len(calls) - before == P
+        assert_same_bits(_host_scalar(got, npdt), _host_scalar(ref, npdt))

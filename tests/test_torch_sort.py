@@ -138,6 +138,102 @@ def test_k6_plain_int64_keys_against_numpy():
     np.testing.assert_array_equal(gg.numpy(), gid[order])
 
 
+def _k6_batch(rng, b, n):
+    """A (b, n) batch of int32 keys and distinct gids: random keys,
+    duplicates, keys at the pad (INT32_MAX) and pad-like pairs
+    (INT32_MAX, INT32_MAX) in every row."""
+    imax = np.iinfo(np.int32).max
+    keys = rng.integers(-2 ** 31, 2 ** 31 - 1, (b, n)).astype(np.int32)
+    keys[:, ::3] = rng.integers(-4, 4, (b, len(range(0, n, 3))))
+    keys[:, 1::7] = imax
+    gid = np.stack([rng.permutation(n) for _ in range(b)]).astype(np.int32)
+    keys[:, -2:] = imax
+    gid[:, -2:] = imax
+    return keys, gid
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("n", [256, 219])
+def test_k6_plain_batch_matches_blocks_and_pallas_interpret(b, n):
+    """The plain version on a (b, n) batch at M = 256, full and padded
+    rows: every row equals the plain version of that row alone, and
+    ``dr_tpu.ops.sort_pallas`` in interpret mode on that row, keys-only
+    and (key, gid) pairs."""
+    rng = np.random.default_rng(b * 1000 + n)
+    keys, gid = _k6_batch(rng, b, n)
+    tk, tg = torch.from_numpy(keys), torch.from_numpy(gid)
+    assert t_sp.check_batch(tk, tg) == (b, n)
+    got = t_sp.sort_keys(tk)
+    gk, gg = t_sp.sort_kv(tk, tg)
+    assert got.shape == gk.shape == gg.shape == (b, n)
+    for r in range(b):
+        np.testing.assert_array_equal(got[r].numpy(),
+                                      t_sp.sort_keys(tk[r]).numpy())
+        rk, rg = t_sp.sort_kv(tk[r], tg[r])
+        np.testing.assert_array_equal(gk[r].numpy(), rk.numpy())
+        np.testing.assert_array_equal(gg[r].numpy(), rg.numpy())
+        ref = np.asarray(j_sp.sort_keys(jnp.asarray(_jax_key(keys[r])),
+                                        interpret=True))
+        np.testing.assert_array_equal(_jax_key(got[r].numpy()), ref)
+        jk, jg = j_sp.sort_kv(jnp.asarray(_jax_key(keys[r])),
+                              jnp.asarray(gid[r]), interpret=True)
+        np.testing.assert_array_equal(_jax_key(gk[r].numpy()),
+                                      np.asarray(jk))
+        np.testing.assert_array_equal(gg[r].numpy(), np.asarray(jg))
+
+
+def test_k6_plain_int64_batch_against_numpy():
+    """8-byte keys on a batch take the plain version row by row: against
+    ``np.lexsort`` of each row."""
+    rng = np.random.default_rng(5)
+    keys = rng.integers(-2 ** 62, 2 ** 62, (3, 500))
+    keys[:, ::5] = keys[:, 2:3]
+    gid = np.stack([rng.permutation(500) for _ in range(3)]).astype(np.int32)
+    gk, gg = t_sp.sort_kv(torch.from_numpy(keys), torch.from_numpy(gid))
+    for r in range(3):
+        order = np.lexsort((gid[r], keys[r]))
+        np.testing.assert_array_equal(gk[r].numpy(), keys[r][order])
+        np.testing.assert_array_equal(gg[r].numpy(), gid[r][order])
+
+
+_K6_REFUSED = {
+    "3-D batch": lambda: (torch.zeros((2, 2, 256), dtype=torch.int32),
+                          None),
+    "gid of another shape": lambda: (
+        torch.zeros((2, 256), dtype=torch.int32),
+        torch.zeros((2, 255), dtype=torch.int32)),
+    "int64 keys": lambda: (torch.zeros((2, 256), dtype=torch.int64), None),
+    "int64 gids": lambda: (torch.zeros(256, dtype=torch.int32),
+                           torch.zeros(256, dtype=torch.int64)),
+    "non-contiguous batch": lambda: (
+        torch.zeros((256, 4), dtype=torch.int32).t(), None),
+    "non-contiguous row slices": lambda: (
+        torch.zeros((3, 300), dtype=torch.int32)[:, :256], None),
+    "n above 2^15": lambda: (
+        torch.zeros((2, (1 << 15) + 1), dtype=torch.int32), None),
+    "empty block": lambda: (torch.zeros((2, 0), dtype=torch.int32), None),
+    "empty batch": lambda: (torch.zeros((0, 256), dtype=torch.int32), None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_K6_REFUSED))
+def test_k6_check_batch_refuses(case):
+    """The device-free validation of a K6 call raises on what the kernel
+    does not take."""
+    keys, gid = _K6_REFUSED[case]()
+    with pytest.raises(ValueError):
+        t_sp.check_batch(keys, gid)
+
+
+@pytest.mark.parametrize("shape", [(1,), (256,), (1 << 15,), (1, 300),
+                                   (133, 16384)])
+def test_k6_check_batch_takes(shape):
+    keys = torch.zeros(shape, dtype=torch.int32)
+    want = (1,) + shape if len(shape) == 1 else shape
+    assert t_sp.check_batch(keys, torch.zeros_like(keys)) == want
+    assert t_sp.check_batch(keys) == want
+
+
 def test_k6_eligibility():
     for n, ok in ((1, True), (256, True), (1 << 15, True),
                   ((1 << 15) + 1, False), (0, False)):
@@ -158,7 +254,7 @@ def _counting(monkeypatch):
         real = getattr(t_sp, name)
 
         def wrapper(*a, real=real, name=name):
-            calls.append((name, a[0].numel()))
+            calls.append((name, tuple(a[0].shape)))
             return real(*a)
         monkeypatch.setattr(t_sp, name, wrapper)
     return calls
@@ -166,9 +262,10 @@ def _counting(monkeypatch):
 
 @pytest.mark.parametrize("P,per", [(8, 2048), (4, 1 << 15), (2, 1 << 16)])
 def test_local_sort_takes_k6_up_to_the_cap(monkeypatch, P, per):
-    """Each rank's block goes through the K6 wrapper (once per rank and
-    sort) while the padded block is at most 2^15 keys, and through
-    torch.sort above it; the results equal dr_tpu's."""
+    """The ranks' blocks go through the K6 wrapper as one (P, S) batch a
+    device and sort (every CPU rank is one device) while the padded
+    block is at most 2^15 keys, and through torch.sort above it; the
+    results equal dr_tpu's."""
     _init_both(P)
     calls = _counting(monkeypatch)
     n = P * per - 5
@@ -183,7 +280,7 @@ def test_local_sort_takes_k6_up_to_the_cap(monkeypatch, P, per):
     assert_bits(dt.to_numpy(tv), dr_tpu.to_numpy(jv))
     S = -(-n // P)
     want = [] if S > 1 << 15 else \
-        [("sort_keys", S)] * P + [("sort_kv", S)] * P
+        [("sort_keys", (P, S)), ("sort_kv", (P, S))]
     assert calls == want
 
 
