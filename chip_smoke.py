@@ -8,9 +8,12 @@ checks the kernels at small shapes only).  Phases:
 2. build the eight CUDA sources from ``dr_tpu_torch/csrc`` (``nvcc``;
    K8 runs on K7's library);
 3. hold each kernel against its plain PyTorch version at the main-path
-   shapes, on the card (K6 and K7 bit for bit: K6 at M in {256, 4096,
-   2^15}, keys-only and KV, one block a call, and batches of 8 and 133
-   blocks at M in {256, 4096, 16384, 2^15}; K7 at nseg in {1, 127, 128,
+   shapes, on the card (K4 the same bits on a second call, and on
+   inputs 4 (f32) and 6 (bf16) bytes past a 16-byte boundary; K5 also on
+   partial last tiles with T = 17 and pad > T; K6 and K7 bit for bit:
+   K6 at M in {256, 4096, 2^15}, keys-only and KV, one block a call,
+   and batches of 8 and 133 blocks at M in {256, 4096, 16384, 2^15}; K7
+   at nseg in {1, 127, 128,
    129, 2^15} over int32, f32, bf16, 8- and 16-bit integer and bool
    columns, at n = 2^30 in one segment, and on columns that start 0 to
    15 elements past a 16-byte boundary with ragged tails; K8 at
@@ -34,7 +37,8 @@ checks the kernels at small shapes only).  Phases:
    against a float64 product, and a ``distributed_mdarray`` transpose and
    ``submdspan``, bit-exact;
 8. per-kernel times from CUDA events beside their bounds, the plain
-   versions' and one library call's times;
+   versions' and one library call's times, and K5's ptxas registers and
+   spills;
 9. the sort path on one rank at 2^28 f32 keys: ``sort`` (ascending and
    descending), ``is_sorted``, ``sort_by_key`` with an int32 iota
    payload, ``argsort``, ``reduce`` min / max / int32 sum; launch counts
@@ -305,6 +309,21 @@ def kernel_checks(dt, n, m2d, gen, results):
     # or doubled N(0,1) element is ~0.8
     check("K4 chunked_cumsum steps", step_err(got, x, 3.5),
           8 * f32_ulp(top))
+    # one launch with a fixed-order look-back: the same bits every call
+    again = scan_pallas.chunked_cumsum(x, carry=carry)
+    check_true("K4 chunked_cumsum same bits twice",
+               torch.equal(got.view(torch.int32), again.view(torch.int32)))
+    del again, ref
+    # a start 4 bytes past a 16-byte boundary (a rank view behind a halo),
+    # no carry: the same tolerances
+    xs = x[1:]
+    got = scan_pallas.chunked_cumsum(xs)
+    ref = scan_pallas.plain_cumsum(xs)
+    top = float(ref.abs().max())
+    check("K4 chunked_cumsum 4 bytes off", max_err(got, ref), 1e-4 * top)
+    check("K4 chunked_cumsum 4 bytes off steps", step_err(got, xs, 0.0),
+          8 * f32_ulp(top))
+    del got, ref, xs
     xb = x[:1 << 24].to(torch.bfloat16)
     g2 = scan_pallas.chunked_cumsum(xb, carry=carry)
     r2 = scan_pallas.plain_cumsum(xb, carry)
@@ -313,12 +332,17 @@ def kernel_checks(dt, n, m2d, gen, results):
     # allow two bf16 ulps (2^-6) of the largest prefix
     check("K4 chunked_cumsum bf16", max_err(g2, r2),
           2 ** -6 * float(r2.float().abs().max()))
-    del x, got, ref
+    g2 = scan_pallas.chunked_cumsum(xb[3:], carry=carry)  # 6 bytes off
+    r2 = scan_pallas.plain_cumsum(xb[3:], carry)
+    check("K4 chunked_cumsum bf16 6 bytes off", max_err(g2, r2),
+          2 ** -6 * float(r2.float().abs().max()))
+    del x, xb, g2, r2
 
     # K5 at the 2-D main path's pass (the cross template): FMA-contracted
     # sums against the plain version's separately rounded ones, within
-    # twice heat_tol; then all nine taps (the full template) with m off
-    # the kernel's 128-row tile
+    # twice heat_tol; then all nine taps (the full template), and the
+    # cross at T = 17 with pad > T, each with m and n off the kernel's
+    # tiles (a partial last tile in both directions)
     w = dt.heat_step_weights(0.25)
     xp = torch.randn((m2d + 2 * T2D, m2d), generator=gen, device=dev)
     got = stencil2d_pallas.blocked_stencil2d_padded(xp, m2d, w, T2D, T2D)
@@ -335,6 +359,20 @@ def kernel_checks(dt, n, m2d, gen, results):
     ref = stencil2d_pallas.plain_blocked2d(xp, q, wf, 5, 5)
     check("K5 stencil2d_blocked full 3x3", max_err(got, ref),
           2 * heat_tol(wf, 5, float(xp.abs().max())))
+    del got, ref, xp
+    # drawn from a generator of its own, so the later checks' inputs do
+    # not depend on this one
+    q, nq, T, pad = m2d // 16 + 3, m2d - 128, 17, 24
+    g5 = torch.Generator(device=dev).manual_seed(gen.initial_seed() + 5)
+    xp = torch.randn((q + 2 * pad, nq), generator=g5, device=dev)
+    got = stencil2d_pallas.blocked_stencil2d_padded(xp, q, w, T, pad)
+    ref = stencil2d_pallas.plain_blocked2d(xp, q, w, T, pad)
+    check("K5 stencil2d_blocked partial tiles, T=17, pad 24",
+          max_err(got, ref), 2 * heat_tol(w, T, float(xp.abs().max())))
+    check_true("K5 stencil2d_blocked pad rows and frozen edges",
+               torch.equal(got[:pad + 1], xp[:pad + 1])
+               and torch.equal(got[pad + q - 1:], xp[pad + q - 1:])
+               and torch.equal(got[:, [0, nq - 1]], xp[:, [0, nq - 1]]))
     del got, ref, xp
 
 
@@ -1148,6 +1186,20 @@ def timings(n, gen, results):
     r["bound_ms"], r["bound_by"] = bound(
         2 * (m + 2 * T2D) * m * f, float(T2D) * (2 * nnz - 1) * (m - 2) ** 2)
     del xp
+    for line in ptxas_lines("stencil2d_blocked"):
+        log(f"  K5 ptxas: {line}")
+
+
+def ptxas_lines(name):
+    """The registers and spills ptxas reported when it built one kernel's
+    source (the template instances in order)."""
+    from dr_tpu_torch.ops import kernels
+    so = kernels._target(kernels.CSRC / kernels.SOURCES[name])
+    p = kernels.BUILD / f"{so.stem}.ptxas.txt"
+    if not p.exists():
+        return ["not found"]
+    return [line.strip() for line in p.read_text().splitlines()
+            if "registers" in line or "spill" in line]
 
 
 def bitonic_ops(M):

@@ -57,7 +57,7 @@ _SIGNATURES = {
     "dr_stencil_blocked": [_P, _P, ctypes.POINTER(ctypes.c_float), _I,
                            _L, _L, _L, _I, _P],
     "dr_chunked_dot": [_P, _P, _L, _I, _P, _P, _I, _P, _P],
-    "dr_chunked_cumsum": [_P, _L, _I, _P, _P, _P, _L, _P, _P],
+    "dr_chunked_cumsum": [_P, _L, _I, _P, _P, _L, _P, _P],
     "dr_stencil2d_blocked": [_P, _P, ctypes.POINTER(ctypes.c_float), _I,
                              _L, _L, _I, _I, _P],
     "dr_bitonic_sort": [_P, _P, _L, _I, _L, _P, _P, _P],

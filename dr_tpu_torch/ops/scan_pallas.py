@@ -6,9 +6,10 @@ each rank's exclusive cross-rank carry here, so no separate fixup pass
 touches the data.  Sums are f32 for f32/bf16/f16 input; the output has
 the input's dtype.
 
-Routes: CUDA tensors take ``csrc/scan.cu`` (block totals, a seeded scan
-of the totals, block-local scans plus offsets); CPU tensors take
-:func:`plain_cumsum`.
+Routes: CUDA tensors take ``csrc/scan.cu`` (one launch: each block
+reads a tile once, finds its prefix by a fixed-order look-back over the
+tiles before it, and writes the tile once; the same bits on every run);
+CPU tensors take :func:`plain_cumsum`.
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ from . import kernels
 __all__ = ["chunked_cumsum", "plain_cumsum"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_CHUNK = 4096     # elements per block of csrc/scan.cu, which checks the
-                  # scratch sized from it
+_TILE_BYTES = 32768   # bytes of x a tile of csrc/scan.cu holds
+_WS_HEAD = 16         # its ticket's 64-bit words; then two status words a tile
 
 
 def plain_cumsum(x: torch.Tensor, carry=None) -> torch.Tensor:
@@ -40,14 +41,17 @@ def _kernel_cumsum(x, carry):
     if carry is not None and (carry.dtype != torch.float32
                               or carry.device != x.device):
         raise ValueError("carry must be an f32 scalar on the input's device")
-    nb = -(-x.numel() // _CHUNK)
-    totals = torch.empty(nb, dtype=torch.float32, device=x.device)
-    offsets = torch.empty(nb, dtype=torch.float32, device=x.device)
-    out = torch.empty_like(x)
+    n, size = x.numel(), x.element_size()
+    shift = x.data_ptr() % 16 // size   # x's offset within 16 bytes
+    ws = torch.zeros(_WS_HEAD + 2 * -(-(n + shift) // (_TILE_BYTES // size)),
+                     dtype=torch.int64, device=x.device)
+    # the output shares x's offset within 16 bytes, so the kernel's
+    # 16-byte loads and stores line up in both
+    out = torch.empty(n + shift, dtype=x.dtype, device=x.device)[shift:]
     kernels.launch("chunked_cumsum", "dr_chunked_cumsum", x.device,
-                   x.data_ptr(), x.numel(), _DTYPE_CODE[x.dtype],
-                   kernels.ptr(carry), totals.data_ptr(), offsets.data_ptr(),
-                   nb, out.data_ptr(), kernels.stream_of(x))
+                   x.data_ptr(), n, _DTYPE_CODE[x.dtype], kernels.ptr(carry),
+                   ws.data_ptr(), ws.numel(), out.data_ptr(),
+                   kernels.stream_of(x))
     return out
 
 

@@ -36,7 +36,7 @@ __all__ = ["blocked_stencil2d_padded", "blocked_stencil2d",
            "plain_blocked2d", "LANES", "MAX_T"]
 
 LANES = 128  # the JAX kernel's lane width: n must be a multiple
-MAX_T = 64   # steps per kernel launch (the smallest tile's shared memory)
+MAX_T = 64   # steps per kernel launch (the register window's margins)
 
 
 def _taps(weights):

@@ -78,21 +78,77 @@ def test_k3_kernel_matches_plain(cuda, dtype):
     assert torch.equal(got, again)  # fixed order: same bits every run
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k4_kernel_matches_plain(cuda, dtype):
-    dev, gen = cuda
-    n = (1 << 20) + 128 * 3
-    x = torch.randn(n, generator=gen, device=dev).to(dtype)
-    carry = torch.tensor(-2.0, device=dev)
-    got = _launched("chunked_cumsum",
-                    lambda: scan_pallas.chunked_cumsum(x, carry=carry))
-    ref = scan_pallas.plain_cumsum(x, carry)
-    assert got.dtype == dtype
+def _bits(t):
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def _k4_check(got, x, ref, carry):
+    """K4 against plain_cumsum under chip_smoke.py's rules: f32 within
+    1e-5 of the largest prefix (prefixes summed in two orders) and every
+    output adding exactly its own element up to 8 ulps of that prefix
+    (``step_err``: a dropped or doubled element shows at its own size);
+    bf16 and f16 within two ulps of their type at the largest prefix,
+    each side rounding its f32 prefix once."""
     scale = float(ref.float().abs().max())
-    # f32: prefixes summed in two orders, 1e-5 of the largest prefix;
-    # bf16: two bf16 ulps (2^-6) of it, each side rounding its output
-    tol = 1e-5 * scale if dtype == torch.float32 else 2 ** -6 * scale
-    assert float((got.float() - ref.float()).abs().max()) <= tol
+    if x.dtype != torch.float32:
+        ulp = 2 ** -7 if x.dtype == torch.bfloat16 else 2 ** -10
+        assert float((got.float() - ref.float()).abs().max()) <= \
+            2 * ulp * max(scale, 1.0)
+        return
+    assert float((got - ref).abs().max()) <= 1e-5 * max(scale, 1.0)
+    start = torch.tensor([0.0 if carry is None else float(carry)],
+                         dtype=torch.float64, device=got.device)
+    steps = torch.diff(got.double(), prepend=start) - x.double()
+    ulp = 2.0 ** (np.frexp(max(scale, 1.0))[1] - 24)
+    assert float(steps.abs().max()) <= 8 * ulp
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("n", [1, 15, "tile-1", "tile", "tile+1",
+                               (1 << 20) + 3, (1 << 20) + 128 * 3,
+                               1 << 28])   # 16384+ tiles: look-back under load
+@pytest.mark.parametrize("off", [0, 1, 2, 3])  # elements past 16 bytes
+@pytest.mark.parametrize("carry", [-2.0, None])
+def test_k4_kernel_matches_plain(cuda, dtype, n, off, carry):
+    dev, gen = cuda
+    if isinstance(n, str):   # about one tile of the kernel
+        size = torch.empty((), dtype=dtype).element_size()
+        n = scan_pallas._TILE_BYTES // size + int(n[4:] or 0)
+    base = torch.randn(n + 3, generator=gen, device=dev).to(dtype)
+    x = base[off:off + n]
+    assert x.data_ptr() % 16 == off * x.element_size() % 16
+    c = None if carry is None else torch.tensor(carry, device=dev)
+    got = _launched("chunked_cumsum",
+                    lambda: scan_pallas.chunked_cumsum(x, carry=c))
+    ref = scan_pallas.plain_cumsum(x, c)
+    assert got.dtype == dtype and got.shape == x.shape
+    _k4_check(got, x, ref, carry)
+    # a fixed-order look-back: the same bits on every call
+    again = scan_pallas.chunked_cumsum(x, carry=c)
+    assert torch.equal(_bits(got), _bits(again))
+
+
+def test_k4_same_bits_on_two_streams(cuda):
+    """Two calls in flight at once, on two streams, each with its own
+    status words, give the bits of a call alone."""
+    dev, gen = cuda
+    x = torch.randn((1 << 26) + 5, generator=gen, device=dev)[1:]
+    carry = torch.tensor(0.75, device=dev)
+    want = scan_pallas.chunked_cumsum(x, carry=carry)
+    main = torch.cuda.current_stream()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for s in streams:
+        s.wait_stream(main)
+        with torch.cuda.stream(s):
+            outs.append(scan_pallas.chunked_cumsum(x, carry=carry))
+    for s in streams:
+        main.wait_stream(s)
+    torch.cuda.synchronize()
+    for got in outs:
+        assert torch.equal(_bits(got), _bits(want))
+    _k4_check(want, x, scan_pallas.plain_cumsum(x, carry), 0.75)
 
 
 @pytest.mark.parametrize("n,halo", [(1_000_003, 0), (3 * 16384 + 5, 2)])
@@ -134,28 +190,33 @@ def _k5_tol(w, T, x):
     return 2 * T * (2 * nnz - 1) * 2.0 ** -24 * float(x.abs().max())
 
 
-@pytest.mark.parametrize("m,n,T,w,band", [
-    (1000, 128, 1, HEAT, None),      # m off the 128-row tile
-    (517, 384, 5, FULL3, None),      # all nine taps
-    (300, 16384, 16, HEAT, 100),     # the main path's width and T
-    (1234, 384, 16, FULL3, 617),     # an explicit band
-    (131, 128, 70, HEAT, None),      # T past MAX_T: two launches
+@pytest.mark.parametrize("m,n,T,w,band,pad", [
+    (1000, 128, 1, HEAT, None, 1),       # m off the kernel's tiles
+    (517, 384, 5, FULL3, None, 5),       # all nine taps
+    (300, 16384, 16, HEAT, 100, 16),     # the main path's width and T
+    (1234, 384, 16, FULL3, 617, 16),     # an explicit band
+    (131, 128, 70, HEAT, None, 70),      # T past MAX_T: two launches
+    (1000, 16384, 16, HEAT, None, 16),   # 666 tiles: each block walks 5+
+    (229, 640, 17, HEAT, None, 17),      # T off 4: 20-column margins
+    (333, 1152, 64, FULL3, None, 64),    # MAX_T in one launch
+    (450, 896, 16, FULL3, None, 24),     # pad > T, as a remainder pass
+    (113, 256, 7, HEAT, None, 16),       # pad > T, m below one tile
 ])
-def test_k5_kernel_matches_plain(cuda, m, n, T, w, band):
+def test_k5_kernel_matches_plain(cuda, m, n, T, w, band, pad):
     dev, gen = cuda
-    xp = torch.randn((m + 2 * T, n), generator=gen, device=dev)
+    xp = torch.randn((m + 2 * pad, n), generator=gen, device=dev)
     before = kernels.launches["stencil2d_blocked"]
-    got = stencil2d_pallas.blocked_stencil2d_padded(xp, m, w, T, T,
+    got = stencil2d_pallas.blocked_stencil2d_padded(xp, m, w, T, pad,
                                                     band=band)
     torch.cuda.synchronize()
     assert kernels.launches["stencil2d_blocked"] == \
         before + -(-T // stencil2d_pallas.MAX_T)
-    ref = stencil2d_pallas.plain_blocked2d(xp, m, w, T, T)
+    ref = stencil2d_pallas.plain_blocked2d(xp, m, w, T, pad)
     # FMA-contracted sums vs separately rounded ones
     assert float((got - ref).abs().max()) <= _k5_tol(w, T, xp)
     # pad rows pass through; edge rows and columns stay frozen
-    assert torch.equal(got[:T + 1], xp[:T + 1])
-    assert torch.equal(got[T + m - 1:], xp[T + m - 1:])
+    assert torch.equal(got[:pad + 1], xp[:pad + 1])
+    assert torch.equal(got[pad + m - 1:], xp[pad + m - 1:])
     assert torch.equal(got[:, [0, n - 1]], xp[:, [0, n - 1]])
 
 
