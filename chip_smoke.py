@@ -8,8 +8,10 @@ checks the kernels at small shapes only).  Phases:
 2. build the eight CUDA sources from ``dr_tpu_torch/csrc`` (``nvcc``;
    K8 runs on K7's library);
 3. hold each kernel against its plain PyTorch version at the main-path
-   shapes, on the card (K4 the same bits on a second call, and on
-   inputs 4 (f32) and 6 (bf16) bytes past a 16-byte boundary; K5 also on
+   shapes, on the card (K2 bit for bit, also on one partial tile with
+   17 taps and on its shared-memory route; K4 the same bits on a second
+   call, and on inputs 4 (f32) and 6 (bf16) bytes past a 16-byte
+   boundary; K5 also on
    partial last tiles with T = 17 and pad > T; K6 and K7 bit for bit:
    K6 at M in {256, 4096, 2^15}, keys-only and KV, one block a call,
    and batches of 8 and 133 blocks at M in {256, 4096, 16384, 2^15}; K7
@@ -37,8 +39,8 @@ checks the kernels at small shapes only).  Phases:
    against a float64 product, and a ``distributed_mdarray`` transpose and
    ``submdspan``, bit-exact;
 8. per-kernel times from CUDA events beside their bounds, the plain
-   versions' and one library call's times, and K5's ptxas registers and
-   spills;
+   versions' and one library call's times, K2's floor without FMAs, and
+   K2's and K5's ptxas registers and spills;
 9. the sort path on one rank at 2^28 f32 keys: ``sort`` (ascending and
    descending), ``is_sorted``, ``sort_by_key`` with an int32 iota
    payload, ``argsort``, ``reduce`` min / max / int32 sum; launch counts
@@ -177,8 +179,8 @@ def plain_versions(kernels):
 
 
 def release(torch):
-    """Free what the last phase left: a halo-bearing vector and its halo
-    refer to each other, so only the cycle collector frees them."""
+    """Free what the last phase left, cycles included, and return the
+    cached blocks to the card."""
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -258,16 +260,24 @@ def kernel_checks(dt, n, m2d, gen, results):
     check("K1 stencil_matmul", e, 1e-5)
     del got, ref, row
 
-    # K2: same separately rounded products and sums as the plain
-    # version, so it should agree to the bit; 1e-6 leaves room only for
-    # a differently rounded weight
-    row = torch.randn((1, n + 2 * BLK_HALO), generator=gen, device=dev)
-    got = stencil_pallas.blocked_stencil_row(row, n, BLK_HALO, W5, T_BLOCK)
-    ref = stencil_pallas.plain_blocked(row, n, BLK_HALO, W5, T_BLOCK)
-    torch.cuda.synchronize()
-    results["stencil_blocked"]["max_abs_err"] = e = max_err(got, ref)
-    check("K2 stencil_blocked", e, 1e-6)
-    del got, ref, row
+    # K2: the same separately rounded products and sums in the same
+    # order as the plain version, so the same bits: at the main path's
+    # row, on one partial tile with 17 taps, and with a margin deep
+    # enough (T*r > 2048) for the kernel's shared-memory route
+    w17 = tuple(float(k) / 153.0 for k in range(1, 18))
+    for tag, seg, halo, w, tsteps in (
+            ("", n, BLK_HALO, W5, T_BLOCK),
+            (" r=8 T=17 seg=1024", 1024, 1024, w17, 17),
+            (" r=8 T=300 shared route", 4096, 3072, w17, 300)):
+        row = torch.randn((1, seg + 2 * halo), generator=gen, device=dev)
+        got = stencil_pallas.blocked_stencil_row(row, seg, halo, w, tsteps)
+        ref = stencil_pallas.plain_blocked(row, seg, halo, w, tsteps)
+        torch.cuda.synchronize()
+        e = max_err(got, ref)
+        if not tag:
+            results["stencil_blocked"]["max_abs_err"] = e
+        check_equal(f"K2 stencil_blocked{tag}", got, ref)
+        del got, ref, row
 
     # K3: positive data, so the sum has no cancellation.  Two f32
     # reductions of these terms in different orders differ by ~1 absolute
@@ -1145,6 +1155,16 @@ def timings(n, gen, results):
     r["library_ms"] = events_ms(lambda: F.conv1d(row[None], taps), 3)
     r["bound_ms"], r["bound_by"] = bound(
         2 * (n + 2 * BLK_HALO) * f, float(T_BLOCK) * n * (2 * len(W5) - 1))
+    # the floor of the bit-exact form: each cell-step issues its 2r+1
+    # multiplies and 2r adds as one instruction each (no FMA), at 128
+    # lanes a clock on each SM and the card's highest SM clock
+    ghz = max_sm_ghz()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    floor = float(T_BLOCK) * n * (2 * len(W5) - 1) / (sms * 128 * ghz * 1e6)
+    log(f"  K2 bound_ms={r['bound_ms']!r} ({r['bound_by']}); issue floor "
+        f"without FMA {floor!r} ms ({sms} SMs at {ghz} GHz)")
+    for line in ptxas_lines("stencil_blocked"):
+        log(f"  K2 ptxas: {line}")
     del row
 
     x = torch.rand(n, generator=gen, device=dev)
@@ -1188,6 +1208,14 @@ def timings(n, gen, results):
     del xp
     for line in ptxas_lines("stencil2d_blocked"):
         log(f"  K5 ptxas: {line}")
+
+
+def max_sm_ghz():
+    """The card's highest SM clock in GHz (``nvidia-smi``)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) / 1e3
 
 
 def ptxas_lines(name):

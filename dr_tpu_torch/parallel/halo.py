@@ -17,6 +17,7 @@ the results are bit-identical to the JAX package's.
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass
 
 from . import collectives
@@ -122,10 +123,14 @@ class span_halo:
     """Halo controller bound to one distributed_vector: ``exchange()``,
     ``exchange_n()``, ``exchange_begin()/exchange_finalize()``,
     ``reduce(op)`` and the per-op helpers (reference halo.hpp:55-110).
-    The min-size checks are the JAX package's."""
+    The min-size checks are the JAX package's.
+
+    The halo refers to its vector weakly (the vector holds its halo), so
+    a dropped vector frees its rows at once, without the cycle
+    collector; a halo whose vector is gone raises."""
 
     def __init__(self, dv):
-        self._dv = dv
+        self._ref = weakref.ref(dv)
         hb = dv.halo_bounds
         if hb.width and dv.segment_size < max(hb.prev, hb.next):
             raise ValueError(
@@ -142,6 +147,14 @@ class span_halo:
                 f"periodic halo: last shard owns {tail} element(s), "
                 f"smaller than the radius {max(hb.prev, hb.next)}; "
                 "grow the vector or shrink the mesh")
+
+    @property
+    def _dv(self):
+        dv = self._ref()
+        if dv is None:
+            raise ReferenceError("span_halo: its distributed_vector has "
+                                 "been freed")
+        return dv
 
     @property
     def bounds(self) -> halo_bounds:

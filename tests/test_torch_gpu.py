@@ -49,8 +49,18 @@ def test_k1_kernel_matches_plain(cuda, seg, halo, k):
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("seg,halo,T,w", [(1 << 16, 1024, 64, W5),
-                                          (3072, 1024, 5, (0.1, 0.2, 0.7))])
+W3A = (0.1, 0.2, 0.7)
+W17 = tuple(k / 153.0 for k in range(1, 18))  # r = 8, asymmetric
+
+
+@pytest.mark.parametrize("seg,halo,T,w", [
+    (1 << 16, 1024, 64, W5), (3072, 1024, 5, W3A),
+    (20480, 1024, 1, W5),      # T = 1; seg not a multiple of the centre
+    (20480, 1024, 17, W3A),    # r = 1, T = 17
+    (1024, 1024, 64, W17),     # r = 8: one partial tile
+    (4096, 1024, 128, W17),    # T * r = halo
+    (1024, 1024, 1024, W3A),   # T * r = halo at r = 1
+    (4096, 3072, 300, W17)])   # T * r > 2048: the shared-memory route
 def test_k2_kernel_matches_plain(cuda, seg, halo, T, w):
     dev, gen = cuda
     row = torch.randn((1, 2 * halo + seg), generator=gen, device=dev)
@@ -59,6 +69,29 @@ def test_k2_kernel_matches_plain(cuda, seg, halo, T, w):
     ref = stencil_pallas.plain_blocked(row, seg, halo, w, T)
     # same separately rounded products and sums: bit-identical
     assert torch.equal(got, ref)
+    # and the same bits on a second call, and on another stream
+    assert torch.equal(got, stencil_pallas.blocked_stencil_row(
+        row, seg, halo, w, T))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        again = stencil_pallas.blocked_stencil_row(row, seg, halo, w, T)
+    torch.cuda.current_stream().wait_stream(side)
+    assert torch.equal(got, again)
+
+
+def test_k2_kernel_misaligned_row(cuda):
+    """A row 4 bytes past a 16-byte boundary takes the kernel's
+    shared-memory route, with the same bits."""
+    dev, gen = cuda
+    seg, halo = 8192, 1024
+    base = torch.randn((1, 2 * halo + seg + 1), generator=gen, device=dev)
+    row = base[:, 1:]
+    assert row.is_contiguous() and row.data_ptr() % 16 == 4
+    got = _launched("stencil_blocked", lambda: stencil_pallas.
+                    blocked_stencil_row(row, seg, halo, W5, 64))
+    assert torch.equal(got, stencil_pallas.plain_blocked(row, seg, halo, W5,
+                                                         64))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

@@ -5,6 +5,9 @@ carries the JAX rows over, ghosts included) and every comparison is
 bit-exact: an exchange is copies, and each fold is one elementwise op on
 the same operands."""
 
+import gc
+import weakref
+
 import jax
 import numpy as np
 import pytest
@@ -102,3 +105,29 @@ def test_reduce_min_max_signed_zeros_and_nan(op):
     ok = ~np.isnan(ref)
     np.testing.assert_array_equal(got[ok].view(np.int32),
                                   ref[ok].view(np.int32))
+
+
+
+@pytest.mark.parametrize("drive", ["exchange", "stencil_iterate_blocked"])
+def test_dropped_halo_vector_is_freed_without_the_cycle_collector(drive):
+    """The halo refers to its vector weakly, so dropping a halo-bearing
+    vector frees it and its rows at once, with the cycle collector off,
+    after an exchange or after K2's path; its halo then raises."""
+    dt.init(["cpu"])
+    gc.disable()
+    try:
+        v = dt.distributed_vector.from_array(
+            np.arange(2048, dtype=np.float32),
+            halo=dt.halo_bounds(1024, 1024, periodic=True))
+        h = v.halo()
+        if drive == "exchange":
+            h.exchange()
+        else:
+            dt.stencil_iterate_blocked(v, [0.25, 0.5, 0.25], 4, time_block=2)
+        ref, row = weakref.ref(v), weakref.ref(v.rows[0])
+        del v
+        assert ref() is None and row() is None
+        with pytest.raises(ReferenceError, match="freed"):
+            h.exchange()
+    finally:
+        gc.enable()

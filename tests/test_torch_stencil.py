@@ -79,8 +79,13 @@ def test_k1_helpers_match_reference():
 K2_TOL = dict(rtol=0, atol=1e-6)
 
 
+W17 = [k / 153.0 for k in range(1, 18)]  # r = 8, asymmetric
+
+
 @pytest.mark.parametrize("seg,halo,T,w", [(2048, 1024, 4, W5),
-                                          (1024, 1024, 7, W3A)])
+                                          (1024, 1024, 7, W3A),
+                                          (1024, 1024, 3, W17),
+                                          (2048, 1024, 1, W5)])
 def test_k2_plain_matches_pallas_interpret(seg, halo, T, w):
     rng = np.random.default_rng(T)
     row = rng.standard_normal((1, 2 * halo + seg)).astype(np.float32)
