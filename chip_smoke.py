@@ -75,7 +75,28 @@ checks the kernels at small shapes only).  Phases:
 15. the same on 4 ranks of the card at n_fact = 2^24: the partition
     join (the default above 2^18 rows) equal bit for bit to the forced
     broadcast join, an outer join with keys missing on both sides, and
-    the kernel geometry.
+    the kernel geometry;
+16. the main-path entry: ``dr_tpu_torch.entry.entry()``'s step and
+    masked sum on the card against the same step on the CPU, and
+    ``dryrun(4)`` on 4 ranks of the card (every section of
+    ``__graft_entry__.dryrun_multichip`` the port has), with K1, K3, K4,
+    K6/K7 and K9 launched by it;
+17. bench.py's halo-exchange p50 (a periodic ``halo_bounds(1024,
+    1024)`` vector of 2^22 cells a rank, ``exchange_n(64)``, 4 calls x 5
+    batches, CUDA events) on 1 and 4 ranks, the ghosts checked against
+    their owners; and GB/s/chip of phase 4's steps and phase 8's kernels
+    with bytes counted as bench.py counts them;
+18. the sparse path on one rank: bench.py's config 5 pattern (32 random
+    columns a row) at 2^22 rows and 2^27 nonzeros: the autoselected
+    format (ELL), ``gemv`` against a float64 scipy product row by row
+    and the same bits on a second call, ``gemv_n`` GFLOP/s beside the
+    bytes bound (``nnz*8 + m*12`` bytes) and one cuSPARSE call, ``spmm``
+    with 8 vectors, the banded case (2^18 rows, half-band 128) on BCSR,
+    and the peak device memory;
+19. the sparse path on 4 ranks at 2^20 rows against float64 scipy: row
+    tiles (ELL), the ring layout (serial equal to pipelined bit for
+    bit), a 2x2 block-cyclic grid with ``gemv`` and ``spmm``, the banded
+    matrix on the grid (BCSR) and a matrix with one dense row (csr).
 
 Phase 3 also holds K9 (``flash_update``) against its plain version at
 small shapes (d = 128 and 256 on the wgmma kernel, d = 768 on the
@@ -130,6 +151,17 @@ K8_BINS = 1024         # K8's timed shape: 2^30 ids over 1024 bins
 # the relational pipeline: 2^26 fact rows (about TPC-H SF 10's lineitem)
 # over 2^22 keys (bench.py's fan-in 16) on one rank; 2^24 on 4 ranks
 REL_FACT_LOG2, REL_CARD_LOG2, REL4_FACT_LOG2 = 26, 22, 24
+# halo-exchange p50: bench.py's periodic halo of 1024 cells a side over
+# 2^22 cells a rank, 64 exchanges a timed call
+HALO_W, HALO_CELLS, HALO_ROUNDS = 1024, 1 << 22, 64
+# the sparse path: bench.py's config 5 pattern (32 random columns a row)
+# at 2^22 rows, 2^27 nonzeros (a SuiteSparse web or road matrix's scale,
+# where bench.py's 2^17 rows were sized for a TPU), spmm with 8 vectors,
+# the banded BCSR case at 2^18 rows (half-band 128); 4 ranks at 2^20
+# rows, the banded grid with half-band 16
+SP_LOG2, SP_K, SP_NV = 22, 32, 8
+SPB_LOG2, SPB_HALF = 18, 128
+SP4_LOG2, SP4_HALF = 20, 16
 
 
 def log(*a):
@@ -2020,6 +2052,386 @@ def relational_four_ranks(dt, kernels, seed, device="cuda:0",
     relational_geometry(dt, 4, seed, kernels, device)
 
 
+# ---------------------------------------------------- entry and dryrun
+
+def entry_phase(dt, kernels, device="cuda:0"):
+    """Phase 16: ``entry()``'s step and masked sum on the card against the
+    same step on the CPU, on its own input and on random rows; then
+    ``dryrun(4)`` on 4 ranks of the card with the launch counts read
+    around it.  Returns the counts."""
+    import torch
+    from dr_tpu_torch import entry as E
+    gen = torch.Generator().manual_seed(16)
+    fn_c, args_c = E.entry("cpu")
+    fn, args = E.entry(device)
+    width = args[0][0].shape[1]
+    rand = [torch.randn((1, width), generator=gen) for _ in range(2)]
+    for tag, a_c, b_c in (("", *args_c), (" random rows", [rand[0]],
+                                           [rand[1]])):
+        out_c, sum_c = fn_c(a_c, b_c)
+        if tag:
+            a_d, b_d = [rand[0].to(device)], [rand[1].to(device)]
+        else:
+            a_d, b_d = args
+        out, total = fn(a_d, b_d)
+        scale = float(out_c[0].abs().max())
+        # the same separately rounded products and sums on both sides
+        check(f"entry step{tag} vs CPU", max_err(out[0].cpu(), out_c[0]),
+              1e-6 * scale)
+        # f32 sums of 2^16 cells in two orders
+        check(f"entry masked sum{tag} vs CPU", abs(float(total)
+                                                  - float(sum_c)),
+              1e-5 * float(out_c[0].abs().sum()))
+    dt.final()
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    E.dryrun(4, [device])
+    counts = dict(kernels.launches)
+    log(f"  dryrun(4) {time.perf_counter() - t0:.2f} s, launches {counts}")
+    for names in (("stencil_matmul",), ("chunked_dot",), ("chunked_cumsum",),
+                  ("bitonic_sort", "segred"), ("flash_update",)):
+        if sum(counts[k] for k in names) <= 0:
+            raise AssertionError(f"dryrun launched no {'/'.join(names)}")
+    return counts
+
+
+# --------------------------------------------------- halo p50 and GB/s
+
+def halo_p50(dt, ranks, device="cuda:0", cells=HALO_CELLS):
+    """Phase 17: bench.py's halo-exchange p50 (``bench.py:552-573``): a
+    periodic ``halo_bounds(1024, 1024)`` vector of ``cells`` a rank,
+    timed calls of ``exchange_n(64)``, 4 calls a batch, 5 batches, by
+    CUDA events; returns the median microseconds per exchange.  The
+    ghosts are then checked against their owners."""
+    import torch
+    dt.init(dt.get_duplicated_devices(ranks, [device]))
+    n = ranks * cells
+    v = dt.distributed_vector(n, np.float32, halo=dt.halo_bounds(
+        HALO_W, HALO_W, periodic=True))
+    dt.iota(v, 0)
+    h = v.halo()
+    h.exchange_n(HALO_ROUNDS)  # warm
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(4):
+            h.exchange_n(HALO_ROUNDS)
+        end.record()
+        torch.cuda.synchronize()
+        per.append(start.elapsed_time(end) * 1e3 / (4 * HALO_ROUNDS))
+    for r, row in enumerate(v.rows):
+        left = ((r - 1) % ranks) * cells + cells - HALO_W
+        right = ((r + 1) % ranks) * cells
+        want = torch.cat([torch.arange(left, left + HALO_W),
+                          torch.arange(r * cells, (r + 1) * cells),
+                          torch.arange(right, right + HALO_W)]).float()
+        check(f"halo {ranks} ranks rank {r} ghosts",
+              max_err(row[0].cpu(), want), 0.0)
+    del v, h
+    return float(np.median(per)), per
+
+
+def gbps_lines(n, steps4, results):
+    """GB/s/chip of phase 4's steps and phase 8's kernel times, bytes
+    counted as bench.py counts them: effective ``2*n*4*steps`` and
+    physical ``2*n*4*passes`` for the 1-D stencils
+    (``bench.py:261-268``), ``2*n*4`` a dot (``:519``) and a scan."""
+    f = 4
+    out = {}
+    for step, kern, block in (("stencil_iterate_matmul", "stencil_matmul",
+                               K_BLOCK),
+                              ("stencil_iterate_blocked", "stencil_blocked",
+                               T_BLOCK)):
+        t = steps4[step]
+        passes = -(-STEPS // block)
+        out[step] = {
+            "seconds": t,
+            "effective_gbps": 2.0 * n * f * STEPS / t / 1e9,
+            "physical_gbps": 2.0 * n * f * passes / t / 1e9,
+            "kernel_physical_gbps": 2.0 * n * f / (results[kern]["ms"]
+                                                   * 1e-3) / 1e9}
+    t = steps4["dot_n"]
+    out["dot_n"] = {"seconds": t,
+                    "gbps": 2.0 * n * f * DOT_ROUNDS / t / 1e9,
+                    "kernel_gbps": 2.0 * n * f / (
+                        results["chunked_dot"]["ms"] * 1e-3) / 1e9}
+    t = steps4["inclusive_scan"]
+    out["inclusive_scan"] = {"seconds": t, "gbps": 2.0 * n * f / t / 1e9,
+                             "kernel_gbps": 2.0 * n * f / (
+                                 results["chunked_cumsum"]["ms"] * 1e-3)
+                             / 1e9}
+    return out
+
+
+# ------------------------------------------------------------ sparse
+
+def config5_coo(m, k=SP_K, seed=0):
+    """bench.py's config 5 pattern (``bench.py:767-800``): ``k`` random
+    columns a row from ``default_rng(seed)``, f32 normal values; rows
+    sorted, so the host CSR is (indptr, cols, values) directly."""
+    rng = np.random.default_rng(seed)
+    rows = np.repeat(np.arange(m, dtype=np.int64), k)
+    cols = rng.integers(0, m, size=m * k)
+    vals = rng.standard_normal(m * k).astype(np.float32)
+    return rows, cols, vals, np.arange(0, m * k + 1, k, dtype=np.int64)
+
+
+def banded_coo(m, half, seed=1):
+    """bench.py's banded BCSR case (``bench.py:879-902``): rows of
+    ``2*half+1`` f32 normal values around the diagonal."""
+    rng = np.random.default_rng(seed)
+    ii = np.repeat(np.arange(m, dtype=np.int64), 2 * half + 1)
+    jj = ii + np.tile(np.arange(-half, half + 1), m)
+    keep = (jj >= 0) & (jj < m)
+    ii, jj = ii[keep], jj[keep]
+    vals = rng.standard_normal(len(ii)).astype(np.float32)
+    indptr = np.concatenate([[0], np.cumsum(np.bincount(ii, minlength=m))])
+    return ii, jj, vals, indptr
+
+
+def host_csr(shape, cols, vals, indptr):
+    """The float64 scipy matrix and its absolute value."""
+    import scipy.sparse as sps
+    S = sps.csr_matrix((vals.astype(np.float64), cols, indptr), shape=shape)
+    return S, abs(S)
+
+
+def check_rows(name, got, S, absS, b):
+    """Each row within 1e-5 * (|A|·|b|)_i + 1e-6 of the float64 product
+    (f32 sums of the row's products in some order)."""
+    got = np.asarray(got, dtype=np.float64)
+    ref = S @ b.astype(np.float64)
+    tol = 1e-5 * (absS @ np.abs(b).astype(np.float64)) + 1e-6
+    err = np.abs(got - ref)
+    worst = float((err / tol).max())
+    log(f"  {name}: max_abs_err={float(err.max())!r} worst err/tol="
+        f"{worst!r} {'ok' if worst <= 1 else 'FAIL'}")
+    if not worst <= 1:
+        raise AssertionError(f"{name}: rows off the float64 product")
+
+
+def gemv_twice(dt, A, b, m, fmt=None):
+    """c = A·b twice from zero (``fmt`` forces a layout); both results on
+    the host, which must be the same bits."""
+    import importlib
+    tg = importlib.import_module("dr_tpu_torch.algorithms.gemv")
+    outs = []
+    for _ in range(2):
+        c = dt.distributed_vector(m)
+        if fmt is None:
+            dt.gemv(c, A, b)
+        else:
+            tg._gemv_as(c, A, b, fmt)
+        outs.append(c.to_array().cpu())
+    if not torch_equal(outs[0], outs[1]):
+        raise AssertionError("gemv gave other bits on a second call")
+    return outs[0].numpy()
+
+
+def torch_equal(a, b):
+    import torch
+    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def marginal_ms(run, r1=2, r2=18, samples=3):
+    """Milliseconds a round from ``run(r2)`` minus ``run(r1)`` by CUDA
+    events (bench.py's marginal: the per-call constant cancels); the
+    median of ``samples``."""
+    import torch
+    run(r1)
+    torch.cuda.synchronize()
+    vals = []
+    for _ in range(samples):
+        ts = []
+        for r in (r1, r2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            run(r)
+            end.record()
+            torch.cuda.synchronize()
+            ts.append(start.elapsed_time(end))
+        vals.append((ts[1] - ts[0]) / (r2 - r1))
+    return float(np.median(vals))
+
+
+def sparse_one_rank(dt, seed, m_log2=SP_LOG2, mb_log2=SPB_LOG2,
+                    timed=True):
+    """Phase 18: config 5's pattern at 2^m_log2 rows on one rank: the
+    autoselected format (ELL), gemv against float64 scipy and the same
+    bits twice, gemv_n GFLOP/s beside the bytes bound and cuSPARSE, spmm
+    nv = 8, and the banded BCSR case at 2^mb_log2 rows.  Returns the
+    numbers printed."""
+    import torch
+    import importlib
+    tg = importlib.import_module("dr_tpu_torch.algorithms.gemv")
+    dev = dt.devices()[0]
+    out = {}
+    m = 1 << m_log2
+    t0 = time.perf_counter()
+    rows, cols, vals, indptr = config5_coo(m)
+    nnz = len(vals)
+    out["host_data_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A = dt.sparse_matrix.from_coo((m, m), rows, cols, vals)
+    fmt = tg.resolved_format(A)
+    dt.fence()
+    out["build_s"] = time.perf_counter() - t0
+    log(f"  m=2^{m_log2} nnz={nnz}: host data {out['host_data_s']:.2f} s, "
+        f"card build + ELL layout {out['build_s']:.2f} s, format {A.format}"
+        f" -> {fmt}")
+    if A.format != "ell" or fmt != "ell":
+        raise AssertionError(f"config 5 took {A.format}/{fmt}, not ell")
+    S, absS = host_csr((m, m), cols, vals, indptr)
+    del rows
+    b = np.random.default_rng(seed).standard_normal(m).astype(np.float32)
+    check_rows("gemv (ell) vs float64 scipy", gemv_twice(dt, A, b, m),
+               S, absS, b)
+    B = np.random.default_rng(seed + 1).standard_normal(
+        (m, SP_NV)).astype(np.float32)
+    Y = dt.spmm(A, B)
+    check_rows(f"spmm nv={SP_NV} (ell) vs float64 scipy", Y.cpu().numpy(),
+               S, absS, B)
+    del Y
+    if timed:
+        bv = dt.distributed_vector.from_array(torch.from_numpy(b).to(dev))
+        c = dt.distributed_vector(m)
+        ms = marginal_ms(lambda r: tg.gemv_n(c, A, bv, r))
+        out["gemv_ms"] = ms
+        out["gemv_gflops"] = 2.0 * nnz / (ms * 1e-3) / 1e9
+        out["bound_ms"] = (nnz * 8 + m * 12) / HBM_BYTES_PER_S * 1e3
+        Bd = torch.from_numpy(B).to(dev)
+        ms = marginal_ms(lambda r: tg.spmm_n(A, Bd, r))
+        out["spmm8_ms"] = ms
+        out["spmm8_gflops"] = 2.0 * nnz * SP_NV / (ms * 1e-3) / 1e9
+        # one cuSPARSE call computing the same product (columns sorted
+        # within rows, as its CSR wants; never called by the port)
+        key = torch.from_numpy(np.repeat(np.arange(m, dtype=np.int64),
+                                         SP_K) * m + cols).to(dev)
+        order = torch.sort(key).indices
+        col_d = (key[order] % m).to(torch.int32)
+        del key
+        vals_d = torch.from_numpy(vals).to(dev)[order]
+        del order
+        crow = torch.from_numpy(indptr.astype(np.int32)).to(dev)
+        Acsr = torch.sparse_csr_tensor(crow, col_d, vals_d, size=(m, m))
+        bd = torch.from_numpy(b).to(dev)
+        check_rows("cuSPARSE vs float64 scipy", (Acsr @ bd).cpu().numpy(),
+                   S, absS, b)
+        out["cusparse_ms"] = events_ms(lambda: Acsr @ bd, 20)
+        log(f"  gemv_n {out['gemv_ms']!r} ms a round, "
+            f"{out['gemv_gflops']!r} GFLOP/s, bound {out['bound_ms']!r} ms "
+            f"(nnz*8 + m*12 bytes); cuSPARSE (torch.sparse_csr_tensor @ b) "
+            f"{out['cusparse_ms']!r} ms; spmm_n nv={SP_NV} "
+            f"{out['spmm8_ms']!r} ms a round, {out['spmm8_gflops']!r} "
+            f"GFLOP/s")
+        del Acsr, crow, col_d, vals_d, bv, c, Bd, bd
+    del A, S, absS, cols, vals, B
+    gc.collect()
+
+    # the banded case: block structure takes BCSR
+    mb = 1 << mb_log2
+    rows, cols, vals, indptr = banded_coo(mb, SPB_HALF)
+    nnzb = len(vals)
+    Ab = dt.sparse_matrix.from_coo((mb, mb), rows, cols, vals)
+    fmt = tg.resolved_format(Ab)
+    log(f"  banded m=2^{mb_log2} half-band {SPB_HALF} nnz={nnzb}: format "
+        f"{Ab.format} -> {fmt}, kb={Ab._bcsr_kb}")
+    if Ab.format != "bcsr" or fmt != "bcsr":
+        raise AssertionError(f"banded matrix took {Ab.format}/{fmt}")
+    S, absS = host_csr((mb, mb), cols, vals, indptr)
+    bb = np.random.default_rng(seed + 2).standard_normal(mb).astype(
+        np.float32)
+    check_rows("banded gemv (bcsr) vs float64 scipy",
+               gemv_twice(dt, Ab, bb, mb), S, absS, bb)
+    if timed:
+        bv = dt.distributed_vector.from_array(torch.from_numpy(bb).to(dev))
+        c = dt.distributed_vector(mb)
+        ms = marginal_ms(lambda r: tg.gemv_n(c, Ab, bv, r))
+        out["bcsr_ms"] = ms
+        out["bcsr_gflops"] = 2.0 * nnzb / (ms * 1e-3) / 1e9
+        out["bcsr_bound_ms"] = (nnzb * 8 + mb * 12) / HBM_BYTES_PER_S * 1e3
+        log(f"  banded gemv_n {ms!r} ms a round, {out['bcsr_gflops']!r} "
+            f"GFLOP/s, bound {out['bcsr_bound_ms']!r} ms")
+    return out
+
+
+def sparse_four_ranks(dt, seed, device="cuda:0", m_log2=SP4_LOG2,
+                      half=SP4_HALF):
+    """Phase 19: 4 ranks of the card at 2^m_log2 rows against float64
+    scipy: row tiles (ELL), the ring layout with serial equal to
+    pipelined bit for bit, a 2x2 block-cyclic grid, the banded matrix on
+    the grid (BCSR), a skewed matrix (one dense row: csr) and spmm on
+    the grid."""
+    import os
+    dt.init(dt.get_duplicated_devices(4, [device]))
+    m = 1 << m_log2
+    rows, cols, vals, indptr = config5_coo(m, seed=seed)
+    S, absS = host_csr((m, m), cols, vals, indptr)
+    b = np.random.default_rng(seed + 3).standard_normal(m).astype(np.float32)
+    A = dt.sparse_matrix.from_coo((m, m), rows, cols, vals)
+    log(f"  row tiles: format {A.format}, ring viable {A.ensure_ring()}")
+    if A.format != "ell" or not A.ensure_ring():
+        raise AssertionError("config 5 on 4 ranks must be ell, ring-viable")
+    check_rows("4 ranks gemv (ell) vs float64 scipy",
+               gemv_twice(dt, A, b, m), S, absS, b)
+    ring = {}
+    saved = os.environ.get("DR_GPU_RING_SCHEDULE")
+    try:
+        for sched in ("serial", "pipelined"):
+            os.environ["DR_GPU_RING_SCHEDULE"] = sched
+            ring[sched] = gemv_twice(dt, A, b, m, fmt="ring")
+    finally:
+        if saved is None:
+            os.environ.pop("DR_GPU_RING_SCHEDULE", None)
+        else:
+            os.environ["DR_GPU_RING_SCHEDULE"] = saved
+    check_rows("4 ranks gemv (ring) vs float64 scipy", ring["serial"], S,
+               absS, b)
+    check_true("4 ranks ring serial == pipelined, bit for bit",
+               np.array_equal(ring["serial"].view(np.int32),
+                              ring["pipelined"].view(np.int32)))
+    del A
+    grid = dt.block_cyclic(grid=(2, 2))
+    G = dt.sparse_matrix.from_coo((m, m), rows, cols, vals, partition=grid)
+    log(f"  2x2 grid: format {G.format}")
+    check_rows("2x2 grid gemv vs float64 scipy", gemv_twice(dt, G, b, m), S,
+               absS, b)
+    B = np.random.default_rng(seed + 4).standard_normal(
+        (m, SP_NV)).astype(np.float32)
+    check_rows(f"2x2 grid spmm nv={SP_NV} vs float64 scipy",
+               dt.spmm(G, B).cpu().numpy(), S, absS, B)
+    del G, S, absS, rows, cols, vals
+    gc.collect()
+    rows, cols, vals, indptr = banded_coo(m, half, seed=seed + 5)
+    S, absS = host_csr((m, m), cols, vals, indptr)
+    Gb = dt.sparse_matrix.from_coo((m, m), rows, cols, vals, partition=grid)
+    log(f"  banded 2x2 grid (half-band {half}): format {Gb.format}")
+    if Gb.format != "bcsr":
+        raise AssertionError(f"banded grid took {Gb.format}")
+    check_rows("2x2 grid banded gemv (bcsr) vs float64 scipy",
+               gemv_twice(dt, Gb, b, m), S, absS, b)
+    del Gb, S, absS, rows, cols, vals
+    # one dense row defeats the ELL padding gate: csr
+    rng = np.random.default_rng(seed + 6)
+    rows = np.concatenate([np.zeros(m, np.int64),
+                           np.repeat(np.arange(m, dtype=np.int64), 4)])
+    cols = np.concatenate([np.arange(m), rng.integers(0, m, 4 * m)])
+    vals = rng.standard_normal(len(rows)).astype(np.float32)
+    import scipy.sparse as sps
+    S = sps.csr_matrix((vals.astype(np.float64), (rows, cols)),
+                       shape=(m, m))
+    K = dt.sparse_matrix.from_coo((m, m), rows, cols, vals)
+    log(f"  skewed (one dense row): format {K.format}")
+    if K.format != "csr":
+        raise AssertionError(f"skewed matrix took {K.format}")
+    check_rows("4 ranks skewed gemv (csr) vs float64 scipy",
+               gemv_twice(dt, K, b, m), S, abs(S), b)
+
+
 def main(argv):
     try:
         import torch
@@ -2107,6 +2519,7 @@ def main(argv):
     counts = dict(kernels.launches)
     log(f"  main path {time.perf_counter() - t0:.2f} s, launches {counts}")
     log("  main path seconds by step: " + json.dumps(steps))
+    steps4 = steps
     peak = torch.cuda.max_memory_allocated()
     for k in ("stencil_matmul", "stencil_blocked", "chunked_dot",
               "chunked_cumsum"):
@@ -2226,6 +2639,40 @@ def main(argv):
     dt.final()
     release(torch)
 
+    log("phase 16: entry() and dryrun(4) on cuda:0")
+    dr_counts = entry_phase(dt, kernels)
+    dt.final()
+    release(torch)
+
+    log("phase 17: halo-exchange p50 (periodic halo 1024, 2^22 cells a "
+        "rank, exchange_n(64), 4 calls x 5 batches) and GB/s/chip")
+    for ranks in (1, 4):
+        p50, per = halo_p50(dt, ranks)
+        log(f"  halo exchange p50 {ranks} rank(s): {p50!r} us per exchange "
+            f"(batches {per})")
+        dt.final()
+    release(torch)
+    log("  GB/s/chip (phase 4's host-clock steps; phase 8's kernels): "
+        + json.dumps(gbps_lines(n, steps4, results)))
+
+    log(f"phase 18: sparse path, 1 rank on cuda:0, m=2^{SP_LOG2}, "
+        f"{SP_K} a row")
+    dt.init(["cuda:0"])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sp = sparse_one_rank(dt, seed)
+    peak6 = torch.cuda.max_memory_allocated()
+    log(f"  sparse path {time.perf_counter() - t0:.2f} s: " + json.dumps(sp))
+    dt.final()
+    release(torch)
+
+    log(f"phase 19: sparse path, 4 ranks on cuda:0, m=2^{SP4_LOG2}")
+    t0 = time.perf_counter()
+    sparse_four_ranks(dt, seed)
+    log(f"  4-rank sparse path {time.perf_counter() - t0:.2f} s")
+    dt.final()
+    release(torch)
+
     log(f"peak device memory (1-D main path): {peak} bytes "
         f"({peak / 2 ** 30:.2f} GiB)")
     log(f"peak device memory (2-D path): {peak2} bytes "
@@ -2236,6 +2683,9 @@ def main(argv):
         f"({peak4 / 2 ** 30:.2f} GiB)")
     log(f"peak device memory (relational path, 1 rank): {peak5} bytes "
         f"({peak5 / 2 ** 30:.2f} GiB)")
+    log(f"peak device memory (sparse path, 1 rank): {peak6} bytes "
+        f"({peak6 / 2 ** 30:.2f} GiB)")
+    log(f"dryrun(4) launches: {json.dumps(dr_counts)}")
     order = ("stencil_matmul", "stencil_blocked", "chunked_dot",
              "chunked_cumsum", "stencil2d_blocked", "bitonic_sort", "segred",
              "hist", "flash_update")

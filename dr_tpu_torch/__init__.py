@@ -44,6 +44,11 @@ Public surface of this slice:
   ``stencil2d_transform / stencil2d_iterate /
   stencil2d_iterate_blocked / stencil2d_n``, ``heat_step_weights``,
   ``gemm``
+- sparse:     ``sparse_matrix`` (padded COO, csr / ell / bcsr / ring
+  layouts), ``random_sparse_matrix``, ``gemv / gemv_n / flat_gemv /
+  spmm / spmm_n``
+- entry:      ``dr_tpu_torch.entry.entry`` and ``dryrun``, the
+  counterparts of ``__graft_entry__``'s
 """
 
 from .parallel.runtime import (init, final, finalize, runtime, nprocs,
@@ -76,7 +81,8 @@ from .containers.mdarray import (distributed_mdarray, distributed_mdspan,
 from .algorithms.stencil2d import (stencil2d_transform, stencil2d_iterate,
                                    stencil2d_iterate_blocked, stencil2d_n,
                                    heat_step_weights)
-from .algorithms.gemv import gemm
+from .containers.sparse_matrix import sparse_matrix, random_sparse_matrix
+from .algorithms.gemv import gemm, gemv, gemv_n, flat_gemv, spmm, spmm_n
 from .algorithms.sort import (sort, sort_by_key, argsort, is_sorted, sort_n,
                               sort_by_key_n)
 from .ops.ring_attention import ring_attention, ring_attention_n
@@ -106,6 +112,8 @@ __all__ = [
     "distributed_mdarray", "distributed_mdspan", "transpose",
     "stencil2d_transform", "stencil2d_iterate", "stencil2d_iterate_blocked",
     "stencil2d_n", "heat_step_weights", "gemm",
+    "sparse_matrix", "random_sparse_matrix", "gemv", "gemv_n", "flat_gemv",
+    "spmm", "spmm_n",
     "sort", "sort_by_key", "argsort", "is_sorted", "sort_n", "sort_by_key_n",
     "ring_attention", "ring_attention_n",
     "join", "groupby_aggregate", "unique", "histogram", "top_k",

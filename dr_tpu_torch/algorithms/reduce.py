@@ -19,7 +19,11 @@ containers runs its rounds through the K3 kernel
 the length, halo or window, with the salt read from a device scalar, so
 the loop never waits for the host.
 
-Not ported yet: identityless custom-op folds.
+An op that is none of those four (an identityless custom fold, which
+``std::reduce`` already requires to be associative) folds each rank's
+window cells pairwise in order (:func:`_tree_fold`), then walks the rank
+partials in rank order, skipping ranks that own no cell of the window
+(``dr_tpu/algorithms/reduce.py:228``); no identity is ever needed.
 """
 
 from __future__ import annotations
@@ -147,14 +151,48 @@ def _zip_reduce_chains(r):
     return chains, r.op
 
 
+def _tree_fold(op: Callable, x: torch.Tensor) -> torch.Tensor:
+    """``x[0] op x[1] op ... op x[-1]`` for an associative ``op`` over
+    tensors: adjacent pairs combine level by level, the left operand
+    always the earlier one, so a non-commutative op keeps its order.
+    ``log2(len(x))`` elementwise calls; ``x`` must not be empty."""
+    if x.numel() == 0:
+        raise ValueError("reduce of an empty range with an identityless op")
+    while x.shape[0] > 1:
+        odd = x.shape[0] % 2
+        y = op(x[0:x.shape[0] - odd:2], x[1::2])
+        x = torch.cat([y, x[-1:]]) if odd else y
+    return x[0]
+
+
+def _custom_reduce(c, op) -> torch.Tensor:
+    """Identityless fold of one chain's window: each rank that owns
+    cells of it folds them, and the partials fold in rank order onto
+    rank 0's device."""
+    acc = None
+    dev = c.cont.runtime.devices[0]
+    for r in range(c.cont.nshards):
+        a, b = window_cols(c.cont.layout, c.off, c.n, r)
+        if a == b:
+            continue  # an empty rank has no partial to fold
+        part = _tree_fold(op, _apply_ops(c.cont._rows[r][0, a:b],
+                                        c.ops)).to(dev)
+        acc = part if acc is None else op(acc, part)
+    return acc
+
+
 def reduce_async(r, op: Callable = None) -> torch.Tensor:
     """Like :func:`reduce` but returns the device scalar without
     waiting (the analog of the reference's ``reduce_async``)."""
     kind = _classify_op(op)
     if kind is None:
-        raise NotImplementedError(
-            "reduce with an unclassified op (identityless fold) is not "
-            "ported yet; use add/mul/min/max")
+        chains = _resolve(r) if not isinstance(r, _v.zip_view) else None
+        if chains is not None and len(chains) == 1 and chains[0].n > 0:
+            return _custom_reduce(chains[0], op)
+        arr = r.to_array() if hasattr(r, "to_array") else _as_tensor(r)
+        assert not isinstance(arr, tuple), \
+            "reduce over a zip needs a transform to combine components"
+        return _tree_fold(op, arr)
     chains = _resolve(r) if not isinstance(r, _v.zip_view) else None
     zip_op = None
     if chains is not None and len(chains) != 1:

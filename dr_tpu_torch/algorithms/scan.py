@@ -10,19 +10,25 @@ with the carry seeding the kernel, so the scan is the only pass over the
 data; other monoids and dtypes scan with torch's cumulative ops and
 fold the carry afterwards.
 
-Whole containers and same-geometry windows are ported.  Not yet: the
-mismatched-window realign and identityless custom-op folds.
+An op that is none of add/mul/min/max (an identityless custom fold,
+associative as ``std::inclusive_scan`` requires) and a scan whose
+output window sits elsewhere than its input window (another offset,
+layout or runtime) run in window coordinates: each rank scans its slice
+of the input window (:func:`_prefix_scan` for a custom op, K4 for an
+f32/bf16/f16 add-scan), folds the totals of the ranks before it that own
+cells, and the scanned slices are copied into the ranks that own the
+output window (the realign of ``dr_tpu/algorithms/scan.py:425-540``).
 """
 
 from __future__ import annotations
 
-import operator
 from typing import Callable
 
 import torch
 
 from ._common import (MONOID_COMBINE, f32_accumulable, identity_for,
-                      uniform_layout, window_cols, working_geometry)
+                      uniform_layout, window_cols, window_geometry,
+                      working_geometry)
 from ..ops import scan_pallas
 from .elementwise import _Chain, _apply_ops, _out_chain, _resolve, \
     _write_window
@@ -45,6 +51,22 @@ def _local_scan(kind, x):
     if kind == "mul":
         return torch.cumprod(x, 0, dtype=x.dtype)
     return (torch.cummin(x, 0) if kind == "min" else torch.cummax(x, 0))[0]
+
+
+def _prefix_scan(op: Callable, x: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan of ``x`` under an associative ``op`` over tensors:
+    ``log2(len(x))`` rounds of ``y[i] = op(y[i - d], y[i])`` with the
+    earlier operand on the left, so a non-commutative op keeps its
+    order."""
+    d = 1
+    while d < x.shape[0]:
+        x = torch.cat([x[:d], op(x[:-d], x[d:])])
+        d *= 2
+    return x
+
+
+def _combine_of(kind, op):
+    return MONOID_COMBINE[kind] if kind is not None else op
 
 
 def _fill(x, kind, dtype):
@@ -124,12 +146,77 @@ def _scan_rows(cont, rows, kind, exclusive, dtype, ops=(), window=None,
     return out
 
 
+def _window_scan(c, kind, op, exclusive, dtype):
+    """Scan one chain's window in window coordinates; returns each rank's
+    scanned slice (empty where the rank owns no cell of the window), in
+    ``dtype``.  Add-scans of f32/bf16/f16 cells take K4, seeded with the
+    f32 sum of the earlier ranks' totals; other ops scan locally and fold
+    the earlier nonempty ranks' totals into the slice."""
+    cont = c.cont
+    devs = cont.runtime.devices
+    xs = []
+    for r in range(cont.nshards):
+        a, b = window_cols(cont.layout, c.off, c.n, r)
+        xs.append(_apply_ops(cont._rows[r][0, a:b], c.ops).contiguous())
+    live = [r for r, x in enumerate(xs) if x.numel()]
+    out = [x.to(dtype) for x in xs]
+    if kind is not None and _takes_k4(kind, xs[live[0]].dtype):
+        carry = torch.zeros((), dtype=torch.float32, device=devs[0])
+        for r in live:
+            x = xs[r]
+            s = scan_pallas.chunked_cumsum(x, carry=carry.to(x.device))
+            if exclusive:
+                s = torch.cat([carry.to(x.device, s.dtype)[None], s[:-1]])
+            carry = carry + x.sum(dtype=torch.float32).to(devs[0])
+            out[r] = s.to(dtype)
+        return out
+    combine = _combine_of(kind, op)
+    carry = None
+    for r in live:
+        x = xs[r]
+        local = (_local_scan(kind, x) if kind is not None
+                 else _prefix_scan(op, x))
+        total = local[-1]
+        s = local if carry is None else combine(carry.to(x.device), local)
+        if exclusive:
+            if carry is not None:
+                first = carry.to(x.device, s.dtype)[None]
+            elif kind is not None:
+                first = _fill(x, kind, s.dtype)
+            else:
+                # no identity: a zero that exclusive_scan's init replaces
+                first = torch.zeros((1,), dtype=s.dtype, device=x.device)
+            s = torch.cat([first, s[:-1]])
+        t = total.to(devs[0])
+        carry = t if carry is None else combine(carry, t)
+        out[r] = s.to(dtype)
+    return out
+
+
+def _realign(c, out_chain, slices) -> None:
+    """Copy scanned window slices (the input window's geometry) into the
+    ranks that own the same window positions of the output window."""
+    _, _, _, _, _, _, vin, win, _ = window_geometry(c.cont.layout, c.off,
+                                                    c.n)
+    oc = out_chain.cont
+    _, _, _, _, _, _, vout, wout, _ = window_geometry(oc.layout,
+                                                      out_chain.off, c.n)
+    for q, row in enumerate(oc._rows):
+        lo_q, hi_q = int(vout[q]), int(vout[q] + wout[q])
+        if lo_q == hi_q:
+            continue
+        pieces = []
+        for r, s in enumerate(slices):
+            lo, hi = max(lo_q, int(vin[r])), min(hi_q, int(vin[r] + win[r]))
+            if lo < hi:
+                pieces.append(s[lo - int(vin[r]): hi - int(vin[r])]
+                              .to(row.device, non_blocking=True))
+        a, b = window_cols(oc.layout, out_chain.off, c.n, q)
+        row[0, a:b] = torch.cat(pieces).to(row.dtype)
+
+
 def _scan(in_r, out, op, init, exclusive):
     kind = _classify_op(op)
-    if kind is None:
-        raise NotImplementedError(
-            "scan with an unclassified op (identityless fold) is not "
-            "ported yet; use add/mul/min/max")
     out_chain = _out_chain(out)
     ins = _resolve(in_r)
     if ins is not None and len(ins) == 1 and ins[0].n != out_chain.n:
@@ -142,7 +229,8 @@ def _scan(in_r, out, op, init, exclusive):
     c = ins[0] if single else None
     if single and c.n == 0:
         return out
-    same = (single and c.cont.runtime is out_chain.cont.runtime
+    same = (single and kind is not None
+            and c.cont.runtime is out_chain.cont.runtime
             and c.cont.layout == out_chain.cont.layout
             and c.off == out_chain.off)
     if same:
@@ -152,15 +240,19 @@ def _scan(in_r, out, op, init, exclusive):
             c.cont, c.cont._rows, kind, exclusive, out_chain.cont.dtype,
             c.ops, None if full else (c.off, c.n), out_chain.cont._rows)
     elif single:
-        raise NotImplementedError(
-            "scan between mismatched windows or layouts (the realign) is "
-            "not ported yet")
+        _realign(c, out_chain, _window_scan(c, kind, op, exclusive,
+                                            out_chain.cont.dtype))
     else:
         arr = in_r.to_array() if hasattr(in_r, "to_array") \
             else _as_tensor(in_r)
-        scanned = _local_scan(kind, arr)
+        if kind is None:
+            scanned = _prefix_scan(op, arr)
+            first = torch.zeros((1,), dtype=arr.dtype, device=arr.device)
+        else:
+            scanned = _local_scan(kind, arr)
+            first = _fill(arr, kind, arr.dtype)
         if exclusive:
-            scanned = torch.cat([_fill(arr, kind, arr.dtype), scanned[:-1]])
+            scanned = torch.cat([first, scanned[:-1]])
         _write_window(out_chain, scanned[:out_chain.n])
     if init is not None:
         _scan_apply_init(out, init, op, set_first=False)
@@ -208,8 +300,8 @@ def _scan_apply_init(out, init, op, set_first=True):
     """Fold ``init`` into a scan result: every covered cell takes
     ``op(init, prefix)``; with ``set_first`` (the exclusive form) the
     first covered cell is set to ``init`` exactly."""
-    kind = _classify_op(op if op is not None else operator.add)
-    combine = MONOID_COMBINE[kind]
+    kind = _classify_op(op)
+    combine = _combine_of(kind, op)
     chain = _out_chain(out)
     cont = chain.cont
     if chain.n == 0:

@@ -25,10 +25,11 @@ import torch
 from ._common import uniform_layout
 from .elementwise import _out_chain, _resolve
 from ..parallel import collectives
+from ..parallel import runtime as _rt
 from ..parallel.halo import exchange_rows
 
-__all__ = ["stencil_transform", "stencil_iterate", "stencil_iterate_blocked",
-           "stencil_iterate_matmul"]
+__all__ = ["stencil_transform", "stencil_iterate", "build_stencil_step",
+           "stencil_iterate_blocked", "stencil_iterate_matmul"]
 
 
 def _weights_op(weights):
@@ -42,15 +43,16 @@ def _weights_op(weights):
     return op, w
 
 
-def _step_rows(cont, in_rows, out_rows, op, prev, nxt, periodic):
+def _step_rows(layout, devices, in_rows, out_rows, op, prev, nxt,
+               periodic):
     """One fused exchange + transform step: returns the new output rows.
     The exchange works on copies: the input rows' ghosts stay as they
     were, as in the JAX program."""
-    nshards, seg, hprev, hnxt, n = cont.layout
+    nshards, seg, hprev, hnxt, n = layout
     assert hprev >= prev and hnxt >= nxt, "halo narrower than stencil radius"
     rows = [r.clone() for r in in_rows]
     if (hprev or hnxt) and (nshards > 1 or periodic):
-        exchange_rows(rows, cont.runtime.devices, cont.layout, periodic)
+        exchange_rows(rows, devices, layout, periodic)
     lo_g, hi_g = (0, n) if periodic else (prev, n - nxt)
     new = []
     for idx, (row, out) in enumerate(zip(rows, out_rows)):
@@ -64,6 +66,21 @@ def _step_rows(cont, in_rows, out_rows, op, prev, nxt, periodic):
             out[0, hprev + a: hprev + b] = vals[a:b].to(out.dtype)
         new.append(out)
     return new
+
+
+def build_stencil_step(layout, periodic, op, prev, nxt, devices=None):
+    """One fused exchange + transform step as a function of rank rows
+    (counterpart of ``dr_tpu/algorithms/stencil.py:46``): ``step(in_rows,
+    out_rows)`` returns the new output rows of a container with
+    ``layout`` (nshards, seg, prev, nxt, n) on ``devices`` (default: the
+    runtime's).  ``op`` maps the ``prev+nxt+1`` shifted neighbourhoods to
+    the output cells; the input rows are not changed."""
+    devs = devices if devices is not None else _rt.devices()
+
+    def step(in_rows, out_rows):
+        return _step_rows(layout, devs, in_rows, out_rows, op, prev, nxt,
+                          periodic)
+    return step
 
 
 def _radius(cont, op):
@@ -94,8 +111,9 @@ def stencil_transform(in_dv, out_dv, op: Union[Callable, Sequence[float]],
     body_op, prev, nxt = _radius(cont, op)
     if radius is not None:
         prev = nxt = radius
-    oc.cont._rows = _step_rows(cont, cont._rows, oc.cont._rows, body_op,
-                               prev, nxt, cont.halo_bounds.periodic)
+    oc.cont._rows = _step_rows(cont.layout, cont.runtime.devices,
+                               cont._rows, oc.cont._rows, body_op, prev,
+                               nxt, cont.halo_bounds.periodic)
 
 
 def stencil_iterate(a_dv, b_dv, op: Union[Callable, Sequence[float]],
@@ -109,8 +127,8 @@ def stencil_iterate(a_dv, b_dv, op: Union[Callable, Sequence[float]],
     body_op, prev, nxt = _radius(cont, op)
     x, y = a_dv._rows, b_dv._rows
     for _ in range(steps):
-        y = _step_rows(cont, x, y, body_op, prev, nxt,
-                       cont.halo_bounds.periodic)
+        y = _step_rows(cont.layout, cont.runtime.devices, x, y, body_op,
+                       prev, nxt, cont.halo_bounds.periodic)
         x, y = y, x
     a_dv._rows, b_dv._rows = x, y
     return a_dv

@@ -933,3 +933,123 @@ def test_relational_kernel_routes_on_card(cuda):
     for g, w in zip(got[:6], want[:6]):
         np.testing.assert_array_equal(g, w)
     np.testing.assert_allclose(got[6], want[6], rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------ the sparse path
+
+def _sparse_inputs(case, m):
+    """COO triples of a case at 2^16-scale: config 5's random pattern
+    (ELL), a banded matrix (BCSR), or one dense row (csr)."""
+    rng = np.random.default_rng(11)
+    if case == "banded":
+        ii = np.repeat(np.arange(m), 33)
+        jj = ii + np.tile(np.arange(-16, 17), m)
+        keep = (jj >= 0) & (jj < m)
+        rows, cols = ii[keep], jj[keep]
+    elif case == "skewed":
+        rows = np.concatenate([np.zeros(m, np.int64),
+                               np.repeat(np.arange(m), 4)])
+        cols = np.concatenate([np.arange(m), rng.integers(0, m, 4 * m)])
+    else:
+        rows = np.repeat(np.arange(m), 32)
+        cols = rng.integers(0, m, 32 * m)
+    return rows, cols, rng.standard_normal(len(rows)).astype(np.float32)
+
+
+def _sparse_oracle(rows, cols, vals, b, m):
+    """Float64 scipy product and the row-wise tolerance
+    1e-5 * (|A|·|b|)_i + 1e-6 (f32 sums in some order)."""
+    import scipy.sparse as sps
+    S = sps.csr_matrix((vals.astype(np.float64), (rows, cols)), shape=(m, m))
+    b64 = b.astype(np.float64)
+    return S @ b64, 1e-5 * (abs(S) @ np.abs(b64)) + 1e-6
+
+
+@pytest.mark.parametrize("case,fmt", [("random", "ell"), ("random", "csr"),
+                                      ("random", "ring"), ("banded", "bcsr"),
+                                      ("skewed", "csr"), ("grid", "ell"),
+                                      ("grid_banded", "bcsr")])
+def test_sparse_formats_on_card(cuda, case, fmt):
+    """Every layout at m = 2^16 on 4 ranks of the card against float64
+    scipy; the same bits on a second call and on another stream; the
+    ring's schedules the same bits; the layouts built on the card equal
+    the CPU build bit for bit."""
+    import importlib
+    import os
+    import dr_tpu_torch as dt
+    tg = importlib.import_module("dr_tpu_torch.algorithms.gemv")
+    m, P = 1 << 16, 4
+    base = case.replace("grid_", "").replace("grid", "random")
+    rows, cols, vals = _sparse_inputs(base, m)
+    b = np.random.default_rng(12).standard_normal(m).astype(np.float32)
+    ref, tol = _sparse_oracle(rows, cols, vals, b, m)
+
+    def build(devs):
+        dt.init(devs)
+        part = dt.block_cyclic(grid=(2, 2)) if "grid" in case else None
+        return dt.sparse_matrix.from_coo((m, m), rows, cols, vals,
+                                         partition=part)
+
+    A_cpu = build(["cpu"] * P)
+    tg.viable_formats(A_cpu)
+    A = build(dt.get_duplicated_devices(P, ["cuda:0"]))
+    assert tg.viable_formats(A) == tg.viable_formats(A_cpu)
+    assert A.format == A_cpu.format
+    for name in ("_vals", "_rows", "_cols", "_ell_vals", "_ell_cols",
+                 "_bcsr_vals", "_bcsr_cols", "_ring_vals", "_ring_cols"):
+        if getattr(A_cpu, name) is not None:
+            for x, y in zip(getattr(A, name), getattr(A_cpu, name)):
+                assert torch.equal(x.cpu(), y), name
+    assert tg._resolve(A, fmt) == fmt
+    bd = torch.from_numpy(b).to("cuda:0")
+
+    def run():
+        c = dt.distributed_vector(m)
+        tg._gemv_as(c, A, bd, fmt)
+        return c.to_array()
+
+    got = run()
+    assert (np.abs(got.cpu().numpy() - ref) <= tol).all()
+    assert torch.equal(run(), got)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        again = run()
+    torch.cuda.current_stream().wait_stream(side)
+    assert torch.equal(again, got)
+    if fmt == "ring":
+        saved = os.environ.get("DR_GPU_RING_SCHEDULE")
+        try:
+            os.environ["DR_GPU_RING_SCHEDULE"] = "serial"
+            assert torch.equal(run(), got)
+        finally:
+            if saved is None:
+                os.environ.pop("DR_GPU_RING_SCHEDULE", None)
+            else:
+                os.environ["DR_GPU_RING_SCHEDULE"] = saved
+    if fmt in ("ell", "bcsr"):
+        B = np.random.default_rng(13).standard_normal((m, 3)).astype(
+            np.float32)
+        Y = dt.spmm(A, torch.from_numpy(B).to("cuda:0"))
+        assert torch.equal(dt.spmm(A, torch.from_numpy(B).to("cuda:0")), Y)
+        for j in range(3):
+            rj, tj = _sparse_oracle(rows, cols, vals, B[:, j], m)
+            assert (np.abs(Y[:, j].cpu().numpy() - rj) <= tj).all()
+
+
+def test_mismatched_window_scan_launches_k4(cuda):
+    """A scan between windows at other offsets (the realign) still takes
+    K4 on an f32 add-scan, once a rank that owns window cells."""
+    import dr_tpu_torch as dt
+    dt.init(dt.get_duplicated_devices(4, ["cuda:0"]))
+    n = 1 << 20
+    src = np.random.default_rng(14).standard_normal(n).astype(np.float32)
+    x = dt.distributed_vector.from_array(src)
+    out = dt.distributed_vector(n)
+    before = kernels.launches["chunked_cumsum"]
+    dt.inclusive_scan(x[0:n - 4], out[4:n])
+    torch.cuda.synchronize()
+    assert kernels.launches["chunked_cumsum"] == before + 4
+    want = np.cumsum(src[:n - 4].astype(np.float64))
+    got = dt.to_numpy(out)[4:]
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()

@@ -45,7 +45,8 @@ def test_port_files_exist():
             "mdarray.py", "sort.py", "sort_pallas.py", "segred_pallas.py",
             "order_keys.py", "pipeline.py", "flash_attention.py",
             "ring_attention.py", "relational.py", "hist_pallas.py",
-            "resilience.py", "chip_smoke.py"} <= names
+            "resilience.py", "sparse_matrix.py", "gemv.py", "entry.py",
+            "chip_smoke.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,

@@ -122,8 +122,11 @@ def test_dot_and_transform_reduce_match_reference(mesh_size):
     ref = dr_tpu.transform_reduce(jx, 1.0, None, lambda v, mu: (v - mu) ** 2,
                                   (0.5,))
     assert got == pytest.approx(ref, rel=1e-5)
-    with pytest.raises(NotImplementedError):
-        dt.reduce(tx, op=lambda p, q: p + q)
+    # an identityless custom op: a product folds in order on each rank,
+    # then over the ranks that own cells (77 f32 roundings either way)
+    for jr, tr in ((jx, tx), (jx[5:60], tx[5:60])):
+        assert dt.reduce(tr, op=lambda p, q: p * q) == pytest.approx(
+            dr_tpu.reduce(jr, op=lambda p, q: p * q), rel=1e-5)
 
 
 @pytest.mark.parametrize("halo", [0, 2])
@@ -224,10 +227,16 @@ def test_inclusive_scan_n_and_refusals():
     ref = dr_tpu.to_numpy(jo)
     # two chained f32 scans: 1e-4 of the largest value
     assert np.abs(dt.to_numpy(to) - ref).max() <= 1e-4 * np.abs(ref).max()
-    with pytest.raises(NotImplementedError):
-        dt.inclusive_scan(ta, to, lambda p, q: p + q)
-    with pytest.raises(NotImplementedError):  # mismatched windows
-        dt.inclusive_scan(ta[0:100], to[5:105])
+    # an identityless custom op, and a window scanned into a window at
+    # another offset (the realign)
+    dr_tpu.inclusive_scan(ja, jo, lambda p, q: p + q)
+    dt.inclusive_scan(ta, to, lambda p, q: p + q)
+    np.testing.assert_allclose(dt.to_numpy(to), dr_tpu.to_numpy(jo),
+                               **SCAN_TOL)
+    dr_tpu.inclusive_scan(ja[0:100], jo[5:105])
+    dt.inclusive_scan(ta[0:100], to[5:105])
+    np.testing.assert_allclose(dt.to_numpy(to), dr_tpu.to_numpy(jo),
+                               **SCAN_TOL)
     with pytest.raises(ValueError):
         dt.inclusive_scan(ta[0:100], to[0:50])
 
