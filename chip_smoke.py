@@ -96,7 +96,22 @@ checks the kernels at small shapes only).  Phases:
 19. the sparse path on 4 ranks at 2^20 rows against float64 scipy: row
     tiles (ELL), the ring layout (serial equal to pipelined bit for
     bit), a 2x2 block-cyclic grid with ``gemv`` and ``spmm``, the banded
-    matrix on the grid (BCSR) and a matrix with one dense row (csr).
+    matrix on the grid (BCSR) and a matrix with one dense row (csr);
+20. re-layout and state on 4 ranks of the card: bench.py's redistribute
+    ping-pong (even <-> a rotated cut, ``bench.py:1064-1102``) at 2^28
+    f32, each hop's rows equal bit for bit between the collective and the
+    host-staged routes, a team hop, a seeded uneven cut, a hop onto 2
+    ranks (host-staged), GB/s of both routes by bench.py's count
+    (``2*n*4`` bytes an iteration) and the collective route's peak
+    memory, a periodic halo-1024 vector at 2^26 moved and exchanged; an
+    unstructured halo over 2^26 cells (2^20 indices a rank, duplicates
+    included): ``exchange()`` and the five ``reduce`` ops bit for bit
+    with numpy, twice, ms per call; checkpoint round trips (a 2^28 f32
+    vector with an uneven distribution, a 2^26 bf16 vector, an 8192^2
+    cyclic matrix, config 5's pattern at 2^20 rows, a 3-D mdarray), bit
+    for bit, with seconds and bytes, and a truncated file refused; the
+    communicator at 2^24, ``rma_window``, an ``op_from_expr`` transform
+    at 2^28 and the views, against numpy or torch.
 
 Phase 3 also holds K9 (``flash_update``) against its plain version at
 small shapes (d = 128 and 256 on the wgmma kernel, d = 768 on the
@@ -162,6 +177,19 @@ HALO_W, HALO_CELLS, HALO_ROUNDS = 1024, 1 << 22, 64
 SP_LOG2, SP_K, SP_NV = 22, 32, 8
 SPB_LOG2, SPB_HALF = 18, 128
 SP4_LOG2, SP4_HALF = 20, 16
+# phase 20, on 4 ranks: bench.py's redistribute ping-pong (even <->
+# rotated cut) at 2^28 f32, 1 GiB (bench.py's 2^24 was a TPU chip's
+# share), a periodic halo-1024 vector at 2^26; an unstructured halo over
+# 2^26 cells, 2^20 mirrored indices a rank; checkpoints of a 2^28 f32
+# vector, a 2^26 bf16 vector, an 8192^2 matrix in 1024^2 cyclic tiles,
+# config 5's pattern at 2^20 rows and a 512 x 512 x 256 mdarray; the
+# communicator at 2^24 and an expression transform at 2^28
+RDX_LOG2, RDX_HALO_LOG2 = 28, 26
+UH_LOG2, UH_GHOSTS_LOG2 = 26, 20
+CK_LOG2, CK_BF_LOG2, CK_M, CK_TILE, CK_MD = 28, 26, 8192, 1024, (512, 512,
+                                                                  256)
+SURF_LOG2, EXPR_LOG2 = 24, 28
+UH_OPS = ("plus", "multiplies", "max", "min", "second")
 
 
 def log(*a):
@@ -2432,6 +2460,360 @@ def sparse_four_ranks(dt, seed, device="cuda:0", m_log2=SP4_LOG2,
                gemv_twice(dt, K, b, m), S, abs(S), b)
 
 
+# -------------------------------------- re-layout, halo and checkpoint
+
+def rows_equal(a, b):
+    """The rank rows of two f32 vectors, bit for bit."""
+    return len(a.rows) == len(b.rows) and all(
+        torch_equal(x, y) for x, y in zip(a.rows, b.rows))
+
+
+def host_ms(run, iters, fence):
+    """Milliseconds a call of ``run`` by the host clock, ``fence()``
+    before and after, after one warm-up call."""
+    run()
+    fence()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        run()
+    fence()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def redistribute_phase(dt, seed, device="cuda:0", log2=RDX_LOG2,
+                       halo_log2=RDX_HALO_LOG2, timed=True):
+    """Phase 20 (a): bench.py's redistribute configuration on 4 ranks:
+    every hop's rows equal between the collective and the host-staged
+    route, the value the source's, bit for bit; then both routes' GB/s
+    by bench.py's count, and a halo vector moved and exchanged."""
+    import torch
+    from dr_tpu_torch.parallel import redistribute as rdx
+    from dr_tpu_torch.parallel.runtime import Runtime
+    rt = dt.init(dt.get_duplicated_devices(4, [device]))
+    P, n = 4, 1 << log2
+    gen = torch.Generator(device=device).manual_seed(seed + 20)
+    src = torch.randn(n, generator=gen, device=device)
+    base = n // P
+    rot = [base // 2, base, base, n - base // 2 - 2 * base]
+    cuts = np.sort(np.random.default_rng(seed + 20).integers(0, n + 1, P - 1))
+    uneven = [int(b - a) for a, b in zip(np.r_[0, cuts], np.r_[cuts, n])]
+    va = dt.distributed_vector.from_array(src)
+    vb = dt.distributed_vector.from_array(src)
+    for tag, d in (("the rotated cut", rot), ("even", None),
+                   ("a team on rank 2", [0, 0, n, 0]),
+                   (f"a seeded uneven cut {uneven}", uneven),
+                   ("even", None)):
+        rdx._collective(va, d, rt)
+        rdx._host_staged(vb, d, rt)
+        check_true(f"redistribute to {tag}: collective rows == "
+                   "host-staged rows (bits)", rows_equal(va, vb))
+        check_true(f"redistribute to {tag}: values == source (bits)",
+                   torch_equal(va.to_array(), src))
+    del vb
+    two = Runtime(rt.devices[:2])
+    dt.redistribute(va, [n // 4, n - n // 4], runtime=two)
+    check_true("redistribute onto 2 ranks (host-staged): values == source "
+               "(bits)", va.nshards == 2 and torch_equal(va.to_array(), src))
+    dt.redistribute(va, None)
+    check_true("redistribute back onto 4 ranks: values == source (bits)",
+               va.nshards == 4 and torch_equal(va.to_array(), src))
+    out = {"n": n, "hops_per_iter": 2, "rotated_cut": rot}
+    if timed:
+        def pingpong(route):
+            def run():
+                route(va, rot, rt)
+                route(va, None, rt)
+            return run
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        ms = events_ms(pingpong(lambda v, d, r: dt.redistribute(v, d)), 10)
+        peak = torch.cuda.max_memory_allocated()
+        ms_host = host_ms(pingpong(rdx._host_staged), 2, rt.fence)
+        out.update({
+            "collective_ms_per_iter": ms,
+            "collective_gbps": 2 * n * 4 / (ms * 1e-3) / 1e9,
+            "host_staged_ms_per_iter": ms_host,
+            "host_staged_gbps": 2 * n * 4 / (ms_host * 1e-3) / 1e9,
+            "collective_peak_bytes": peak,
+            "collective_peak_above_live_bytes": peak - live})
+        log(f"  redistribute ping-pong: collective {ms!r} ms an iteration "
+            f"({out['collective_gbps']!r} GB/s), host-staged {ms_host!r} ms "
+            f"({out['host_staged_gbps']!r} GB/s); collective peak {peak} "
+            f"bytes, {peak - live} above the {live} live")
+        check_true("after the timed ping-pong: values == source (bits)",
+                   torch_equal(va.to_array(), src))
+    del va
+    nh = 1 << halo_log2
+    hv = dt.distributed_vector.from_array(src[:nh], halo=dt.halo_bounds(
+        HALO_W, HALO_W, periodic=True))
+    dt.redistribute(hv, None)
+    hv.halo().exchange()
+    cells = nh // P
+    ok = True
+    for r, row in enumerate(hv.rows):
+        left = ((r - 1) % P) * cells + cells - HALO_W
+        right = ((r + 1) % P) * cells
+        want = torch.cat([src[left:left + HALO_W],
+                          src[r * cells:(r + 1) * cells],
+                          src[right:right + HALO_W]])
+        ok = ok and torch_equal(row[0], want)
+    check_true(f"halo vector (2^{halo_log2}, halo {HALO_W}) redistributed "
+               "and exchanged: every row == its owners (bits)", ok)
+    return out
+
+
+def ghost_map(n, P, k, rng):
+    """Each rank mirrors ``k`` global indices: half from its neighbours'
+    blocks, half uniform over the vector, duplicates included."""
+    seg = n // P
+    out = {}
+    for r in range(P):
+        nb = rng.choice([(r - 1) % P, (r + 1) % P], k // 2)
+        near = nb * seg + rng.integers(0, seg, k // 2)
+        out[r] = np.concatenate([near, rng.integers(0, n, k - k // 2)])
+    return out
+
+
+def numpy_fold(base, flat, ghosts, op):
+    want = base.copy()
+    if op == "second":
+        want[flat] = ghosts
+    else:
+        {"plus": np.add, "multiplies": np.multiply, "max": np.maximum,
+         "min": np.minimum}[op].at(want, flat, ghosts)
+    return want
+
+
+def uhalo_phase(dt, seed, device="cuda:0", log2=UH_LOG2,
+                ghosts_log2=UH_GHOSTS_LOG2, timed=True):
+    """Phase 20 (b): an unstructured halo on 4 ranks: ``exchange()``
+    against numpy's gather and every ``reduce`` op against numpy's
+    ``ufunc.at`` / fancy assignment, bit for bit and the same bits on a
+    second call; ms per ``exchange()`` and per ``reduce("plus")``."""
+    import torch
+    dt.init(dt.get_duplicated_devices(4, [device]))
+    P, n, k = 4, 1 << log2, 1 << ghosts_log2
+    rng = np.random.default_rng(seed + 21)
+    src = rng.standard_normal(n).astype(np.float32)
+    gmap = ghost_map(n, P, k, rng)
+    flat = np.concatenate([gmap[r] for r in range(P)])
+    contrib = {r: rng.standard_normal(k).astype(np.float32) for r in range(P)}
+    ghosts = np.concatenate([contrib[r] for r in range(P)])
+    depth = int(np.bincount(flat, minlength=n).max())
+    src_dev = torch.from_numpy(src).to(device)
+    v = dt.distributed_vector.from_array(src_dev)
+    t0 = time.perf_counter()
+    uh = dt.unstructured_halo(v, gmap)
+    build = time.perf_counter() - t0
+    log(f"  unstructured halo: {P} x 2^{ghosts_log2} indices over 2^{log2} "
+        f"cells, {len(flat) - len(np.unique(flat))} repeats, deepest "
+        f"column {depth}; built in {build:.3f} s")
+    uh.exchange()
+    check_true("unstructured exchange: every rank's ghosts == numpy gather "
+               "(bits)", all(np.array_equal(
+                   uh.ghost_values(r).cpu().numpy().view(np.int32),
+                   src[gmap[r]].view(np.int32)) for r in range(P)))
+    for op in UH_OPS:
+        want = numpy_fold(src, flat, ghosts, op).view(np.int32)
+        outs = []
+        for _ in range(2):
+            v.assign_array(src_dev)
+            for r in range(P):
+                uh.set_ghost_values(r, contrib[r])
+            uh.reduce(op)
+            outs.append(v.to_array().cpu().numpy().view(np.int32))
+        check_true(f"unstructured reduce {op} == numpy (bits)",
+                   np.array_equal(outs[0], want))
+        check_true(f"unstructured reduce {op}: the same bits on a second "
+                   "call", np.array_equal(outs[0], outs[1]))
+    out = {"n": n, "indices_per_rank": k, "deepest_column": depth}
+    if timed:
+        out["exchange_ms"] = events_ms(uh.exchange, 20)
+        out["reduce_plus_ms"] = events_ms(lambda: uh.reduce("plus"), 20)
+        log(f"  unstructured halo: exchange {out['exchange_ms']!r} ms, "
+            f"reduce plus {out['reduce_plus_ms']!r} ms")
+    return out
+
+
+def checkpoint_phase(dt, seed, device="cuda:0", log2=CK_LOG2,
+                     bf_log2=CK_BF_LOG2, m=CK_M, tile=CK_TILE,
+                     sp_log2=SP4_LOG2, md=CK_MD):
+    """Phase 20 (c): save and load on 4 ranks, each round trip bit for
+    bit, with seconds and file bytes; a truncated file is refused."""
+    import tempfile
+    import torch
+    from dr_tpu_torch.utils import checkpoint as ck
+    from dr_tpu_torch.utils.resilience import CheckpointCorruptError
+    rt = dt.init(dt.get_duplicated_devices(4, [device]))
+    gen = torch.Generator(device=device).manual_seed(seed + 22)
+    rng = np.random.default_rng(seed + 22)
+    out = {}
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    def same_values(a, b):
+        return a.dtype == b.dtype and torch.equal(bits(a.to_array()),
+                                                  bits(b.to_array()))
+
+    def same_triples(a, b):
+        sa, sb = ck.snapshot(a)[1], ck.snapshot(b)[1]
+        return all(np.array_equal(sa[k], sb[k]) for k in sa)
+
+    with tempfile.TemporaryDirectory() as td:
+        def roundtrip(tag, c, same):
+            path = os.path.join(td, tag + ".npz")
+            rt.fence()
+            t0 = time.perf_counter()
+            ck.save(path, c)
+            t1 = time.perf_counter()
+            back = ck.load(path)
+            back.block_until_ready()
+            t2 = time.perf_counter()
+            out[tag] = {"save_s": t1 - t0, "load_s": t2 - t1,
+                        "bytes": os.path.getsize(path)}
+            log(f"  checkpoint {tag}: save {t1 - t0:.3f} s, load "
+                f"{t2 - t1:.3f} s, {out[tag]['bytes']} bytes")
+            check_true(f"checkpoint {tag}: round trip (bits)",
+                       same(c, back))
+            return path, back
+
+        n = 1 << log2
+        cuts = np.sort(rng.integers(0, n + 1, 3))
+        sizes = [int(b - a) for a, b in zip(np.r_[0, cuts], np.r_[cuts, n])]
+        v = dt.distributed_vector.from_array(
+            torch.randn(n, generator=gen, device=device), distribution=sizes)
+        path, back = roundtrip(f"f32 vector 2^{log2}", v, same_values)
+        check_true("  the loaded vector keeps its distribution",
+                   back.layout == v.layout)
+        os.unlink(path)
+        del v, back
+        b = dt.distributed_vector.from_array(torch.randn(
+            1 << bf_log2, generator=gen, device=device).to(torch.bfloat16))
+        path, back = roundtrip(f"bf16 vector 2^{bf_log2}", b, same_values)
+        with open(path, "rb") as fh:
+            head = fh.read(os.path.getsize(path) // 2)
+        torn = os.path.join(td, "torn.npz")
+        with open(torn, "wb") as fh:
+            fh.write(head)
+        try:
+            ck.load(torn)
+            refused = False
+        except CheckpointCorruptError:
+            refused = True
+        check_true("a truncated copy raises CheckpointCorruptError", refused)
+        for p_ in (path, torn):
+            os.unlink(p_)
+        del b, back, head
+        M = dt.dense_matrix.from_array(
+            torch.randn((m, m), generator=gen, device=device),
+            dt.block_cyclic(tile=(tile, tile), grid=(2, 2)))
+        path, back = roundtrip(f"{m}^2 matrix, {tile}^2 cyclic tiles", M,
+                               same_values)
+        check_true("  the loaded matrix keeps its partition",
+                   back.partition == M.partition and not back.is_block)
+        os.unlink(path)
+        del M, back
+        ms = 1 << sp_log2
+        rows, cols, vals, _ = config5_coo(ms, seed=seed)
+        S = dt.sparse_matrix.from_coo((ms, ms), rows, cols, vals)
+        del rows, cols, vals
+        path, back = roundtrip(f"config 5 sparse 2^{sp_log2} rows", S,
+                               same_triples)
+        os.unlink(path)
+        del S, back
+        A = dt.distributed_mdarray.from_array(
+            torch.randn(md, generator=gen, device=device))
+        path, back = roundtrip("mdarray " + "x".join(map(str, md)), A,
+                               same_values)
+        os.unlink(path)
+    return out
+
+
+def surface_phase(dt, seed, device="cuda:0", log2=SURF_LOG2,
+                  expr_log2=EXPR_LOG2):
+    """Phase 20 (d): the communicator, ``rma_window``, an expression
+    transform and the views on 4 ranks, against numpy or torch, bit for
+    bit."""
+    import torch
+    from dr_tpu_torch import views
+    from dr_tpu_torch.utils.expr import op_from_expr
+    dt.init(dt.get_duplicated_devices(4, [device]))
+    P, n = 4, 1 << log2
+    k = n // P
+    rng = np.random.default_rng(seed + 23)
+    v = rng.standard_normal(n).astype(np.float32)
+    comm = dt.default_comm()
+    sh = comm.scatter(v)
+    check_true("communicator scatter / gather at 2^%d (bits)" % log2,
+               all(s.device == torch.device(device) for s in sh)
+               and np.array_equal(comm.gather(sh), v))
+    blocks = v.reshape(P, k)
+    for periodic in (False, True):
+        for name, step, edge in (("shift_forward", 1, 0),
+                                 ("shift_backward", -1, -1)):
+            want = np.roll(blocks, step, 0)
+            if not periodic:
+                want[edge] = 0
+            got = comm.gather(getattr(comm, name)(sh, periodic=periodic))
+            check_true(f"communicator {name} periodic={periodic} == numpy "
+                       "(bits)", np.array_equal(got, want.reshape(-1)))
+    mw = 4096
+    kk = n // (P * P * mw)
+    mat = v.reshape(P * kk, P, mw)
+    got = comm.gather(comm.alltoall(comm.scatter(mat)))
+    want = mat.reshape(P, kk, P, mw).transpose(2, 0, 1, 3).reshape(
+        P * P, kk, mw)
+    check_true("communicator alltoall == numpy (bits)",
+               np.array_equal(got, want))
+    dv = dt.distributed_vector(n)
+    win = dt.rma_window(dv)
+    idx = rng.choice(n, 1 << 16, replace=False)
+    vals = rng.standard_normal(1 << 16).astype(np.float32)
+    win.put(idx, vals)
+    win.fence()
+    host = dt.to_numpy(dv)
+    check_true("rma_window put / fence / get (bits)",
+               np.array_equal(win.get(idx).cpu().numpy(), vals)
+               and np.array_equal(host[idx], vals)
+               and np.count_nonzero(host) == np.count_nonzero(vals))
+    x = torch.randn(1 << expr_log2, generator=torch.Generator(
+        device=device).manual_seed(seed + 23), device=device)
+    xv = dt.distributed_vector.from_array(x)
+    xo = dt.distributed_vector(1 << expr_log2)
+    dt.transform(xv, xo, op_from_expr("(x0 * 2.0 + 1.0)", 1))
+    check_true(f"op_from_expr transform at 2^{expr_log2} == torch "
+               "(bits)", torch_equal(xo.to_array(), x * 2.0 + 1.0))
+    del x, xv, xo
+    vd = dt.distributed_vector.from_array(v)
+    for tag, e in (("enumerate", views.enumerate(vd)),
+                   ("| enumerate()", vd | views.enumerate())):
+        ids, vals_ = e.to_array()
+        check_true(f"views {tag} == numpy", ids.dtype == torch.int32
+                   and np.array_equal(ids.cpu().numpy(), np.arange(n))
+                   and np.array_equal(vals_.cpu().numpy(), v))
+    ranks, vals_ = views.ranked_view(vd).to_array()
+    check_true("views ranked_view == numpy", np.array_equal(
+        ranks.cpu().numpy(), np.repeat(np.arange(P), k))
+        and np.array_equal(vals_.cpu().numpy(), v))
+    check_true("ranked_view segments: int32 ranks on each rank's device",
+               all(dt.local(s)[0].device == torch.device(device)
+                   and dt.local(s)[0].dtype == torch.int32
+                   and bool((dt.local(s)[0] == dt.rank(s)).all())
+                   for s in dt.segments(views.ranked_view(vd))))
+    for tag, r, want in (
+            ("| take | drop", vd | views.take(n - 5) | views.drop(7),
+             v[7:n - 5]),
+            ("| slice_view", vd | views.slice_view((3, k + 9)), v[3:k + 9]),
+            ("| transform", vd | views.transform(lambda t: t * 3.0),
+             v * np.float32(3.0))):
+        check_true(f"views {tag} == numpy (bits)",
+                   np.array_equal(dt.to_numpy(r), want))
+    return {"n": n, "expr_n": 1 << expr_log2}
+
+
 def main(argv):
     try:
         import torch
@@ -2672,6 +3054,24 @@ def main(argv):
     log(f"  4-rank sparse path {time.perf_counter() - t0:.2f} s")
     dt.final()
     release(torch)
+
+    log("phase 20: redistribute, unstructured halo, checkpoint and the "
+        "surface, 4 ranks on cuda:0")
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    relayout = {}
+    for name, fn in (("redistribute", redistribute_phase),
+                     ("unstructured_halo", uhalo_phase),
+                     ("checkpoint", checkpoint_phase),
+                     ("surface", surface_phase)):
+        t1 = time.perf_counter()
+        relayout[name] = fn(dt, seed)
+        log(f"  phase 20 {name}: {time.perf_counter() - t1:.1f} s")
+        dt.final()
+        release(torch)
+    log(f"  phase 20 {time.perf_counter() - t0:.1f} s, launches "
+        f"{dict(kernels.launches)} (no kernel is on this path)")
+    log("  phase 20 numbers: " + json.dumps(relayout))
 
     log(f"peak device memory (1-D main path): {peak} bytes "
         f"({peak / 2 ** 30:.2f} GiB)")

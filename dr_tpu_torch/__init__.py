@@ -21,12 +21,21 @@ Public surface of this slice:
   get_duplicated_devices``
 - vocabulary: ``rank / segments / local`` + concept predicates
 - containers: ``distributed_vector``, ``block_distribution``,
-  ``from_reference_state``
-- views:      ``views.take / drop / subrange / zip / transform /
-  iota_view``, ``aligned``, ``local_segments``
-- algorithms: ``fill / iota / copy / for_each / transform / to_numpy /
-  reduce / transform_reduce / dot / dot_n / inclusive_scan /
-  exclusive_scan / inclusive_scan_n``
+  ``from_reference_state``, ``distributed_span``
+- views:      ``views.take / drop / subrange / slice_view / counted /
+  zip / transform / enumerate / ranked_view / iota_view /
+  segment_ranges`` (and their pipe forms), ``aligned``,
+  ``local_segments``
+- algorithms: ``fill / iota / copy / copy_async / for_each / transform /
+  to_numpy / reduce / transform_reduce / transform_reduce_async / dot /
+  dot_n / inclusive_scan / exclusive_scan / inclusive_scan_n``
+- communicator: ``communicator``, ``default_comm``, ``rma_window``
+  (collectives over per-rank tensor lists)
+- re-layout and state: ``redistribute`` (collective or host-staged),
+  ``checkpoint`` (``save / load``, the JAX package's file format),
+  ``unstructured_halo`` (index-list ghosts), ``resilience``
+- debugging:  ``drlog`` (``DR_GPU_LOG``), ``print_range``,
+  ``print_matrix``, ``range_details``
 - sort:       ``sort / sort_by_key / argsort / is_sorted / sort_n /
   sort_by_key_n``
 - relational: ``join`` (inner/left/right/outer, broadcast and partition
@@ -55,6 +64,8 @@ from .parallel.runtime import (init, final, finalize, runtime, nprocs,
                                devices, barrier, fence,
                                get_duplicated_devices)
 from .parallel.halo import halo_bounds, span_halo, halo_ops
+from .parallel.unstructured_halo import unstructured_halo
+from .parallel.collectives import communicator, rma_window, default_comm
 from .core.vocabulary import (rank, segments, local, is_remote_range,
                               is_distributed_range,
                               is_remote_contiguous_range,
@@ -63,12 +74,14 @@ from .core.segment import Segment, ZipSegment
 from .containers.distribution import block_distribution, even_sizes
 from .containers.distributed_vector import (distributed_vector, halo,
                                             from_reference_state)
+from .containers.distributed_span import distributed_span
 from .views import views
 from .views.views import aligned, local_segments
-from .algorithms.elementwise import (fill, iota, copy, for_each, transform,
-                                     to_numpy)
+from .algorithms.elementwise import (fill, iota, copy, copy_async, for_each,
+                                     transform, to_numpy)
 from .algorithms.reduce import (reduce, transform_reduce, dot, dot_n,
-                                reduce_async, dot_async)
+                                reduce_async, transform_reduce_async,
+                                dot_async)
 from .algorithms.scan import inclusive_scan, exclusive_scan, inclusive_scan_n
 from .algorithms.stencil import (stencil_transform, stencil_iterate,
                                  stencil_iterate_blocked,
@@ -89,6 +102,11 @@ from .ops.ring_attention import ring_attention, ring_attention_n
 from .algorithms.relational import (join, groupby_aggregate, unique,
                                     histogram, top_k, join_auto,
                                     groupby_auto, unique_auto, AutoResult)
+from .utils.logging import drlog
+from .utils.debug import print_range, print_matrix, range_details
+from .utils import checkpoint
+from .utils import resilience
+from .utils.elastic import redistribute
 
 __version__ = "0.1.0"
 
@@ -101,9 +119,9 @@ __all__ = [
     "Segment", "ZipSegment", "block_distribution", "even_sizes",
     "distributed_vector", "from_reference_state",
     "views", "aligned", "local_segments",
-    "fill", "iota", "copy", "for_each", "transform", "to_numpy",
-    "reduce", "transform_reduce", "dot", "dot_n", "reduce_async",
-    "dot_async",
+    "fill", "iota", "copy", "copy_async", "for_each", "transform",
+    "to_numpy", "reduce", "transform_reduce", "dot", "dot_n",
+    "reduce_async", "transform_reduce_async", "dot_async",
     "inclusive_scan", "exclusive_scan", "inclusive_scan_n",
     "stencil_transform", "stencil_iterate", "stencil_iterate_blocked",
     "stencil_iterate_matmul",
@@ -118,4 +136,7 @@ __all__ = [
     "ring_attention", "ring_attention_n",
     "join", "groupby_aggregate", "unique", "histogram", "top_k",
     "join_auto", "groupby_auto", "unique_auto", "AutoResult",
+    "unstructured_halo", "communicator", "rma_window", "default_comm",
+    "distributed_span", "drlog", "print_range", "print_matrix",
+    "range_details", "checkpoint", "resilience", "redistribute",
 ]

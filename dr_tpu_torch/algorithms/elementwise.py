@@ -1,5 +1,5 @@
-"""Elementwise distributed algorithms: fill / iota / copy / for_each /
-transform / to_numpy (counterpart of
+"""Elementwise distributed algorithms: fill / iota / copy / copy_async /
+for_each / transform / to_numpy (counterpart of
 ``dr_tpu/algorithms/elementwise.py``; reference
 ``mhp/algorithms/cpu_algorithms.hpp``).
 
@@ -22,7 +22,8 @@ from ..containers.distributed_vector import (_as_tensor, _host_numpy,
                                              distributed_vector)
 from ..views import views as _v
 
-__all__ = ["fill", "iota", "copy", "for_each", "transform", "to_numpy"]
+__all__ = ["fill", "iota", "copy", "copy_async", "for_each", "transform",
+           "to_numpy"]
 
 
 class _Chain:
@@ -175,6 +176,30 @@ def copy(src, dst) -> None:
         dst[:len(vals)] = vals
         return
     transform(src, dst, _identity)
+
+
+class _Event:
+    """The handle :func:`copy_async` returns: ``wait()`` waits for the
+    copy (the destination's ``block_until_ready``, a fence of its
+    ranks' devices)."""
+
+    def __init__(self, cont):
+        self._cont = cont
+
+    def wait(self) -> None:
+        if hasattr(self._cont, "block_until_ready"):
+            self._cont.block_until_ready()
+
+
+def copy_async(src, dst) -> _Event:
+    """:func:`copy` without waiting (``shp::copy_async``,
+    shp/copy.hpp:116-138): the copies are queued on the devices' streams
+    and the returned event's ``wait()`` joins them."""
+    copy(src, dst)
+    base = dst
+    while base is not None and not hasattr(base, "block_until_ready"):
+        base = getattr(base, "base", None)
+    return _Event(base)
 
 
 def for_each(r, fn: Callable, *scalars) -> None:

@@ -41,8 +41,8 @@ from ..ops import reduce_pallas, segred_pallas
 from ..parallel import collectives
 from ..views import views as _v
 
-__all__ = ["reduce", "transform_reduce", "dot", "reduce_async",
-           "dot_async", "dot_n"]
+__all__ = ["reduce", "transform_reduce", "transform_reduce_async", "dot",
+           "reduce_async", "dot_async", "dot_n"]
 
 
 def _classify_op(op) -> Optional[str]:
@@ -231,6 +231,13 @@ def transform_reduce(r, init=None, reduce_op=None, transform_op=None,
     """reduce(transform(r)); ``transform_args`` bind trailing scalars."""
     return reduce(_v.transform(r, transform_op or _identity,
                                *transform_args), init, reduce_op)
+
+
+def transform_reduce_async(r, reduce_op=None, transform_op=None,
+                           transform_args=()) -> torch.Tensor:
+    """:func:`transform_reduce` without waiting: the device scalar."""
+    return reduce_async(_v.transform(r, transform_op or _identity,
+                                     *transform_args), reduce_op)
 
 
 def dot(a, b, init=None):

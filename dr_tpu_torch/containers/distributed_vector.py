@@ -84,8 +84,19 @@ class distributed_vector:
         self._n = int(size)
         self._dtype = torch_dtype(dtype)
         self._hb = halo or halo_bounds()
-        self._rt = runtime or _rt.runtime()
-        P = self._rt.nprocs
+        self._rebind(runtime or _rt.runtime(), distribution)
+
+    def _rebind(self, runtime, distribution, *, _rows=None) -> None:
+        """(Re)plan the block layout onto ``runtime``'s ranks and
+        (re)allocate the rows, or adopt ``_rows``.  ``__init__`` is one
+        caller; ``redistribute`` is the other, which re-plans a live
+        vector in place: size, dtype and halo bounds stay, the layout is
+        rebuilt, and the caller moves the value.
+
+        Validation runs on locals first, and a late failure (the halo's
+        size checks, an allocation) rolls every attribute back: a
+        rejected re-layout leaves the vector exactly as it was."""
+        P = runtime.nprocs
         if distribution is not None and not isinstance(distribution,
                                                        block_distribution):
             distribution = block_distribution(distribution)
@@ -110,18 +121,29 @@ class distributed_vector:
             sizes = np.asarray(dist_entry[1:], dtype=np.int64)
             seg = max(int(sizes.max(initial=0)), self._hb.prev,
                       self._hb.next, 1)
-            self._starts = np.concatenate(([0], np.cumsum(sizes)[:-1]))
-            self._sizes = sizes
+            starts = np.concatenate(([0], np.cumsum(sizes)[:-1]))
         else:
             seg = max(-(-self._n // P) if self._n else 1,
                       self._hb.prev, self._hb.next, 1)
-            self._starts = self._sizes = None
-        self._nshards = P
-        self._dist_entry = dist_entry
-        self._seg = seg
-        self._rows = [torch.zeros((1, self.block_width), dtype=self._dtype,
-                                  device=d) for d in self._rt.devices]
-        self._halo = span_halo(self) if self._hb.width else None
+            starts = sizes = None
+        prior = {k: self.__dict__.get(k)
+                 for k in ("_rt", "_nshards", "_dist_entry", "_seg",
+                           "_starts", "_sizes", "_rows", "_halo")}
+        try:
+            self._rt = runtime
+            self._nshards = P
+            self._dist_entry = dist_entry
+            self._seg = seg
+            self._starts = starts
+            self._sizes = sizes
+            self._rows = _rows if _rows is not None else [
+                torch.zeros((1, self.block_width), dtype=self._dtype,
+                            device=d) for d in runtime.devices]
+            self._halo = span_halo(self) if self._hb.width else None
+        except BaseException:
+            if prior["_rt"] is not None:  # a live re-layout, not __init__
+                self.__dict__.update(prior)
+            raise
 
     # ------------------------------------------------------------------ meta
     @property

@@ -16,6 +16,9 @@ may share one device, so no subprocess or device-count flag is needed.
 
 from __future__ import annotations
 
+import os
+import tempfile
+
 import numpy as np
 import torch
 
@@ -78,11 +81,10 @@ def dryrun(n_ranks: int, devices=None) -> None:
     repeated to ``n_ranks``).  Raises AssertionError on the first
     section that disagrees with its oracle.
 
-    Left out until their modules are ported (ROADMAP.md queue 1 items
-    3-5): the unstructured halo, the checkpoint round trip, the
-    ``op_from_expr`` + ``spmd_guard`` section, and the env-forced
-    streaming flash ring (the bf16 ring-attention call below takes the
-    port's flash route instead)."""
+    Left out until their modules are ported (ROADMAP.md queue 1 item
+    3): the ``spmd_guard`` around the ``op_from_expr`` section, and the
+    env-forced streaming flash ring (the bf16 ring-attention call below
+    takes the port's flash route instead)."""
     import dr_tpu_torch as dt
     devs = _rt.get_duplicated_devices(n_ranks, devices)
     dt.init(devs)
@@ -158,6 +160,28 @@ def dryrun(n_ranks: int, devices=None) -> None:
     got = dt.reduce(pos, op=lambda p, q: p * q * 1.0)
     _check("identityless reduce", abs(got - 1.01 ** n) < 1e-3 * 1.01 ** n)
 
+    # unstructured (index-list) halo: exchange refreshes the ghosts from
+    # their owners across the ranks, reduce folds them back
+    uv = dt.distributed_vector.from_array(src)
+    gmap = {0: [n - 1, n - 2], P - 1: [0, 1]}
+    uh = dt.unstructured_halo(uv, gmap)
+    uh.exchange()
+    _check("unstructured halo exchange", all(
+        np.array_equal(uh.ghost_values(r).cpu().numpy(), src[ix])
+        for r, ix in gmap.items()))
+    uh.reduce("plus")
+    uref = src.copy()
+    for ix in gmap.values():  # each ghost adds its owner's value
+        uref[ix] += src[ix]
+    _check("unstructured halo reduce", np.array_equal(dt.to_numpy(uv), uref))
+
+    # checkpoint save / load round trip through the distributed container
+    with tempfile.TemporaryDirectory() as td:
+        ck = os.path.join(td, "dryrun_ckpt.npz")
+        dt.checkpoint.save(ck, x)
+        _check("checkpoint round trip", np.array_equal(
+            dt.to_numpy(dt.checkpoint.load(ck)), src))
+
     # N-D mdarray: a 3-D transpose and a submdspan window
     a3 = 2 * P
     cube = np.arange(a3 * 6 * 5, dtype=np.float32).reshape(a3, 6, 5)
@@ -222,6 +246,13 @@ def dryrun(n_ranks: int, devices=None) -> None:
     dt.gemv(cb, spb, np.ones(mb, dtype=np.float32))
     _check("banded 2-D gemv", np.allclose(dt.to_numpy(cb), band.sum(1),
                                           rtol=1e-4))
+
+    # an expression-DSL op (the native bridge's lambda contract)
+    from .utils.expr import op_from_expr
+    ex_out = dt.distributed_vector(n)
+    dt.transform(x, ex_out, op_from_expr("(x0 * 2.0 + 1.0)", 1))
+    _check("op_from_expr transform", np.allclose(dt.to_numpy(ex_out),
+                                                 2.0 * src + 1.0, rtol=1e-5))
 
     # sequence-parallel ring attention, causal: f32 (the blockwise ring)
     # and bf16 at head dim 128 (the flash ring, K9), held to each other

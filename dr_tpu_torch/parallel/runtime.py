@@ -33,7 +33,7 @@ class Runtime:
     """One entry of ``devices`` per rank; ``nprocs`` ranks."""
 
     def __init__(self, devices: Sequence[torch.device]):
-        self.devices = list(devices)
+        self.devices = [_as_device(d) for d in devices]
 
     @property
     def nprocs(self) -> int:

@@ -1,7 +1,9 @@
 """The classified failure taxonomy (counterpart of
 ``dr_tpu/utils/resilience.py``), as far as the ported algorithms raise
 it: :class:`ProgramError`, a deterministic program or user error that no
-retry can cure (a relational result larger than its output containers).
+retry can cure (a relational result larger than its output containers),
+and its :class:`CheckpointCorruptError`, a truncated, corrupt or
+newer-format checkpoint file.
 
 Not carried over yet: the other classes, retry, deadlines and the trace
 tail a classified error carries; they come with the faults layer.
@@ -9,7 +11,7 @@ tail a classified error carries; they come with the faults layer.
 
 from __future__ import annotations
 
-__all__ = ["ResilienceError", "ProgramError"]
+__all__ = ["ResilienceError", "ProgramError", "CheckpointCorruptError"]
 
 
 class ResilienceError(RuntimeError):
@@ -23,3 +25,8 @@ class ResilienceError(RuntimeError):
 
 class ProgramError(ResilienceError):
     """Deterministic program/user error: retrying is futile; surface."""
+
+
+class CheckpointCorruptError(ProgramError):
+    """A checkpoint file is truncated, corrupt or foreign: the classified
+    answer to a torn write (``utils/checkpoint.py``)."""

@@ -17,9 +17,11 @@ import torch
 from ..core.segment import Segment, ZipSegment
 from ..core.vocabulary import local, rank, segments
 
-__all__ = ["take", "drop", "subrange", "transform", "zip_view", "zip",
-           "iota_view", "take_segments", "drop_segments", "aligned",
-           "local_segments", "BoundOp"]
+__all__ = ["take", "drop", "subrange", "slice_view", "transform",
+           "zip_view", "zip", "enumerate_view", "enumerate", "iota_view",
+           "counted", "take_segments", "drop_segments", "aligned",
+           "local_segments", "ranked_view", "segment_id", "segment_range",
+           "segment_ranges", "BoundOp"]
 
 
 class BoundOp:
@@ -99,6 +101,16 @@ class _ViewBase:
 
 
 builtin_zip = zip
+builtin_enumerate = enumerate
+
+
+def _devices_of(r):
+    """The rank -> device list of the container under ``r`` (a zip's
+    first component), or None for a range with no runtime."""
+    obj = r
+    while obj is not None and not hasattr(obj, "runtime"):
+        obj = getattr(obj, "base", None)
+    return None if obj is None else obj.runtime.devices
 
 
 class subrange(_ViewBase):
@@ -130,22 +142,55 @@ class subrange(_ViewBase):
         return arr[self.start:self.stop]
 
 
-def take(r, n):
+def take(r, n=None):
+    """``take(r, n)``, or the adaptor ``take(n)`` for ``r | take(n)``."""
+    if n is None:
+        return _Pipe(lambda rr: subrange(rr, 0, r))
     return subrange(r, 0, n)
 
 
-def drop(r, n):
+def drop(r, n=None):
+    """``drop(r, n)``, or the adaptor ``drop(n)`` for ``r | drop(n)``."""
+    if n is None:
+        return _Pipe(lambda rr: subrange(rr, r, len(rr)))
     return subrange(r, n, len(r))
+
+
+def slice_view(r, bounds=None):
+    """``views::slice(r, (a, b))``, or the adaptor ``slice_view((a, b))``
+    (shp/views/standard_views.hpp:19-44)."""
+    if bounds is None:
+        a, b = r
+        return _Pipe(lambda rr: subrange(rr, a, b))
+    a, b = bounds
+    return subrange(r, a, b)
+
+
+def counted(it_range, n):
+    """``rng::views::counted`` over a distributed range."""
+    return subrange(it_range, 0, n)
 
 
 class transform(_ViewBase):
     """Lazy elementwise transform that stays distributed.  ``op`` works
     on tensors; over a zip base it receives one argument per component.
-    Trailing ``*scalars`` are bound as a :class:`BoundOp`."""
+    Trailing ``*scalars`` are bound as a :class:`BoundOp`.
+    ``transform(op)`` alone is the adaptor for ``r | transform(op)``
+    (it takes no scalars)."""
 
-    def __init__(self, base: Any, op: Callable, *scalars):
+    def __new__(cls, base=None, op=None, *scalars):
+        if op is None and callable(base) and \
+                not hasattr(base, "__dr_segments__") and \
+                not hasattr(base, "to_array"):
+            return _Pipe(lambda rr: cls(rr, base))
+        return super().__new__(cls)
+
+    def __init__(self, base: Any, op: Callable = None, *scalars):
         if not callable(op):
-            raise TypeError("transform op must be callable")
+            raise TypeError(
+                "transform op must be callable; the adaptor form "
+                "transform(op) takes no scalars: use "
+                "transform(range, op, *scalars)")
         self.base = base
         self.op = BoundOp(op, scalars) if scalars else op
 
@@ -252,14 +297,154 @@ class iota_view(_ViewBase):
                 for s in take_segments(segments(self.like), self._n)]
 
     def _local_values(self, rank_, begin, end):
-        dev = (self.like.runtime.devices[rank_]
-               if hasattr(self.like, "runtime") else "cpu")
+        devs = _devices_of(self.like)
         return torch.arange(self.start + begin, self.start + end,
-                            dtype=self.dtype, device=dev)
+                            dtype=self.dtype,
+                            device=devs[rank_] if devs else "cpu")
 
     def to_array(self):
         return torch.arange(self.start, self.start + self._n,
                             dtype=self.dtype)
+
+
+class segment_id:
+    """A position inside one segment: (segment, local_id, global id),
+    ``shp::id<1>`` (shp/range.hpp:12-33).  Converts to the global index."""
+
+    __slots__ = ("segment", "local_id", "global_id")
+
+    def __init__(self, segment: int, local_id: int, global_id: int):
+        self.segment = segment
+        self.local_id = local_id
+        self.global_id = global_id
+
+    def __index__(self):
+        return self.global_id
+
+    def __int__(self):
+        return self.global_id
+
+    def __eq__(self, other):
+        if isinstance(other, segment_id):
+            return (self.segment, self.local_id, self.global_id) == \
+                (other.segment, other.local_id, other.global_id)
+        return self.global_id == other
+
+    def __hash__(self):
+        # consistent with the int-comparison branch of __eq__
+        return hash(self.global_id)
+
+    def __repr__(self):
+        return (f"segment_id(segment={self.segment}, "
+                f"local={self.local_id}, global={self.global_id})")
+
+
+class segment_range:
+    """The :class:`segment_id` values of one segment (shp/range.hpp:97-130):
+    ``segment_range(seg_id, size, global_offset)`` yields ids
+    (seg_id, 0..size-1, global_offset + local)."""
+
+    def __init__(self, seg_id: int, segment_size: int, global_offset: int):
+        self.segment_id = seg_id
+        self.segment_size = segment_size
+        self.global_offset = global_offset
+
+    def __len__(self):
+        return self.segment_size
+
+    def __getitem__(self, idx: int):
+        if idx < 0:
+            idx += self.segment_size
+        if not 0 <= idx < self.segment_size:
+            raise IndexError(idx)
+        return segment_id(self.segment_id, idx, self.global_offset + idx)
+
+    def __iter__(self):
+        return (self[i] for i in range(self.segment_size))
+
+    def rank(self):  # the reference's: always 0 (shp/range.hpp:124)
+        return 0
+
+
+def segment_ranges(r):
+    """One :class:`segment_range` per segment of ``r``: segment-local ids
+    with global offsets."""
+    out, pos = [], 0
+    for i, s in builtin_enumerate(segments(r)):
+        out.append(segment_range(i, len(s), pos))
+        pos += len(s)
+    return out
+
+
+class enumerate_view(zip_view):
+    """zip(iota, r) (shp/views/enumerate.hpp:27-52)."""
+
+    def __init__(self, r):
+        super().__init__(iota_view(0, len(r), like=r), r)
+
+
+def enumerate(r=None):
+    """``enumerate(r)``, or the adaptor ``enumerate()`` for
+    ``r | enumerate()``."""
+    if r is None:
+        return _Pipe(enumerate_view)
+    return enumerate_view(r)
+
+
+class ranked_view(zip_view):
+    """(owning rank, value) pairs, for debugging (views/views.hpp:7-11)."""
+
+    def __init__(self, r):
+        super().__init__(_rank_of_view(r), r)
+
+
+class _rank_of_view(_ViewBase):
+    """Each element's owning rank in ``like``; positions follow segment
+    order (cumulative lengths), so any segment type works, zips too."""
+
+    def __init__(self, like):
+        self.like = like
+        self.base = None
+        segs = segments(like)
+        if not segs:
+            raise ValueError("ranked_view: range has no segments "
+                             "(misaligned zip?)")
+        self._devices = _devices_of(like)
+        self._bounds = []
+        pos = 0
+        for s in segs:
+            self._bounds.append((pos, pos + len(s), rank(s)))
+            pos += len(s)
+
+    def __len__(self):
+        return len(self.like)
+
+    def __dr_segments__(self):
+        return [Segment(self, r, lo, hi) for lo, hi, r in self._bounds]
+
+    def _local_values(self, rank_, begin, end):
+        dev = self._devices[rank_] if self._devices else "cpu"
+        return torch.full((end - begin,), rank_, dtype=torch.int32,
+                          device=dev)
+
+    def to_array(self):
+        vals = torch.empty(len(self), dtype=torch.int32)
+        for lo, hi, r in self._bounds:
+            vals[lo:hi] = r
+        return vals
+
+
+class _Pipe:
+    """Pipeable view adaptor: ``dv | views.take(3) | views.transform(f)``."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    def __ror__(self, r):
+        return self.fn(r)
+
+    def __call__(self, r):
+        return self.fn(r)
 
 
 def aligned(*ranges) -> bool:

@@ -1053,3 +1053,81 @@ def test_mismatched_window_scan_launches_k4(cuda):
     want = np.cumsum(src[:n - 4].astype(np.float64))
     got = dt.to_numpy(out)[4:]
     assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+# ------------------------------------------- re-layout, halo, checkpoint
+
+def test_unstructured_halo_reduce_on_card(cuda):
+    """Four ranks of the card: exchange equals numpy's gather, and
+    ``reduce("plus")`` with duplicate indices equals ``np.add.at`` bit for
+    bit (rounds in entry order, no atomics), the same bits twice; the
+    other four ops against their numpy forms."""
+    import dr_tpu_torch as dt
+    dev, _ = cuda
+    dt.init(dt.get_duplicated_devices(4, [dev]))
+    rng = np.random.default_rng(20)
+    n = 1 << 16
+    src = rng.standard_normal(n).astype(np.float32)
+    gmap = {r: rng.integers(0, n, 1 << 12) for r in range(4)}
+    gmap[1][:64] = gmap[1][64:128]  # duplicates inside one rank
+    flat = np.concatenate([gmap[r] for r in range(4)])
+    contrib = {r: rng.standard_normal(len(ix)).astype(np.float32)
+               for r, ix in gmap.items()}
+    ghosts = np.concatenate([contrib[r] for r in range(4)])
+    ufunc = {"plus": np.add, "multiplies": np.multiply, "max": np.maximum,
+             "min": np.minimum}
+    for op in ("plus", "plus", "multiplies", "max", "min", "second"):
+        v = dt.distributed_vector.from_array(src)
+        uh = dt.unstructured_halo(v, gmap)
+        uh.exchange()
+        for r in range(4):
+            got = uh.ghost_values(r)
+            assert got.device.type == "cuda"
+            assert np.array_equal(got.cpu().numpy(), src[gmap[r]])
+            uh.set_ghost_values(r, contrib[r])
+        uh.reduce(op)
+        want = src.copy()
+        if op == "second":
+            want[flat] = ghosts
+        else:
+            ufunc[op].at(want, flat, ghosts)
+        assert np.array_equal(dt.to_numpy(v).view(np.int32),
+                              want.view(np.int32)), op
+    dt.final()
+
+
+def test_redistribute_routes_agree_on_card(cuda):
+    """The collective route's rows equal the host-staged route's, bit for
+    bit, after every hop, on four ranks of the card."""
+    import dr_tpu_torch as dt
+    from dr_tpu_torch.parallel import redistribute as rdx
+    dev, _ = cuda
+    rt = dt.init(dt.get_duplicated_devices(4, [dev]))
+    n = (1 << 16) + 5
+    src = np.random.default_rng(21).standard_normal(n).astype(np.float32)
+    va = dt.distributed_vector.from_array(src)
+    vb = dt.distributed_vector.from_array(src)
+    for d in ([n, 0, 0, 0], [100, n - 300, 0, 200], None,
+              [0, 0, n, 0], [n // 2, 0, 7, n - n // 2 - 7]):
+        rdx._collective(va, d, rt)
+        rdx._host_staged(vb, d, rt)
+        for a, b in zip(va.rows, vb.rows):
+            assert a.device.type == "cuda"
+            assert torch.equal(a, b), d
+        assert np.array_equal(dt.to_numpy(va), src)
+    dt.final()
+
+
+def test_bf16_checkpoint_roundtrip_on_card(cuda, tmp_path):
+    import dr_tpu_torch as dt
+    dev, gen = cuda
+    dt.init(dt.get_duplicated_devices(4, [dev]))
+    t = torch.randn(1 << 16, generator=gen, device=dev).to(torch.bfloat16)
+    v = dt.distributed_vector.from_array(t)
+    dt.checkpoint.save(str(tmp_path / "bf"), v)
+    back = dt.checkpoint.load(str(tmp_path / "bf"))
+    assert back.dtype == torch.bfloat16
+    assert all(r.device.type == "cuda" for r in back.rows)
+    assert torch.equal(back.to_array().view(torch.int16),
+                       t.view(torch.int16))
+    dt.final()
