@@ -111,7 +111,24 @@ checks the kernels at small shapes only).  Phases:
     cyclic matrix, config 5's pattern at 2^20 rows, a 3-D mdarray), bit
     for bit, with seconds and bytes, and a truncated file refused; the
     communicator at 2^24, ``rma_window``, an ``op_from_expr`` transform
-    at 2^28 and the views, against numpy or torch.
+    at 2^28 and the views, against numpy or torch;
+21. observability: phase 14's relational pipeline (one rank, n_fact =
+    2^26) and phase 15's (4 ranks, 2^24, the partition and the forced
+    broadcast join) untraced and with ``dr_tpu_torch.obs`` armed, the
+    outputs equal bit for bit, the four spans and their
+    ``relational.phase`` children in the trace, the join's median of 5
+    both ways; phase 20's 2^28 f32 re-layout traced on both routes (the
+    ``redistribute`` span's ``impl``, the phases plan -> exchange ->
+    rebind, ``redistribute.bytes_moved`` == ``plan_moves``' moved
+    elements x 4, rows equal to the untraced hop's); ``obs.write()``
+    into ``chiprun_out/phase21/``, read back and by
+    ``tools/trace_view.py``; one step of the 1-D main path (one rank at
+    2^30, 4 ranks at 2^26) under ``profiling.trace``: the device's idle
+    share, the top device operations and the longest idle gaps with the
+    host operations over them, the trace's kernels mapped to K1-K4 by
+    their ``__global__`` names and counted against the launch counters;
+    ``profiling.device_timer`` of ``dot_n`` within 10% of phase 8's K3
+    time, and ``profiling.profile_phases`` of the 4-rank sort at 2^24.
 
 Phase 3 also holds K9 (``flash_update``) against its plain version at
 small shapes (d = 128 and 256 on the wgmma kernel, d = 768 on the
@@ -130,6 +147,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -190,6 +208,8 @@ CK_LOG2, CK_BF_LOG2, CK_M, CK_TILE, CK_MD = 28, 26, 8192, 1024, (512, 512,
                                                                   256)
 SURF_LOG2, EXPR_LOG2 = 24, 28
 UH_OPS = ("plus", "multiplies", "max", "min", "second")
+# phase 21 writes its traces here (a gitignored directory)
+OBS_DIR = os.path.join(HERE, "chiprun_out", "phase21")
 
 
 def log(*a):
@@ -2814,6 +2834,450 @@ def surface_phase(dt, seed, device="cuda:0", log2=SURF_LOG2,
     return {"n": n, "expr_n": 1 << expr_log2}
 
 
+# ------------------------------------------- phase 21: observability
+
+#: the __global__ kernel that begins one call of each wrapper on the main
+#: path (dot.cu follows each dot_partials* with one sum_partials)
+CALL_KERNELS = {
+    "stencil_matmul": ("stencil_matmul_kernel",),
+    "stencil_blocked": ("window_kernel", "shared_kernel"),
+    "chunked_dot": ("dot_partials", "dot_partials_f32x4"),
+    "chunked_cumsum": ("scan_tiles",),
+}
+K_OF = {"stencil_matmul": "K1", "stencil_blocked": "K2",
+        "chunked_dot": "K3", "chunked_cumsum": "K4",
+        "stencil2d_blocked": "K5", "bitonic_sort": "K6", "segred": "K7",
+        "flash_update": "K9"}
+#: the Chrome-trace categories of host work that a gap can overlap
+HOST_CATS = ("cpu_op", "cuda_runtime", "cuda_driver", "user_annotation")
+REL_SPANS = ("relational.join", "relational.groupby",
+             "relational.histogram", "relational.top_k")
+REL_PHASES = ("sort_left", "sort_right", "merge", "sort", "aggregate")
+
+
+def global_kernels():
+    """``__global__`` function name -> launch counter, read from
+    ``dr_tpu_torch/csrc/*.cu``."""
+    from dr_tpu_torch.ops import kernels
+    pat = re.compile(r"__global__\s+void\s+(?:__\w+__\s*\([^)]*\)\s*)*"
+                     r"(\w+)\s*\(")
+    out = {}
+    for counter, src in kernels.SOURCES.items():
+        for m in pat.finditer((kernels.CSRC / src).read_text()):
+            out[m.group(1)] = counter
+    return out
+
+
+def kernel_base(name):
+    """The function name of a kernel name as the profiler gives it
+    (demangled): ``void (anonymous namespace)::scan_tiles<float>(float
+    const*, ...)`` -> ``scan_tiles``."""
+    s = name.replace("(anonymous namespace)::", "")
+    s = s.split("(", 1)[0].split("<", 1)[0].strip()
+    return s.split("::")[-1].split()[-1] if s else name
+
+
+def analyse_trace(path, gk, top=5):
+    """The device's idle share over one Chrome trace of
+    ``torch.profiler``: 1 - (the union of kernel, memcpy and memset
+    intervals) / (first device event's start to the last one's end);
+    the ``top`` device operations by total time; the ``top`` longest
+    idle gaps with the host operations overlapping each; and the
+    launches of each wrapper counted from its kernels."""
+    from dr_tpu_torch.utils.profiling import DEVICE_CATS
+    with open(path, encoding="utf-8") as fh:
+        evs = json.load(fh)["traceEvents"]
+    dev = sorted((e for e in evs if e.get("cat") in DEVICE_CATS
+                  and "dur" in e), key=lambda e: float(e["ts"]))
+    if not dev:
+        raise AssertionError(f"{path}: no device event in the trace")
+    host = [e for e in evs if e.get("cat") in HOST_CATS and "dur" in e]
+    busy, gaps = 0.0, []
+    s0 = float(dev[0]["ts"])
+    cur_s, cur_e = s0, s0 + float(dev[0]["dur"])
+    for e in dev[1:]:
+        s, t = float(e["ts"]), float(e["ts"]) + float(e["dur"])
+        if s > cur_e:
+            busy += cur_e - cur_s
+            gaps.append((s - cur_e, cur_e, s))
+            cur_s, cur_e = s, t
+        else:
+            cur_e = max(cur_e, t)
+    busy += cur_e - cur_s
+    window = cur_e - s0
+
+    def label(e):
+        base = kernel_base(e["name"])
+        if e["cat"] == "kernel" and base in gk:
+            return f"{K_OF[gk[base]]} {base}"
+        return f"{e['cat']} {e['name'][:70]}"
+
+    by = {}
+    for e in dev:
+        t, c = by.get(label(e), (0.0, 0))
+        by[label(e)] = (t + float(e["dur"]), c + 1)
+    ops = sorted(by.items(), key=lambda kv: -kv[1][0])[:top]
+    longest = []
+    for g, a, b in sorted(gaps, reverse=True)[:top]:
+        over = {}
+        for h in host:
+            hs, he = float(h["ts"]), float(h["ts"]) + float(h["dur"])
+            ov = min(he, b) - max(hs, a)
+            if ov > 0:
+                key = f"{h['cat']}:{h['name'][:60]}"
+                over[key] = over.get(key, 0.0) + ov
+        longest.append({"gap_us": g, "at_us": a - s0, "host": [
+            k for k, _ in sorted(over.items(), key=lambda kv: -kv[1])[:4]]})
+    bases = [kernel_base(e["name"]) for e in dev if e["cat"] == "kernel"]
+    launches = {c: sum(b in ks for b in bases)
+                for c, ks in CALL_KERNELS.items()}
+    return {"idle_share": 1.0 - busy / window, "window_us": window,
+            "busy_us": busy, "device_events": len(dev), "gaps": len(gaps),
+            "top_ops": [{"op": k, "us": t, "n": c} for k, (t, c) in ops],
+            "longest_gaps": longest, "launches": launches,
+            "sum_partials": sum(b == "sum_partials" for b in bases)}
+
+
+def traced_main_step(dt, kernels, n, ranks, seed, logdir, card,
+                     device="cuda:0"):
+    """One step of the 1-D main path (a ``stencil_iterate_matmul`` call
+    of one K1 step, a ``stencil_iterate_blocked`` pass, ``dot_n`` of one
+    round and ``inclusive_scan``, halo exchanges included) under
+    ``profiling.trace``, after one warm step; the trace's kernels mapped
+    to K1-K4 and counted against the launch counters over the same
+    window.  Returns the analysis."""
+    import torch
+    from dr_tpu_torch.utils import profiling
+    dt.init(dt.get_duplicated_devices(ranks, [device]))
+    gen = torch.Generator(device=device).manual_seed(seed + 21)
+    src = torch.randn(n, generator=gen, device=device)
+    a = dt.distributed_vector.from_array(
+        src, halo=dt.halo_bounds(MM_HALO, MM_HALO, periodic=True))
+    b = dt.distributed_vector.from_array(
+        src, halo=dt.halo_bounds(BLK_HALO, BLK_HALO, periodic=True))
+    x = dt.distributed_vector.from_array(
+        torch.rand(n, generator=gen, device=device))
+    s = dt.distributed_vector.from_array(src)
+    res = dt.distributed_vector(n)
+    del src
+
+    def step():
+        with profiling.annotate("stencil_iterate_matmul"):
+            dt.stencil_iterate_matmul(a, W5, K_BLOCK, k_block=K_BLOCK)
+        with profiling.annotate("stencil_iterate_blocked"):
+            dt.stencil_iterate_blocked(b, W5, T_BLOCK, time_block=T_BLOCK)
+        with profiling.annotate("dot_n"):
+            dt.dot_n(x, s, 1)
+        with profiling.annotate("inclusive_scan"):
+            dt.inclusive_scan(s, res)
+        dt.fence()
+
+    step()
+    os.makedirs(logdir, exist_ok=True)
+    for old in os.listdir(logdir):
+        os.remove(os.path.join(logdir, old))
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    with profiling.trace(logdir):
+        step()
+    secs = time.perf_counter() - t0
+    counts = dict(kernels.launches)
+    (name,) = os.listdir(logdir)
+    path = os.path.join(logdir, name)
+    info = analyse_trace(path, global_kernels())
+    tag = f"{ranks} rank(s), n=2^{n.bit_length() - 1}"
+    log(f"  [{card}] traced main step, {tag}: idle share "
+        f"{info['idle_share']!r} of {info['window_us']!r} us "
+        f"({info['device_events']} device events, {info['gaps']} gaps; "
+        f"{secs!r} s by the host clock under the profiler; trace "
+        f"{os.path.relpath(path, HERE)}, {os.path.getsize(path)} bytes)")
+    for op in info["top_ops"]:
+        log(f"  [{card}]   device op {op['op']}: {op['us']!r} us in "
+            f"{op['n']}")
+    for g in info["longest_gaps"]:
+        log(f"  [{card}]   idle gap {g['gap_us']!r} us at +{g['at_us']!r} "
+            f"us; host: {'; '.join(g['host'])}")
+    want = {c: counts[c] for c in CALL_KERNELS}
+    log(f"  {tag}: launches in the trace {info['launches']}, counters "
+        f"{want}, sum_partials {info['sum_partials']}")
+    for c in CALL_KERNELS:
+        if counts[c] <= 0:
+            raise AssertionError(f"{K_OF[c]} ({c}) never launched on the "
+                                 f"traced main step ({tag})")
+    check_true(f"{tag}: kernel launches in the trace == the launch "
+               "counters (K1-K4)", info["launches"] == want
+               and info["sum_partials"] == want["chunked_dot"])
+    info["trace"] = os.path.relpath(path, HERE)
+    info["launch_counters"] = want
+    del a, b, x, s, res
+    dt.final()
+    return info
+
+
+def relational_outputs_equal(tag, off, on):
+    """Two runs of ``relational_path``: the same counts and every output
+    the same bits."""
+    import torch
+    differ = [k for k in ("jk", "jl", "jr", "gk", "gv", "tv", "ti", "hb")
+              if not torch.equal(off[k].view(torch.int32),
+                                 on[k].view(torch.int32))]
+    check_true(f"{tag}: outputs traced == untraced (bits; differing: "
+               f"{differ})", off["m"] == on["m"] and off["ng"] == on["ng"]
+               and not differ)
+
+
+def relational_spans(tag, evs, want_phases=REL_PHASES):
+    names = {e["name"] for e in evs}
+    phases = {e["args"]["phase"] for e in evs
+              if e["name"] == "relational.phase"}
+    check_true(f"{tag}: the trace holds {list(REL_SPANS)}",
+               set(REL_SPANS) <= names)
+    check_true(f"{tag}: relational.phase names include "
+               f"{list(want_phases)} (got {sorted(phases)})",
+               set(want_phases) <= phases)
+    spans = {e["id"] for e in evs if e["name"] in REL_SPANS}
+    check_true(f"{tag}: every phase hangs under its op's span", all(
+        e["args"].get("parent") in spans for e in evs
+        if e["name"] == "relational.phase"))
+    return [e["args"].get("route") for e in evs
+            if e["name"] == "relational.phase"
+            and e["args"]["phase"] == "merge"]
+
+
+def traced_run(obs, fn):
+    """``fn()`` with tracing armed; returns its result and the events it
+    added to the ring (which keeps the phase's events for the export)."""
+    start = obs.size()
+    obs.arm(True)
+    try:
+        out = fn()
+    finally:
+        obs.arm(False)
+    return out, obs.events()[start:]
+
+
+def join_medians(dt, obs, data, reps=5):
+    """Median seconds of ``reps`` joins of the pipeline's tables, traced
+    and untraced in turns (host clock, fenced; a join reads its row
+    count on the host)."""
+    F, FV, D, DV = (dt.distributed_vector.from_array(a) for a in data)
+    outs = [dt.distributed_vector(2 * data[0].numel()) for _ in range(3)]
+
+    def once():
+        dt.fence()
+        t0 = time.perf_counter()
+        dt.join(F, FV, D, DV, *outs)
+        dt.fence()
+        return time.perf_counter() - t0
+
+    once()
+    times = {"untraced": [], "traced": []}
+    for _ in range(reps):
+        times["untraced"].append(once())
+        times["traced"].append(traced_run(obs, once)[0])
+    return {k: float(np.median(v)) for k, v in times.items()}, times
+
+
+def relational_obs(dt, obs, kernels, seed, card, device="cuda:0",
+                   sizes=(REL_FACT_LOG2, REL_CARD_LOG2, REL4_FACT_LOG2)):
+    """Phase 21 (a): the relational pipeline of phase 14 untraced and
+    traced on one rank (the same bits, the four spans and their phases,
+    the join's median of 5 both ways), then phase 15's on 4 ranks through
+    the partition and the forced broadcast join.  Returns the numbers."""
+    import torch
+    out = {}
+    dt.init([device])
+    n_fact, ncard = 1 << sizes[0], 1 << sizes[1]
+    data = relational_data(n_fact, ncard, seed + 14, device)
+    off = relational_path(dt, data, {})
+    kernels.reset_counts()
+    on, evs = traced_run(obs, lambda: relational_path(dt, data, {}))
+    log(f"  1 rank, n_fact=2^{sizes[0]}: launches {dict(kernels.launches)} "
+        f"traced, {len(evs)} events")
+    relational_outputs_equal(f"1 rank 2^{sizes[0]}", off, on)
+    relational_spans(f"1 rank 2^{sizes[0]}", evs)
+    del off, on
+    med, times = join_medians(dt, obs, data)
+    out["join_1rank_s"] = med
+    log(f"  [{card}] join n_fact=2^{sizes[0]} 1 rank, median of 5 "
+        f"(host clock, fenced): untraced {med['untraced']!r} s, traced "
+        f"{med['traced']!r} s; runs {json.dumps(times)}")
+    del data
+    release(torch)
+    dt.final()
+
+    dt.init(dt.get_duplicated_devices(4, [device]))
+    n4 = 1 << sizes[2]
+    data = relational_data(n4, n4 >> 4, seed + 16, device)
+    off = relational_path(dt, data, {})
+    on, evs = traced_run(obs, lambda: relational_path(dt, data, {}))
+    relational_outputs_equal(f"4 ranks 2^{sizes[2]} partition join",
+                             off, on)
+    routes = relational_spans(f"4 ranks 2^{sizes[2]}", evs,
+                              REL_PHASES + ("partition_plan",))
+    check_true(f"4 ranks: the pipeline's join took the partition route "
+               f"({routes})", routes == ["partition"])
+    with broadcast_max(1 << 30):
+        off_b = relational_path(dt, data, {})
+        on_b, evs = traced_run(obs, lambda: relational_path(dt, data, {}))
+    relational_outputs_equal(f"4 ranks 2^{sizes[2]} broadcast join",
+                             off_b, on_b)
+    routes = relational_spans(f"4 ranks 2^{sizes[2]} broadcast", evs)
+    check_true(f"4 ranks: the forced join took the broadcast route "
+               f"({routes})", routes == ["broadcast"])
+    check_true("4 ranks: partition rows == broadcast rows (bits)",
+               all(torch.equal(on[k].view(torch.int32),
+                               on_b[k].view(torch.int32))
+                   for k in ("jk", "jl", "jr")))
+    del off, on, off_b, on_b
+    med, times = join_medians(dt, obs, data)
+    out["join_4ranks_partition_s"] = med
+    log(f"  [{card}] join n_fact=2^{sizes[2]} 4 ranks (partition), median "
+        f"of 5: untraced {med['untraced']!r} s, traced {med['traced']!r} "
+        f"s; runs {json.dumps(times)}")
+    del data
+    release(torch)
+    dt.final()
+    return out
+
+
+def redistribute_obs(dt, obs, seed, card, device="cuda:0", log2=RDX_LOG2):
+    """Phase 21 (b): phase 20's 2^28 f32 re-layout on 4 ranks with
+    tracing armed: the collective hop to the rotated cut (span impl,
+    phases plan -> exchange -> rebind, bytes_moved == plan_moves' moved
+    elements x 4) and a host-staged hop onto 2 ranks (span impl host,
+    no bytes), each equal bit for bit with the same hop untraced.
+    Returns the numbers."""
+    import torch
+    from dr_tpu_torch.parallel.redistribute import plan_moves
+    from dr_tpu_torch.parallel.runtime import Runtime
+    rt = dt.init(dt.get_duplicated_devices(4, [device]))
+    P, n = 4, 1 << log2
+    gen = torch.Generator(device=device).manual_seed(seed + 20)
+    src = torch.randn(n, generator=gen, device=device)
+    base = n // P
+    rot = [base // 2, base, base, n - base // 2 - 2 * base]
+    ref = dt.distributed_vector.from_array(src)
+    dt.redistribute(ref, rot)
+    v = dt.distributed_vector.from_array(src)
+    even = v.layout
+    counter = obs.metrics.counter("redistribute.bytes_moved")
+    b0 = counter.value
+    _, evs = traced_run(obs, lambda: dt.redistribute(v, rot))
+    moved_bytes = counter.value - b0
+    _, moved = plan_moves(even, v.layout)
+    span = [e for e in evs if e["name"] == "redistribute"]
+    phases = [e["args"]["phase"] for e in evs
+              if e["name"] == "redistribute.phase"]
+    check_true(f"collective hop: one span, impl collective "
+               f"({[e['args'] for e in span]})", len(span) == 1
+               and span[0]["args"]["impl"] == "collective")
+    check_true(f"collective hop: phases {phases} == plan, exchange, rebind",
+               phases == ["plan", "exchange", "rebind"])
+    check_true(f"collective hop: bytes_moved {moved_bytes} == moved "
+               f"elements {moved} x 4", moved_bytes == moved * 4 > 0)
+    check_true("collective hop traced: rows == untraced rows (bits)",
+               rows_equal(v, ref))
+    span_us = [span[0]["dur"]]
+    two = Runtime(rt.devices[:2])
+    cut = [n // 4, n - n // 4]
+    dt.redistribute(ref, cut, runtime=two)
+    b0 = counter.value
+    _, evs = traced_run(obs, lambda: dt.redistribute(v, cut, runtime=two))
+    span = [e for e in evs if e["name"] == "redistribute"]
+    phases = [e["args"]["phase"] for e in evs
+              if e["name"] == "redistribute.phase"]
+    check_true(f"host-staged hop onto 2 ranks: span impl host, phases "
+               f"{phases}", len(span) == 1
+               and span[0]["args"]["impl"] == "host"
+               and phases == ["host_staged"])
+    check_true("host-staged hop: no bytes counted",
+               counter.value == b0)
+    check_true("host-staged hop traced: rows == untraced rows (bits), "
+               "values == source", rows_equal(v, ref)
+               and torch_equal(v.to_array(), src))
+    span_us.append(span[0]["dur"])
+    log(f"  [{card}] redistribute 2^{log2} f32, 4 ranks: bytes_moved "
+        f"{moved_bytes} ({moved} elements); the spans' host-clock us "
+        f"(collective, host-staged) {span_us}")
+    del v, ref, src
+    dt.final()
+    return {"bytes_moved": moved_bytes, "moved_elements": moved,
+            "span_us": span_us}
+
+
+def export_obs(obs, path):
+    """Phase 21 (c): the ring's events (those of (a) and (b)) through
+    ``obs.write()``, the file read back (its non-metadata events ==
+    ``obs.size()``) and read by ``tools/trace_view.py`` in a
+    subprocess."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    size = obs.size()
+    written = obs.write(path)
+    with open(written, encoding="utf-8") as fh:
+        doc = json.load(fh)
+    body = [e for e in doc["traceEvents"] if e.get("ph") != "M"]
+    check_true(f"export {os.path.relpath(written, HERE)}: loads, "
+               f"{len(body)} events == obs.size() {size}",
+               len(body) == size > 0)
+    view = subprocess.run([sys.executable, os.path.join(HERE, "tools",
+                                                         "trace_view.py"),
+                           written], capture_output=True, text=True,
+                          timeout=120)
+    check_true(f"tools/trace_view.py reads it (rc {view.returncode})",
+               view.returncode == 0
+               and "spans by self-time" in view.stdout)
+    for line in view.stdout.splitlines()[:12]:
+        log(f"    {line}")
+    obs.reset()
+    return os.path.relpath(written, HERE)
+
+
+def profiling_obs(dt, seed, card, device="cuda:0", log2=30, sort_log2=24,
+                  marginal=(2, 10, 3, 0.1)):
+    """Phase 21 (e): ``profiling.device_timer`` of ``dot_n`` at 2^30 on
+    one rank (ms a round), and ``profiling.profile_phases`` of the sample
+    sort on 4 ranks at 2^24 f32 through ``sort_phases_n``'s
+    ``stop_after``.  Returns the ms and the breakdown."""
+    import torch
+    from dr_tpu_torch.algorithms import sort as dt_sort
+    from dr_tpu_torch.utils import profiling
+    dt.init([device])
+    gen = torch.Generator(device=device).manual_seed(seed + 22)
+    x = dt.distributed_vector.from_array(
+        torch.rand(1 << log2, generator=gen, device=device))
+    y = dt.distributed_vector.from_array(
+        torch.rand(1 << log2, generator=gen, device=device))
+    ms = 1e3 * profiling.device_timer(lambda r: float(dt.dot_n(x, y, r)),
+                                      r1=4, r2=36, samples=5)
+    log(f"  [{card}] profiling.device_timer(dot_n, 2^{log2}): {ms!r} ms a "
+        "round")
+    del x, y
+    dt.final()
+    dt.init(dt.get_duplicated_devices(4, [device]))
+    src = torch.randn(1 << sort_log2, generator=gen, device=device)
+
+    def make_run(i):
+        v = dt.distributed_vector.from_array(src)
+        phase = dt_sort.SORT_PHASES[i]
+
+        def run(r):
+            dt_sort.sort_phases_n(v, phase, r)
+            dt.fence()
+        return run
+
+    r1, r2, samples, spread = marginal
+    bd = profiling.profile_phases(make_run, dt_sort.SORT_PHASES, r1=r1,
+                                  r2=r2, samples=samples, min_spread=spread)
+    log(f"  [{card}] profiling.profile_phases(sort, 4 ranks, "
+        f"2^{sort_log2} f32), dominant {bd.dominant}:")
+    for line in bd.table(bytes_per_op=(1 << sort_log2) * 4).splitlines():
+        log(f"  {line}")
+    dt.final()
+    return ms, {"seconds": bd.seconds, "total": bd.total,
+                "dominant": bd.dominant}
+
+
 def main(argv):
     try:
         import torch
@@ -3072,6 +3536,42 @@ def main(argv):
     log(f"  phase 20 {time.perf_counter() - t0:.1f} s, launches "
         f"{dict(kernels.launches)} (no kernel is on this path)")
     log("  phase 20 numbers: " + json.dumps(relayout))
+
+    log("phase 21: observability: the relational and re-layout spans at "
+        "full size, the Chrome export, profiler traces of the 1-D main "
+        "path and the profiling helpers")
+    from dr_tpu_torch import obs
+    t0 = time.perf_counter()
+    obs.reset()
+    obs21 = {"card": card}
+    t1 = time.perf_counter()
+    obs21["relational"] = relational_obs(dt, obs, kernels, seed, card)
+    log(f"  phase 21 relational: {time.perf_counter() - t1:.1f} s")
+    release(torch)
+    t1 = time.perf_counter()
+    obs21["redistribute"] = redistribute_obs(dt, obs, seed, card)
+    log(f"  phase 21 redistribute: {time.perf_counter() - t1:.1f} s")
+    release(torch)
+    obs21["export"] = export_obs(obs, os.path.join(OBS_DIR,
+                                                   "obs_trace.json"))
+    for ranks, size in ((1, n), (4, 1 << 26)):
+        t1 = time.perf_counter()
+        obs21[f"main_trace_{ranks}"] = traced_main_step(
+            dt, kernels, size, ranks, seed,
+            os.path.join(OBS_DIR, f"main_{ranks}rank"), card)
+        log(f"  phase 21 traced main step, {ranks} rank(s): "
+            f"{time.perf_counter() - t1:.1f} s")
+        release(torch)
+    t1 = time.perf_counter()
+    dot_ms, obs21["sort_phases"] = profiling_obs(dt, seed, card)
+    k3_ms = results["chunked_dot"]["ms"]
+    obs21["device_timer_dot_ms"], obs21["k3_events_ms"] = dot_ms, k3_ms
+    check(f"[{card}] device_timer(dot_n) {dot_ms!r} ms vs phase 8's K3 "
+          f"{k3_ms!r} ms, relative", abs(dot_ms - k3_ms) / k3_ms, 0.10)
+    log(f"  phase 21 profiling helpers: {time.perf_counter() - t1:.1f} s")
+    release(torch)
+    log(f"  phase 21 {time.perf_counter() - t0:.1f} s")
+    log("  phase 21 numbers: " + json.dumps(obs21))
 
     log(f"peak device memory (1-D main path): {peak} bytes "
         f"({peak / 2 ** 30:.2f} GiB)")

@@ -36,6 +36,9 @@ Public surface of this slice:
   ``unstructured_halo`` (index-list ghosts), ``resilience``
 - debugging:  ``drlog`` (``DR_GPU_LOG``), ``print_range``,
   ``print_matrix``, ``range_details``
+- observability: ``obs`` (spans, metrics and the Chrome export, armed by
+  ``DR_GPU_TRACE=1``), ``profiling`` (``torch.profiler`` traces, the
+  marginal timer, phase breakdowns)
 - sort:       ``sort / sort_by_key / argsort / is_sorted / sort_n /
   sort_by_key_n``
 - relational: ``join`` (inner/left/right/outer, broadcast and partition
@@ -60,6 +63,8 @@ Public surface of this slice:
   counterparts of ``__graft_entry__``'s
 """
 
+from . import obs
+obs.install()  # no-op unless DR_GPU_TRACE=1
 from .parallel.runtime import (init, final, finalize, runtime, nprocs,
                                devices, barrier, fence,
                                get_duplicated_devices)
@@ -105,6 +110,7 @@ from .algorithms.relational import (join, groupby_aggregate, unique,
 from .utils.logging import drlog
 from .utils.debug import print_range, print_matrix, range_details
 from .utils import checkpoint
+from .utils import profiling
 from .utils import resilience
 from .utils.elastic import redistribute
 
@@ -139,4 +145,5 @@ __all__ = [
     "unstructured_halo", "communicator", "rma_window", "default_comm",
     "distributed_span", "drlog", "print_range", "print_matrix",
     "range_details", "checkpoint", "resilience", "redistribute",
+    "obs", "profiling",
 ]

@@ -16,12 +16,13 @@ package's program phase for phase, with the same results bit for bit
   the key rides a min channel).  The segmented reduce is K7
   (``ops/segred_pallas.py``) when a rank's scratch holds at most 32767
   keys (``nseg = S + 1 <= 2^15``), no column is 8 bytes wide and no
-  float is summed; otherwise it is torch's scatter ops (``index_add_``
-  for float sums, ``segred_pallas.plain_segmented``'s ``scatter_reduce_``
-  for the rest), as the JAX package then runs XLA's ``segment_*``.  That
+  float is summed; otherwise it is torch ops (float sums as a segmented
+  scan by doubling over the sorted runs, the same bits every call;
+  ``segred_pallas.plain_segmented``'s ``scatter_reduce_`` for the rest),
+  as the JAX package then runs XLA's ``segment_*``.  That
   is the reference's own routing by size and type, not a fallback: at
   the pipeline's sizes (millions of rows a rank) a groupby runs the
-  scatter ops.
+  torch ops.
 * ``join`` sorts both sides into scratch and merges them by one of two
   routes with the same rows: the **broadcast** merge gathers both sorted
   sides (once per device), counts each left row's matches with two
@@ -48,19 +49,28 @@ equals +0.0 and every NaN is one key.  The host reads only what the
 JAX package's host reads: the row or group count after an op, the
 partition probe's sizes, and the count of an auto op's probe.
 
+While tracing is armed (``dr_tpu_torch.obs``), each op is a span
+(``relational.join`` with ``how``, ``n_left``, ``n_right`` and the
+``rows`` it made; ``relational.groupby`` with ``agg``, ``n`` and
+``groups``; ``relational.histogram`` with ``n`` and ``bins``;
+``relational.top_k`` with ``n``, ``k``, ``largest`` and ``merge``;
+``auto=True`` on the auto tier) with ``relational.phase`` children named
+as the JAX package names them: ``sort`` / ``sort_left`` /
+``sort_right`` (the scratch sorts), ``aggregate``, ``partition_plan``,
+``merge`` (with its ``route``), ``cap_probe`` and ``empty``.
+
 Not carried over yet: deferred plans (``DeferredCount``, the
-``record_histogram``/``record_top_k`` hooks), the ``obs`` spans, the
-``fire_ppermute`` fault site, the tuning-DB route and capacity hints
-(the auto tier always probes the exact count).
+``record_histogram``/``record_top_k`` hooks), the ``fire_ppermute``
+fault site, the tuning-DB route and capacity hints (the auto tier always
+probes the exact count, so it always records ``cap_probe``).
 """
 
 from __future__ import annotations
 
-import os
-
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from ._common import owned_window_mask, window_cols, working_geometry
 from .elementwise import _apply_ops, _out_chain, _resolve, copy as _copy, \
     fill as _fill, to_numpy as _to_numpy
@@ -71,6 +81,7 @@ from ..ops import hist_pallas, segred_pallas
 from ..parallel import collectives
 from ..parallel.collectives import ordered_maximum, ordered_minimum
 from ..parallel.pipeline import ring_pipeline
+from ..utils.env import env_int
 from ..utils.resilience import ProgramError
 from ..views import views as _v
 
@@ -173,11 +184,14 @@ def _pack_out_row(vals, live, layout, r):
     return row
 
 
-def _sorted_scratch(chain: _InChain, vchain=None):
+def _sorted_scratch(chain: _InChain, vchain=None, *, sid=0,
+                    phase="sort"):
     """Copy key (and value) chains into fresh uniform scratch containers
     on the key runtime and stable-sort by key: the non-mutating step
-    every relational op starts from.  Returns ``(skeys, svals_or_None,
-    n)``; for ``n == 0`` the scratch is one cell, masked off."""
+    every relational op starts from, recorded as ``phase`` under span
+    ``sid``.  Returns ``(skeys, svals_or_None, n)``; for ``n == 0`` the
+    scratch is one cell, masked off."""
+    t0 = _obs.now()
     n = chain.n
     rt = chain.cont.runtime
     cap = max(n, 1)
@@ -191,6 +205,8 @@ def _sorted_scratch(chain: _InChain, vchain=None):
             _sort_by_key(sk, sv)
         else:
             _sort(sk)
+    _obs.complete("relational.phase", t0, cat="relational", parent=sid,
+                  phase=phase, n=n)
     return sk, sv, n
 
 
@@ -265,17 +281,37 @@ def _runs(sk, n):
     return out, big
 
 
+def _run_sums(v, segid, nseg):
+    """Per-run sums of ``v`` (``segid`` nondecreasing: the runs of the
+    sorted keys) in an order fixed by the runs: a segmented inclusive
+    scan by doubling, ``ceil(log2(L))`` passes for the longest run L
+    (pass d adds the partial sum d cells back when that cell is in the
+    same run), read at each run's last cell.  The same bits on every
+    call, where ``index_add_``'s atomics on the card are not; the final
+    ``+ 0.0`` makes an empty run, or a run of negative zeros, ``+0.0``,
+    as a sum from zero does."""
+    ends = torch.searchsorted(segid, torch.arange(
+        1, nseg + 1, dtype=segid.dtype, device=segid.device))
+    lengths = torch.diff(ends, prepend=ends.new_zeros(1))
+    x, d, longest = v.clone(), 1, int(lengths.max())
+    while d < longest:
+        # the right side is read whole before the in-place add
+        x[d:] += torch.where(segid[d:] == segid[:-d], x[:-d], 0)
+        d *= 2
+    return torch.where(lengths > 0, x[(ends - 1).clamp(min=0)], 0) + 0.0
+
+
 def _segment(segid, nseg, cols, kernel):
     """Per-run partials of every ``(values, op)`` column: K7 when
-    ``kernel``, else torch's scatter ops (the reference's XLA
-    ``segment_*``)."""
+    ``kernel``, else torch ops (the reference's XLA ``segment_*``): a
+    float sum by :func:`_run_sums`, the rest by
+    ``segred_pallas.plain_segmented``'s ``scatter_reduce_``."""
     if kernel:
         return segred_pallas.segmented(segid, nseg, cols)
     out = []
     for v, op in cols:
         if op == "sum" and v.is_floating_point():
-            out.append(torch.zeros(nseg, dtype=v.dtype, device=v.device)
-                       .index_add_(0, segid, v))
+            out.append(_run_sums(v, segid, nseg))
         else:
             out.append(segred_pallas.plain_segmented(segid, nseg,
                                                      ((v, op),))[0])
@@ -296,11 +332,12 @@ def _combine(kind, x):
     return acc
 
 
-def _groupby_sorted(sk, sv, n, ok_cont, ov_cont, agg) -> int:
+def _groupby_sorted(sid, sk, sv, n, ok_cont, ov_cont, agg) -> int:
     """The aggregate half of a groupby over the already-sorted scratch
     (shared with the auto tier); rebuilds the out containers' rows and
     returns the group count.  Capacity enforcement stays with the
     caller."""
+    t0 = _obs.now()
     p, S, *_ = working_geometry(sk.layout)
     devs = sk.runtime.devices
     kdtype = sk.dtype
@@ -373,7 +410,10 @@ def _groupby_sorted(sk, sv, n, ok_cont, ov_cont, agg) -> int:
         ok_cont._rows[r] = krows[r]
         if vrows is not None:
             ov_cont._rows[r] = vrows[r]
-    return int(ngs[0])
+    ng = int(ngs[0])
+    _obs.complete("relational.phase", t0, cat="relational", parent=sid,
+                  phase="aggregate", groups=ng)
+    return ng
 
 
 def _group_count(sk, n) -> int:
@@ -420,13 +460,19 @@ def _check_agg(values, agg):
 
 def _groupby_eager(keys, values, out_keys, out_values, agg) -> int:
     kc, vc, okc, ovc = _check_groupby(keys, values, out_keys, out_values)
-    sk, sv, n = _sorted_scratch(kc, vc)
-    ng = _groupby_sorted(sk, sv, n, okc.cont,
-                         ovc.cont if ovc is not None else None, agg)
-    if ng > okc.n:
-        _raise_capacity("unique" if ovc is None else f"groupby[{agg}]",
-                        ng, okc.n)
-    return ng
+    sid = _obs.begin("relational.groupby", cat="relational", agg=agg,
+                     n=kc.n)
+    ng = -1
+    try:
+        sk, sv, n = _sorted_scratch(kc, vc, sid=sid)
+        ng = _groupby_sorted(sid, sk, sv, n, okc.cont,
+                             ovc.cont if ovc is not None else None, agg)
+        if ng > okc.n:
+            _raise_capacity("unique" if ovc is None else f"groupby[{agg}]",
+                            ng, okc.n)
+        return ng
+    finally:
+        _obs.end(sid, groups=ng)
 
 
 def groupby_aggregate(keys, values, out_keys, out_values,
@@ -586,11 +632,7 @@ def _broadcast_max() -> int:
     O(nl + nr)); above it, with more than one rank and both sides
     non-empty, the merge takes the partition route.  ``0`` forces the
     partition route; a malformed value reads as the default, 2^18."""
-    try:
-        return max(0, int(os.environ.get("DR_GPU_JOIN_BROADCAST_MAX",
-                                         1 << 18)))
-    except ValueError:
-        return 1 << 18
+    return env_int("DR_GPU_JOIN_BROADCAST_MAX", 1 << 18, floor=0)
 
 
 #: how the last join routed; read through :func:`last_join_route`
@@ -647,7 +689,7 @@ def _partition_bounds(kl, krows, nvr, p, devs, outer, nl, Sl):
     return firsts, lasts, starts, ends, last_ne, ne
 
 
-def _merge_partition(slk, slv, nl, srk, srv, nr, outs, left_outer,
+def _merge_partition(sid, slk, slv, nl, srk, srv, nr, outs, left_outer,
                      right_outer, fillv):
     """The repartition merge: the sorted left side stays where it is,
     each rank's right partition (at most ``rcap`` rows, sized by one host
@@ -656,7 +698,9 @@ def _merge_partition(slk, slv, nl, srk, srv, nr, outs, left_outer,
     the out windows are assembled producer-side through one masked
     ``all_to_all`` per channel (each slot selects its one producer).
     Rows and count are those of the broadcast merge, bit for bit.
-    Returns ``(count, rcap)``."""
+    Records the ``partition_plan`` and ``merge`` phases under span
+    ``sid``.  Returns ``(count, rcap)``."""
+    t0 = _obs.now()
     p, Sl, *_ = working_geometry(slk.layout)
     _, Sr, *_ = working_geometry(srk.layout)
     devs = slk.runtime.devices
@@ -678,6 +722,9 @@ def _merge_partition(slk, slv, nl, srk, srv, nr, outs, left_outer,
     # the planner's one host read: the widest partition
     mx = max(int((ends[0] - starts[0]).max()), 1)
     rcap = min(1 << (mx - 1).bit_length(), p * Sr)
+    _obs.complete("relational.phase", t0, cat="relational", parent=sid,
+                  phase="partition_plan", rcap=rcap)
+    t0 = _obs.now()
 
     # rotate the right blocks; each rank scatters the rows of its slice
     # at their offset into rcap-sized buffers (a trash slot at rcap takes
@@ -754,7 +801,10 @@ def _merge_partition(slk, slv, nl, srk, srv, nr, outs, left_outer,
             got = recv.gather(0, ps[None])[0]
             cont._rows[r] = _pack_out_row(got, jt < ctots[r][-1],
                                           cont.layout, r)
-    return int(ctots[0][-1]), rcap
+    m = int(ctots[0][-1])
+    _obs.complete("relational.phase", t0, cat="relational", parent=sid,
+                  phase="merge", rows=m, route="partition")
+    return m, rcap
 
 
 def _check_join_sides(lk, lv, rk, rv):
@@ -798,7 +848,8 @@ def _no_rows(how, nl, nr) -> bool:
         or (how == "inner" and nr == 0)
 
 
-def _merge_sorted(slk, slv, nl, srk, srv, nr, outs, how, fill) -> int:
+def _merge_sorted(sid, slk, slv, nl, srk, srv, nr, outs, how,
+                  fill) -> int:
     """The merge half of a join over the already-sorted sides: routes,
     rebuilds the out containers' rows and returns the row count."""
     p, Sl, *_ = working_geometry(slk.layout)
@@ -808,15 +859,18 @@ def _merge_sorted(slk, slv, nl, srk, srv, nr, outs, how, fill) -> int:
     # the fill in the right value's dtype (the left fill casts from it)
     fillv = torch.tensor(fill, dtype=outs[2].dtype)
     if p > 1 and nl > 0 and nr > 0 and nl + nr > _broadcast_max():
-        m, rcap = _merge_partition(slk, slv, nl, srk, srv, nr, outs,
+        m, rcap = _merge_partition(sid, slk, slv, nl, srk, srv, nr, outs,
                                    left_outer, right_outer, fillv)
         _set_join_route(impl="partition", nl=nl, nr=nr, nshards=p,
                         rcap=rcap, gathered_rows_per_device=Sl + rcap)
         return m
+    t0 = _obs.now()
     m = _merge_broadcast(slk, slv, nl, srk, srv, nr, outs, left_outer,
                          right_outer, fillv)
     _set_join_route(impl="broadcast", nl=nl, nr=nr, nshards=p,
                     gathered_rows_per_device=p * (Sl + Sr))
+    _obs.complete("relational.phase", t0, cat="relational", parent=sid,
+                  phase="merge", rows=m, route="broadcast")
     return m
 
 
@@ -829,17 +883,28 @@ def _join_eager(lk, lv, rk, rv, out_keys, out_lv, out_rv, how,
                            "left", fill)
     lkc, lvc, rkc, rvc, okc, olc, orc = _check_join(
         lk, lv, rk, rv, out_keys, out_lv, out_rv)
-    if _no_rows(how, lkc.n, rkc.n):
-        for oc in (out_keys, out_lv, out_rv):
-            _fill(oc, 0)
-        return 0
-    slk, slv, nl = _sorted_scratch(lkc, lvc)
-    srk, srv, nr = _sorted_scratch(rkc, rvc)
-    m = _merge_sorted(slk, slv, nl, srk, srv, nr,
-                      (okc.cont, olc.cont, orc.cont), how, fill)
-    if m > okc.n:
-        _raise_capacity(f"join[{how}]", m, okc.n)
-    return m
+    sid = _obs.begin("relational.join", cat="relational", how=how,
+                     n_left=lkc.n, n_right=rkc.n)
+    m = -1
+    try:
+        if _no_rows(how, lkc.n, rkc.n):
+            t0 = _obs.now()
+            for oc in (out_keys, out_lv, out_rv):
+                _fill(oc, 0)
+            m = 0
+            _obs.complete("relational.phase", t0, cat="relational",
+                          parent=sid, phase="empty")
+            return 0
+        slk, slv, nl = _sorted_scratch(lkc, lvc, sid=sid, phase="sort_left")
+        srk, srv, nr = _sorted_scratch(rkc, rvc, sid=sid,
+                                       phase="sort_right")
+        m = _merge_sorted(sid, slk, slv, nl, srk, srv, nr,
+                          (okc.cont, olc.cont, orc.cont), how, fill)
+        if m > okc.n:
+            _raise_capacity(f"join[{how}]", m, okc.n)
+        return m
+    finally:
+        _obs.end(sid, rows=m)
 
 
 def _check_how(how):
@@ -921,16 +986,30 @@ def _join_auto_eager(lk, lv, rk, rv, how, fill):
     lkc, lvc, rkc, rvc = _check_join_sides(lk, lv, rk, rv)
     rt = lkc.cont.runtime
     dtypes = (lkc.cont.dtype, lvc.cont.dtype, rvc.cont.dtype)
-    if _no_rows(how, lkc.n, rkc.n):
-        return _fresh_outs(rt, dtypes, 1), 0
-    slk, slv, nl = _sorted_scratch(lkc, lvc)
-    srk, srv, nr = _sorted_scratch(rkc, rvc)
-    # the exact count: the broadcast merge's row arithmetic on one device
-    exact = int(_broadcast_plan(slk, srk, nl, nr, how in ("left", "outer"),
-                                how == "outer", rt.devices[0])[-1].total)
-    conts = _fresh_outs(rt, dtypes, _pow2_cap(exact))
-    return conts, _merge_sorted(slk, slv, nl, srk, srv, nr, conts, how,
-                                fill)
+    sid = _obs.begin("relational.join", cat="relational", how=how,
+                     auto=True, n_left=lkc.n, n_right=rkc.n)
+    m = -1
+    try:
+        if _no_rows(how, lkc.n, rkc.n):
+            m = 0
+            return _fresh_outs(rt, dtypes, 1), 0
+        slk, slv, nl = _sorted_scratch(lkc, lvc, sid=sid, phase="sort_left")
+        srk, srv, nr = _sorted_scratch(rkc, rvc, sid=sid,
+                                       phase="sort_right")
+        # the exact count: the broadcast merge's row arithmetic on one
+        # device
+        t0 = _obs.now()
+        exact = int(_broadcast_plan(slk, srk, nl, nr,
+                                    how in ("left", "outer"),
+                                    how == "outer",
+                                    rt.devices[0])[-1].total)
+        _obs.complete("relational.phase", t0, cat="relational", parent=sid,
+                      phase="cap_probe", rows=exact)
+        conts = _fresh_outs(rt, dtypes, _pow2_cap(exact))
+        m = _merge_sorted(sid, slk, slv, nl, srk, srv, nr, conts, how, fill)
+        return conts, m
+    finally:
+        _obs.end(sid, rows=m)
 
 
 def _groupby_auto_eager(keys, values, agg, keys_only=False):
@@ -948,12 +1027,22 @@ def _groupby_auto_eager(keys, values, agg, keys_only=False):
         vdt = _acc_dtype(vc.cont.dtype)
     else:
         vdt = vc.cont.dtype
-    sk, sv, n = _sorted_scratch(kc, vc)
-    cap = _pow2_cap(min(_group_count(sk, n), max(n, 1)))
-    ok = _fresh_outs(rt, (kc.cont.dtype,), cap)[0]
-    ov = None if keys_only else _fresh_outs(rt, (vdt,), cap)[0]
-    ng = _groupby_sorted(sk, sv, n, ok, ov, agg)
-    return ((ok,) if ov is None else (ok, ov)), ng
+    sid = _obs.begin("relational.groupby", cat="relational", agg=agg,
+                     auto=True, n=kc.n)
+    ng = -1
+    try:
+        sk, sv, n = _sorted_scratch(kc, vc, sid=sid)
+        t0 = _obs.now()
+        cap = _group_count(sk, n)
+        _obs.complete("relational.phase", t0, cat="relational", parent=sid,
+                      phase="cap_probe", groups=cap)
+        cap = _pow2_cap(min(cap, max(n, 1)))
+        ok = _fresh_outs(rt, (kc.cont.dtype,), cap)[0]
+        ov = None if keys_only else _fresh_outs(rt, (vdt,), cap)[0]
+        ng = _groupby_sorted(sid, sk, sv, n, ok, ov, agg)
+        return ((ok,) if ov is None else (ok, ov)), ng
+    finally:
+        _obs.end(sid, groups=ng)
 
 
 def join_auto(left_keys, left_values, right_keys, right_values, *,
@@ -1012,6 +1101,18 @@ def histogram(r, out, lo, hi):
     oc = _whole_out(out, "histogram")
     if not _same_ranks(oc.cont, chain.cont):
         raise TypeError("histogram: out must live on the input's ranks")
+    sid = _obs.begin("relational.histogram", cat="relational", n=chain.n,
+                     bins=oc.n)
+    try:
+        _histogram(chain, oc, lo, hi)
+        return out
+    finally:
+        _obs.end(sid)
+
+
+def _histogram(chain, oc, lo, hi) -> None:
+    """Bucket each rank's window cells, count them (K8 or
+    ``index_add_``), sum the counts and write ``oc``'s rows."""
     cont, bins = chain.cont, oc.n
     devs = cont.runtime.devices
     local = []
@@ -1038,7 +1139,6 @@ def histogram(r, out, lo, hi):
         t = _slots(ol, rk, dev)
         vals = total[t.clamp(0, bins - 1)].to(oc.cont.dtype)
         oc.cont._rows[rk] = _pack_out_row(vals, t < bins, ol, rk)
-    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1099,6 +1199,18 @@ def top_k(r, out_vals, out_idx=None, *, largest: bool = True,
         raise TypeError(
             "top_k: merge=True needs out_vals and out_idx on ONE "
             "layout (their current contents pair by slot)")
+    sid = _obs.begin("relational.top_k", cat="relational", n=chain.n,
+                     k=ovc.n, largest=largest, merge=merge)
+    try:
+        _top_k(chain, ovc, oic, largest, merge)
+        return out_vals
+    finally:
+        _obs.end(sid)
+
+
+def _top_k(chain, ovc, oic, largest, merge) -> None:
+    """Each rank's k best (order key, index) pairs, gathered and sorted
+    once more, into the rows of ``ovc`` (and ``oic``)."""
     cont, k = chain.cont, ovc.n
     devs = cont.runtime.devices
     p = len(devs)
@@ -1149,4 +1261,3 @@ def top_k(r, out_vals, out_idx=None, *, largest: bool = True,
             oic.cont._rows[rk] = _pack_out_row(
                 torch.where(ilive, res_g[ti.clamp(0, k - 1)], _GMAX),
                 ilive, oic.cont.layout, rk)
-    return out_vals

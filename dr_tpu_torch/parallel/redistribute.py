@@ -21,11 +21,16 @@ communication", arXiv:2112.01075).
   host-staged route (the logical value through the host, then
   ``_rebind``, then ``assign_array``).  A failed collective exchange
   rolls the vector back to its old layout and rows.
+* While tracing is armed (``dr_tpu_torch.obs``), a re-layout is a
+  ``redistribute`` span with its route as ``impl`` (``collective`` or
+  ``host``) and ``redistribute.phase`` children: ``plan``, ``exchange``
+  and ``rebind`` on the collective route, which also adds the bytes that
+  change rank to the ``redistribute.bytes_moved`` counter, and
+  ``host_staged`` on the other.
 
 Not carried over yet: the ``DR_TPU_REDISTRIBUTE`` override, the fault
-sites, the obs spans and bytes counter, the deferred-plan recording
-(ROADMAP queue 1 item 3) and ``reshard_copy``, which nothing in the port
-calls.
+sites, the deferred-plan recording (ROADMAP queue 1 item 3) and
+``reshard_copy``, which nothing in the port calls.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import obs as _obs
 from ..algorithms._common import layout_geometry
 from .pipeline import ring_exchange
 
@@ -124,9 +130,12 @@ def exchange_rows(src_rows, devices, src_layout, dst_layout, dtype):
 def _host_staged(cont, new_dist, rt):
     """Through the host: the logical value to the host, the layout
     re-planned onto ``rt``, the value scattered back."""
+    t0 = _obs.now()
     values = cont.to_array().cpu()
     cont._rebind(rt, new_dist)
     cont.assign_array(values)
+    _obs.complete("redistribute.phase", t0, cat="redistribute",
+                  phase="host_staged", n=len(cont))
     return cont
 
 
@@ -137,10 +146,25 @@ def _collective(cont, new_dist, rt):
     src_dist = cont.distribution
     src_layout = cont.layout
     old = cont._rows
+    t0 = _obs.now()
     cont._rebind(rt, new_dist, _rows=old)
+    dst_layout = cont.layout
     try:
-        cont._rows = exchange_rows(old, rt.devices, src_layout, cont.layout,
-                                   cont.dtype)
+        _obs.complete("redistribute.phase", t0, cat="redistribute",
+                      phase="plan")
+        t1 = _obs.now()
+        new = exchange_rows(old, rt.devices, src_layout, dst_layout,
+                            cont.dtype)
+        _obs.complete("redistribute.phase", t1, cat="redistribute",
+                      phase="exchange")
+        t2 = _obs.now()
+        cont._rows = new
+        _obs.complete("redistribute.phase", t2, cat="redistribute",
+                      phase="rebind")
+        if _obs.armed():
+            _, moved = plan_moves(src_layout, dst_layout)
+            _obs.count("redistribute.bytes_moved",
+                       moved * cont.dtype.itemsize)
         return cont
     except BaseException:
         cont._rebind(src_rt, src_dist, _rows=old)
@@ -151,6 +175,13 @@ def redistribute_vector(cont, new_dist, rt):
     """Re-lay one ``distributed_vector`` out under ``new_dist`` on
     ``rt``: the collective exchange when the source and target share the
     device list, the host-staged route otherwise."""
-    if cont.runtime.devices == rt.devices:
-        return _collective(cont, new_dist, rt)
-    return _host_staged(cont, new_dist, rt)
+    collective = cont.runtime.devices == rt.devices
+    sid = _obs.begin("redistribute", cat="redistribute",
+                     impl="collective" if collective else "host",
+                     n=len(cont), nshards=rt.nprocs)
+    try:
+        if collective:
+            return _collective(cont, new_dist, rt)
+        return _host_staged(cont, new_dist, rt)
+    finally:
+        _obs.end(sid)

@@ -1131,3 +1131,72 @@ def test_bf16_checkpoint_roundtrip_on_card(cuda, tmp_path):
     assert torch.equal(back.to_array().view(torch.int16),
                        t.view(torch.int16))
     dt.final()
+
+
+def _relational_once(dt, data, ranks_dev):
+    """groupby, join, histogram and top_k of one seeded table; returns
+    every output's bits."""
+    k, v = (dt.distributed_vector.from_array(a) for a in data)
+    n = len(k)
+    ok, ov = dt.distributed_vector(n), dt.distributed_vector(n)
+    jk, jl, jr = (dt.distributed_vector(8 * n) for _ in range(3))
+    hb = dt.distributed_vector(16, np.int32)
+    tv, ti = dt.distributed_vector(8), dt.distributed_vector(8, np.int32)
+    ng = dt.groupby_aggregate(k, v, ok, ov, agg="sum")
+    m = dt.join(k, v, k, v, jk, jl, jr)
+    dt.histogram(v, hb, -3.0, 3.0)
+    dt.top_k(v, tv, ti)
+    outs = [ok, ov, jk, jl, jr, hb, tv, ti]
+    assert all(r.device == ranks_dev for o in outs for r in o.rows)
+    return (ng, m), [o.to_array().view(torch.int32) for o in outs]
+
+
+@pytest.mark.parametrize("ranks", [1, 4])
+def test_relational_traced_equals_untraced_on_card(cuda, ranks):
+    """The spans change no result: the relational outputs on the card are
+    equal bit for bit with tracing off and armed, and the trace holds
+    the four spans."""
+    import dr_tpu_torch as dt
+    dev, gen = cuda
+    dt.init(dt.get_duplicated_devices(ranks, [dev]))
+    n = 1 << 14
+    data = (torch.randint(0, n, (n,), generator=gen,
+                          device=dev).float(),
+            torch.randn(n, generator=gen, device=dev))
+    off = _relational_once(dt, data, dev)
+    dt.obs.arm(True)
+    dt.obs.reset()
+    try:
+        on = _relational_once(dt, data, dev)
+        names = {e["name"] for e in dt.obs.events()}
+    finally:
+        dt.obs.arm(False)
+        dt.obs.reset()
+    assert on[0] == off[0]
+    assert all(torch.equal(a, b) for a, b in zip(on[1], off[1]))
+    assert {"relational.join", "relational.groupby", "relational.histogram",
+            "relational.top_k", "relational.phase"} <= names
+    dt.final()
+
+
+def test_profiling_trace_records_k3_on_card(cuda, tmp_path):
+    """``profiling.trace`` on the card records device activity: the K3
+    kernel of ``dot_n`` (``dot.cu``'s ``dot_partials*``), once a round."""
+    import json
+    import dr_tpu_torch as dt
+    dev, gen = cuda
+    dt.init([dev])
+    x = dt.distributed_vector.from_array(
+        torch.rand(1 << 20, generator=gen, device=dev))
+    float(dt.dot_n(x, x, 1))  # warm
+    before = kernels.launches["chunked_dot"]
+    with dt.profiling.trace(str(tmp_path)):
+        float(dt.dot_n(x, x, 3))
+    assert kernels.launches["chunked_dot"] - before == 3
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    with open(path, encoding="utf-8") as fh:
+        evs = json.load(fh)["traceEvents"]
+    k3 = [e for e in evs if e.get("cat") == "kernel"
+          and "dot_partials" in e.get("name", "")]
+    assert len(k3) == 3
+    dt.final()

@@ -48,16 +48,18 @@ def test_port_files_exist():
             "resilience.py", "sparse_matrix.py", "gemv.py", "entry.py",
             "distributed_span.py", "unstructured_halo.py",
             "redistribute.py", "checkpoint.py", "elastic.py", "expr.py",
-            "logging.py", "debug.py", "chip_smoke.py"} <= names
+            "logging.py", "debug.py", "env.py", "recorder.py", "metrics.py",
+            "export.py", "profiling.py", "chip_smoke.py"} <= names
+    assert (REPO / "dr_tpu_torch" / "obs" / "__init__.py") in PORT_FILES
 
 
 #: the names of ``dr_tpu.__all__`` the port does not have yet: the
-#: host-side layers of ROADMAP.md queue 1 item 3 (plans, faults, obs,
-#: profiling, spmd_guard, tuning, elastic) and the multi-host and mesh
-#: names of item 4.  Later slices shrink it.
+#: host-side layers of ROADMAP.md queue 1 item 3 (plans, faults,
+#: spmd_guard, tuning, elastic) and the multi-host and mesh names of
+#: item 4.  Later slices shrink it.
 REMAINDER = {"DeferredCount", "Plan", "PlanScalar", "deferred", "plan",
-             "faults", "obs", "profiling", "spmd_guard", "tuning",
-             "elastic", "init_distributed", "mesh"}
+             "faults", "spmd_guard", "tuning", "elastic",
+             "init_distributed", "mesh"}
 
 
 def test_public_surface_remainder():

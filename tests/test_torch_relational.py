@@ -160,6 +160,34 @@ def test_groupby_unequal_out_capacities_rejected():
                              dt.distributed_vector(8, np.float32))
 
 
+@pytest.mark.parametrize("p_new", [0.5, 0.1, 0.002, 1.0])
+def test_groupby_float_run_sums_fixed_order(p_new):
+    """The groupby's float sums over the sorted runs: within the
+    summation bound of a float64 sum (run length x 2^-24 x sum |v|), the
+    same bits on a second call, the input untouched, and +0.0 for an
+    empty run or one of -0.0s (a sum from zero), as index_add_ gave."""
+    from dr_tpu_torch.algorithms.relational import _run_sums
+    rng = np.random.default_rng(31)
+    S = 5000
+    v = torch.from_numpy(rng.standard_normal(S).astype(np.float32) * 50)
+    flags = torch.from_numpy(rng.random(S) < p_new)
+    segid = torch.cumsum(flags, 0, dtype=torch.int32)
+    v0 = v.clone()
+    got = _run_sums(v, segid, S + 1)
+    assert torch.equal(v, v0) and torch.equal(got, _run_sums(v, segid, S + 1))
+    want = torch.zeros(S + 1, dtype=torch.float64).index_add_(
+        0, segid, v.double())
+    absum = torch.zeros(S + 1, dtype=torch.float64).index_add_(
+        0, segid, v.double().abs())
+    count = torch.bincount(segid, minlength=S + 1).double()
+    assert bool(((got.double() - want).abs()
+                 <= count * 2.0 ** -24 * absum).all())
+    z = _run_sums(torch.tensor([-0.0, -0.0, 1.0]),
+                  torch.tensor([1, 1, 2], dtype=torch.int32), 4)
+    assert torch.equal(z, torch.tensor([0.0, 0.0, 1.0, 0.0]))
+    assert not torch.signbit(z).any()
+
+
 def test_unique_matches_reference():
     rng = np.random.default_rng(11)
     n = 48
