@@ -128,7 +128,28 @@ checks the kernels at small shapes only).  Phases:
     host operations over them, the trace's kernels mapped to K1-K4 by
     their ``__global__`` names and counted against the launch counters;
     ``profiling.device_timer`` of ``dot_n`` within 10% of phase 8's K3
-    time, and ``profiling.profile_phases`` of the 4-rank sort at 2^24.
+    time, and ``profiling.profile_phases`` of the 4-rank sort at 2^24;
+22. resilience and guards: the chaos battery (init, halo exchange and
+    reduce, the communicator's shift and all-to-all, a sort on K6, a
+    scan on K4, ``dot_n`` on K3, a K1 stencil block, a ring gemv, bf16
+    ring attention on K9, three collective re-layouts, a checkpoint
+    write and read) on 4 ranks of the card, clean and with visit
+    counting (every site the port fires reached), then one fault at each
+    (site, kind) under ``with_deadline`` (a classified error at that
+    site, never a hang), and a transient once at each site, retried: the
+    clean run's bits; ``kernel.build`` of both kinds at K1-K9's wrappers
+    on CUDA tensors (classified, launch counters unmoved, no plain
+    version run, the clean bits after); an allocation above the card's
+    memory classified as ``DeviceOOM`` with a main-path step's bits the
+    same before and after; ``entry.dryrun(4)`` under one ``spmd_guard``
+    with the same digest on card ranks and CPU ranks, and
+    ``sanitize.zero_recompile`` around the second main-path step at
+    2^30; the step, the halo p50 (1 and 4 ranks) and a ``TappedCache``
+    lookup with nothing armed, a guard active and tracing armed.
+    ``--phase22`` runs phases 1-3 and this one.
+
+``--halo-ab DIR`` times phase 17's halo p50 with the ``dr_tpu_torch`` of
+another checkout at ``DIR`` and this one's, in turns, and stops.
 
 Phase 3 also holds K9 (``flash_update``) against its plain version at
 small shapes (d = 128 and 256 on the wgmma kernel, d = 768 on the
@@ -210,10 +231,29 @@ SURF_LOG2, EXPR_LOG2 = 24, 28
 UH_OPS = ("plus", "multiplies", "max", "min", "second")
 # phase 21 writes its traces here (a gitignored directory)
 OBS_DIR = os.path.join(HERE, "chiprun_out", "phase21")
+# every log line also goes here (a gitignored directory)
+LOG_PATH = os.path.join(HERE, "chiprun_out", "chip_smoke.log")
+# phase 22: the chaos battery on 4 ranks of the card: vectors of 2^20
+# f32 (2^18 a rank), the sort at K6's geometry (2^14 keys a rank), bf16
+# ring attention at S = 2048 with 8 q and 2 K/V heads of dim 128 (K9's
+# tiles), a ring gemv over 2^16 rows (4 nonzeros a row); the main-path
+# step of the OOM, tap and cost checks at phase 4's 2^30 on one rank
+CHAOS_LOG2, CHAOS_SORT_PER = 20, 1 << 14
+CHAOS_RA = (2048, 8, 2, 128)
+CHAOS_GEMV_LOG2 = 16
+CHAOS_DEADLINE = 120.0
+GUARD_LOG2 = 30
+
+
+#: a copy of every log line, opened by main(), so the whole log survives
+#: where only the end of standard output is kept
+LOG_FILE = None
 
 
 def log(*a):
     print(*a, flush=True)
+    if LOG_FILE is not None:
+        print(*a, file=LOG_FILE, flush=True)
 
 
 def card_line():
@@ -3278,6 +3318,555 @@ def profiling_obs(dt, seed, card, device="cuda:0", log2=30, sort_log2=24,
                 "dominant": bd.dominant}
 
 
+# ------------------------------------- phase 22: resilience and guards
+
+def chaos_inputs(seed, ranks=4, log2=CHAOS_LOG2, sort_per=CHAOS_SORT_PER,
+                 ra=CHAOS_RA, gemv_log2=CHAOS_GEMV_LOG2):
+    """The chaos battery's inputs, made on the host by numpy from
+    ``seed`` (so the CPU tests and the card run the same data)."""
+    rng = np.random.default_rng(seed)
+    n, m = 1 << log2, 1 << gemv_log2
+    S, h, hkv, d = ra
+    bw = -(-m // ranks)
+    # one nonzero a row in each column block: the ring layout's buckets
+    # hold one entry a row (its gate admits the matrix)
+    rows = np.repeat(np.arange(m), ranks)
+    cols = np.minimum(np.tile(np.arange(ranks), m) * bw
+                      + rng.integers(0, bw, ranks * m), m - 1)
+    return {
+        "src": rng.standard_normal(n).astype(np.float32),
+        "x": rng.random(n, dtype=np.float32),
+        "y": rng.random(n, dtype=np.float32),
+        "sort": rng.standard_normal(ranks * sort_per).astype(np.float32),
+        "a2a": rng.standard_normal((ranks, ranks, 4)).astype(np.float32),
+        "coo": (m, rows, cols,
+                rng.standard_normal(ranks * m).astype(np.float32)),
+        "b": rng.standard_normal(m).astype(np.float32),
+        "q": rng.standard_normal((1, S, h, d)).astype(np.float32),
+        "kv": rng.standard_normal((2, 1, S, hkv, d)).astype(np.float32),
+    }
+
+
+def chaos_battery(dt, inp, path, device="cuda:0", ranks=4, k_block=K_BLOCK,
+                  mm_halo=MM_HALO):
+    """One pass through every site the port fires, on ``ranks`` ranks of
+    ``device`` (the counterpart of ``tests/test_chaos.py``'s battery):
+    init -> halo exchange and reduce -> the communicator's shift and
+    all-to-all -> a sort (K6) -> a scan (K4) -> ``dot_n`` (K3) -> a
+    stencil block (K1) -> a ring gemv -> bf16 ring attention (K9) ->
+    three collective re-layouts -> a checkpoint write and read at
+    ``path``.  Every dispatch rides the tap (``dispatch.cache``,
+    ``device.lost``), every launch ``kernel.build``.  Returns the
+    results on the host."""
+    import torch
+    from dr_tpu_torch.algorithms import gemv as dt_gemv
+    dt.init(dt.get_duplicated_devices(ranks, [device]))
+    dev = torch.device(device)
+    out = {}
+
+    def put(t):
+        return torch.from_numpy(t).to(dev)
+
+    src = put(inp["src"])
+    n = src.numel()
+    v = dt.distributed_vector.from_array(
+        src, halo=dt.halo_bounds(1, 1, periodic=True))
+    h = dt.halo(v)
+    h.exchange()
+    h.reduce_plus()
+    out["halo"] = torch.cat(v.rows).cpu()
+    comm = dt.default_comm()
+    out["shift"] = torch.cat(comm.shift_forward(v.rows, periodic=True)).cpu()
+    out["a2a"] = torch.cat(comm.alltoall(comm.scatter(put(inp["a2a"])))).cpu()
+    sv = dt.distributed_vector.from_array(put(inp["sort"]))
+    dt.sort(sv)
+    out["sort"] = sv.to_array().cpu()
+    sc = dt.distributed_vector(n)
+    dt.inclusive_scan(dt.distributed_vector.from_array(src), sc)
+    out["scan"] = sc.to_array().cpu()
+    x = dt.distributed_vector.from_array(put(inp["x"]))
+    y = dt.distributed_vector.from_array(put(inp["y"]))
+    out["dot"] = dt.dot_n(x, y, 1).reshape(1).cpu()
+    del x, y, sc, sv
+    a = dt.distributed_vector.from_array(
+        src, halo=dt.halo_bounds(mm_halo, mm_halo, periodic=True))
+    dt.stencil_iterate_matmul(a, W5, k_block, k_block=k_block)
+    out["stencil"] = a.to_array().cpu()
+    del a
+    m, rows, cols, vals = inp["coo"]
+    A = dt.sparse_matrix.from_coo((m, m), rows, cols, vals)
+    if not A.ensure_ring():
+        raise AssertionError("chaos battery: the ring layout refused the "
+                             "matrix")
+    c = dt.distributed_vector(m)
+    dt.fill(c, 0.0)
+    dt_gemv._gemv_as(c, A, put(inp["b"]), "ring")
+    out["gemv"] = c.to_array().cpu()
+    del A, c
+    q = put(inp["q"]).bfloat16()
+    k, vv = (put(t).bfloat16() for t in inp["kv"])
+    out["attention"] = dt.ring_attention(q, k, vv, causal=True).float().cpu()
+    del q, k, vv
+    rdv = dt.distributed_vector.from_array(src)
+    dt.redistribute(rdv, [n] + [0] * (ranks - 1))
+    dt.redistribute(rdv, [1] * (ranks - 1) + [n - (ranks - 1)])
+    dt.redistribute(rdv, None)
+    out["redistribute"] = rdv.to_array().cpu()
+    dt.checkpoint.save(path, rdv)
+    out["checkpoint"] = dt.checkpoint.load(path).to_array().cpu()
+    return out
+
+
+def same_bits(got, want) -> bool:
+    """Every result of ``got`` has ``want``'s shape, dtype and bits."""
+    import torch
+    return got.keys() == want.keys() and all(
+        got[k].shape == want[k].shape and got[k].dtype == want[k].dtype
+        and torch.equal(got[k].contiguous().view(torch.uint8),
+                        want[k].contiguous().view(torch.uint8))
+        for k in want)
+
+
+def port_sites(faults):
+    """(site, kind) of every injection the port fires, in table order."""
+    return [(s, k) for s, kinds in faults.sites().items()
+            if s not in faults.PORT_PENDING for k in kinds]
+
+
+def chaos_phase(dt, seed, tmpdir, device="cuda:0", deadline=CHAOS_DEADLINE,
+                **sizes):
+    """Phase 22.1: the battery clean, with visit counting (every fired
+    site reached; ``kernel.build`` only on the card), then once for each
+    (site, kind) the port fires, under ``with_deadline``: the run ends in
+    a classified error raised at that site (a torn checkpoint as the
+    classified corrupt file), never a hang or an unclassified traceback.
+    Then a ``transient`` injected once at each site and ``retry``: the
+    same bits as the clean run.  Returns the outcome of each case."""
+    from dr_tpu_torch.utils import faults, resilience as R
+    bat = {k: sizes.pop(k) for k in ("ranks", "k_block", "mm_halo")
+           if k in sizes}
+    inp = chaos_inputs(seed, **sizes)
+    path = os.path.join(tmpdir, "chaos.npz")
+
+    def run():
+        return chaos_battery(dt, inp, path, device, **bat)
+
+    t0 = time.perf_counter()
+    clean = run()
+    t_clean = time.perf_counter() - t0
+    faults.clear()
+    faults.arm_counting()
+    try:
+        counted = run()
+        visits = faults.stats()
+    finally:
+        faults.clear()
+    check_true("chaos battery: counting changes no bit",
+               same_bits(counted, clean))
+    on_card = device.startswith("cuda")
+    combos = port_sites(faults)
+    missing = sorted({s for s, _ in combos if not visits.get(s)}
+                     - (set() if on_card else {"kernel.build"}))
+    check_true(f"chaos battery visits every site the port fires "
+               f"(visits {json.dumps(visits, sort_keys=True)}; missing "
+               f"{missing})", not missing)
+    outcomes = {}
+    for site, kind in combos:
+        with faults.injected(site, kind, times=1) as sp:
+            try:
+                got = R.with_deadline(run, deadline,
+                                      site=f"chaos:{site}:{kind}",
+                                      dump=False)
+            except R.DeadlineExpired:
+                raise AssertionError(f"chaos {site}:{kind}: a hang")
+            except R.ResilienceError as e:
+                outcomes[f"{site}:{kind}"] = type(e).__name__
+                want = "checkpoint.read" if kind == "truncate" else site
+                check_true(f"chaos {site}:{kind} -> {type(e).__name__} "
+                           f"at {e.site}", e.site == want
+                           and sp.fired == 1)
+                continue
+        if on_card or site != "kernel.build":
+            raise AssertionError(f"chaos {site}:{kind} ran clean: the site "
+                                 "never fired")
+        # a CPU tensor takes the plain version, fault or not
+        outcomes[f"{site}:{kind}"] = "plain route"
+        check_true(f"chaos {site}:{kind} on the CPU: plain route, same "
+                   "bits", sp.fired == 0 and same_bits(got, clean))
+    t1 = time.perf_counter()
+    for site in dict.fromkeys(s for s, k in combos if k == "transient"):
+        if site == "kernel.build" and not on_card:
+            continue
+        with faults.injected(site, "transient", times=1) as sp:
+            got = R.retry(run, attempts=2, sleep=lambda s: None)
+        outcomes[f"{site}:transient retried"] = "same bits"
+        check_true(f"chaos {site}: transient once, retried, same bits",
+                   sp.fired == 1 and same_bits(got, clean))
+    log(f"  chaos battery: clean {t_clean:.2f} s, {len(combos)} "
+        f"(site, kind) cases, retries {time.perf_counter() - t1:.2f} s")
+    dt.final()
+    return outcomes
+
+
+def kernel_build_faults(kernels, gen, device="cuda:0", n=1 << 20, m=2048):
+    """Phase 22.2: every kernel's wrapper on CUDA tensors under an
+    injected ``kernel.build`` fault of each kind: the classified error
+    with site ``kernel.build``, the launch counter unmoved, no plain
+    version run; then the same call unfaulted gives the clean bits."""
+    import torch
+    from dr_tpu_torch.ops import (flash_attention as fa, hist_pallas,
+                                  reduce_pallas, scan_pallas, segred_pallas,
+                                  sort_pallas, stencil2d_pallas,
+                                  stencil_matmul, stencil_pallas)
+    from dr_tpu_torch.utils import faults, resilience as R
+    dev = torch.device(device)
+    w2 = ((0.0, 0.25, 0.0), (0.25, 0.0, 0.25), (0.0, 0.25, 0.0))
+    row1 = torch.randn((1, n + 2 * MM_HALO), generator=gen, device=dev)
+    row2 = torch.randn((1, n + 2 * BLK_HALO), generator=gen, device=dev)
+    x = torch.rand(n, generator=gen, device=dev)
+    y = torch.rand(n, generator=gen, device=dev)
+    xp = torch.randn((m + 2 * T2D, m), generator=gen, device=dev)
+    keys = torch.randint(-2 ** 31, 2 ** 31 - 1, (8, 1 << 14), generator=gen,
+                         device=dev, dtype=torch.int32)
+    ids = torch.randint(0, K8_BINS, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    cnt = torch.ones(n, device=dev, dtype=torch.int32)
+    q, k, v, st = k9_operands(gen, dev, 8, 1, 256, 256, 128)
+    calls = {
+        "stencil_matmul": (stencil_matmul, lambda: stencil_matmul
+                           .matmul_stencil_row(row1, n, MM_HALO, W5,
+                                               K_BLOCK)),
+        "stencil_blocked": (stencil_pallas, lambda: stencil_pallas
+                            .blocked_stencil_row(row2, n, BLK_HALO, W5,
+                                                 T_BLOCK)),
+        "chunked_dot": (reduce_pallas, lambda: reduce_pallas.chunked_dot(
+            x, y).reshape(1)),
+        "chunked_cumsum": (scan_pallas, lambda: scan_pallas.chunked_cumsum(
+            x)),
+        "stencil2d_blocked": (stencil2d_pallas, lambda: stencil2d_pallas
+                              .blocked_stencil2d_padded(xp, m, w2, T2D,
+                                                        T2D)),
+        "bitonic_sort": (sort_pallas, lambda: sort_pallas.sort_keys(keys)),
+        "segred": (segred_pallas, lambda: segred_pallas.segmented(
+            None, 1, ((ids, "max"),))[0]),
+        "hist": (hist_pallas, lambda: hist_pallas.bincount(ids, cnt,
+                                                           K8_BINS)),
+        "flash_update": (fa, lambda: fa.flash_update(
+            q, k, v, *st, 0, 0, causal=True)[2]),
+    }
+    for name, (mod, call) in calls.items():
+        clean = call()
+        torch.cuda.synchronize()
+        plain = [a for a in dir(mod) if a.startswith("plain_")]
+        ran = []
+        saved = {a: getattr(mod, a) for a in plain}
+        for a, fn in saved.items():
+            setattr(mod, a, lambda *x, _a=a, _f=fn, **kw:
+                    (ran.append(_a), _f(*x, **kw))[1])
+        try:
+            for kind, cls in (("transient", R.TransientBackendError),
+                              ("program", R.ProgramError)):
+                before = dict(kernels.launches)
+                with faults.injected("kernel.build", kind) as sp:
+                    try:
+                        call()
+                        raised = None
+                    except R.ResilienceError as e:
+                        raised = e
+                check_true(
+                    f"kernel.build {kind} at {name}: "
+                    f"{type(raised).__name__} at "
+                    f"{getattr(raised, 'site', None)}, launches unmoved, "
+                    f"plain versions run {ran}",
+                    isinstance(raised, cls) and raised.site == "kernel.build"
+                    and sp.fired == 1 and kernels.launches == before
+                    and not ran)
+        finally:
+            for a, fn in saved.items():
+                setattr(mod, a, fn)
+        again = call()
+        check_equal(f"kernel.build {name}: unfaulted call after the faults",
+                    again, clean)
+
+
+def step_input(n, seed, device="cuda:0"):
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(n, generator=gen, device=device)
+
+
+def one_step(dt, src):
+    """One block of each of phase 4's main-path steps on the current
+    runtime's one rank, from ``src``: a K1 block, a K2 block, ``dot_n(1)``
+    and a scan; the results stay on the device, fenced."""
+    out = {}
+    a = dt.distributed_vector.from_array(
+        src, halo=dt.halo_bounds(MM_HALO, MM_HALO, periodic=True))
+    dt.stencil_iterate_matmul(a, W5, K_BLOCK, k_block=K_BLOCK)
+    out["matmul"] = a.to_array()
+    del a
+    b = dt.distributed_vector.from_array(
+        src, halo=dt.halo_bounds(BLK_HALO, BLK_HALO, periodic=True))
+    dt.stencil_iterate_blocked(b, W5, T_BLOCK, time_block=T_BLOCK)
+    out["blocked"] = b.to_array()
+    del b
+    x = dt.distributed_vector.from_array(src)
+    out["dot_n"] = dt.dot_n(x, x, 1).reshape(1)
+    s = dt.distributed_vector(len(x))
+    dt.inclusive_scan(x, s)
+    out["scan"] = s.to_array()
+    dt.fence()
+    return out
+
+
+def real_oom(dt, seed, n, device="cuda:0"):
+    """Phase 22.3: an allocation above the card's memory (and so above
+    its free memory) comes back from ``classified`` as ``DeviceOOM``; a
+    main-path step after it gives the bits of the one before it."""
+    import torch
+    from dr_tpu_torch.utils import resilience as R
+    dt.init([device])
+    src = step_input(n, seed, device)
+    before = one_step(dt, src)
+    release(torch)
+    free, total = torch.cuda.mem_get_info()
+    err = None
+    try:  # above the card's memory: above what is free, whatever is cached
+        torch.empty(total + (1 << 30), dtype=torch.uint8, device=device)
+    except Exception as e:  # the raw error, to be classified
+        err = R.classified(e, site="chip_smoke.oom")
+    check_true(f"allocating {total + (1 << 30)} bytes ({free} free of "
+               f"{total}) -> {type(err).__name__}: "
+               f"{str(err).splitlines()[0][:120] if err else ''}",
+               isinstance(err, R.DeviceOOM))
+    del err
+    release(torch)
+    after = one_step(dt, src)
+    check_true("main-path step after the OOM: the same bits as before it",
+               same_bits(after, before))
+    del before, after, src
+    dt.final()
+
+
+def dispatch_tap_checks(dt, n, seed, device="cuda:0"):
+    """Phase 22.4: ``entry.dryrun(4)`` under one ``spmd_guard`` on card
+    ranks and on CPU ranks records the same digest (a key holding a
+    device would differ); the second main-path step inserts no key
+    (``sanitize.zero_recompile``) and records the same trace as the
+    first."""
+    from dr_tpu_torch import entry as E
+    from dr_tpu_torch.utils import sanitize, spmd_guard
+    digests = {}
+    for devs in ([device], ["cpu"]):
+        with spmd_guard.guard() as g:
+            E.dryrun(4, devs)
+        digests[devs[0]] = (g.digest(), len(g.trace))
+        dt.final()
+    check_true(f"dryrun(4) digest on {device} ranks and cpu ranks: "
+               f"{digests}", len(set(digests.values())) == 1)
+    dt.init([device])
+    src = step_input(n, seed, device)
+    with spmd_guard.guard() as g1:
+        one_step(dt, src)
+    with spmd_guard.guard() as g2:
+        with sanitize.zero_recompile("the second main-path step"):
+            one_step(dt, src)
+    del src
+    check_true(f"second main-path step: no new key, the same "
+               f"{len(g1.trace)} dispatches", g1.trace == g2.trace)
+    dt.final()
+    return {"dryrun_digest": digests[device][0],
+            "dryrun_dispatches": digests[device][1],
+            "step_dispatches": len(g1.trace)}
+
+
+def tap_cost_us(reps=100000):
+    """Host microseconds of one ``TappedCache`` lookup (a hit)."""
+    from dr_tpu_torch.utils.spmd_guard import TappedCache
+    c = TappedCache()
+    key = ("exchange", 0, 4, 1 << 22, HALO_W, HALO_W, True, 1 << 24, None, 1)
+    c.tap(key)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        c.tap(key)
+    return (time.perf_counter() - t0) / reps * 1e6
+
+
+GUARD_MODES = ("nothing armed", "guard active", "tracing armed")
+
+
+@contextlib.contextmanager
+def guard_mode(mode):
+    """Nothing armed, an active ``spmd_guard``, or ``obs`` armed."""
+    from dr_tpu_torch import obs
+    from dr_tpu_torch.utils import spmd_guard
+    if mode == "guard active":
+        with spmd_guard.guard():
+            yield
+    elif mode == "tracing armed":
+        obs.arm(True)
+        try:
+            yield
+        finally:
+            obs.arm(False)
+            obs.reset()
+    else:
+        yield
+
+
+def in_turns(run, rounds):
+    """``run()`` under each of :data:`GUARD_MODES` in turn, ``rounds``
+    times; the median of each mode's readings and the readings."""
+    per = {m: [] for m in GUARD_MODES}
+    for _ in range(rounds):
+        for m in GUARD_MODES:
+            with guard_mode(m):
+                per[m].append(run())
+    return {m: float(np.median(v)) for m, v in per.items()}, per
+
+
+def guard_costs(dt, n, seed, card, device="cuda:0", rounds=(5, 15)):
+    """Phase 22.5: phase 4's step (one block of each op at ``n``), phase
+    17's halo exchange (1 and 4 ranks) and one TappedCache lookup, each
+    timed under the three :data:`GUARD_MODES` in turns (mode after mode,
+    round after round, so drift falls on all three alike)."""
+    import torch
+    out = {}
+    src = step_input(n, seed, device)
+    dt.init([device])
+    one_step(dt, src)  # warm
+
+    def step():
+        t0 = time.perf_counter()
+        one_step(dt, src)
+        return (time.perf_counter() - t0) * 1e3
+
+    out["step_ms"], out["step_ms_all"] = in_turns(step, rounds[0])
+    del src
+    dt.final()
+    release(torch)
+    for ranks in (1, 4):
+        dt.init(dt.get_duplicated_devices(ranks, [device]))
+        v = dt.distributed_vector(ranks * HALO_CELLS, np.float32,
+                                  halo=dt.halo_bounds(HALO_W, HALO_W,
+                                                      periodic=True))
+        dt.iota(v, 0)
+        h = v.halo()
+        h.exchange_n(HALO_ROUNDS)  # warm
+
+        def batch():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            for _ in range(4):
+                h.exchange_n(HALO_ROUNDS)
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end) * 1e3 / (4 * HALO_ROUNDS)
+
+        out[f"halo_p50_us_{ranks}"], out[f"halo_us_{ranks}_all"] = \
+            in_turns(batch, rounds[1])
+        del v, h
+        dt.final()
+    out["tap_us"], out["tap_us_all"] = in_turns(tap_cost_us, 3)
+    for m in GUARD_MODES:
+        log(f"  [{card}] {m}: step {out['step_ms'][m]!r} ms, halo p50 "
+            f"{out['halo_p50_us_1'][m]!r} / {out['halo_p50_us_4'][m]!r} us "
+            f"(1 / 4 ranks), TappedCache lookup "
+            f"{out['tap_us'][m]!r} us")
+    release(torch)
+    return out
+
+
+def resilience_phase(dt, kernels, gen, seed, card):
+    """Phase 22 (the counts reset just before it): the chaos battery,
+    ``kernel.build`` on every wrapper, a real OOM, the dispatch tap's
+    digests and the guards' cost.  Returns its numbers."""
+    import tempfile
+    import torch
+    log("phase 22: resilience and guards: the chaos battery on 4 ranks of "
+        f"cuda:0 (2^{CHAOS_LOG2} f32 vectors, the sort at 4 x "
+        f"{CHAOS_SORT_PER}, bf16 ring attention S, h, hkv, d = {CHAOS_RA}, "
+        f"a ring gemv of 2^{CHAOS_GEMV_LOG2} rows), kernel.build on K1-K9, "
+        f"a real OOM, the dispatch tap and the guards' cost at 2^{GUARD_LOG2}")
+    out = {"card": card}
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    with tempfile.TemporaryDirectory() as td:
+        out["chaos"] = chaos_phase(dt, seed, td)
+    out["chaos_launches"] = dict(kernels.launches)
+    log(f"  phase 22.1 {time.perf_counter() - t0:.1f} s, launches "
+        f"{out['chaos_launches']}")
+    for k in ("stencil_matmul", "chunked_dot", "chunked_cumsum",
+              "bitonic_sort", "flash_update"):
+        check_true(f"the chaos battery launched {k}",
+                   out["chaos_launches"][k] > 0)
+    release(torch)
+    t1 = time.perf_counter()
+    kernel_build_faults(kernels, gen)
+    log(f"  phase 22.2 {time.perf_counter() - t1:.1f} s")
+    release(torch)
+    t1 = time.perf_counter()
+    real_oom(dt, seed, 1 << (GUARD_LOG2 - 4))
+    log(f"  phase 22.3 {time.perf_counter() - t1:.1f} s")
+    release(torch)
+    t1 = time.perf_counter()
+    out["tap"] = dispatch_tap_checks(dt, 1 << GUARD_LOG2, seed)
+    log(f"  phase 22.4 {time.perf_counter() - t1:.1f} s")
+    release(torch)
+    t1 = time.perf_counter()
+    out["costs"] = guard_costs(dt, 1 << GUARD_LOG2, seed, card)
+    log(f"  phase 22.5 {time.perf_counter() - t1:.1f} s")
+    release(torch)
+    log(f"  phase 22 {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+_HALO_AB = """
+import importlib.util, json, sys
+sys.path.insert(0, {tree!r})
+import dr_tpu_torch as dt
+spec = importlib.util.spec_from_file_location("chip_smoke", {script!r})
+chip_smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(chip_smoke)
+out = {{}}
+for ranks in (1, 4):
+    out[ranks] = [chip_smoke.halo_p50(dt, ranks)[0] for _ in range(3)]
+    dt.final()
+print("HALO_AB " + json.dumps(out))
+"""
+
+
+def halo_ab(parent, card):
+    """Phase 17's halo p50 (1 and 4 ranks, three readings each) with
+    another tree's ``dr_tpu_torch`` (``parent``) and this one's, in
+    turns (parent, this, this, parent, ..., ten processes), each in a
+    process of its own; returns every reading, in order."""
+    trees = {"parent": os.path.abspath(parent), "change": HERE}
+    got = {"parent": {1: [], 4: []}, "change": {1: [], 4: []}}
+    for side in ("parent", "change", "change", "parent") * 2 + (
+            "parent", "change"):
+        code = _HALO_AB.format(tree=trees[side],
+                               script=os.path.abspath(__file__))
+        res = subprocess.run([sys.executable, "-c", code],
+                             capture_output=True, text=True, cwd=HERE)
+        line = [x for x in res.stdout.splitlines()
+                if x.startswith("HALO_AB ")]
+        if res.returncode != 0 or not line:
+            raise AssertionError(f"halo A/B ({side}) failed: "
+                                 f"{res.stderr[-2000:]}")
+        for ranks, vals in json.loads(line[0][8:]).items():
+            got[side][int(ranks)].extend(vals)
+    for ranks in (1, 4):
+        log(f"  [{card}] halo p50 {ranks} rank(s), parent "
+            f"{sorted(got['parent'][ranks])} us, this tree "
+            f"{sorted(got['change'][ranks])} us; medians "
+            f"{float(np.median(got['parent'][ranks]))!r} / "
+            f"{float(np.median(got['change'][ranks]))!r}")
+    return got
+
+
 def main(argv):
     try:
         import torch
@@ -3295,7 +3884,15 @@ def main(argv):
     sys.path.insert(0, HERE)
     import dr_tpu_torch as dt
     from dr_tpu_torch.ops import kernels
+    global LOG_FILE
+    os.makedirs(os.path.dirname(LOG_PATH), exist_ok=True)
+    LOG_FILE = open(LOG_PATH, "w", encoding="utf-8")
 
+    if "--halo-ab" in argv:  # phase 17's p50 against another tree
+        card = card_line()
+        log(f"card: {card}")
+        log(json.dumps(halo_ab(argv[argv.index("--halo-ab") + 1], card)))
+        return 0
     quick = "--quick" in argv
     seed = 20261016
     card = card_line()
@@ -3339,8 +3936,9 @@ def main(argv):
     results = {k: {"name": k, "route": "cuda", "source": s,
                    "replaces": rp} for k, (s, rp) in replaces.items()}
 
-    n = 1 << (20 if quick else 30)
-    m2d = 2048 if quick else M2D
+    only22 = "--phase22" in argv
+    n = 1 << (20 if quick or only22 else 30)
+    m2d = 2048 if quick or only22 else M2D
     gen = torch.Generator(device="cuda").manual_seed(seed)
     log(f"phase 3: kernels vs plain versions at n={n}, {m2d}x{m2d}")
     kernel_checks(dt, n, m2d, gen, results)
@@ -3351,6 +3949,10 @@ def main(argv):
     torch.cuda.synchronize()
     if quick:
         log(json.dumps({"quick": True, "checked": list(results)}))
+        return 0
+    if only22:  # a short run: the checks above, small, then phase 22
+        log("  phase 22 numbers: " + json.dumps(
+            resilience_phase(dt, kernels, gen, seed, card)))
         return 0
 
     log(f"phase 4: main path, 1 rank on cuda:0, n={n}")
@@ -3572,6 +4174,9 @@ def main(argv):
     release(torch)
     log(f"  phase 21 {time.perf_counter() - t0:.1f} s")
     log("  phase 21 numbers: " + json.dumps(obs21))
+
+    g22 = resilience_phase(dt, kernels, gen, seed, card)
+    log("  phase 22 numbers: " + json.dumps(g22))
 
     log(f"peak device memory (1-D main path): {peak} bytes "
         f"({peak / 2 ** 30:.2f} GiB)")

@@ -33,7 +33,11 @@ Public surface of this slice:
   (collectives over per-rank tensor lists)
 - re-layout and state: ``redistribute`` (collective or host-staged),
   ``checkpoint`` (``save / load``, the JAX package's file format),
-  ``unstructured_halo`` (index-list ghosts), ``resilience``
+  ``unstructured_halo`` (index-list ghosts)
+- resilience and guards: ``resilience`` (the classified taxonomy,
+  ``retry``, ``with_deadline``), ``faults`` (the injection sites,
+  ``DR_GPU_FAULT_SPEC``), ``spmd_guard`` (the dispatch tap and its
+  digest), ``utils.sanitize`` (``DR_GPU_SANITIZE=1``)
 - debugging:  ``drlog`` (``DR_GPU_LOG``), ``print_range``,
   ``print_matrix``, ``range_details``
 - observability: ``obs`` (spans, metrics and the Chrome export, armed by
@@ -65,6 +69,8 @@ Public surface of this slice:
 
 from . import obs
 obs.install()  # no-op unless DR_GPU_TRACE=1
+from .utils import sanitize as _sanitize
+_sanitize.install()  # no-op unless DR_GPU_SANITIZE=1
 from .parallel.runtime import (init, final, finalize, runtime, nprocs,
                                devices, barrier, fence,
                                get_duplicated_devices)
@@ -111,7 +117,9 @@ from .utils.logging import drlog
 from .utils.debug import print_range, print_matrix, range_details
 from .utils import checkpoint
 from .utils import profiling
+from .utils import faults
 from .utils import resilience
+from .utils import spmd_guard
 from .utils.elastic import redistribute
 
 __version__ = "0.1.0"
@@ -145,5 +153,5 @@ __all__ = [
     "unstructured_halo", "communicator", "rma_window", "default_comm",
     "distributed_span", "drlog", "print_range", "print_matrix",
     "range_details", "checkpoint", "resilience", "redistribute",
-    "obs", "profiling",
+    "obs", "profiling", "faults", "spmd_guard",
 ]

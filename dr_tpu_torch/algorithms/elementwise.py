@@ -8,6 +8,11 @@ window offset, each rank computes the op on its own rows and writes the
 window's column range of its output row — no communication.  Otherwise
 the operands are evaluated as logical tensors and spliced into the
 output window.
+
+``_prog_cache`` is the algorithm layer's shared dispatch cache (the JAX
+package's program cache, a ``utils/spmd_guard.TappedCache``): every
+algorithm looks it up once per dispatch with the JAX package's key, so
+its dispatches land on the ``spmd_guard`` trace.
 """
 
 from __future__ import annotations
@@ -20,10 +25,27 @@ import torch
 from ._common import layout_geometry, window_cols
 from ..containers.distributed_vector import (_as_tensor, _host_numpy,
                                              distributed_vector)
+from ..core.pinning import pinned_id
+from ..utils.spmd_guard import TappedCache, dtype_name
 from ..views import views as _v
 
 __all__ = ["fill", "iota", "copy", "copy_async", "for_each", "transform",
            "to_numpy"]
+
+
+#: the algorithm layer's shared dispatch cache
+_prog_cache: dict = TappedCache()
+
+#: a user callable's key: its pinned identity
+_op_key = pinned_id
+
+
+def _traced_op_key(op):
+    """A chain op's key: a ``BoundOp`` keys on its op and its scalar
+    count, as in the JAX package's specialized programs."""
+    if isinstance(op, _v.BoundOp):
+        return ("bnd", pinned_id(op.op), len(op.scalars))
+    return pinned_id(op)
 
 
 class _Chain:
@@ -37,6 +59,11 @@ class _Chain:
         self.off = off
         self.n = n
         self.ops = tuple(ops)
+
+    @property
+    def key(self):
+        return (pinned_id(self.cont.runtime), self.cont.layout,
+                self.off, self.n, tuple(_traced_op_key(o) for o in self.ops))
 
 
 def _resolve(r) -> Optional[Tuple[_Chain, ...]]:
@@ -112,9 +139,15 @@ def _gid(cont, r, c0, c1, device):
     return torch.arange(g0, g0 + c1 - c0, device=device)
 
 
+def _gen_tap(out: _Chain, kind: str) -> None:
+    _prog_cache.tap(("gen", kind, out.cont.layout, out.off, out.n,
+                     dtype_name(out.cont.dtype)))
+
+
 def fill(r, value) -> None:
     """Collective fill (cpu_algorithms.hpp:14-28)."""
     out = _out_chain(r)
+    _gen_tap(out, "fill")
     for rk, row in enumerate(out.cont._rows):
         c0, c1 = _rank_cols(out, rk)
         row[0, c0:c1] = value
@@ -124,6 +157,7 @@ def iota(r, start=0) -> None:
     """Collective iota (cpu_algorithms.hpp:83-94): element i of the
     window holds ``start + i``."""
     out = _out_chain(r)
+    _gen_tap(out, "iota")
     for rk, row in enumerate(out.cont._rows):
         c0, c1 = _rank_cols(out, rk)
         if c0 < c1:
@@ -142,6 +176,15 @@ def transform(in_r, out, op: Callable, *scalars) -> None:
     if n < out_chain.n:
         out_chain = _Chain(out_chain.cont, out_chain.off, n, ())
     if ins is not None and _fast_aligned(ins, out_chain):
+        cont = out_chain.cont
+        nchain = sum(len(o.scalars) for c in ins for o in c.ops
+                     if isinstance(o, _v.BoundOp))
+        _prog_cache.tap((
+            "ew", cont.layout, out_chain.off, out_chain.n,
+            tuple(c.cont.layout for c in ins),
+            tuple(tuple(_traced_op_key(o) for o in c.ops) for c in ins),
+            _op_key(op), False, tuple(c.cont is cont for c in ins),
+            nchain + len(scalars), dtype_name(cont.dtype)))
         rows_in = [[c.cont._rows[rk] for c in ins]
                    for rk in range(out_chain.cont.nshards)]
         for rk, row in enumerate(out_chain.cont._rows):
@@ -207,6 +250,14 @@ def for_each(r, fn: Callable, *scalars) -> None:
     a tuple, one per component, over a zip range."""
     if isinstance(r, _v.zip_view):
         outs = [_out_chain(c) for c in r.components]
+        ins = _resolve(r)
+        if ins is not None and all(_fast_aligned(ins, oc) for oc in outs):
+            conts = [oc.cont for oc in outs]
+            alias = tuple(next((i for i, c in enumerate(conts)
+                                if c is ch.cont), -1) for ch in ins)
+            _prog_cache.tap(("zfe", tuple(c.key for c in ins),
+                             tuple(o.key for o in outs), _op_key(fn),
+                             alias, len(scalars)))
         arrs = r.to_array()
         vals = fn(*arrs, *scalars)
         if not isinstance(vals, tuple):

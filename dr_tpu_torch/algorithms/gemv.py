@@ -39,8 +39,12 @@ accumulation): full f32 unless the caller turns TF32 on.
 
 Not carried over: the ``DR_TPU_SPMV_FORMAT`` override, the tuning-DB
 format lookup and the TPU gather knobs (``DR_TPU_GATHER_MODE`` / ``_W``,
-``DR_TPU_SPMM_W``, ``DR_TPU_SPMV_COMBINE``); the plan hooks and the
-``fire_ppermute`` fault sites come with the host-side layers.
+``DR_TPU_SPMM_W``, ``DR_TPU_SPMV_COMBINE``: the 2-D grids sum their
+partials as the JAX default ``psum`` does, with no ring); the plan hooks
+come with ``plan/``.  The ring dispatchers (``gemv``, ``gemv_n`` and
+``gemv_phases_n`` on the ring layout) fire the ``collectives.ppermute``
+fault site, and every dispatch looks up the algorithm layer's
+dispatch cache (``elementwise._prog_cache``) with the JAX package's key.
 """
 
 from __future__ import annotations
@@ -54,6 +58,9 @@ from ..containers.distributed_vector import _as_tensor, distributed_vector
 from ..containers.sparse_matrix import sparse_matrix
 from ..parallel import collectives
 from ..parallel import pipeline as _pl
+from ..core.pinning import pinned_id
+from ..utils.spmd_guard import dtype_name
+from .elementwise import _prog_cache
 
 __all__ = ["gemv", "gemv_n", "gemv_phases_n", "flat_gemv", "gemm", "spmm",
            "spmm_n", "viable_formats", "resolved_format",
@@ -215,6 +222,26 @@ def _tile_gemv(c, a, fmt, b, salted=False):
                                else x))
 
 
+def _ring_key(c, a, stop_after=None, iters=1):
+    return ("gemv_ring", pinned_id(a.runtime), a.nshards, a.tile_rows,
+            a._ring_kr, a._ring_bw, c.segment_size, c.halo_bounds.prev,
+            _pl.schedule_mode(), stop_after, iters)
+
+
+def _tile_key(c, a, fmt):
+    """The JAX key of the aligned row-tile gemv in layout ``fmt``."""
+    rt = pinned_id(a.runtime)
+    seg, prev = c.segment_size, c.halo_bounds.prev
+    if fmt == "bcsr":
+        return ("gemv_bcsr", rt, a.nshards, a._bcsr_nbr, a._bcsr_kb, seg,
+                prev)
+    if fmt == "ell":
+        return ("gemv_ell", rt, a.nshards, a.tile_rows, a._ell_width, seg,
+                prev)
+    return ("gemv", rt, a.nshards, a.tile_rows, a._K, a.shape[0], seg,
+            c.block_width, prev)
+
+
 def _ring_gemv(c, a, b, stop_after=None, salted=False):
     """One ring SpMV into ``c`` (row tiles, ring layout built): rank r
     starts with window r of ``b`` and contracts bucket t against the
@@ -264,14 +291,22 @@ def _gemv_as(c, a, b, fmt: str):
     if _aligned(c, a):
         fmt = _resolve(a, fmt)
         if fmt == "ring":
+            _pl.fire_ppermute(op="gemv")
+            _prog_cache.tap(_ring_key(c, a))
             _ring_gemv(c, a, b)
         else:
+            _prog_cache.tap(_tile_key(c, a, fmt))
             _tile_gemv(c, a, fmt, b)
         return c
     # 2-D grids combine partials in their layout; a row-tiled matrix
     # whose rows c does not own as the tiles do takes the csr partials
-    y = _grid_product(a, _resolve(a, fmt) if a.grid_shape[1] > 1
-                      else "csr", b)
+    fmt = _resolve(a, fmt) if a.grid_shape[1] > 1 else "csr"
+    if fmt != "csr":
+        kdim = a._bcsr_kb if fmt == "bcsr" else a._ell_width
+        _prog_cache.tap(("gemv2d_bcsr" if fmt == "bcsr" else "gemv2d",
+                         pinned_id(a.runtime), a.grid_shape, a.tile_rows,
+                         a.tile_cols, kdim, m, n))
+    y = _grid_product(a, fmt, b)
     c.assign_array(c.to_array() + y.to(c.dtype))
     return c
 
@@ -295,6 +330,12 @@ def gemv_n(c: distributed_vector, a: sparse_matrix, b, iters: int):
     the last; like ``iters`` gemv calls up to that salt."""
     b = _fast_args(c, a, b)
     fmt = resolved_format(a)
+    if fmt == "ring":
+        _pl.fire_ppermute(op="gemv_n")
+        _prog_cache.tap(_ring_key(c, a, iters=int(iters)))
+    else:
+        _prog_cache.tap(("gemv_n",) + _tile_key(c, a, fmt)[1:]
+                        + (fmt, int(iters)))
     for _ in range(iters):
         if fmt == "ring":
             _ring_gemv(c, a, b, salted=True)
@@ -313,6 +354,8 @@ def gemv_phases_n(c: distributed_vector, a: sparse_matrix, b,
     assert have_ring, "gemv_phases_n profiles the ring schedule"
     b = _fast_args(c, a, b)
     stop = None if stop_after == SPMV_PHASES[-1] else stop_after
+    _pl.fire_ppermute(op="gemv_phases_n")
+    _prog_cache.tap(_ring_key(c, a, stop, int(iters)))
     for _ in range(iters):
         _ring_gemv(c, a, b, stop_after=stop, salted=iters > 1)
     return c
@@ -345,10 +388,13 @@ def spmm(a: sparse_matrix, b) -> torch.Tensor:
                            device=a.runtime.devices[0])
     fmt = a.format  # "ring" has no spmm form: the grouped path
     if fmt != "csr":
-        if fmt == "bcsr" and a.ensure_bcsr():
-            return _grid_product(a, "bcsr", B)
-        if a.ensure_ell():
-            return _grid_product(a, "ell", B)
+        bcsr = fmt == "bcsr" and a.ensure_bcsr()
+        if bcsr or a.ensure_ell():
+            kdim = a._bcsr_kb if bcsr else a._ell_width
+            tag = "spmm" if a.grid_shape[1] == 1 else "spmm2d"
+            _prog_cache.tap((tag, pinned_id(a.runtime), a.grid_shape,
+                             a.tile_rows, kdim, bcsr, B.shape[1], m))
+            return _grid_product(a, "bcsr" if bcsr else "ell", B)
     return torch.stack([flat_gemv(a, B[:, j]) for j in range(B.shape[1])],
                        dim=1)
 
@@ -365,6 +411,10 @@ def spmm_n(a: sparse_matrix, b, iters: int) -> torch.Tensor:
     fmt = resolved_spmm_format(a)
     have = a.ensure_bcsr() if fmt == "bcsr" else a.ensure_ell()
     assert have, "spmm_n needs a grouped (BCSR/ELL) fast path"
+    kdim = a._bcsr_kb if fmt == "bcsr" else a._ell_width
+    _prog_cache.tap(("spmm_n", pinned_id(a.runtime), a.nshards,
+                     a.tile_rows, kdim, fmt == "bcsr", B.shape[1], m,
+                     int(iters)))
     devs = a.runtime.devices
     Bs = [B.to(d) for d in devs]
     ys = [torch.zeros((a.tile_rows, B.shape[1]), dtype=_acc_dtype(a, B),
@@ -384,6 +434,8 @@ def gemm(a: dense_matrix, b: dense_matrix,
     assert k == k2
     if out is None:
         out = dense_matrix((m, n), a.dtype, runtime=a.runtime)
+    _prog_cache.tap(("gemm", pinned_id(a.runtime), a.shape, b.shape,
+                     dtype_name(a.dtype)))
     # f32 accumulation for the half types, as preferred_element_type does
     acc = (torch.float32 if a.dtype in (torch.bfloat16, torch.float16)
            else a.dtype)

@@ -35,7 +35,10 @@ import torch
 
 from ._common import MONOID_COMBINE, f32_accumulable, identity_for, \
     window_cols
-from .elementwise import _apply_ops, _resolve
+from .elementwise import (_apply_ops, _op_key, _prog_cache, _resolve,
+                          _traced_op_key)
+from ..core.pinning import pinned_id
+from ..utils.spmd_guard import dtype_name
 from ..containers.distributed_vector import _as_tensor
 from ..ops import reduce_pallas, segred_pallas
 from ..parallel import collectives
@@ -109,6 +112,12 @@ def _fused_reduce(chains, kind, zip_op=None) -> torch.Tensor:
     c0 = chains[0]
     cont = c0.cont
     k7 = _k7_takes(chains, kind, zip_op)
+    if k7:
+        _prog_cache.tap(("redk", c0.key, kind, ("segred",)))
+    else:
+        _prog_cache.tap(("red", tuple(c.key for c in chains), kind,
+                         _traced_op_key(zip_op) if zip_op is not None
+                         else None))
     parts = []
     for r in range(cont.nshards):
         a, b = window_cols(cont.layout, c0.off, c0.n, r)
@@ -169,6 +178,9 @@ def _custom_reduce(c, op) -> torch.Tensor:
     """Identityless fold of one chain's window: each rank that owns
     cells of it folds them, and the partials fold in rank order onto
     rank 0's device."""
+    _prog_cache.tap(("gredd", pinned_id(c.cont.runtime), c.cont.layout,
+                     _op_key(op), tuple(_traced_op_key(f) for f in c.ops),
+                     (c.off, c.n)))
     acc = None
     dev = c.cont.runtime.devices[0]
     for r in range(c.cont.nshards):
@@ -192,6 +204,8 @@ def reduce_async(r, op: Callable = None) -> torch.Tensor:
         arr = r.to_array() if hasattr(r, "to_array") else _as_tensor(r)
         assert not isinstance(arr, tuple), \
             "reduce over a zip needs a transform to combine components"
+        _prog_cache.tap(("gred", tuple(arr.shape), dtype_name(arr.dtype),
+                         _op_key(op)))
         return _tree_fold(op, arr)
     chains = _resolve(r) if not isinstance(r, _v.zip_view) else None
     zip_op = None
@@ -280,7 +294,9 @@ def dot_n(a, b, iters: int) -> torch.Tensor:
             for r in range(cont.nshards)]
     xs = [row[0, lo:hi] for row, (lo, hi) in zip(c0.cont._rows, cols)]
     ys = [row[0, lo:hi] for row, (lo, hi) in zip(c1.cont._rows, cols)]
-    if _k3_takes(c0, c1):
+    k3 = _k3_takes(c0, c1)
+    _prog_cache.tap(("dot_n", c0.key, c1.key, int(iters), k3))
+    if k3:
         for _ in range(iters):
             salt = s * 1e-38
             local = [reduce_pallas.chunked_dot(x, y, salt=salt.to(x.device))

@@ -59,10 +59,16 @@ as the JAX package names them: ``sort`` / ``sort_left`` /
 ``sort_right`` (the scratch sorts), ``aggregate``, ``partition_plan``,
 ``merge`` (with its ``route``), ``cap_probe`` and ``empty``.
 
+Each op looks up the algorithm layer's dispatch cache (the
+``spmd_guard`` tap) with the JAX package's tag (``relgb``, ``reljoin``,
+``reljoinpart``, ``reljoincnt``, ``relgbcnt``, ``relhist``,
+``reltopk``); the partition merge fires ``collectives.ppermute`` before
+its ring.
+
 Not carried over yet: deferred plans (``DeferredCount``, the
-``record_histogram``/``record_top_k`` hooks), the ``fire_ppermute``
-fault site, the tuning-DB route and capacity hints (the auto tier always
-probes the exact count, so it always records ``cap_probe``).
+``record_histogram``/``record_top_k`` hooks), the tuning-DB route and
+capacity hints (the auto tier always probes the exact count, so it
+always records ``cap_probe``).
 """
 
 from __future__ import annotations
@@ -80,7 +86,10 @@ from ..containers.distributed_vector import distributed_vector
 from ..ops import hist_pallas, segred_pallas
 from ..parallel import collectives
 from ..parallel.collectives import ordered_maximum, ordered_minimum
-from ..parallel.pipeline import ring_pipeline
+from ..parallel.pipeline import fire_ppermute, ring_pipeline
+from .elementwise import _prog_cache, _traced_op_key
+from ..core.pinning import pinned_id
+from ..utils.spmd_guard import dtype_name
 from ..utils.env import env_int
 from ..utils.resilience import ProgramError
 from ..views import views as _v
@@ -458,8 +467,24 @@ def _check_agg(values, agg):
             "(only 'count' accepts values=None)")
 
 
+def _chain_key(c):
+    """A chain's part of a relational key: layout, dtype, window, ops."""
+    if c is None:
+        return None
+    return (c.cont.layout, dtype_name(c.cont.dtype), c.off, c.n,
+            tuple(_traced_op_key(f) for f in c.ops))
+
+
+def _rel_tap(tag, rt, *parts) -> None:
+    """The dispatch tap of a relational op, with the JAX package's tag."""
+    _prog_cache.tap((tag, pinned_id(rt)) + parts)
+
+
 def _groupby_eager(keys, values, out_keys, out_values, agg) -> int:
     kc, vc, okc, ovc = _check_groupby(keys, values, out_keys, out_values)
+    _rel_tap("relgb", kc.cont.runtime, _chain_key(kc), _chain_key(vc),
+             okc.cont.layout, ovc.cont.layout if ovc is not None else None,
+             agg)
     sid = _obs.begin("relational.groupby", cat="relational", agg=agg,
                      n=kc.n)
     ng = -1
@@ -700,6 +725,9 @@ def _merge_partition(sid, slk, slv, nl, srk, srv, nr, outs, left_outer,
     Rows and count are those of the broadcast merge, bit for bit.
     Records the ``partition_plan`` and ``merge`` phases under span
     ``sid``.  Returns ``(count, rcap)``."""
+    fire_ppermute(what="join.partition")
+    _rel_tap("reljoinpart", slk.runtime, slk.layout, dtype_name(slk.dtype),
+             srk.layout, dtype_name(srv.dtype), left_outer, right_outer)
     t0 = _obs.now()
     p, Sl, *_ = working_geometry(slk.layout)
     _, Sr, *_ = working_geometry(srk.layout)
@@ -883,6 +911,8 @@ def _join_eager(lk, lv, rk, rv, out_keys, out_lv, out_rv, how,
                            "left", fill)
     lkc, lvc, rkc, rvc, okc, olc, orc = _check_join(
         lk, lv, rk, rv, out_keys, out_lv, out_rv)
+    _rel_tap("reljoin", lkc.cont.runtime, _chain_key(lkc), _chain_key(lvc),
+             _chain_key(rkc), _chain_key(rvc), okc.cont.layout, how)
     sid = _obs.begin("relational.join", cat="relational", how=how,
                      n_left=lkc.n, n_right=rkc.n)
     m = -1
@@ -985,6 +1015,8 @@ def _join_auto_eager(lk, lv, rk, rv, how, fill):
         return (ok, ol, orr), m
     lkc, lvc, rkc, rvc = _check_join_sides(lk, lv, rk, rv)
     rt = lkc.cont.runtime
+    _rel_tap("reljoincnt", rt, _chain_key(lkc), _chain_key(lvc),
+             _chain_key(rkc), _chain_key(rvc), how)
     dtypes = (lkc.cont.dtype, lvc.cont.dtype, rvc.cont.dtype)
     sid = _obs.begin("relational.join", cat="relational", how=how,
                      auto=True, n_left=lkc.n, n_right=rkc.n)
@@ -1027,6 +1059,7 @@ def _groupby_auto_eager(keys, values, agg, keys_only=False):
         vdt = _acc_dtype(vc.cont.dtype)
     else:
         vdt = vc.cont.dtype
+    _rel_tap("relgbcnt", rt, _chain_key(kc), _chain_key(vc), agg)
     sid = _obs.begin("relational.groupby", cat="relational", agg=agg,
                      auto=True, n=kc.n)
     ng = -1
@@ -1101,6 +1134,8 @@ def histogram(r, out, lo, hi):
     oc = _whole_out(out, "histogram")
     if not _same_ranks(oc.cont, chain.cont):
         raise TypeError("histogram: out must live on the input's ranks")
+    _rel_tap("relhist", chain.cont.runtime, _chain_key(chain), oc.n,
+             dtype_name(oc.cont.dtype))
     sid = _obs.begin("relational.histogram", cat="relational", n=chain.n,
                      bins=oc.n)
     try:
@@ -1199,6 +1234,8 @@ def top_k(r, out_vals, out_idx=None, *, largest: bool = True,
         raise TypeError(
             "top_k: merge=True needs out_vals and out_idx on ONE "
             "layout (their current contents pair by slot)")
+    _rel_tap("reltopk", chain.cont.runtime, _chain_key(chain), ovc.n,
+             dtype_name(ovc.cont.dtype), oic is not None, largest, merge)
     sid = _obs.begin("relational.top_k", cat="relational", n=chain.n,
                      k=ovc.n, largest=largest, merge=merge)
     try:

@@ -33,6 +33,9 @@ from ..ops import scan_pallas
 from .elementwise import _Chain, _apply_ops, _out_chain, _resolve, \
     _write_window
 from .reduce import _classify_op
+from .elementwise import _op_key, _prog_cache, _traced_op_key
+from ..core.pinning import pinned_id
+from ..utils.spmd_guard import dtype_name
 from ..containers.distributed_vector import _as_tensor
 from ..parallel import collectives
 
@@ -233,6 +236,15 @@ def _scan(in_r, out, op, init, exclusive):
             and c.cont.runtime is out_chain.cont.runtime
             and c.cont.layout == out_chain.cont.layout
             and c.off == out_chain.off)
+    if single:
+        dtype = out_chain.cont.dtype
+        _prog_cache.tap((
+            "scan", pinned_id(c.cont.runtime), c.cont.layout, kind,
+            _op_key(op) if kind is None else None, exclusive,
+            dtype_name(dtype), _takes_k4(kind, dtype), (c.off, c.n),
+            tuple(_traced_op_key(f) for f in c.ops),
+            None if same else out_chain.cont.layout,
+            None if same else (out_chain.off, out_chain.n)))
     if same:
         full = (c.off == 0 and c.n == len(c.cont)
                 and out_chain.n == len(out_chain.cont))
@@ -289,6 +301,9 @@ def inclusive_scan_n(in_v, out, iters: int):
             and out_chain.n == len(out_chain.cont)), \
         "inclusive_scan_n takes two whole uniform-layout containers"
     cont = ins[0].cont
+    dtype = out_chain.cont.dtype
+    _prog_cache.tap(("scan_n", pinned_id(cont.runtime), cont.layout,
+                     dtype_name(dtype), int(iters), _takes_k4("add", dtype)))
     rows = cont._rows
     for _ in range(iters):
         rows = _scan_rows(cont, rows, "add", False, out_chain.cont.dtype)
@@ -309,6 +324,10 @@ def _scan_apply_init(out, init, op, set_first=True):
     nshards, S, cap, prev, nxt, n, starts, sizes = \
         working_geometry(cont.layout)
     full = chain.off == 0 and chain.n == len(cont)
+    _prog_cache.tap(("scan_init", pinned_id(cont.runtime), cont.layout, kind,
+                     _op_key(op) if kind is None else None,
+                     dtype_name(cont.dtype),
+                     None if full else (chain.off, chain.n), set_first))
     off0 = chain.off
     owner = next((i for i in range(nshards)
                   if sizes[i] > 0 and starts[i] <= off0 < starts[i] + sizes[i]),

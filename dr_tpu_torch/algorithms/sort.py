@@ -56,6 +56,9 @@ from .elementwise import _apply_ops, _out_chain, _resolve, copy as _copy, \
     iota
 from ..ops import order_keys, sort_pallas
 from ..parallel import collectives
+from .elementwise import _prog_cache, _traced_op_key
+from ..core.pinning import pinned_id
+from ..utils.spmd_guard import dtype_name
 
 __all__ = ["sort", "sort_by_key", "argsort", "is_sorted", "sort_n",
            "sort_by_key_n", "sort_phases_n", "sort_by_key_phases_n",
@@ -335,12 +338,41 @@ def _same_ranks(a, b) -> bool:
     return a.runtime.devices == b.runtime.devices
 
 
+def _window(chain):
+    """A chain's window, None for the whole container (the JAX key's)."""
+    whole = chain.off == 0 and chain.n == len(chain.cont)
+    return None if whole else (chain.off, chain.n)
+
+
+def _sort_tap(kc, vc, descending) -> None:
+    """The dispatch tap of one sort, with the JAX package's key."""
+    cont = kc.cont
+    _prog_cache.tap((
+        "sort", pinned_id(cont.runtime), cont.layout, dtype_name(cont.dtype),
+        bool(descending), vc.cont.layout if vc is not None else None,
+        dtype_name(vc.cont.dtype) if vc is not None else None,
+        _window(kc), _window(vc) if vc is not None else None,
+        vc is not None and vc.cont is cont, None))
+
+
+def _n_tap(tag, kc, vc, iters, stop_after=None) -> None:
+    """The dispatch tap of a chained ``*_n`` sort."""
+    key = (tag, pinned_id(kc.cont.runtime), kc.cont.layout,
+           dtype_name(kc.cont.dtype))
+    if vc is not None:
+        key += (vc.cont.layout, dtype_name(vc.cont.dtype))
+    if stop_after is not None:
+        key += (stop_after,)
+    _prog_cache.tap(key + (int(iters),))
+
+
 def sort(r, *, descending: bool = False):
     """Sort a ``distributed_vector`` or a subrange window over one in
     place, ascending by default.  Keys-only: the result is a bit-exact
     permutation of the input (-0.0 before +0.0, NaNs last)."""
     chain = _out_chain(r)
     if chain.n:
+        _sort_tap(chain, None, descending)
         _sort_chains(chain, None, descending)
     return r
 
@@ -369,6 +401,7 @@ def sort_by_key(keys, values, *, descending: bool = False):
         sort_by_key(keys, scratch, descending=descending)
         _copy(scratch, values)
         return keys, values
+    _sort_tap(kc, vc, descending)
     _sort_chains(kc, vc, descending)
     return keys, values
 
@@ -392,6 +425,7 @@ def sort_n(v, iters: int):
     """``iters`` chained whole-container sorts (a timing aid: after the
     first round the data is sorted; the result is the sorted input)."""
     chain = _whole(v)
+    _n_tap("sort_n", chain, None, iters)
     for _ in range(iters):
         if chain.n:
             _sort_chains(chain, None, False)
@@ -401,6 +435,7 @@ def sort_n(v, iters: int):
 def sort_by_key_n(keys, values, iters: int):
     """``iters`` chained key-value sorts of two whole containers."""
     kc, vc = _whole_pair(keys, values)
+    _n_tap("sortkv_n", kc, vc, iters)
     for _ in range(iters):
         if kc.n:
             _sort_chains(kc, vc, False)
@@ -413,6 +448,7 @@ def sort_phases_n(v, stop_after, iters: int):
     phase-dependent mix of values, not a sorted range; use scratch
     data)."""
     chain = _whole(v)
+    _n_tap("sortph_n", chain, None, iters, stop_after)
     for _ in range(iters):
         if chain.n:
             _sort_chains(chain, None, False, stop_after)
@@ -424,6 +460,7 @@ def sort_by_key_phases_n(keys, values, stop_after, iters: int):
     :data:`SORTKV_PHASES`; truncations before ``"payload"`` leave the
     payload container untouched."""
     kc, vc = _whole_pair(keys, values)
+    _n_tap("sortkvph_n", kc, vc, iters, stop_after)
     for _ in range(iters):
         if kc.n:
             _sort_chains(kc, vc, False, stop_after)
@@ -463,6 +500,10 @@ def is_sorted(r) -> bool:
     chain = res[0]
     if chain.n == 0:
         return True
+    _prog_cache.tap(("is_sorted", pinned_id(chain.cont.runtime),
+                     chain.cont.layout, dtype_name(chain.cont.dtype),
+                     _window(chain),
+                     tuple(_traced_op_key(f) for f in chain.ops)))
     geo = _Geo(chain)
     dev0 = geo.cont.runtime.devices[0]
     bad = torch.zeros((), dtype=torch.bool, device=dev0)

@@ -23,7 +23,10 @@ from typing import Callable, Optional, Sequence, Union
 import torch
 
 from ._common import uniform_layout
-from .elementwise import _out_chain, _resolve
+from .elementwise import _op_key, _out_chain, _prog_cache, _resolve
+from ..core.pinning import pinned_id
+from ..utils import spmd_guard
+from ..utils.spmd_guard import dtype_name
 from ..parallel import collectives
 from ..parallel import runtime as _rt
 from ..parallel.halo import exchange_rows
@@ -83,6 +86,12 @@ def build_stencil_step(layout, periodic, op, prev, nxt, devices=None):
     return step
 
 
+def _key_op(op):
+    """The JAX key's op entry: a callable's pinned identity, else the
+    weights."""
+    return _op_key(op) if callable(op) else tuple(float(x) for x in op)
+
+
 def _radius(cont, op):
     hb = cont.halo_bounds
     if callable(op):
@@ -111,6 +120,9 @@ def stencil_transform(in_dv, out_dv, op: Union[Callable, Sequence[float]],
     body_op, prev, nxt = _radius(cont, op)
     if radius is not None:
         prev = nxt = radius
+    _prog_cache.tap(("stencil", pinned_id(cont.runtime), cont.layout,
+                     cont.halo_bounds.periodic, prev, nxt, _key_op(op),
+                     dtype_name(cont.dtype)))
     oc.cont._rows = _step_rows(cont.layout, cont.runtime.devices,
                                cont._rows, oc.cont._rows, body_op, prev,
                                nxt, cont.halo_bounds.periodic)
@@ -125,6 +137,9 @@ def stencil_iterate(a_dv, b_dv, op: Union[Callable, Sequence[float]],
     assert uniform_layout(cont.layout), \
         "stencils require the uniform block distribution"
     body_op, prev, nxt = _radius(cont, op)
+    _prog_cache.tap(("stencil_it", pinned_id(cont.runtime), cont.layout,
+                     cont.halo_bounds.periodic, _key_op(op), steps,
+                     dtype_name(cont.dtype)))
     x, y = a_dv._rows, b_dv._rows
     for _ in range(steps):
         y = _step_rows(cont.layout, cont.runtime.devices, x, y, body_op,
@@ -145,11 +160,18 @@ def _ring_exchange_full(rows, devices, seg: int, halo_w: int) -> None:
         r[:, r.shape[-1] - halo_w:] = g
 
 
-def _blocked_drive(cont, steps, block, apply):
+def _blocked_drive(cont, key, steps, block, apply):
     """Full blocks then the remainder block; each block is one ring
-    exchange plus one ``apply(row, nsteps)`` per rank."""
+    exchange plus one ``apply(row, nsteps)`` per rank.  ``key`` is the
+    dispatch tap's; each step count's first use counts as a compile
+    (the JAX package's per-step-count programs)."""
     nshards, seg, prev, nxt, n = cont.layout
     nfull, rest = divmod(steps, block)
+    seen = _prog_cache.setdefault(key, set())
+    for nst in ([block] if nfull else []) + ([rest] if rest else []):
+        if nst not in seen:
+            seen.add(nst)
+            spmd_guard.note_compile(key + (nst,))
     for nst in [block] * nfull + ([rest] if rest else []):
         _ring_exchange_full(cont._rows, cont.runtime.devices, seg, prev)
         cont._rows = [apply(row, nst) for row in cont._rows]
@@ -177,8 +199,10 @@ def stencil_iterate_blocked(dv, weights, steps: int, *, time_block: int = 8):
     assert time_block * r <= seg, \
         "time_block * radius exceeds the per-shard segment"
     w = tuple(float(x) for x in weights)
+    key = ("stencil_blk", pinned_id(dv.runtime), dv.layout, w, time_block,
+           dtype_name(dv.dtype))
     return _blocked_drive(
-        dv, steps, time_block,
+        dv, key, steps, time_block,
         lambda row, nst: stencil_pallas.blocked_stencil_row(
             row, seg, halo, w, nst))
 
@@ -202,7 +226,9 @@ def stencil_iterate_matmul(dv, weights, steps: int, *, k_block: int = 32):
         f"stencil_iterate_matmul requires the halo width ({halo}) "
         f"to be a multiple of {la} lanes")
     w = tuple(float(x) for x in weights)
+    key = ("stencil_mm", pinned_id(dv.runtime), dv.layout, w, k_block,
+           dtype_name(dv.dtype))
     return _blocked_drive(
-        dv, steps, k_block,
+        dv, key, steps, k_block,
         lambda row, nst: stencil_matmul.matmul_stencil_row(
             row, seg, halo, w, nst))

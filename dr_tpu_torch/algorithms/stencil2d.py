@@ -33,6 +33,11 @@ import torch.nn.functional as F
 from ..containers.dense_matrix import dense_matrix
 from ..parallel import collectives
 
+from .elementwise import _prog_cache
+from ..core.pinning import pinned_id
+from ..utils import spmd_guard
+from ..utils.spmd_guard import dtype_name
+
 __all__ = ["stencil2d_transform", "stencil2d_iterate",
            "stencil2d_iterate_blocked", "stencil2d_n",
            "heat_step_weights"]
@@ -133,6 +138,10 @@ class _Tiles:
             d[ra:rb, ca:cb] = acc if acc is not None else 0
 
 
+def _wkey(weights):
+    return tuple(map(tuple, np.asarray(weights, dtype=np.float64).tolist()))
+
+
 def stencil2d_transform(in_mat: dense_matrix, out_mat: dense_matrix,
                         weights: Sequence[Sequence[float]]) -> None:
     """One interior stencil step: out[i,j] = sum w[di,dj]*in[i+di,j+dj].
@@ -140,6 +149,8 @@ def stencil2d_transform(in_mat: dense_matrix, out_mat: dense_matrix,
     Edges (positions without a full neighbourhood) keep out_mat's values,
     matching the 1-D interior contract."""
     assert in_mat.shape == out_mat.shape and in_mat.layout == out_mat.layout
+    _prog_cache.tap(("st2", pinned_id(in_mat.runtime), in_mat.layout,
+                     _wkey(weights), dtype_name(in_mat.dtype)))
     tiles = _Tiles(in_mat, weights)
     ext = tiles.extended(in_mat)
     tiles.exchange(ext)
@@ -152,6 +163,8 @@ def stencil2d_iterate(a: dense_matrix, b: dense_matrix,
     interior of the other buffer from this one.  Returns ``a`` holding
     the final state (``b`` holds the other buffer)."""
     assert a.shape == b.shape and a.layout == b.layout
+    _prog_cache.tap(("st2it", pinned_id(a.runtime), a.layout, _wkey(weights),
+                     steps, dtype_name(a.dtype)))
     tiles = _Tiles(a, weights)
     x, y = tiles.extended(a), tiles.extended(b)
     for _ in range(steps):
@@ -185,10 +198,19 @@ def stencil2d_iterate_blocked(a: dense_matrix, weights, steps: int, *,
     from ..ops import stencil2d_pallas
     m = _single_tile(a, weights)
     pad = time_block  # covers the remainder pass too (rest < time_block)
+    key = ("st2blk", pinned_id(a.runtime), a.layout, m, a.shape[1],
+           _wkey(weights), time_block, band, dtype_name(a.dtype))
+    seen = _prog_cache.setdefault(key, set())
+    nfull, rest = divmod(steps, time_block)
+    # the JAX package's inner programs: pad / unpad and one per step count
+    for part in (("pad", "unpad") + ((time_block,) if nfull else ())
+                 + ((rest,) if rest else ())):
+        if part not in seen:
+            seen.add(part)
+            spmd_guard.note_compile(key + (part,))
     # pad ONCE and keep the padded layout across passes: pad-row contents
     # are irrelevant (frozen edges stop the dependency cone)
     xp = F.pad(a._shards[0], (0, 0, pad, pad))
-    nfull, rest = divmod(steps, time_block)
     for nst in [time_block] * nfull + ([rest] if rest else []):
         xp = stencil2d_pallas.blocked_stencil2d_padded(
             xp, m, weights, nst, pad, band=band)
@@ -205,6 +227,9 @@ def stencil2d_n(a: dense_matrix, weights, iters: int, *,
     from ..ops import stencil2d_pallas
     m = _single_tile(a, weights)
     pad = time_block
+    _prog_cache.tap(("st2n", pinned_id(a.runtime), a.layout, m, a.shape[1],
+                     _wkey(weights), time_block, dtype_name(a.dtype),
+                     int(iters)))
     xp = F.pad(a._shards[0], (0, 0, pad, pad))
     for _ in range(iters):
         xp = stencil2d_pallas.blocked_stencil2d_padded(

@@ -23,6 +23,12 @@ import torch
 from .distributed_vector import _as_tensor, _host_numpy, torch_dtype
 from .partition import block_cyclic, matrix_partition
 from ..parallel import runtime as _rt
+from ..core.pinning import pinned_id
+from ..utils.spmd_guard import TappedCache, dtype_name
+
+#: the matrix's dispatch cache (the JAX package's ``z2`` / ``p2`` /
+#: ``u2`` layout programs)
+_cache: dict = TappedCache()
 
 __all__ = ["dense_matrix", "matrix_entry", "Index2D", "MatrixTileSegment",
            "fold_ops"]
@@ -165,6 +171,8 @@ class dense_matrix:
         self._slots = (-(-nti // gp), -(-ntj // gq))
         si, sj = self._slots
         self._shape_local = (si * th, sj * tw)
+        _cache.tap(("z2", pinned_id(self._rt), gp * si * th, gq * sj * tw,
+                    dtype_name(self._dtype)))
         self._shards = [torch.zeros(self._shape_local, dtype=self._dtype,
                                     device=d)
                         for d in self._rt.devices[:gp * gq]]
@@ -256,8 +264,13 @@ class dense_matrix:
                                      for j in range(gq)], dim=1)
                           for i in range(gp)], dim=0)
 
+    def _tap(self, tag: str) -> None:
+        _cache.tap((tag, pinned_id(self._rt), self._grid, self._slots,
+                    self._tshape, self._m, self._n, dtype_name(self._dtype)))
+
     def to_array(self) -> torch.Tensor:
         """The logical (m, n) value on rank 0's device."""
+        self._tap("u2")
         if self._grid == (1, 1):
             return self._shards[0][:self._m, :self._n].clone()
         unfold, _ = fold_ops(self._grid, self._slots, self._tshape,
@@ -275,6 +288,7 @@ class dense_matrix:
     def assign_array(self, values) -> None:
         values = _as_tensor(values)
         assert tuple(values.shape) == (self._m, self._n)
+        self._tap("p2")
         _, fold = fold_ops(self._grid, self._slots, self._tshape,
                            self._m, self._n)
         self._assign_stored(fold(values.to(dtype=self._dtype)))

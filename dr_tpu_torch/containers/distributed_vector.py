@@ -13,6 +13,12 @@ container's rows.
 
 Unlike the JAX arrays, the rows are mutable: algorithms update them in
 place where that saves a copy.
+
+Allocating the rows, :meth:`~distributed_vector.to_array` and
+:meth:`~distributed_vector.assign_array` look up ``_jit_cache`` (the
+dispatch tap of ``utils/spmd_guard``) with the JAX package's keys for
+its layout programs (``zeros``, ``extract``, ``pack`` and their uneven
+forms).
 """
 
 from __future__ import annotations
@@ -22,7 +28,9 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core.pinning import pinned_id
 from ..core.segment import Segment
+from ..utils.spmd_guard import TappedCache, dtype_name
 from ..parallel import runtime as _rt
 from ..parallel.halo import halo_bounds, span_halo
 from .distribution import block_distribution
@@ -136,9 +144,13 @@ class distributed_vector:
             self._seg = seg
             self._starts = starts
             self._sizes = sizes
-            self._rows = _rows if _rows is not None else [
-                torch.zeros((1, self.block_width), dtype=self._dtype,
-                            device=d) for d in runtime.devices]
+            if _rows is None:
+                _jit_cache.tap(("zeros", pinned_id(runtime), P,
+                                self.block_width, dtype_name(self._dtype)))
+                _rows = [torch.zeros((1, self.block_width),
+                                     dtype=self._dtype, device=d)
+                         for d in runtime.devices]
+            self._rows = _rows
             self._halo = span_halo(self) if self._hb.width else None
         except BaseException:
             if prior["_rt"] is not None:  # a live re-layout, not __init__
@@ -219,8 +231,21 @@ class distributed_vector:
         return self._halo
 
     # ----------------------------------------------------------- value APIs
+    def _tap(self, kind: str) -> None:
+        """The dispatch tap of a layout program (``extract`` / ``pack``;
+        ``extract_u`` / ``pack_u`` for an uneven distribution)."""
+        dt = dtype_name(self._dtype)
+        if self._dist_entry is not None:
+            _jit_cache.tap((kind + "_u", pinned_id(self._rt), self.layout,
+                            dt))
+        else:
+            _jit_cache.tap((kind, pinned_id(self._rt), self._nshards,
+                            self._seg, self._hb.prev, self._hb.next,
+                            self._n, dt))
+
     def to_array(self) -> torch.Tensor:
         """Current logical value as a 1-D tensor on rank 0's device."""
+        self._tap("extract")
         prev = self._hb.prev
         dev = self._rt.devices[0]
         parts = []
@@ -237,6 +262,7 @@ class distributed_vector:
         zero)."""
         values = _as_tensor(values)
         assert values.shape == (self._n,)
+        self._tap("pack")
         prev = self._hb.prev
         rows = []
         for r, d in enumerate(self._rt.devices):
@@ -347,6 +373,10 @@ class distributed_vector:
     def __repr__(self):
         return (f"distributed_vector(n={self._n}, dtype={self._dtype}, "
                 f"shards={self._nshards}x{self.block_width}, hb={self._hb})")
+
+
+#: the vector's dispatch cache (the JAX package's layout programs)
+_jit_cache: dict = TappedCache()
 
 
 def from_reference_state(layout, hb: halo_bounds, rows: np.ndarray, *,

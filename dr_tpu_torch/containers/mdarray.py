@@ -31,6 +31,12 @@ from .distributed_vector import _as_tensor, _host_numpy, torch_dtype
 from .partition import factor
 from ..core.vocabulary import rank as _rank
 from ..parallel import runtime as _rt
+from ..core.pinning import pinned_id
+from ..utils.spmd_guard import TappedCache, dtype_name
+
+#: the mdarray's dispatch cache (the JAX package's ``mdz`` / ``mdp`` /
+#: ``mdT`` programs)
+_md_cache: dict = TappedCache()
 
 __all__ = ["distributed_mdarray", "distributed_mdspan", "transpose",
            "MdTileSegment"]
@@ -100,6 +106,8 @@ class distributed_mdarray:
                              if self._shape[d] else 1
                              for d in range(len(self._grid)))
         self._block = self._tsizes + self._shape[len(self._grid):]
+        _md_cache.tap(("mdz", pinned_id(self._rt), self._padded,
+                       dtype_name(self._dtype)))
         self._blocks = [torch.zeros(self._block, dtype=self._dtype, device=d)
                         for d in self._rt.devices[:math.prod(self._grid)]]
 
@@ -107,6 +115,13 @@ class distributed_mdarray:
     @property
     def shape(self):
         return self._shape
+
+    @property
+    def _padded(self):
+        """The padded global shape (the JAX array's)."""
+        g = len(self._grid)
+        return tuple(t * q for t, q in zip(self._tsizes, self._grid)) + \
+            self._shape[g:]
 
     @property
     def dtype(self) -> torch.dtype:
@@ -165,6 +180,8 @@ class distributed_mdarray:
     def assign_array(self, values) -> None:
         values = _as_tensor(values)
         assert tuple(values.shape) == self._shape
+        _md_cache.tap(("mdp", pinned_id(self._rt), self._padded,
+                       self._shape, dtype_name(self._dtype)))
         blocks = []
         for r, d in enumerate(self._rt.devices[:len(self._blocks)]):
             blk = torch.zeros(self._block, dtype=self._dtype, device=d)
@@ -298,6 +315,8 @@ def transpose(out: distributed_mdarray, inp: distributed_mdarray,
         f"axes must permute all {nd} dimensions"
     assert out.shape == tuple(inp.shape[a] for a in axes), \
         "output shape must be the permuted input shape"
+    _md_cache.tap(("mdT", pinned_id(inp._rt), inp.shape, axes,
+                   dtype_name(inp.dtype)))
     src = inp.__dr_segments__()
     blocks = []
     for r, blk in enumerate(out._blocks):

@@ -81,10 +81,9 @@ def dryrun(n_ranks: int, devices=None) -> None:
     repeated to ``n_ranks``).  Raises AssertionError on the first
     section that disagrees with its oracle.
 
-    Left out until their modules are ported (ROADMAP.md queue 1 item
-    3): the ``spmd_guard`` around the ``op_from_expr`` section, and the
-    env-forced streaming flash ring (the bf16 ring-attention call below
-    takes the port's flash route instead)."""
+    Left out until its module is ported (``tuning``): the env-forced
+    streaming flash ring (the bf16 ring-attention call below takes the
+    port's flash route instead)."""
     import dr_tpu_torch as dt
     devs = _rt.get_duplicated_devices(n_ranks, devices)
     dt.init(devs)
@@ -247,10 +246,15 @@ def dryrun(n_ranks: int, devices=None) -> None:
     _check("banded 2-D gemv", np.allclose(dt.to_numpy(cb), band.sum(1),
                                           rtol=1e-4))
 
-    # an expression-DSL op (the native bridge's lambda contract)
+    # an expression-DSL op (the native bridge's lambda contract) under
+    # the SPMD dispatch-order guard
+    from .utils import spmd_guard
     from .utils.expr import op_from_expr
-    ex_out = dt.distributed_vector(n)
-    dt.transform(x, ex_out, op_from_expr("(x0 * 2.0 + 1.0)", 1))
+    with spmd_guard.guard() as guard_handle:
+        ex_out = dt.distributed_vector(n)
+        dt.transform(x, ex_out, op_from_expr("(x0 * 2.0 + 1.0)", 1))
+        guard_handle.verify()
+    _check("op_from_expr under spmd_guard", len(guard_handle.trace) >= 2)
     _check("op_from_expr transform", np.allclose(dt.to_numpy(ex_out),
                                                  2.0 * src + 1.0, rtol=1e-5))
 

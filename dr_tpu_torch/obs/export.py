@@ -7,10 +7,9 @@ The trace file is the Chrome ``traceEvents`` object format (open it in
 Chrome event, so export adds the shared ``pid`` and the thread-name
 metadata events.
 
-:func:`metrics_snapshot` is the metrics registry plus the recorder's
-ring accounting.  The JAX package's snapshot also carries ``dispatches``
-and ``compiles`` from ``spmd_guard``; those two keys come with the
-port's ``spmd_guard`` and are not in this snapshot.
+:func:`metrics_snapshot` is the metrics registry, the always-on
+``dispatches`` / ``compiles`` counters of ``utils/spmd_guard`` and the
+recorder's ring accounting.
 """
 
 from __future__ import annotations
@@ -73,9 +72,12 @@ def write(path: Optional[str] = None,
 
 
 def metrics_snapshot() -> dict:
-    """The compact observability snapshot: the metrics registry and the
-    ring accounting."""
+    """The compact observability snapshot: the metrics registry, the
+    dispatch and compile counters and the ring accounting."""
+    from ..utils import spmd_guard
     snap = metrics.snapshot()
+    snap["dispatches"] = spmd_guard.dispatch_count()
+    snap["compiles"] = spmd_guard.compile_count()
     snap["trace_armed"] = recorder.armed()
     if recorder.armed():
         snap["events_recorded"] = recorder.events_recorded()

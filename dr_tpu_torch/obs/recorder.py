@@ -25,10 +25,11 @@ Arming: :func:`install` (run when ``dr_tpu_torch`` is imported) arms
 when ``DR_GPU_TRACE=1`` and registers the Chrome-trace export into
 ``DR_GPU_TRACE_DIR`` at process exit; :func:`arm` is the switch in code.
 
-The hooks ``_on_dispatch``, ``_on_compile``, ``_on_site`` and
-``_on_fault`` are the JAX package's; they wait for the port's
-``spmd_guard`` and ``faults`` modules, and :func:`arm` installs nothing
-until those exist.
+Hooks: :func:`arm` installs ``_on_dispatch`` / ``_on_compile`` into
+``utils/spmd_guard`` (every tapped dispatch and every first insert
+becomes a ``dispatch`` / ``compile`` event) and ``_on_site`` /
+``_on_fault`` into ``utils/faults`` (every site visit and every
+triggered injection); ``arm(False)`` removes them.
 """
 
 from __future__ import annotations
@@ -296,7 +297,7 @@ def reset() -> None:
 
 
 # ---------------------------------------------------------------------------
-# hooks for spmd_guard and faults (installed by the slice that ports them)
+# hooks for spmd_guard and faults (installed by arm())
 # ---------------------------------------------------------------------------
 
 def _key_label(key) -> str:
@@ -331,17 +332,27 @@ def _on_fault(site: str, kind: str) -> None:
 
 
 def arm(on: bool = True) -> None:
-    """Flip the module guard.  Arming re-reads ``DR_GPU_TRACE_BUF`` and
-    keeps the tail of the ring's contents."""
+    """Flip the module guard and (un)install the spmd_guard / faults
+    hooks.  Arming re-reads ``DR_GPU_TRACE_BUF`` and keeps the tail of
+    the ring's contents."""
     global _armed, _ring
+    from ..utils import faults, spmd_guard
     if on:
         cap = env_int("DR_GPU_TRACE_BUF", 65536, floor=16)
         with _lock:
             if _ring.maxlen != cap:
                 _ring = deque(_ring, maxlen=cap)
         _armed = True
+        spmd_guard._obs_dispatch_hook = _on_dispatch
+        spmd_guard._obs_compile_hook = _on_compile
+        faults._obs_site_hook = _on_site
+        faults._obs_fault_hook = _on_fault
     else:
         _armed = False
+        spmd_guard._obs_dispatch_hook = None
+        spmd_guard._obs_compile_hook = None
+        faults._obs_site_hook = None
+        faults._obs_fault_hook = None
 
 
 def _atexit_export() -> None:  # pragma: no cover - process teardown

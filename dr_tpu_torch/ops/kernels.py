@@ -9,7 +9,12 @@ the stream are passed as ``c_void_p``.
 Routing rule (replaces the arm registry of ``dr_tpu/ops/kernels.py``):
 a CUDA tensor takes the kernel or raises; a CPU tensor takes the plain
 PyTorch version that sits beside each kernel.  There is no fallback: a
-missing ``nvcc``, a failed build or a failed launch raises.
+missing ``nvcc``, a failed build or a failed launch raises classified
+(``utils/resilience``, site ``kernel.build``).  The ``kernel.build``
+fault site fires at every build and at every launch, before the kernel
+runs and before its counter moves: an armed fault raises out of the
+wrapper, and the plain version does not run in its place.  A CPU tensor
+never reaches it.
 
 ``launches[name]`` counts the launches of each kernel; a wrapper adds
 one where it launches, and nowhere else.  A kernel that serves as
@@ -29,6 +34,9 @@ import time
 from pathlib import Path
 
 import torch
+
+from ..utils import faults as _faults
+from ..utils.resilience import ProgramError, classified
 
 __all__ = ["SOURCES", "COUNTERS", "launches", "reset_counts", "library",
            "build_all", "launch", "on_cuda", "stream_of", "ptr"]
@@ -86,8 +94,9 @@ def _nvcc() -> str:
     if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
         nvcc = "/usr/local/cuda/bin/nvcc"
     if nvcc is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels of "
-                           "dr_tpu_torch cannot be built")
+        raise ProgramError("nvcc not found: the CUDA kernels of "
+                           "dr_tpu_torch cannot be built",
+                           site="kernel.build")
     return nvcc
 
 
@@ -104,6 +113,8 @@ def build_all(names=None) -> dict:
     todo = [n for n in names if n not in _libs]
     if not todo:
         return {n: _libs[n] for n in names}
+    for name in todo:
+        _faults.fire("kernel.build", kernel=name)
     BUILD.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
@@ -128,7 +139,8 @@ def build_all(names=None) -> dict:
         os.replace(tmp, so)
         (BUILD / f"{so.stem}.ptxas.txt").write_text(out)
     if errors:
-        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(errors))
+        raise ProgramError("CUDA kernel build failed:\n" + "\n".join(errors),
+                           site="kernel.build")
     last_build_seconds = time.perf_counter() - t0
     for name in todo:
         lib = ctypes.CDLL(str(_target(CSRC / SOURCES[name])))
@@ -166,10 +178,17 @@ def ptr(t) -> int:
     return 0 if t is None else t.data_ptr()
 
 
+#: the cudaError codes whose text the classifier reads (cudaGetErrorString)
+_CUDA_ERRORS = {2: "out of memory", 700: "an illegal memory access was "
+                "encountered", 719: "unspecified launch failure"}
+
+
 def launch(name: str, symbol: str, device, *args, counter=None) -> None:
     """Call one C entry point of kernel ``name`` on ``device`` (its last
-    argument is the stream), raise if the launch was refused, and count
-    it under ``counter`` (default ``name``)."""
+    argument is the stream), raise classified if the launch was refused,
+    and count it under ``counter`` (default ``name``).  The
+    ``kernel.build`` fault site fires first."""
+    _faults.fire("kernel.build", kernel=counter or name)
     fn = getattr(library(name), symbol)
     if device.index is None or device.index == torch.cuda.current_device():
         err = fn(*args)
@@ -177,6 +196,8 @@ def launch(name: str, symbol: str, device, *args, counter=None) -> None:
         with torch.cuda.device(device):
             err = fn(*args)
     if err != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch "
-                           f"(cudaError {err})")
+        raise classified(RuntimeError(
+            f"CUDA kernel {name} failed to launch (cudaError {err}: "
+            f"{_CUDA_ERRORS.get(err, 'see cudaGetErrorString')})"),
+            site="kernel.build")
     launches[counter or name] += 1

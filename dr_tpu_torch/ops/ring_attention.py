@@ -33,10 +33,13 @@ package's layout, so ``torch.from_numpy`` of JAX's carries feeds
 the same ``(e, h, d)`` projection arrays.  There are no other
 parameters on this path.
 
+Each call fires the ``collectives.ppermute`` fault site
+(``pipeline.fire_ppermute``) and looks up ``_cache``, the dispatch tap,
+with the JAX package's key, before any tensor is sharded.
+
 Not carried over: ``DR_TPU_RING_IMPL`` (forcing or refusing the kernel)
-and the program cache (``pinned_id``, ``TappedCache``): the port is
-eager.  ``schedule=`` picks the ring's issue order (default
-``DR_GPU_RING_SCHEDULE``); both give the same bits.
+and the TPU tile picks in the JAX key.  ``schedule=`` picks the ring's
+issue order (default ``DR_GPU_RING_SCHEDULE``); both give the same bits.
 """
 
 from __future__ import annotations
@@ -46,13 +49,18 @@ import math
 import numpy as np
 import torch
 
+from ..core.pinning import pinned_id
 from ..parallel import pipeline as _pl
 from ..parallel import runtime as _rt
+from ..utils.spmd_guard import TappedCache, dtype_name
 from . import flash_attention as _fa
 
 __all__ = ["ring_attention", "ring_attention_n", "ring_self_attention"]
 
 _NEG_INF = float("-inf")
+
+#: ring attention's dispatch cache (the JAX package's ring programs)
+_cache: dict = TappedCache()
 
 
 def _as_tensor(x) -> torch.Tensor:
@@ -208,8 +216,13 @@ def ring_attention(q, k, v, *, causal: bool = False, runtime=None,
     assert S % nshards == 0, "seq length must divide the mesh"
     shape = (B, S // nshards, h, d)
     devs = rt.devices
+    flash = q_chunk is None and _flash_viable(shape, q.dtype)
+    sched = _pl._resolve(schedule)
+    _pl.fire_ppermute(op="ring_attention")
+    _cache.tap(("ringattn", pinned_id(rt), shape, hkv, causal,
+                dtype_name(q.dtype), q_chunk, flash, sched))
     qs, ks, vs = (_shard(x, devs, shape[1]) for x in (q, k, v))
-    if q_chunk is None and _flash_viable(shape, q.dtype):
+    if flash:
         outs = _flash_ring(qs, ks, vs, devs, shape, causal, q.dtype,
                            hkv=hkv, schedule=schedule)
     else:
@@ -232,7 +245,12 @@ def ring_attention_n(q, k, v, iters: int, *, causal: bool = False,
     assert S % nshards == 0, "seq length must divide the mesh"
     shape = (B, S // nshards, h, d)
     devs = rt.devices
-    ring = _flash_ring if _flash_viable(shape, q.dtype) else _blockwise_ring
+    flash = _flash_viable(shape, q.dtype)
+    ring = _flash_ring if flash else _blockwise_ring
+    sched = _pl._resolve(schedule)
+    _pl.fire_ppermute(op="ring_attention_n")
+    _cache.tap(("ringattn_n", pinned_id(rt), shape, causal,
+                dtype_name(q.dtype), flash, int(iters), sched))
     qs, ks, vs = (_shard(x, devs, shape[1]) for x in (q, k, v))
     for _ in range(iters):
         vs = ring(qs, ks, vs, devs, shape, causal, q.dtype,

@@ -15,6 +15,11 @@ JAX package's "sharded array" is a ``jax.Array`` over the mesh, here it
 is a list of per-rank tensors, rank r's shard on ``devices[r]``, the
 form :func:`ppermute` and :func:`all_to_all` take.  ``init_distributed``
 is not ported: one process drives every rank.
+
+The communicator's ring shift and all-to-all fire the
+``collectives.shift`` / ``collectives.alltoall`` fault sites and then
+look up ``_shift_cache`` (``utils/spmd_guard.TappedCache``) with the JAX
+package's keys, before any tensor moves.
 """
 
 from __future__ import annotations
@@ -25,6 +30,9 @@ import numpy as np
 import torch
 
 from . import runtime as _rt
+from ..core.pinning import pinned_id
+from ..utils import faults as _faults
+from ..utils.spmd_guard import TappedCache, dtype_name
 
 __all__ = ["ring_shift", "ppermute", "all_gather", "all_to_all", "psum",
            "ordered_minimum", "ordered_maximum", "communicator",
@@ -171,6 +179,9 @@ class communicator:
         return self._shift(arr, -1, periodic)
 
     def _shift(self, arr, step: int, periodic: bool):
+        _faults.fire("collectives.shift")
+        _shift_cache.tap(("shift", pinned_id(self._rt), step, periodic,
+                          tuple(arr[0].shape[1:]), dtype_name(arr[0].dtype)))
         out = ring_shift(arr, self._rt.devices, step, periodic)
         return [torch.zeros_like(a) if o is None else o
                 for a, o in zip(arr, out)]
@@ -179,8 +190,15 @@ class communicator:
         """``lax.all_to_all`` of shards ``(k, nshards, ...)``: block
         ``[:, j]`` of rank i moves to rank j, which stacks the blocks in
         sender order into a ``(nshards, k, ...)`` shard."""
+        _faults.fire("collectives.alltoall")
+        _shift_cache.tap(("a2a", pinned_id(self._rt),
+                          tuple(arr[0].shape[1:]), dtype_name(arr[0].dtype)))
         return all_to_all([a.transpose(0, 1) for a in arr],
                           self._rt.devices)
+
+
+#: the communicator's dispatch cache (the JAX package's shift programs)
+_shift_cache: dict = TappedCache()
 
 
 def default_comm() -> communicator:

@@ -13,6 +13,12 @@ with ring wraparound iff ``periodic``; non-periodic edge ghosts keep
 their old values.  Edge slices move between ranks with
 ``collectives.ring_shift``; every copy is a plain slice assignment, so
 the results are bit-identical to the JAX package's.
+
+``span_halo``'s exchange and reduce fire the ``halo.exchange`` /
+``halo.reduce`` fault sites and then look up ``_program_cache`` (the
+dispatch tap) before any row is touched, as the JAX package does; the
+stencils' fused exchanges call :func:`exchange_rows` directly, like the
+JAX stencil programs, and fire neither.
 """
 
 from __future__ import annotations
@@ -21,6 +27,9 @@ import weakref
 from dataclasses import dataclass
 
 from . import collectives
+from ..core.pinning import pinned_id
+from ..utils import faults as _faults
+from ..utils.spmd_guard import TappedCache
 
 __all__ = ["halo_bounds", "span_halo", "halo_ops"]
 
@@ -119,6 +128,17 @@ def reduce_rows(rows, devices, layout, periodic, op):
             rows[r][:, prev: prev + nxt] = _combine(op, owned, got_n[r])
 
 
+#: the halo's dispatch cache (the JAX package's exchange / reduce programs)
+_program_cache: dict = TappedCache()
+
+
+def _tap(kind, dv, op=None, iters=1) -> None:
+    hb = dv.halo_bounds
+    _program_cache.tap((kind, pinned_id(dv.runtime), dv.nshards,
+                        dv.segment_size, hb.prev, hb.next, hb.periodic,
+                        len(dv), op, iters))
+
+
 class span_halo:
     """Halo controller bound to one distributed_vector: ``exchange()``,
     ``exchange_n()``, ``exchange_begin()/exchange_finalize()``,
@@ -166,14 +186,22 @@ class span_halo:
     def exchange(self) -> None:
         if self._active():
             dv = self._dv
+            _faults.fire("halo.exchange")
+            _tap("exchange", dv)
             exchange_rows(dv._rows, dv.runtime.devices, dv.layout,
                           dv.halo_bounds.periodic)
 
     def exchange_n(self, iters: int) -> None:
-        """``iters`` back-to-back exchanges (a measurement aid: each
-        round re-reads the same owned edges)."""
-        for _ in range(max(iters, 0)):
-            self.exchange()
+        """``iters`` back-to-back exchanges as one dispatch (a
+        measurement aid: each round re-reads the same owned edges)."""
+        if not self._active() or iters <= 0:
+            return
+        dv = self._dv
+        _faults.fire("halo.exchange")
+        _tap("exchange_n", dv, iters=iters)
+        for _ in range(iters):
+            exchange_rows(dv._rows, dv.runtime.devices, dv.layout,
+                          dv.halo_bounds.periodic)
 
     def exchange_begin(self) -> None:
         # queued on the devices' streams; finalize waits
@@ -185,6 +213,8 @@ class span_halo:
     def reduce(self, op: str = halo_ops.plus) -> None:
         if self._active():
             dv = self._dv
+            _faults.fire("halo.reduce")
+            _tap("reduce", dv, op)
             reduce_rows(dv._rows, dv.runtime.devices, dv.layout,
                         dv.halo_bounds.periodic, op)
 

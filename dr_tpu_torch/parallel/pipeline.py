@@ -29,8 +29,11 @@ A block is a tensor or a tuple/list of tensors (one level of nesting, the
 pytrees the ring programs use).  Ranks that share a device exchange by
 reference: a rotation on one card copies nothing.
 
-Not carried over: ``fire_ppermute``, the ``collectives.ppermute`` fault
-site, which comes with the faults layer.
+:func:`fire_ppermute` is the ``collectives.ppermute`` fault site: every
+ring dispatcher (the sparse ring gemv, ring attention, the join's
+partition ring, the re-layout's ring exchange) calls it before its
+dispatch-cache lookup, so an armed fault surfaces classified with no
+block moved.
 """
 
 from __future__ import annotations
@@ -41,9 +44,11 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 import torch
 
 from . import collectives
+from ..utils import faults as _faults
 
 __all__ = ["ring_perm", "shift_perm", "schedule_mode", "ring_pipeline",
-           "ring_allgather", "ring_combine", "ring_exchange"]
+           "ring_allgather", "ring_combine", "ring_exchange",
+           "fire_ppermute"]
 
 SCHEDULES = ("pipelined", "serial")
 
@@ -65,6 +70,12 @@ def schedule_mode() -> str:
     ``pipelined``."""
     mode = os.environ.get("DR_GPU_RING_SCHEDULE", "").strip().lower()
     return mode if mode in SCHEDULES else "pipelined"
+
+
+def fire_ppermute(**ctx) -> None:
+    """Dispatch-time hook for the ``collectives.ppermute`` fault site,
+    called by every ring dispatcher before its dispatch-cache lookup."""
+    _faults.fire("collectives.ppermute", **ctx)
 
 
 def _resolve(schedule: Optional[str]) -> str:

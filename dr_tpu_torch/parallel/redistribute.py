@@ -28,9 +28,17 @@ communication", arXiv:2112.01075).
   change rank to the ``redistribute.bytes_moved`` counter, and
   ``host_staged`` on the other.
 
-Not carried over yet: the ``DR_TPU_REDISTRIBUTE`` override, the fault
-sites, the deferred-plan recording (ROADMAP queue 1 item 3) and
-``reshard_copy``, which nothing in the port calls.
+* The collective route fires the ``redistribute.exchange`` and
+  ``collectives.ppermute`` fault sites after the layout rebind and
+  before any row moves, then looks up ``_prog_cache`` (the dispatch tap)
+  with the JAX package's ``rdx`` key; the cached value is the
+  :func:`plan_moves` plan, so a repeated re-layout plans nothing.  A
+  faulted exchange rolls the rebind back: the vector is exactly as it
+  was.
+
+Not carried over yet: the ``DR_TPU_REDISTRIBUTE`` override, the
+deferred-plan recording (``plan/``) and ``reshard_copy``, which nothing
+in the port calls.
 """
 
 from __future__ import annotations
@@ -40,7 +48,13 @@ import torch
 
 from .. import obs as _obs
 from ..algorithms._common import layout_geometry
-from .pipeline import ring_exchange
+from ..core.pinning import pinned_id
+from ..utils import faults as _faults
+from ..utils.spmd_guard import TappedCache, dtype_name
+from .pipeline import fire_ppermute, ring_exchange, schedule_mode
+
+#: the re-layout's dispatch cache; the value is the hop plan
+_prog_cache: dict = TappedCache()
 
 __all__ = ["plan_moves", "redistribute_vector"]
 
@@ -77,9 +91,11 @@ def plan_moves(src_layout, dst_layout):
     return steps, moved
 
 
-def exchange_rows(src_rows, devices, src_layout, dst_layout, dtype):
+def exchange_rows(src_rows, devices, src_layout, dst_layout, dtype,
+                  plan=None):
     """The target layout's rows, each on its rank's device, holding the
-    source rows' logical values; every other cell is zero."""
+    source rows' logical values; every other cell is zero.  ``plan`` is
+    :func:`plan_moves`'s result, computed here when None."""
     p, _, s_prev, _, n, s_starts, s_sizes = layout_geometry(src_layout)
     _, d_cap, d_prev, d_nxt, _, d_starts, d_sizes = \
         layout_geometry(dst_layout)
@@ -105,7 +121,8 @@ def exchange_rows(src_rows, devices, src_layout, dst_layout, dtype):
         b = min(int(s_starts[r]) + int(s_sizes[r]), int(d_ends[r]))
         if b > a:
             place(r, rows[r], a, b - a, src_window(r, a, b - a))
-    steps, _ = plan_moves(src_layout, dst_layout)
+    steps, _ = plan if plan is not None else plan_moves(src_layout,
+                                                         dst_layout)
     if not steps:
         return rows
     windows = {t: (lo, ln) for t, _, lo, ln in steps}
@@ -150,11 +167,18 @@ def _collective(cont, new_dist, rt):
     cont._rebind(rt, new_dist, _rows=old)
     dst_layout = cont.layout
     try:
+        _faults.fire("redistribute.exchange", src=str(src_layout),
+                     dst=str(dst_layout))
+        fire_ppermute(what="redistribute")
+        plan = _prog_cache.tap(
+            ("rdx", pinned_id(rt), src_layout, dst_layout,
+             dtype_name(cont.dtype), schedule_mode()),
+            lambda: plan_moves(src_layout, dst_layout))
         _obs.complete("redistribute.phase", t0, cat="redistribute",
                       phase="plan")
         t1 = _obs.now()
         new = exchange_rows(old, rt.devices, src_layout, dst_layout,
-                            cont.dtype)
+                            cont.dtype, plan)
         _obs.complete("redistribute.phase", t1, cat="redistribute",
                       phase="exchange")
         t2 = _obs.now()
@@ -162,7 +186,7 @@ def _collective(cont, new_dist, rt):
         _obs.complete("redistribute.phase", t2, cat="redistribute",
                       phase="rebind")
         if _obs.armed():
-            _, moved = plan_moves(src_layout, dst_layout)
+            _, moved = plan
             _obs.count("redistribute.bytes_moved",
                        moved * cont.dtype.itemsize)
         return cont

@@ -9,6 +9,11 @@ hosts several ranks (``get_duplicated_devices``, the reference's
 
 ``init()`` with no arguments takes the visible CUDA devices and raises
 when there are none; the CPU is used only when the caller names it.
+``init()`` fires the ``runtime.init`` fault site first, then touches
+every CUDA device of the list once under ``with_deadline``
+(:data:`INIT_DEADLINE_S`): a failed or hung first touch raises
+classified under the site ``runtime.init``, and nothing switches to the
+CPU instead.
 """
 
 from __future__ import annotations
@@ -16,6 +21,9 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+
+from ..utils import faults as _faults
+from ..utils import resilience as _res
 
 __all__ = ["Runtime", "init", "final", "finalize", "runtime",
            "is_initialized", "nprocs", "devices", "barrier", "fence",
@@ -76,12 +84,40 @@ def get_duplicated_devices(n: int, devices: Optional[Sequence] = None):
     return [devs[i % len(devs)] for i in range(n)]
 
 
+#: seconds the first touch of the cards may take before ``init()`` gives
+#: up (a context creation takes well under one)
+INIT_DEADLINE_S = 300.0
+
+
+def _first_touch(devs) -> None:
+    """Allocate on, and wait for, every distinct CUDA device of ``devs``
+    under a watchdog; any failure raises classified (site
+    ``runtime.init``)."""
+    cuda = [d for d in dict.fromkeys(devs) if d.type == "cuda"]
+    if not cuda:
+        return
+
+    def touch():
+        for d in cuda:
+            torch.empty(1, device=d)
+            torch.cuda.synchronize(d)
+
+    try:
+        _res.with_deadline(touch, INIT_DEADLINE_S, site="runtime.init")
+    except Exception as e:
+        ce = _res.classified(e, site="runtime.init")
+        if ce is e:
+            raise
+        raise ce from e
+
+
 def init(devices: Optional[Sequence] = None, *,
          nprocs: Optional[int] = None) -> Runtime:
     """Initialize the global runtime.  ``devices``: one entry per rank
     (repeats allowed); default all visible CUDA devices.  ``nprocs``
     keeps the first ``nprocs`` entries."""
     global _runtime
+    _faults.fire("runtime.init")
     devs = [_as_device(d) for d in
             (devices if devices is not None else _cuda_devices())]
     if nprocs is not None:
@@ -92,6 +128,7 @@ def init(devices: Optional[Sequence] = None, *,
         devs = devs[:nprocs]
     if not devs:
         raise ValueError("empty device list")
+    _first_touch(devs)
     _runtime = Runtime(devs)
     return _runtime
 

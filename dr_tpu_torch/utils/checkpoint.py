@@ -18,10 +18,14 @@ in the other.
   as bf16 by reinterpreting its bits: a round trip, or a bf16 file the
   JAX package wrote, keeps every bit.
 
+* Fault sites: ``checkpoint.write`` fires between the write and the
+  rename (an exception kind aborts with the destination untouched; the
+  behavioral ``truncate`` installs a torn file, the state a mid-stream
+  kill leaves a non-atomic writer in), ``checkpoint.read`` at the start
+  of :func:`read` / :func:`load`.
+
 One process drives every rank, so ``save`` writes from it alone.  Not
-carried over yet: the ``checkpoint.write`` / ``checkpoint.read`` fault
-sites and the elastic layer's checkpoint registry (ROADMAP queue 1
-item 3).
+carried over yet: the elastic layer's checkpoint registry (``elastic``).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import numpy as np
 import torch
 
 from ..core.vocabulary import rank
+from . import faults as _faults
 from .resilience import CheckpointCorruptError
 
 __all__ = ["save", "load", "read", "snapshot", "rebuild",
@@ -102,6 +107,9 @@ def _write_atomic(final: str, meta: dict, arrays: dict) -> None:
             np.savez(fh, meta=json.dumps(meta), **arrays)
             fh.flush()
             os.fsync(fh.fileno())
+        if _faults.fire("checkpoint.write", path=final) == "truncate":
+            with open(tmp, "r+b") as fh:
+                fh.truncate(max(1, os.path.getsize(tmp) // 2))
         os.replace(tmp, final)
     except BaseException:
         try:
@@ -215,6 +223,7 @@ def read(path: str):
     """A checkpoint's raw ``(meta, arrays)`` snapshot, without rebuilding
     a container; the same classification as :func:`load`."""
     fname = _final_path(path)
+    _faults.fire("checkpoint.read", path=fname)
     try:
         f = np.load(fname, allow_pickle=False)
     except (zipfile.BadZipFile, zlib.error, EOFError, ValueError) as e:

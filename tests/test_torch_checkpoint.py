@@ -318,3 +318,66 @@ def test_read_and_rebuild_split(tmp_path):
         [torch.device("cpu")] * 2))
     assert back.nshards == 2
     np.testing.assert_array_equal(dt.to_numpy(back), src)
+
+
+# ------------------------------------------ fault injection (utils/faults)
+
+def test_save_is_atomic_under_midwrite_kill(tmp_path):
+    """test_checkpoint.py:96: an injected fault between the write and the
+    rename leaves the previous checkpoint intact in both packages, and no
+    temp file behind."""
+    from dr_tpu.utils import faults as jfaults
+    from dr_tpu.utils import resilience as jres
+    from dr_tpu_torch.utils import faults, resilience
+    _init_both(4)
+    old = np.arange(10, dtype=np.float32)
+    for pkg, ck, f, r in ((dt, tck, faults, resilience),
+                          (dr_tpu, jck, jfaults, jres)):
+        p = str(tmp_path / f"{pkg.__name__}.npz")
+        ck.save(p, pkg.distributed_vector.from_array(old))
+        with f.injected("checkpoint.write", "transient") as sp:
+            with pytest.raises(r.TransientBackendError):
+                ck.save(p, pkg.distributed_vector.from_array(old * 7))
+        assert sp.fired == 1
+    for name in ("dr_tpu_torch", "dr_tpu"):
+        for ck in (tck, jck):  # each package's file loads in both
+            np.testing.assert_array_equal(
+                np.asarray(ck.load(str(tmp_path / f"{name}.npz"))
+                           .materialize()), old)
+    assert [f for f in os.listdir(tmp_path) if ".tmp" in f] == []
+
+
+def test_truncated_checkpoint_raises_classified(tmp_path):
+    """test_checkpoint.py:112: the ``truncate`` kind installs a torn file;
+    both packages refuse it with ``CheckpointCorruptError``."""
+    from dr_tpu.utils.resilience import CheckpointCorruptError as JCorrupt
+    from dr_tpu_torch.utils import faults
+    _init_both(4)
+    p = tmp_path / "vec.npz"
+    with faults.injected("checkpoint.write", "truncate") as sp:
+        _save_vec(p, np.arange(32, dtype=np.float32))
+        assert sp.fired == 1
+    with pytest.raises(CheckpointCorruptError) as ei:
+        tck.load(str(p))
+    assert ei.value.site == "checkpoint.read"
+    with pytest.raises(JCorrupt):
+        jck.load(str(p))
+
+
+def test_checkpoint_read_site_classified(tmp_path):
+    """test_checkpoint.py:178: an injected ``checkpoint.read`` fault is
+    classified, and the next load is clean."""
+    from dr_tpu_torch.utils import faults
+    from dr_tpu_torch.utils.resilience import (ProgramError,
+                                               TransientBackendError)
+    _init_both(4)
+    p = tmp_path / "vec.npz"
+    _save_vec(p, np.arange(8, dtype=np.float32))
+    with faults.injected("checkpoint.read", "transient"):
+        with pytest.raises(TransientBackendError):
+            tck.load(str(p))
+    with faults.injected("checkpoint.read", "program"):
+        with pytest.raises(ProgramError):
+            tck.read(str(p))
+    np.testing.assert_array_equal(tck.load(str(p)).materialize(),
+                                  np.asarray(jck.load(str(p)).materialize()))

@@ -1200,3 +1200,72 @@ def test_profiling_trace_records_k3_on_card(cuda, tmp_path):
           and "dot_partials" in e.get("name", "")]
     assert len(k3) == 3
     dt.final()
+
+
+# ------------------------------------------- resilience and guards
+
+@pytest.mark.parametrize("kind", ["transient", "program"])
+def test_kernel_build_fault_raises_on_card(cuda, kind):
+    """An injected ``kernel.build`` fault raises its classified error out
+    of a CUDA-tensor wrapper: the launch counter does not move and the
+    plain version does not run in its place; unfaulted, the same call
+    gives the kernel's bits."""
+    from dr_tpu_torch.utils import faults, resilience
+    dev, gen = cuda
+    x = torch.randn(1 << 20, generator=gen, device=dev)
+    clean = scan_pallas.chunked_cumsum(x)
+    ran = []
+    plain = scan_pallas.plain_cumsum
+    scan_pallas.plain_cumsum = lambda *a, **k: ran.append(1)
+    before = dict(kernels.launches)
+    try:
+        with faults.injected("kernel.build", kind) as sp:
+            with pytest.raises(resilience.ResilienceError) as ei:
+                scan_pallas.chunked_cumsum(x)
+    finally:
+        scan_pallas.plain_cumsum = plain
+    assert sp.fired == 1 and ei.value.site == "kernel.build"
+    assert isinstance(ei.value, {"transient": resilience.
+                                 TransientBackendError,
+                                 "program": resilience.ProgramError}[kind])
+    assert kernels.launches == before and not ran
+    assert torch.equal(scan_pallas.chunked_cumsum(x), clean)
+
+
+def test_halo_transient_retried_same_bits_on_card(cuda):
+    """A transient at ``halo.exchange`` on 4 ranks of the card, retried:
+    the ghosts have the bits of the run without the fault."""
+    import dr_tpu_torch as dt
+    from dr_tpu_torch.utils import faults, resilience
+    dev, gen = cuda
+    dt.init(dt.get_duplicated_devices(4, [dev]))
+    src = torch.randn(1 << 20, generator=gen, device=dev)
+    hb = dt.halo_bounds(1024, 1024, periodic=True)
+    clean = dt.distributed_vector.from_array(src, halo=hb)
+    clean.halo().exchange()
+    v = dt.distributed_vector.from_array(src, halo=hb)
+    with faults.injected("halo.exchange", "transient") as sp:
+        resilience.retry(lambda: v.halo().exchange(), attempts=2,
+                         sleep=lambda s: None)
+    assert sp.fired == 1
+    assert all(torch.equal(a, b) for a, b in zip(v.rows, clean.rows))
+    dt.final()
+
+
+def test_real_oom_classifies_as_device_oom(cuda):
+    """An allocation above the card's memory (so above what is free,
+    whatever the caching allocator holds) comes back from ``classified``
+    as ``DeviceOOM`` (never retried by ``retry``)."""
+    from dr_tpu_torch.utils import resilience
+    dev, _ = cuda
+    _free, total = torch.cuda.mem_get_info(dev)
+    calls = []
+
+    def alloc():
+        calls.append(1)
+        return torch.empty(total + (1 << 30), dtype=torch.uint8, device=dev)
+
+    with pytest.raises(resilience.DeviceOOM):
+        resilience.retry(alloc, attempts=3, sleep=lambda s: None)
+    assert calls == [1]
+    torch.cuda.empty_cache()

@@ -49,17 +49,20 @@ def test_port_files_exist():
             "distributed_span.py", "unstructured_halo.py",
             "redistribute.py", "checkpoint.py", "elastic.py", "expr.py",
             "logging.py", "debug.py", "env.py", "recorder.py", "metrics.py",
-            "export.py", "profiling.py", "chip_smoke.py"} <= names
+            "export.py", "profiling.py", "faults.py", "spmd_guard.py",
+            "sanitize.py", "pinning.py", "chip_smoke.py"} <= names
+    for rel in ("utils/faults.py", "utils/spmd_guard.py",
+                "utils/sanitize.py", "core/pinning.py"):
+        assert (REPO / "dr_tpu_torch" / rel) in PORT_FILES, rel
     assert (REPO / "dr_tpu_torch" / "obs" / "__init__.py") in PORT_FILES
 
 
 #: the names of ``dr_tpu.__all__`` the port does not have yet: the
-#: host-side layers of ROADMAP.md queue 1 item 3 (plans, faults,
-#: spmd_guard, tuning, elastic) and the multi-host and mesh names of
-#: item 4.  Later slices shrink it.
+#: host-side layers of ROADMAP.md queue 1 item 3 (plans, tuning,
+#: elastic) and the multi-host and mesh names of item 4.  Later slices
+#: shrink it.
 REMAINDER = {"DeferredCount", "Plan", "PlanScalar", "deferred", "plan",
-             "faults", "spmd_guard", "tuning", "elastic",
-             "init_distributed", "mesh"}
+             "tuning", "elastic", "init_distributed", "mesh"}
 
 
 def test_public_surface_remainder():
@@ -85,7 +88,9 @@ def test_forbidden_rule_itself():
 
 def test_init_without_devices_needs_cuda():
     """No arguments: the visible CUDA devices, or an error — never the
-    CPU behind the caller's back."""
+    CPU behind the caller's back.  The port's counterpart of
+    ``tests/test_resilience.py::test_route_first_touch_decisions``: the
+    port has no first-touch router to decide on the CPU."""
     if torch.cuda.is_available():
         rt = dt.init()
         assert all(d.type == "cuda" for d in rt.devices)
@@ -105,3 +110,16 @@ def test_cuda_tensor_takes_kernel_or_raises():
     meta = torch.zeros(2, device="meta")
     with pytest.raises(ValueError):
         kernels.on_cuda(torch.zeros(2), meta)
+
+
+def test_no_degrade_route_in_the_port():
+    """The JAX package's routes to the CPU or to a plain version are not
+    carried over (ROADMAP.md, the no-fallback rule)."""
+    from dr_tpu_torch.ops import kernels
+    from dr_tpu_torch.utils import resilience
+    for name in ("first_touch_or_cpu", "route_first_touch", "FirstTouch",
+                 "relay_listening", "dead_relay", "degradation_story"):
+        assert not hasattr(resilience, name), name
+    for name in ("use_kernel", "NO_KERNEL", "Decision"):
+        assert not hasattr(kernels, name), name
+    assert not (REPO / "dr_tpu_torch" / "utils" / "fallback.py").exists()

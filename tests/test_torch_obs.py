@@ -5,9 +5,10 @@ Both packages make the same calls on the same numpy-seeded data (8 CPU
 ranks for the port) with tracing armed; the tests compare span names,
 ``relational.phase`` / ``redistribute.phase`` names and their order,
 attribute keys, counter values, metrics snapshot shapes and Chrome-export
-event shapes.  The JAX package's trace also holds the dispatch and
-fault-site events of its ``spmd_guard`` and ``faults``, which the port
-does not have yet, so its events are filtered by category.  They mirror
+event shapes.  Both traces also hold the dispatch, compile and
+fault-site events of ``spmd_guard`` and ``faults``; the span tests filter
+by category (the two packages dispatch at different granularity below an
+op), and the tap, fault and retry tests compare those events.  They mirror
 ``tests/test_obs.py`` and ``tests/test_relational.py``'s
 ``test_relational_obs_spans``; the results of every op are compared
 between the packages and between the port's traced and untraced runs,
@@ -17,6 +18,7 @@ atol=1e-6``)."""
 import importlib.util
 import json
 import os
+import threading
 
 import jax
 import numpy as np
@@ -29,7 +31,13 @@ from dr_tpu import obs as jobs
 from dr_tpu.parallel.runtime import Runtime as JRuntime
 from dr_tpu.utils import env as jenv
 from dr_tpu.utils.logging import Logger as JLogger
+from dr_tpu.utils import faults as jfaults
+from dr_tpu.utils import resilience as jres
+from dr_tpu.utils import spmd_guard as jguard
 from dr_tpu_torch import obs as tobs
+from dr_tpu_torch.utils import faults as tfaults
+from dr_tpu_torch.utils import resilience as tres
+from dr_tpu_torch.utils import spmd_guard as tguard
 from dr_tpu_torch.parallel.redistribute import plan_moves
 from dr_tpu_torch.parallel.runtime import Runtime as TRuntime
 from dr_tpu_torch.utils import env as tenv
@@ -125,7 +133,14 @@ def test_env_override_restores_exactly():
 # ---------------------------------------------------------------------------
 
 def test_tracing_off_is_true_noop():
+    from dr_tpu_torch.utils import faults as tfaults
+    from dr_tpu_torch.utils import spmd_guard as tguard
     assert not tobs.armed()
+    # the hot-path hooks are None (one `is not None` a dispatch)
+    assert tguard._obs_dispatch_hook is None
+    assert tguard._obs_compile_hook is None
+    assert tfaults._obs_site_hook is None
+    assert tfaults._obs_fault_hook is None
     e0, snap0 = tobs.events_recorded(), tobs.snapshot()
     rng = np.random.default_rng(1)
     k = dt.distributed_vector.from_array(
@@ -140,7 +155,11 @@ def test_tracing_off_is_true_noop():
     tobs.count("t.off")
     assert tobs.events_recorded() == e0
     assert tobs.events() == []
-    assert tobs.snapshot() == snap0  # no counter moved
+    # the always-on dispatch counter moved (test_obs.py:70), no metric did
+    snap = tobs.snapshot()
+    assert snap.pop("dispatches") > snap0.pop("dispatches")
+    snap.pop("compiles"), snap0.pop("compiles")
+    assert snap == snap0
     # the disarmed span is one shared object: no allocation per call
     assert tobs.span("x") is tobs.span("y")
     assert tobs.begin("x") == 0
@@ -179,6 +198,135 @@ def _nest(o):
     o.flow(sid, "s")
     o.flow(sid, "f")
     return o.events()
+
+
+def test_off_classified_errors_carry_no_tail():
+    assert tres.TransientBackendError("x", site="s").trace_tail is None
+    assert jres.TransientBackendError("x", site="s").trace_tail is None
+
+
+def _vec_pair(n=128):
+    src = np.random.default_rng(12).standard_normal(n).astype(np.float32)
+    return _pair(src)
+
+
+def test_dispatch_and_compile_events_ride_the_tap(traced):
+    """test_obs.py:128: every tapped dispatch is one ``dispatch`` event
+    labelled by its key's tag, in both packages; a first insert is a
+    ``compile`` event."""
+    vj, vt = _vec_pair(128)
+    grew = {}
+    for m, o, g, v in ((dr_tpu, jobs, jguard, vj), (dt, tobs, tguard, vt)):
+        o.reset()
+        d0 = g.dispatch_count()
+        float(m.reduce(v))
+        grew[m.__name__] = g.dispatch_count() - d0
+        evs = o.events()
+        assert sum(1 for e in evs if e["name"] == "dispatch") == \
+            grew[m.__name__] > 0
+        labels = {e["args"]["key"] for e in evs if e["name"] == "dispatch"}
+        assert all(len(lbl) < 100 for lbl in labels)
+    assert "red" in labels
+    tobs.reset()
+    c0 = tguard.compile_count()
+    dt.fill(dt.distributed_vector(4 * P + 1), 2.0)  # a layout seen nowhere
+    new = tguard.compile_count() - c0
+    assert new >= 2 and sum(1 for e in tobs.events()
+                            if e["name"] == "compile") == new
+    assert tobs.snapshot()["compiles"] == tguard.compile_count()
+    assert {"dispatches", "compiles"} <= set(jobs.snapshot()) & \
+        set(tobs.snapshot())
+
+
+def test_injected_fault_appears_in_trace_with_site(traced):
+    """test_obs.py:178: the fault event has the JAX package's args, and
+    the classified error's trace tail holds it."""
+    vj, vt = _vec_pair(64)
+    got = {}
+    for m, o, f, r, v in ((dr_tpu, jobs, jfaults, jres, vj),
+                          (dt, tobs, tfaults, tres, vt)):
+        o.reset()
+        with f.injected("dispatch.cache", "transient"):
+            with pytest.raises(r.TransientBackendError) as ei:
+                m.fill(v, 2.0)
+        hit = [e for e in o.events() if e["name"] == "fault"]
+        got[m.__name__] = hit[0]["args"]
+        tail = ei.value.trace_tail
+        assert tail and any(e["name"] == "fault" for e in tail)
+    assert got["dr_tpu_torch"] == got["dr_tpu"] == {
+        "site": "dispatch.cache", "kind": "transient"}
+
+
+def test_fault_spec_env_injection_traced(traced, monkeypatch):
+    """test_obs.py:193, with ``DR_GPU_FAULT_SPEC``: the fault and the
+    clean site visits are on the trace."""
+    monkeypatch.setenv("DR_GPU_FAULT_SPEC", "halo.exchange:transient")
+    tfaults.reload_env()
+    try:
+        v = dt.distributed_vector(64, np.float32,
+                                  halo=dt.halo_bounds(1, 1, periodic=True))
+        dt.fill(v, 1.0)
+        with pytest.raises(tres.TransientBackendError):
+            v.halo().exchange()
+        v.halo().exchange()  # the spec fired once: a clean visit
+    finally:
+        monkeypatch.delenv("DR_GPU_FAULT_SPEC")
+        tfaults.reload_env()
+    evs = tobs.events()
+    assert any(e["name"] == "fault" and e["args"]["site"] == "halo.exchange"
+               for e in evs)
+    assert sum(1 for e in evs if e["name"] == "halo.exchange"
+               and e["cat"] == "site") == 2
+
+
+def test_retry_events_and_counter(traced):
+    """test_obs.py:213: the retry events and the counter, the same in
+    both packages."""
+    got = {}
+    for o, r in ((jobs, jres), (tobs, tres)):
+        calls = {"n": 0}
+
+        def flaky():
+            calls["n"] += 1
+            if calls["n"] < 3:
+                raise r.TransientBackendError("UNAVAILABLE: x")
+            return 7
+
+        o.reset()
+        assert r.retry(flaky, attempts=3, base=0.0,
+                       sleep=lambda s: None) == 7
+        got[o.__name__] = ([e["args"] for e in o.events()
+                            if e["name"] == "retry"],
+                           o.snapshot()["counters"]["resilience.retries"])
+    retries, count = got["dr_tpu_torch.obs"]
+    assert (retries, count) == got["dr_tpu.obs"]
+    assert len(retries) == 2 and count == 2
+    assert retries[0]["error"] == "TransientBackendError"
+
+
+def test_retry_budget_denied_counter(traced):
+    budget = tres.TokenBudget(0)
+    with pytest.raises(tres.TransientBackendError):
+        tres.retry(lambda: (_ for _ in ()).throw(
+            RuntimeError("UNAVAILABLE: y")), attempts=3,
+            sleep=lambda s: None, budget=budget)
+    assert tobs.snapshot()["counters"]["resilience.retry_budget_denied"] \
+        == 1
+
+
+def test_with_deadline_dumps_obs_tail(traced, capsys):
+    """test_obs.py:432: the deadline postmortem dumps the obs tail and the
+    error carries it, ``deadline.expired`` included."""
+    tobs.event("marker", k="tail-me")
+    ev = threading.Event()
+    with pytest.raises(tres.DeadlineExpired) as ei:
+        tres.with_deadline(ev.wait, 0.05, site="test.hang")
+    ev.set()
+    err = capsys.readouterr().err
+    assert "obs trace event" in err
+    assert ei.value.trace_tail is not None
+    assert any(e["name"] == "deadline.expired"
+               for e in ei.value.trace_tail)
 
 
 def test_span_nesting_and_events(traced):
@@ -275,9 +423,10 @@ def test_metrics_registry_shapes(traced):
     assert sum(hs["buckets"].values()) == 6 and hs["buckets"]["le_inf"] == 1
     assert hs["p50"] == 2.0  # the reservoir's round(0.5 * 5)-th sample
     assert tobs.metrics.DEFAULT_BUCKETS == jobs.metrics.DEFAULT_BUCKETS
-    # the compact snapshot: the JAX one's keys less spmd_guard's two
+    # the compact snapshot: the JAX one's keys, spmd_guard's two included
     full = tobs.snapshot()
-    assert set(jobs.snapshot()) - set(full) == {"dispatches", "compiles"}
+    assert set(jobs.snapshot()) == set(full)
+    assert full["dispatches"] == tguard.dispatch_count()
     assert full["trace_armed"] and full["events_buffered"] == tobs.size()
     # the armed-gated conveniences
     tobs.count("t.c", 2)
@@ -397,6 +546,16 @@ def test_redistribute_span_phases_and_bytes_counter(traced, dist):
     assert bt == bj == moved * 4 and moved > 0
     np.testing.assert_array_equal(np.concatenate(
         [r.numpy() for r in vt.rows]), np.asarray(vj._data))
+    # a classified mid-exchange error carries the trace tail
+    # (test_obs.py:449's second half), and the vector is as it was
+    rows0 = [r.clone() for r in vt.rows]
+    with tfaults.injected("redistribute.exchange", "program", times=1):
+        with pytest.raises(tres.ProgramError) as ei:
+            dt.redistribute(vt, [n] + [0] * (P - 1))
+    assert ei.value.trace_tail and ei.value.site == "redistribute.exchange"
+    assert any(e["name"] == "fault" for e in ei.value.trace_tail)
+    assert len(vt.rows) == len(rows0) and all(
+        a.equal(b) for a, b in zip(vt.rows, rows0))
 
 
 def test_redistribute_host_route_span(traced):

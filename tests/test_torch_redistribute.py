@@ -187,6 +187,41 @@ def test_failed_redistribute_leaves_vector_intact():
     assert dt.reduce(v) == float(src.sum())
 
 
+@pytest.mark.parametrize("kind", ["transient", "oom", "program"])
+def test_redistribute_exchange_fault_leaves_vector_intact(kind):
+    """test_elastic.py:1206: an injected ``redistribute.exchange`` fault
+    (and one at the ring's ``collectives.ppermute``) surfaces classified
+    in both packages, each vector exactly as it was; the same hop
+    afterwards leaves the reference's rows."""
+    from dr_tpu.utils import faults as jfaults
+    from dr_tpu.utils import resilience as jres
+    from dr_tpu_torch.utils import faults, resilience
+    P = 8
+    _init_both(P)
+    n = 4 * P
+    src = np.arange(n, dtype=np.float32)
+    cls = {"transient": "TransientBackendError", "oom": "DeviceOOM",
+           "program": "ProgramError"}[kind]
+    vj = dr_tpu.distributed_vector.from_array(src)
+    with jfaults.injected("redistribute.exchange", kind, times=1):
+        with pytest.raises(getattr(jres, cls)):
+            dr_tpu.redistribute(vj, [n] + [0] * (P - 1))
+    assert vj.distribution is None
+    v = dt.distributed_vector.from_array(src)
+    layout, rows = v.layout, v.rows
+    for site in ("redistribute.exchange", "collectives.ppermute"):
+        with faults.injected(site, kind, times=1) as sp:
+            with pytest.raises(getattr(resilience, cls)) as ei:
+                dt.redistribute(v, [n] + [0] * (P - 1))
+        assert sp.fired == 1 and ei.value.site == site
+        assert v.distribution is None and v.layout == layout
+        assert all(a is b for a, b in zip(v.rows, rows))
+        np.testing.assert_array_equal(dt.to_numpy(v), src)
+    dt.redistribute(v, [n] + [0] * (P - 1))
+    dr_tpu.redistribute(vj, [n] + [0] * (P - 1))
+    np.testing.assert_array_equal(_rows(v), np.asarray(vj._data))
+
+
 def test_matrix_and_mdarray_reblock():
     """Matrices re-block through a snapshot (test_elastic.py:125), in
     place, onto the target runtime's default partition."""
