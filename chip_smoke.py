@@ -146,7 +146,24 @@ checks the kernels at small shapes only).  Phases:
     ``sanitize.zero_recompile`` around the second main-path step at
     2^30; the step, the halo p50 (1 and 4 ranks) and a ``TappedCache``
     lookup with nothing armed, a guard active and tracing armed.
-    ``--phase22`` runs phases 1-3 and this one.
+    ``--phase22`` runs phases 1-3 and this one;
+23. deferred plans: the main path (iota, for_each, transform, a halo
+    exchange, K1 or K2, dot, K4's scan, dot_n on K3) as one recorded
+    region at 2^30 on one rank (K1) and 2^26 on 4 ranks (K2), twice (the
+    second flush replays the runs' CUDA graphs), against the same calls
+    made eagerly: every row, both scalars and the launch counts equal;
+    the small-op region (4 ranks, 2^20 f32 vectors, 64 x (for_each, halo
+    exchange, transform, reduce)) eager and deferred in turns, 9 each:
+    the host ms of each, the card's kernels and launch calls of each
+    from a profiler trace (``chiprun_out/phase23/``), ``Plan.stats()``;
+    graph-replayed fills and for_each with new scalars in f32, bf16 and
+    f16 against the eager calls' bits; ``plan.flush`` armed transient
+    (rows kept, the dropped scalar raises, a retry gives the clean bits);
+    the sanitizer armed over the recorded main path (``verify_run``,
+    ``check_serializable``) and a NaN made in a run raising at
+    ``check_finite``; a traced region's ``plan.flush`` > ``plan.run`` /
+    ``plan.opaque`` spans and counters; the phase's peak device memory.
+    ``--phase23`` runs phases 1-3 and this one.
 
 ``--halo-ab DIR`` times phase 17's halo p50 with the ``dr_tpu_torch`` of
 another checkout at ``DIR`` and this one's, in turns, and stops.
@@ -243,6 +260,10 @@ CHAOS_RA = (2048, 8, 2, 128)
 CHAOS_GEMV_LOG2 = 16
 CHAOS_DEADLINE = 120.0
 GUARD_LOG2 = 30
+# phase 23: the small-op region (4 ranks, 2^20 f32 vectors, 64 rounds of
+# four ops, 9 timed turns each way) and the scalar checks at 2^20
+PLAN_SMALL_LOG2, PLAN_SMALL_ITERS, PLAN_TURNS = 20, 64, 9
+PLAN_DTYPES_LOG2 = 20
 
 
 #: a copy of every log line, opened by main(), so the whole log survives
@@ -3347,6 +3368,10 @@ def chaos_inputs(seed, ranks=4, log2=CHAOS_LOG2, sort_per=CHAOS_SORT_PER,
     }
 
 
+def _plan_scale(x, c):
+    return x * c
+
+
 def chaos_battery(dt, inp, path, device="cuda:0", ranks=4, k_block=K_BLOCK,
                   mm_halo=MM_HALO):
     """One pass through every site the port fires, on ``ranks`` ranks of
@@ -3354,8 +3379,8 @@ def chaos_battery(dt, inp, path, device="cuda:0", ranks=4, k_block=K_BLOCK,
     init -> halo exchange and reduce -> the communicator's shift and
     all-to-all -> a sort (K6) -> a scan (K4) -> ``dot_n`` (K3) -> a
     stencil block (K1) -> a ring gemv -> bf16 ring attention (K9) ->
-    three collective re-layouts -> a checkpoint write and read at
-    ``path``.  Every dispatch rides the tap (``dispatch.cache``,
+    a deferred region (``plan.flush``, ``sanitize.verify``) -> three
+    collective re-layouts -> a checkpoint write and read at ``path``.  Every dispatch rides the tap (``dispatch.cache``,
     ``device.lost``), every launch ``kernel.build``.  Returns the
     results on the host."""
     import torch
@@ -3407,6 +3432,12 @@ def chaos_battery(dt, inp, path, device="cuda:0", ranks=4, k_block=K_BLOCK,
     k, vv = (put(t).bfloat16() for t in inp["kv"])
     out["attention"] = dt.ring_attention(q, k, vv, causal=True).float().cpu()
     del q, k, vv
+    pv = dt.distributed_vector.from_array(src)
+    with dt.deferred():
+        dt.for_each(pv, _plan_scale, 2.0)
+        total = dt.reduce(pv)
+    out["plan"] = torch.cat([pv.to_array(), total.device().reshape(1)]).cpu()
+    del pv
     rdv = dt.distributed_vector.from_array(src)
     dt.redistribute(rdv, [n] + [0] * (ranks - 1))
     dt.redistribute(rdv, [1] * (ranks - 1) + [n - (ranks - 1)])
@@ -3823,6 +3854,394 @@ def resilience_phase(dt, kernels, gen, seed, card):
     return out
 
 
+# ---------------------------------------------- phase 23: deferred plans
+
+def _pl_scale(x, c):
+    return x * c
+
+
+def _pl_shift(x, c):
+    return x + c
+
+
+def plan_vectors(dt, n, halo):
+    """The three vectors of the recorded main path, one halo each."""
+    hb = dt.halo_bounds(halo, halo, periodic=True)
+    return tuple(dt.distributed_vector(n, np.float32, halo=hb)
+                 for _ in range(3))
+
+
+def plan_region(dt, x, a, res, stencil):
+    """The main path as one sequence of calls (recorded inside a region):
+    iota and a for_each into ``x``, K4's inclusive scan of ``x`` into
+    ``res``, a transform into ``a``, a halo exchange, ``stencil`` (K1
+    "matmul" or K2 "blocked") on ``a``, dot(a, a) and dot_n(x, x, 1) on
+    K3, which reads the rows and so flushes a recording plan.  Three
+    runs: the first touches ``x`` alone, whose rows stay put, so its
+    second flush captures; the stencil and the scan replace the rows of
+    ``a`` and ``res``, so the runs over ``a`` run in order every time.
+    Returns (dot, dot_n)."""
+    dt.iota(x, 0)
+    dt.for_each(x, _pl_scale, 2.0 ** -20)
+    dt.inclusive_scan(x, res)
+    dt.transform(x, a, _pl_shift, -0.5)
+    dt.halo(a).exchange()
+    if stencil == "matmul":
+        dt.stencil_iterate_matmul(a, W5, K_BLOCK, k_block=K_BLOCK)
+    else:
+        dt.stencil_iterate_blocked(a, W5, T_BLOCK, time_block=T_BLOCK)
+    d = dt.dot(a, a)
+    return d, dt.dot_n(x, x, 1)
+
+
+def plan_main(dt, kernels, n, ranks, stencil, halo, device="cuda:0"):
+    """Phase 23.1: the recorded main path against the same calls made
+    eagerly: every row and both scalars bit for bit, and the K1/K2/K3/K4
+    launch counts equal, on two deferred passes (the second replays the
+    runs' CUDA graphs).  Returns its numbers."""
+    import torch
+    dt.init(dt.get_duplicated_devices(ranks, [device]))
+    x, a, res = plan_vectors(dt, n, halo)
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    d, dn = plan_region(dt, x, a, res, stencil)
+    dt.fence()
+    eager_s = time.perf_counter() - t0
+    want = [[r.clone() for r in v.rows] for v in (x, a, res)]
+    want_counts = dict(kernels.launches)
+    out = {"eager_s": eager_s, "launches": want_counts, "passes": []}
+    plan = dt.plan.Plan()
+    for k in range(2):
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        with plan.record():
+            pd, pdn = plan_region(dt, x, a, res, stencil)
+            got_d = float(pd)
+        dt.fence()
+        out["passes"].append(time.perf_counter() - t0)
+        counts = dict(kernels.launches)
+        tag = f"23.1 {ranks} rank(s) 2^{n.bit_length() - 1} pass {k + 1}"
+        for name, v, w in zip("x a res".split(), (x, a, res), want):
+            check_true(f"{tag}: {name} rows bit for bit",
+                       all(torch.equal(g, e) for g, e in zip(v.rows, w)))
+        check_true(f"{tag}: dot {got_d!r} == eager {d!r}", got_d == d)
+        check_true(f"{tag}: dot_n bit for bit", torch.equal(pdn, dn))
+        check_true(f"{tag}: launches {counts} == eager {want_counts}",
+                   counts == want_counts)
+    for k in ("stencil_matmul" if stencil == "matmul" else
+              "stencil_blocked", "chunked_dot", "chunked_cumsum"):
+        check_true(f"23.1: {k} launched", want_counts[k] > 0)
+    out["stats"] = plan.stats()
+    check_true(f"23.1: the second pass replayed the run over x alone "
+               f"({out['stats']['graph_replays']} replay)",
+               out["stats"]["graph_replays"] == 1
+               and out["stats"]["graph_captures"] == 1)
+    log(f"  23.1 {ranks} rank(s): eager {eager_s:.3f} s, deferred "
+        f"{out['passes']} s, stats {json.dumps(out['stats'])}")
+    log("  " + plan.explain().replace("\n", "\n  "))
+    dt.final()
+    return out
+
+
+def small_region(dt, a, b, iters):
+    """64 x (for_each, halo exchange, transform, reduce) on ``a``, ``b``;
+    returns the reductions (floats, or PlanScalars in a region)."""
+    dt.iota(a, 0)
+    dt.for_each(a, _pl_scale, 2.0 ** -20)
+    sums = []
+    for _ in range(iters):
+        dt.for_each(a, _pl_scale, 1.001)
+        dt.halo(a).exchange()
+        dt.transform(a, b, _pl_shift, 0.5)
+        sums.append(dt.reduce(b))
+    return sums
+
+
+def trace_launches(dt, logdir, fn):
+    """(kernels on the card, kernel-launch calls, graph-launch calls, ms
+    of the card's work: kernels, copies and memsets) in a
+    ``profiling.trace`` of ``fn``.  A graph's copies between rows run as
+    kernels; eagerly they are ``cudaMemcpyAsync`` calls."""
+    import glob
+    os.makedirs(logdir, exist_ok=True)
+    before = set(glob.glob(os.path.join(logdir, "*.json")))
+    with dt.profiling.trace(logdir):
+        fn()
+    [path] = set(glob.glob(os.path.join(logdir, "*.json"))) - before
+    with open(path, encoding="utf-8") as f:
+        evs = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in evs]
+    busy = sum(e.get("dur", 0) for e in evs
+               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    return (sum(1 for e in evs if e.get("cat") == "kernel"),
+            sum(1 for x in names if x.startswith("cudaLaunchKernel")),
+            sum(1 for x in names if x.startswith("cudaGraphLaunch")),
+            busy / 1e3)
+
+
+def plan_small(dt, card, device="cuda:0", log2=PLAN_SMALL_LOG2,
+               iters=PLAN_SMALL_ITERS, turns=PLAN_TURNS, logdir=None):
+    """Phase 23.2: the many-small-ops region on 4 ranks, eager and
+    deferred in turns (one plan, so every flush after the second replays
+    the graph captured once): host ms of each (the deferred one with its
+    recording and its flush), the median of ``turns``; the card's kernel
+    and launch counts of each from a profiler trace; the plan's stats.
+    Every turn's sums and rows equal the first eager turn's bits."""
+    import torch
+    dt.init(dt.get_duplicated_devices(4, [device]))
+    n = 1 << log2
+    hb = dt.halo_bounds(1, 1, periodic=True)
+    a = dt.distributed_vector(n, np.float32, halo=hb)
+    b = dt.distributed_vector(n, np.float32, halo=hb)
+    plan = dt.plan.Plan()
+
+    def eager():
+        dt.fence()
+        t0 = time.perf_counter()
+        sums = small_region(dt, a, b, iters)
+        return (time.perf_counter() - t0) * 1e3, sums
+
+    recording = []
+
+    def deferred():
+        dt.fence()
+        t0 = time.perf_counter()
+        with plan.record():
+            pending = small_region(dt, a, b, iters)
+            recording.append((time.perf_counter() - t0) * 1e3)
+        sums = [float(s) for s in pending]
+        return (time.perf_counter() - t0) * 1e3, sums
+
+    _, want = eager()
+    want_rows = [r.clone() for v in (a, b) for r in v.rows]
+
+    def same(sums, tag):
+        ok = sums == want and all(torch.equal(g, w) for g, w in zip(
+            [r for v in (a, b) for r in v.rows], want_rows))
+        if not ok:
+            raise AssertionError(f"23.2 {tag}: not the eager bits")
+
+    for _ in range(2):  # the in-order first flush, then the capture
+        same(deferred()[1], "warm-up")
+    times = {"eager": [], "deferred": []}
+    for _ in range(turns):
+        for name, fn in (("eager", eager), ("deferred", deferred)):
+            ms, sums = fn()
+            same(sums, name)
+            times[name].append(ms)
+    out = {"card": card, "n": n, "iters": iters,
+           "eager_ms": float(np.median(times["eager"])),
+           "deferred_ms": float(np.median(times["deferred"])),
+           "record_ms": float(np.median(recording[2:])),
+           "eager_ms_all": times["eager"],
+           "deferred_ms_all": times["deferred"]}
+    if logdir is not None:
+        out["eager_trace"] = trace_launches(dt, os.path.join(logdir, "eager"),
+                                            eager)
+        out["deferred_trace"] = trace_launches(
+            dt, os.path.join(logdir, "deferred"), deferred)
+    out["stats"] = plan.stats()
+    check_true(f"23.2: {out['stats']['graph_replays']} graph replays over "
+               f"{out['stats']['flushes']} flushes under one key",
+               out["stats"]["graph_replays"] >= turns
+               and out["stats"]["graph_captures"] == 1)
+    log(f"  [{card}] 23.2 small-op region (4 ranks, 2^{log2} f32, {iters} x "
+        f"for_each/halo/transform/reduce): host ms eager "
+        f"{out['eager_ms']!r} vs deferred {out['deferred_ms']!r} (medians "
+        f"of {turns}; recording {out['record_ms']!r} of it); trace "
+        "(kernels, cudaLaunchKernel, cudaGraphLaunch, card ms) "
+        f"eager {out.get('eager_trace')} deferred "
+        f"{out.get('deferred_trace')}; stats {json.dumps(out['stats'])}")
+    dt.final()
+    return out
+
+
+def plan_scalars(dt, device="cuda:0", log2=PLAN_DTYPES_LOG2):
+    """Phase 23.3: a fill + for_each flushed three times with scalars
+    (1.1, 3.3) (in order, captured, replayed), then twice with (2.2,
+    0.7) (in order: new values; then captured), in f32, bf16 and f16,
+    against the same eager calls, bit for bit."""
+    import torch
+    dt.init([device])
+    n = 1 << log2
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        v = dt.distributed_vector(n, dtype)
+        w = dt.distributed_vector(n, dtype)
+        plan = dt.plan.Plan()
+        for fv, cv in ((1.1, 3.3),) * 3 + ((2.2, 0.7),) * 2:
+            with plan.record():
+                dt.fill(v, fv)
+                dt.for_each(v, _pl_scale, cv)
+            dt.fill(w, fv)
+            dt.for_each(w, _pl_scale, cv)
+            check_true(f"23.3 {dtype} ({fv}, {cv}) bit for bit",
+                       torch.equal(v.rows[0], w.rows[0]))
+        st = plan.stats()
+        check_true(f"23.3 {dtype}: {st['graph_replays']} replays, "
+                   f"{st['graph_captures']} captures",
+                   st["graph_replays"] == 3 and st["graph_captures"] == 2)
+        out[str(dtype)] = st
+    dt.final()
+    return out
+
+
+def plan_faults(dt, seed, device="cuda:0", log2=PLAN_SMALL_LOG2):
+    """Phase 23.4: ``plan.flush`` armed transient drops the queue (rows
+    as before, the pending scalar raises) and a retry gives the clean
+    bits; under ``DR_GPU_SANITIZE=1`` the verifier and the oracle pass on
+    the recorded main path (4 ranks, K2) and a NaN a run makes raises at
+    ``check_finite``."""
+    import torch
+    from dr_tpu_torch.plan import plansan
+    from dr_tpu_torch.utils import faults, resilience as R, sanitize
+    from dr_tpu_torch.utils import spmd_guard
+    dt.init(dt.get_duplicated_devices(4, [device]))
+    n = 1 << log2
+    gen = torch.Generator(device=device).manual_seed(seed)
+    src = torch.randn(n, generator=gen, device=device)
+    hb = dt.halo_bounds(1, 1, periodic=True)
+    a = dt.distributed_vector.from_array(src, halo=hb)
+    ref = dt.distributed_vector.from_array(src, halo=hb)
+    dt.for_each(ref, _pl_scale, 2.0)
+    dt.halo(ref).exchange()
+    want = dt.reduce(ref)
+    before = [r.clone() for r in a.rows]
+    handles = []
+
+    def region():
+        with dt.deferred():
+            dt.for_each(a, _pl_scale, 2.0)
+            dt.halo(a).exchange()
+            handles.append(dt.reduce(a))
+        return float(handles[-1])
+
+    out = {}
+    with faults.injected("plan.flush", "transient", times=1):
+        try:
+            region()
+            raise AssertionError("23.4: the armed plan.flush did not fire")
+        except R.TransientBackendError as e:
+            out["fault"] = f"{type(e).__name__} at {e.site}"
+    check_true("23.4: rows as before the faulted flush",
+               all(torch.equal(g, w) for g, w in zip(a.rows, before)))
+    try:
+        float(handles[-1])
+        raise AssertionError("23.4: a dropped scalar resolved")
+    except RuntimeError:
+        pass
+    with faults.injected("plan.flush", "transient", times=1):
+        got = R.retry(region, attempts=2, sleep=lambda s: None)
+    check_true(f"23.4: the retry's sum {got!r} == eager {want!r} and rows",
+               got == want and all(torch.equal(g, w)
+                                   for g, w in zip(a.rows, ref.rows)))
+    dt.final()
+    # the sanitizer, armed as DR_GPU_SANITIZE=1 arms it at import
+    os.environ["DR_GPU_SANITIZE"] = "1"
+    hooks = (spmd_guard._compile_hook, spmd_guard._canon_check_hook)
+    try:
+        check_true("23.4: the sanitizer arms", sanitize.install())
+        dt.init(dt.get_duplicated_devices(4, [device]))
+        x, av, res = plan_vectors(dt, 1 << 22, BLK_HALO)
+        v0 = len(plansan._verified)
+        with dt.deferred() as p:
+            plan_region(dt, x, av, res, "blocked")
+        out["verified_runs"] = len(plansan._verified) - v0
+        check_true(f"23.4: verify_run passed {out['verified_runs']} run "
+                   "key(s), check_serializable the queue",
+                   out["verified_runs"] >= 2 and not p.log[0].get("error"))
+        try:
+            with dt.deferred():
+                dt.for_each(x, _pl_scale, float("nan"))
+            raise AssertionError("23.4: a NaN run passed check_finite")
+        except sanitize.SanitizeError as e:
+            out["nan"] = str(e)[:80]
+        dt.final()
+    finally:
+        del os.environ["DR_GPU_SANITIZE"]
+        sanitize._installed = False
+        spmd_guard._compile_hook, spmd_guard._canon_check_hook = hooks
+    return out
+
+
+def plan_traced(dt, device="cuda:0"):
+    """Phase 23.5: a traced region shows ``plan.flush`` > ``plan.run`` /
+    ``plan.opaque`` and the plan counters."""
+    from dr_tpu_torch import obs
+    dt.init(dt.get_duplicated_devices(4, [device]))
+    x, a, res = plan_vectors(dt, 1 << 22, BLK_HALO)
+    obs.reset()
+    obs.arm(True)
+    try:
+        plan_region(dt, x, a, res, "blocked")   # eager: no plan span
+        with dt.deferred():
+            plan_region(dt, x, a, res, "blocked")
+        evs = obs.events()
+        snap = obs.snapshot()
+    finally:
+        obs.arm(False)
+        obs.reset()
+    flush = [e for e in evs if e["name"] == "plan.flush" and e["ph"] == "X"]
+    kids = [e for e in evs if e["name"] in ("plan.run", "plan.opaque")]
+    check_true(f"23.5: {len(flush)} plan.flush span(s), reason "
+               f"{flush[0]['args']['reason'] if flush else None}",
+               len(flush) == 1 and flush[0]["args"]["reason"] == "dot_n")
+    check_true(f"23.5: {len(kids)} child spans under it",
+               kids and all(e["args"]["parent"] == flush[0]["id"]
+                            for e in kids))
+    c = snap["counters"]
+    out = {k: c.get(k) for k in ("plan.flushes", "plan.fused_ops",
+                                 "plan.opaque_ops")}
+    check_true(f"23.5: counters {out}", out["plan.flushes"] == 1
+               and out["plan.fused_ops"] == 5
+               and out["plan.opaque_ops"] == 2)
+    out["spans"] = [(e["name"], e["args"].get("op", e["args"].get("ops")))
+                    for e in kids]
+    dt.final()
+    return out
+
+
+def plans_phase(dt, kernels, seed, card):
+    """Phase 23: deferred plans on the card.  Returns its numbers."""
+    import torch
+    log("phase 23: deferred plans: the main path as one recorded region "
+        "(2^30 on 1 rank with K1, 2^26 on 4 ranks with K2), the small-op "
+        f"region (4 ranks, 2^{PLAN_SMALL_LOG2} f32, {PLAN_SMALL_ITERS} x 4 "
+        "ops), scalars in f32/bf16/f16, faults and the sanitizer, a traced "
+        "region")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = {"card": card}
+    for key, n, ranks, stencil, halo in (
+            ("main_1", 1 << 30, 1, "matmul", MM_HALO),
+            ("main_4", 1 << 26, 4, "blocked", BLK_HALO)):
+        t1 = time.perf_counter()
+        out[key] = plan_main(dt, kernels, n, ranks, stencil, halo)
+        dt.plan._plan_cache.clear()   # the graphs' pools go with them
+        release(torch)
+        log(f"  phase 23.1 {key}: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    out["small"] = plan_small(dt, card, logdir=os.path.join(
+        HERE, "chiprun_out", "phase23"))
+    log(f"  phase 23.2: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    out["scalars"] = plan_scalars(dt)
+    log(f"  phase 23.3: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    out["faults"] = plan_faults(dt, seed)
+    log(f"  phase 23.4: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    out["traced"] = plan_traced(dt)
+    log(f"  phase 23.5: {time.perf_counter() - t1:.1f} s")
+    dt.plan._plan_cache.clear()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"  [{card}] phase 23 peak device memory {out['peak_bytes']} bytes "
+        f"({out['peak_bytes'] / 2 ** 30:.2f} GiB), "
+        f"{time.perf_counter() - t0:.1f} s")
+    release(torch)
+    return out
+
+
 _HALO_AB = """
 import importlib.util, json, sys
 sys.path.insert(0, {tree!r})
@@ -3937,8 +4356,10 @@ def main(argv):
                    "replaces": rp} for k, (s, rp) in replaces.items()}
 
     only22 = "--phase22" in argv
-    n = 1 << (20 if quick or only22 else 30)
-    m2d = 2048 if quick or only22 else M2D
+    only23 = "--phase23" in argv
+    short = quick or only22 or only23
+    n = 1 << (20 if short else 30)
+    m2d = 2048 if short else M2D
     gen = torch.Generator(device="cuda").manual_seed(seed)
     log(f"phase 3: kernels vs plain versions at n={n}, {m2d}x{m2d}")
     kernel_checks(dt, n, m2d, gen, results)
@@ -3953,6 +4374,10 @@ def main(argv):
     if only22:  # a short run: the checks above, small, then phase 22
         log("  phase 22 numbers: " + json.dumps(
             resilience_phase(dt, kernels, gen, seed, card)))
+        return 0
+    if only23:  # a short run: the checks above, small, then phase 23
+        log("  phase 23 numbers: " + json.dumps(
+            plans_phase(dt, kernels, seed, card)))
         return 0
 
     log(f"phase 4: main path, 1 rank on cuda:0, n={n}")
@@ -4177,6 +4602,9 @@ def main(argv):
 
     g22 = resilience_phase(dt, kernels, gen, seed, card)
     log("  phase 22 numbers: " + json.dumps(g22))
+
+    g23 = plans_phase(dt, kernels, seed, card)
+    log("  phase 23 numbers: " + json.dumps(g23))
 
     log(f"peak device memory (1-D main path): {peak} bytes "
         f"({peak / 2 ** 30:.2f} GiB)")

@@ -65,6 +65,10 @@ Public surface of this slice:
   spmm / spmm_n``
 - entry:      ``dr_tpu_torch.entry.entry`` and ``dryrun``, the
   counterparts of ``__graft_entry__``'s
+- plans:      ``deferred`` (record a region, run it at a flush),
+  ``Plan``, ``PlanScalar``, ``plan`` (``plan.opt``, ``plan.plansan``,
+  ``plan.interference``); on a card a flushed run replays as one CUDA
+  graph
 """
 
 from . import obs
@@ -112,7 +116,8 @@ from .algorithms.sort import (sort, sort_by_key, argsort, is_sorted, sort_n,
 from .ops.ring_attention import ring_attention, ring_attention_n
 from .algorithms.relational import (join, groupby_aggregate, unique,
                                     histogram, top_k, join_auto,
-                                    groupby_auto, unique_auto, AutoResult)
+                                    groupby_auto, unique_auto, AutoResult,
+                                    DeferredCount)
 from .utils.logging import drlog
 from .utils.debug import print_range, print_matrix, range_details
 from .utils import checkpoint
@@ -121,6 +126,8 @@ from .utils import faults
 from .utils import resilience
 from .utils import spmd_guard
 from .utils.elastic import redistribute
+from . import plan
+from .plan import Plan, PlanScalar, deferred
 
 __version__ = "0.1.0"
 
@@ -150,8 +157,10 @@ __all__ = [
     "ring_attention", "ring_attention_n",
     "join", "groupby_aggregate", "unique", "histogram", "top_k",
     "join_auto", "groupby_auto", "unique_auto", "AutoResult",
-    "unstructured_halo", "communicator", "rma_window", "default_comm",
+    "DeferredCount", "unstructured_halo", "communicator", "rma_window",
+    "default_comm",
     "distributed_span", "drlog", "print_range", "print_matrix",
     "range_details", "checkpoint", "resilience", "redistribute",
     "obs", "profiling", "faults", "spmd_guard",
+    "plan", "Plan", "PlanScalar", "deferred",
 ]

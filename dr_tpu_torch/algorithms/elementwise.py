@@ -9,6 +9,14 @@ window's column range of its output row — no communication.  Otherwise
 the operands are evaluated as logical tensors and spliced into the
 output window.
 
+Inside ``dt.deferred()`` (``plan/``) the aligned forms record into the
+active plan instead of running (``record_generator`` /
+``record_transform`` / ``record_zip_foreach`` / ``record_splice``); the
+recorded ops run the same row functions (``_fill_rows``, ``_iota_rows``,
+``_transform_rows``, ``_zip_foreach_rows``, ``_write_window_rows``) at
+flush, so a flushed run has the eager sequence's bits.  The unaligned
+routes flush the plan first (``Plan.nonfusible``).
+
 ``_prog_cache`` is the algorithm layer's shared dispatch cache (the JAX
 package's program cache, a ``utils/spmd_guard.TappedCache``): every
 algorithm looks it up once per dispatch with the JAX package's key, so
@@ -38,6 +46,13 @@ _prog_cache: dict = TappedCache()
 
 #: a user callable's key: its pinned identity
 _op_key = pinned_id
+
+
+def _plan_active():
+    """The plan recording on this thread, or None (``plan/``).  Lazy
+    import: the plan module builds on this one."""
+    from ..plan import active
+    return active()
 
 
 def _traced_op_key(op):
@@ -100,6 +115,24 @@ def _apply_ops(v, ops):
     return v
 
 
+def _chain_scalars(chains):
+    """The ``BoundOp`` scalars of every chain op, chain by chain in op
+    order: the order :func:`_apply_chain_ops` draws them in."""
+    return [s for c in chains for o in c.ops if isinstance(o, _v.BoundOp)
+            for s in o.scalars]
+
+
+def _apply_chain_ops(v, ops, sc_iter):
+    """Apply a chain's ops, each ``BoundOp`` taking its scalars from
+    ``sc_iter`` (what :func:`_apply_ops` does with the bound ones)."""
+    for o in ops:
+        if isinstance(o, _v.BoundOp):
+            v = o.op(v, *[next(sc_iter) for _ in o.scalars])
+        else:
+            v = o(v)
+    return v
+
+
 def _fast_aligned(ins, out: _Chain) -> bool:
     """Same runtime, layout and window offset: segment lists pairwise
     equal (the ``mhp::aligned`` condition)."""
@@ -115,28 +148,87 @@ def _out_chain(out) -> _Chain:
     return res[0]
 
 
-def _rank_cols(chain: _Chain, r: int):
-    return window_cols(chain.cont.layout, chain.off, chain.n, r)
-
-
 def _write_window(out_chain: _Chain, values) -> None:
     """Splice a logical tensor into the output window."""
-    cont = out_chain.cont
-    values = _as_tensor(values)
-    _, _, prev, _, _, starts, _ = layout_geometry(cont.layout)
-    for r, row in enumerate(cont._rows):
-        c0, c1 = _rank_cols(out_chain, r)
+    _write_window_rows(out_chain.cont._rows, out_chain.cont.layout,
+                       out_chain.off, out_chain.n, _as_tensor(values))
+
+
+def _write_window_rows(rows, layout, off, n, values) -> None:
+    """:func:`_write_window` over rank rows of ``layout``."""
+    _, _, prev, _, _, starts, _ = layout_geometry(layout)
+    for r, row in enumerate(rows):
+        c0, c1 = window_cols(layout, off, n, r)
         if c0 == c1:
             continue
-        lo = int(starts[r]) + c0 - prev - out_chain.off
+        lo = int(starts[r]) + c0 - prev - off
         row[0, c0:c1] = values[lo:lo + c1 - c0].to(row.device, row.dtype)
 
 
-def _gid(cont, r, c0, c1, device):
-    """Global logical index of row columns [c0, c1) of rank r."""
-    _, _, prev, _, _, starts, _ = layout_geometry(cont.layout)
-    g0 = int(starts[r]) + c0 - prev
-    return torch.arange(g0, g0 + c1 - c0, device=device)
+def _window_values(rows, layout, off, n, dtype) -> torch.Tensor:
+    """The logical window ``[off, off + n)`` of rank rows as one tensor on
+    rank 0's device (what ``to_array`` of a window gives)."""
+    dev = rows[0].device
+    parts = []
+    for r, row in enumerate(rows):
+        c0, c1 = window_cols(layout, off, n, r)
+        if c0 < c1:
+            parts.append(row[0, c0:c1].to(dev))
+    if not parts:
+        return torch.zeros((0,), dtype=dtype, device=dev)
+    return torch.cat(parts)
+
+
+def _fill_rows(rows, layout, off, n, value) -> None:
+    for rk, row in enumerate(rows):
+        c0, c1 = window_cols(layout, off, n, rk)
+        row[0, c0:c1] = value
+
+
+def _iota_rows(rows, layout, off, n, start) -> None:
+    _, _, prev, _, _, starts, _ = layout_geometry(layout)
+    for rk, row in enumerate(rows):
+        c0, c1 = window_cols(layout, off, n, rk)
+        if c0 < c1:
+            g0 = int(starts[rk]) + c0 - prev
+            gid = torch.arange(g0, g0 + c1 - c0, device=row.device)
+            row[0, c0:c1] = (gid + (start - off)).to(row.dtype)
+
+
+def _transform_rows(out_rows, in_rows, in_ops, layout, off, n, op,
+                    scalars, chain_sc=()) -> None:
+    """The aligned transform over rank rows: each rank applies ``op`` to
+    its window columns of every input (chain ops first, ``BoundOp``
+    scalars from ``chain_sc``) and writes its output columns."""
+    for rk, row in enumerate(out_rows):
+        c0, c1 = window_cols(layout, off, n, rk)
+        if c0 == c1:
+            continue
+        sc = iter(chain_sc)
+        vals = [_apply_chain_ops(rows[rk][:, c0:c1], ops, sc)
+                for rows, ops in zip(in_rows, in_ops)]
+        res = op(*vals, *scalars)
+        row[:, c0:c1] = torch.broadcast_to(
+            torch.as_tensor(res, device=row.device),
+            (1, c1 - c0)).to(row.dtype)
+
+
+def _wins(chains) -> tuple:
+    """The ``(layout, off, n, dtype)`` window of each chain."""
+    return tuple((c.cont.layout, c.off, c.n, c.cont.dtype) for c in chains)
+
+
+def _zip_foreach_rows(in_rows, in_wins, out_rows, out_wins, fn,
+                      scalars) -> None:
+    """for_each over a zip of windows (``(layout, off, n, dtype)`` each):
+    ``fn`` over the logical windows, its results spliced back."""
+    arrs = [_window_values(rows, *w) for rows, w in zip(in_rows, in_wins)]
+    n = min(w[2] for w in in_wins)
+    vals = fn(*[a[:n] for a in arrs], *scalars)
+    if not isinstance(vals, tuple):
+        raise TypeError("for_each over zip: fn must return a tuple")
+    for rows, (layout, off, wn, _dt), v in zip(out_rows, out_wins, vals):
+        _write_window_rows(rows, layout, off, wn, _as_tensor(v))
 
 
 def _gen_tap(out: _Chain, kind: str) -> None:
@@ -147,22 +239,24 @@ def _gen_tap(out: _Chain, kind: str) -> None:
 def fill(r, value) -> None:
     """Collective fill (cpu_algorithms.hpp:14-28)."""
     out = _out_chain(r)
+    p = _plan_active()
+    if p is not None:
+        p.record_generator(out, "fill", value)
+        return
     _gen_tap(out, "fill")
-    for rk, row in enumerate(out.cont._rows):
-        c0, c1 = _rank_cols(out, rk)
-        row[0, c0:c1] = value
+    _fill_rows(out.cont._rows, out.cont.layout, out.off, out.n, value)
 
 
 def iota(r, start=0) -> None:
     """Collective iota (cpu_algorithms.hpp:83-94): element i of the
     window holds ``start + i``."""
     out = _out_chain(r)
+    p = _plan_active()
+    if p is not None:
+        p.record_generator(out, "iota", start)
+        return
     _gen_tap(out, "iota")
-    for rk, row in enumerate(out.cont._rows):
-        c0, c1 = _rank_cols(out, rk)
-        if c0 < c1:
-            gid = _gid(out.cont, rk, c0, c1, row.device)
-            row[0, c0:c1] = (gid + (start - out.off)).to(row.dtype)
+    _iota_rows(out.cont._rows, out.cont.layout, out.off, out.n, start)
 
 
 def transform(in_r, out, op: Callable, *scalars) -> None:
@@ -176,6 +270,10 @@ def transform(in_r, out, op: Callable, *scalars) -> None:
     if n < out_chain.n:
         out_chain = _Chain(out_chain.cont, out_chain.off, n, ())
     if ins is not None and _fast_aligned(ins, out_chain):
+        p = _plan_active()
+        if p is not None:
+            p.record_transform(ins, out_chain, op, scalars)
+            return
         cont = out_chain.cont
         nchain = sum(len(o.scalars) for c in ins for o in c.ops
                      if isinstance(o, _v.BoundOp))
@@ -185,19 +283,13 @@ def transform(in_r, out, op: Callable, *scalars) -> None:
             tuple(tuple(_traced_op_key(o) for o in c.ops) for c in ins),
             _op_key(op), False, tuple(c.cont is cont for c in ins),
             nchain + len(scalars), dtype_name(cont.dtype)))
-        rows_in = [[c.cont._rows[rk] for c in ins]
-                   for rk in range(out_chain.cont.nshards)]
-        for rk, row in enumerate(out_chain.cont._rows):
-            c0, c1 = _rank_cols(out_chain, rk)
-            if c0 == c1:
-                continue
-            vals = [_apply_ops(x[:, c0:c1], c.ops)
-                    for x, c in zip(rows_in[rk], ins)]
-            res = op(*vals, *scalars)
-            row[:, c0:c1] = torch.broadcast_to(
-                torch.as_tensor(res, device=row.device),
-                (1, c1 - c0)).to(row.dtype)
+        _transform_rows(cont._rows, [c.cont._rows for c in ins],
+                        [c.ops for c in ins], cont.layout, out_chain.off,
+                        out_chain.n, op, scalars, _chain_scalars(ins))
         return
+    p = _plan_active()
+    if p is not None:
+        p.nonfusible("transform (unaligned/materialize route)")
     arr = in_r.to_array() if hasattr(in_r, "to_array") else _as_tensor(in_r)
     vals = op(*arr, *scalars) if isinstance(arr, tuple) \
         else op(arr, *scalars)
@@ -212,7 +304,12 @@ def copy(src, dst) -> None:
     """Collective copy (cpu_algorithms.hpp:36-54); host arrays on either
     side, like the shp host<->device overloads."""
     if isinstance(src, (np.ndarray, torch.Tensor, list, tuple)):
-        _write_window(_out_chain(dst), _as_tensor(src))
+        out = _out_chain(dst)
+        p = _plan_active()
+        if p is not None:
+            p.record_splice(out, _as_tensor(src))
+            return
+        _write_window(out, _as_tensor(src))
         return
     if isinstance(dst, np.ndarray):
         vals = to_numpy(src)
@@ -252,12 +349,23 @@ def for_each(r, fn: Callable, *scalars) -> None:
         outs = [_out_chain(c) for c in r.components]
         ins = _resolve(r)
         if ins is not None and all(_fast_aligned(ins, oc) for oc in outs):
+            p = _plan_active()
+            if p is not None:
+                p.record_zip_foreach(ins, outs, fn, scalars)
+                return
             conts = [oc.cont for oc in outs]
             alias = tuple(next((i for i, c in enumerate(conts)
                                 if c is ch.cont), -1) for ch in ins)
             _prog_cache.tap(("zfe", tuple(c.key for c in ins),
                              tuple(o.key for o in outs), _op_key(fn),
                              alias, len(scalars)))
+            _zip_foreach_rows([c.cont._rows for c in ins], _wins(ins),
+                              [c._rows for c in conts], _wins(outs), fn,
+                              scalars)
+            return
+        p = _plan_active()
+        if p is not None:
+            p.nonfusible("for_each (misaligned zip route)")
         arrs = r.to_array()
         vals = fn(*arrs, *scalars)
         if not isinstance(vals, tuple):

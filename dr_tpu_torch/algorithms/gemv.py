@@ -40,8 +40,10 @@ accumulation): full f32 unless the caller turns TF32 on.
 Not carried over: the ``DR_TPU_SPMV_FORMAT`` override, the tuning-DB
 format lookup and the TPU gather knobs (``DR_TPU_GATHER_MODE`` / ``_W``,
 ``DR_TPU_SPMM_W``, ``DR_TPU_SPMV_COMBINE``: the 2-D grids sum their
-partials as the JAX default ``psum`` does, with no ring); the plan hooks
-come with ``plan/``.  The ring dispatchers (``gemv``, ``gemv_n`` and
+partials as the JAX default ``psum`` does, with no ring).  Inside
+``dt.deferred()`` ``gemv`` records OPAQUE (run at the flush, in record
+order, with ``c`` read and written and ``b``'s containers read), and
+``gemv_n`` / ``gemv_phases_n`` flush the plan first.  The ring dispatchers (``gemv``, ``gemv_n`` and
 ``gemv_phases_n`` on the ring layout) fire the ``collectives.ppermute``
 fault site, and every dispatch looks up the algorithm layer's
 dispatch cache (``elementwise._prog_cache``) with the JAX package's key.
@@ -49,6 +51,7 @@ dispatch cache (``elementwise._prog_cache``) with the JAX package's key.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -314,6 +317,23 @@ def _gemv_as(c, a, b, fmt: str):
 def gemv(c: distributed_vector, a: sparse_matrix, b) -> distributed_vector:
     """c += A·b (reference gemv semantics: accumulate into ``c``) in the
     matrix's autoselected layout; returns ``c``."""
+    from ..plan import active
+    p = active()
+    if p is not None:
+        if isinstance(b, distributed_vector):
+            reads, writes = (c, b), ((c, False),)
+        elif isinstance(b, (np.ndarray, torch.Tensor)) or np.isscalar(b):
+            reads, writes = (c,), ((c, False),)
+        else:
+            from ..plan import interference as _interf
+            conts = _interf.view_containers(b)
+            if conts is not None:
+                reads, writes = (c,) + conts, ((c, False),)
+            else:
+                reads = writes = None
+        p.record_opaque("gemv", lambda: gemv(c, a, b), reads=reads,
+                        writes=writes)
+        return c
     return _gemv_as(c, a, b, a.format)
 
 
@@ -328,6 +348,8 @@ def gemv_n(c: distributed_vector, a: sparse_matrix, b, iters: int):
     the tiles): each round adds ``1e-38`` times the rank's first owned
     cell of ``c`` to ``b``, so every round re-reads ``b`` and waits for
     the last; like ``iters`` gemv calls up to that salt."""
+    from ..plan import flush_reads
+    flush_reads("gemv_n")
     b = _fast_args(c, a, b)
     fmt = resolved_format(a)
     if fmt == "ring":
@@ -349,6 +371,8 @@ def gemv_phases_n(c: distributed_vector, a: sparse_matrix, b,
     """``iters`` rounds of the ring SpMV truncated after ``stop_after``
     (:data:`SPMV_PHASES`); one round is exactly the ring ``gemv``.
     Needs the ring layout (``a.ensure_ring()``)."""
+    from ..plan import flush_reads
+    flush_reads("gemv_phases_n")
     assert stop_after in SPMV_PHASES, (stop_after, SPMV_PHASES)
     have_ring = a.ensure_ring()
     assert have_ring, "gemv_phases_n profiles the ring schedule"

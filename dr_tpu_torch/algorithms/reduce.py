@@ -23,7 +23,15 @@ An op that is none of those four (an identityless custom fold, which
 ``std::reduce`` already requires to be associative) folds each rank's
 window cells pairwise in order (:func:`_tree_fold`), then walks the rank
 partials in rank order, skipping ranks that own no cell of the window
-(``dr_tpu/algorithms/reduce.py:228``); no identity is ever needed.
+(``dr_tpu/algorithms/reduce.py:228``); no identity is ever needed.  An
+``op`` that is neither a named kind nor callable raises ``TypeError``
+before anything is read, whatever the range's length.
+
+Inside ``dt.deferred()`` a monoid reduce of aligned chains records into
+the plan (``Plan.record_reduce``) and returns a lazy ``PlanScalar``; the
+recorded op runs :func:`_reduce_rows`, the eager body.  A custom-op
+reduce flushes the plan first (``plan.barrier``), and ``dot_n`` flushes
+before it reads the rows.
 """
 
 from __future__ import annotations
@@ -35,7 +43,8 @@ import torch
 
 from ._common import MONOID_COMBINE, f32_accumulable, identity_for, \
     window_cols
-from .elementwise import (_apply_ops, _op_key, _prog_cache, _resolve,
+from .elementwise import (_apply_chain_ops, _apply_ops, _chain_scalars,
+                          _op_key, _plan_active, _prog_cache, _resolve,
                           _traced_op_key)
 from ..core.pinning import pinned_id
 from ..utils.spmd_guard import dtype_name
@@ -73,8 +82,8 @@ def _vec_reduce(kind, v: torch.Tensor) -> torch.Tensor:
     """The monoid's reduction of one tensor, in :func:`_acc_dtype`."""
     dt = _acc_dtype(kind, v.dtype)
     if v.numel() == 0:
-        return torch.tensor(identity_for(kind, dt), dtype=dt,
-                            device=v.device)
+        return torch.full((), identity_for(kind, dt), dtype=dt,
+                          device=v.device)
     if kind == "add":
         return v.sum(dtype=dt)
     if kind == "mul":
@@ -110,7 +119,6 @@ def _fused_reduce(chains, kind, zip_op=None) -> torch.Tensor:
     components combined by ``zip_op`` first), folded in rank order onto
     rank 0's device."""
     c0 = chains[0]
-    cont = c0.cont
     k7 = _k7_takes(chains, kind, zip_op)
     if k7:
         _prog_cache.tap(("redk", c0.key, kind, ("segred",)))
@@ -118,11 +126,28 @@ def _fused_reduce(chains, kind, zip_op=None) -> torch.Tensor:
         _prog_cache.tap(("red", tuple(c.key for c in chains), kind,
                          _traced_op_key(zip_op) if zip_op is not None
                          else None))
+    return _reduce_rows([c.cont._rows for c in chains],
+                        [c.ops for c in chains], c0.cont.layout, c0.off,
+                        c0.n, kind, zip_op, k7, _chain_scalars(chains))
+
+
+def _reduce_rows(rows_list, ops_list, layout, off, n, kind, zip_op, k7,
+                 chain_sc, zip_sc=None) -> torch.Tensor:
+    """:func:`_fused_reduce` over rank rows: ``rows_list`` holds each
+    chain's rows, ``chain_sc`` the chains' ``BoundOp`` scalars; with
+    ``zip_sc`` given, a ``BoundOp`` zip op takes its scalars from it."""
     parts = []
-    for r in range(cont.nshards):
-        a, b = window_cols(cont.layout, c0.off, c0.n, r)
-        vals = [_apply_ops(c.cont._rows[r][0, a:b], c.ops) for c in chains]
-        v = vals[0] if zip_op is None else zip_op(*vals)
+    for r in range(len(rows_list[0])):
+        a, b = window_cols(layout, off, n, r)
+        sc = iter(chain_sc)
+        vals = [_apply_chain_ops(rows[r][0, a:b], ops, sc)
+                for rows, ops in zip(rows_list, ops_list)]
+        if zip_op is None:
+            v = vals[0]
+        elif zip_sc is not None and isinstance(zip_op, _v.BoundOp):
+            v = zip_op.op(*vals, *zip_sc)
+        else:
+            v = zip_op(*vals)
         src = v.dtype
         if k7:
             v = v.to(_acc_dtype(kind, src))
@@ -130,7 +155,7 @@ def _fused_reduce(chains, kind, zip_op=None) -> torch.Tensor:
                 None, 1, ((v, _KIND_TO_SEGRED[kind]),))[0][0])
         else:
             parts.append(_vec_reduce(kind, v))
-    dev = cont.runtime.devices[0]
+    dev = rows_list[0][0].device
     acc = parts[0].to(dev)
     for p in parts[1:]:
         acc = MONOID_COMBINE[kind](acc, p.to(dev))
@@ -198,8 +223,12 @@ def reduce_async(r, op: Callable = None) -> torch.Tensor:
     waiting (the analog of the reference's ``reduce_async``)."""
     kind = _classify_op(op)
     if kind is None:
+        if not callable(op):
+            raise TypeError(f"reduce: op {op!r} is not callable")
         chains = _resolve(r) if not isinstance(r, _v.zip_view) else None
         if chains is not None and len(chains) == 1 and chains[0].n > 0:
+            from ..plan import barrier
+            barrier("custom-op reduce")
             return _custom_reduce(chains[0], op)
         arr = r.to_array() if hasattr(r, "to_array") else _as_tensor(r)
         assert not isinstance(arr, tuple), \
@@ -216,6 +245,9 @@ def reduce_async(r, op: Callable = None) -> torch.Tensor:
         if zipped is not None:
             chains, zip_op = zipped
     if chains is not None:
+        p = _plan_active()
+        if p is not None:
+            return p.record_reduce(chains, kind, zip_op)
         return _fused_reduce(chains, kind, zip_op)
     arr = r.to_array() if hasattr(r, "to_array") else _as_tensor(r)
     assert not isinstance(arr, tuple), \
@@ -224,8 +256,17 @@ def reduce_async(r, op: Callable = None) -> torch.Tensor:
 
 
 def reduce(r, init=None, op: Callable = None):
-    """Collective reduction; returns a host scalar."""
-    val = reduce_async(r, op).item()
+    """Collective reduction; returns a host scalar (inside
+    ``dt.deferred()``, a lazy ``PlanScalar`` that resolves on
+    ``float()`` / ``item()``)."""
+    val = reduce_async(r, op)
+    from ..plan import PlanScalar
+    if isinstance(val, PlanScalar):
+        if init is not None:
+            pyop = op if op is not None else operator.add
+            return val.with_post(lambda v: pyop(init, v))
+        return val
+    val = val.item()
     if init is not None:
         pyop = op if op is not None else operator.add
         return pyop(init, val)
@@ -285,7 +326,10 @@ def dot_n(a, b, iters: int) -> torch.Tensor:
     """``iters`` chained dot products; each round adds ``carry * 1e-38``
     to one operand (the JAX package's salt), so every round re-reads
     both inputs.  Returns the final device scalar; the loop never
-    synchronizes with the host."""
+    synchronizes with the host.  It reads the rows directly, so a
+    recording plan flushes first."""
+    from ..plan import flush_reads
+    flush_reads("dot_n")
     c0, c1 = _dot_n_chains(a, b)
     cont = c0.cont
     devs = cont.runtime.devices

@@ -65,10 +65,18 @@ Each op looks up the algorithm layer's dispatch cache (the
 ``reltopk``); the partition merge fires ``collectives.ppermute`` before
 its ring.
 
-Not carried over yet: deferred plans (``DeferredCount``, the
-``record_histogram``/``record_top_k`` hooks), the tuning-DB route and
-capacity hints (the auto tier always probes the exact count, so it
-always records ``cap_probe``).
+Inside ``dt.deferred()``, ``histogram`` and ``top_k`` (static output
+shapes) record FUSIBLE (``Plan.record_histogram`` / ``record_top_k``,
+which run :func:`_histogram_rows` / :func:`_top_k_rows` at the flush),
+and ``join``, ``groupby_aggregate``, ``unique`` and the auto tier record
+OPAQUE (run through their eager path at the flush) and return a lazy
+:class:`DeferredCount` (an :class:`AutoResult` that resolves on first
+use).  Their input views stay in the opaque item's ``meta``, which the
+plan's pushdown pass may rewrite.
+
+Not carried over yet: the tuning-DB route and capacity hints (the auto
+tier always probes the exact count, so it always records
+``cap_probe``).
 """
 
 from __future__ import annotations
@@ -78,8 +86,9 @@ import torch
 
 from .. import obs as _obs
 from ._common import owned_window_mask, window_cols, working_geometry
-from .elementwise import _apply_ops, _out_chain, _resolve, copy as _copy, \
-    fill as _fill, to_numpy as _to_numpy
+from .elementwise import _apply_chain_ops, _chain_scalars, _out_chain, \
+    _plan_active, _resolve, copy as _copy, fill as _fill, \
+    to_numpy as _to_numpy
 from .sort import _const, _decode, _encode, sort as _sort, \
     sort_by_key as _sort_by_key
 from ..containers.distributed_vector import distributed_vector
@@ -96,7 +105,7 @@ from ..views import views as _v
 
 __all__ = ["join", "groupby_aggregate", "unique", "histogram", "top_k",
            "join_auto", "groupby_auto", "unique_auto", "AutoResult",
-           "AGGS", "JOIN_HOWS", "last_join_route"]
+           "DeferredCount", "AGGS", "JOIN_HOWS", "last_join_route"]
 
 #: supported groupby aggregations
 AGGS = ("sum", "min", "max", "count", "mean")
@@ -104,6 +113,77 @@ AGGS = ("sum", "min", "max", "count", "mean")
 JOIN_HOWS = ("inner", "left", "right", "outer")
 
 _GMAX = torch.iinfo(torch.int32).max
+
+
+class DeferredCount:
+    """Lazy result count of a relational op recorded in a deferred region
+    (``join`` / ``groupby_aggregate`` / ``unique``).  Resolving it
+    (``item()`` / ``int()`` / ``float()`` / ``bool()`` / ``==``) flushes
+    the owning plan if still pending; a count whose flush was dropped
+    raises instead of returning a stale number."""
+
+    __slots__ = ("_plan", "_box")
+
+    def __init__(self, plan, box):
+        self._plan = plan
+        self._box = box
+
+    def item(self) -> int:
+        if not self._box:
+            self._plan.flush("relational count read")
+        if not self._box:
+            raise RuntimeError(
+                "deferred relational count was discarded before it "
+                "resolved (faulted flush or abandoned region)")
+        return int(self._box[-1])
+
+    def __int__(self):
+        return self.item()
+
+    def __index__(self):
+        return self.item()
+
+    def __float__(self):
+        return float(self.item())
+
+    def __bool__(self):
+        return bool(self.item())
+
+    def __eq__(self, other):
+        if isinstance(other, DeferredCount):
+            other = other.item()
+        return self.item() == other
+
+    # hashing would be a hidden flush
+    __hash__ = None
+
+    def __repr__(self):
+        state = repr(self._box[-1]) if self._box else "pending"
+        return f"DeferredCount({state})"
+
+
+def _opaque_meta(kind: str, inputs: dict, outs) -> dict:
+    """The record a deferred relational op leaves on its opaque item:
+    ``inputs`` maps a channel name to its view (the thunk re-reads this
+    dict at the flush, so the pushdown pass may rewrite it), ``chains``
+    summarizes each channel as ``(container, off, n, plain)``, and
+    ``outs`` are the containers the op rebuilds whole."""
+    chains = {}
+    for name, view in inputs.items():
+        ch = _single_chain(view, kind)
+        chains[name] = (ch.cont, ch.off, ch.n, not ch.ops)
+    return {"kind": kind, "inputs": dict(inputs), "chains": chains,
+            "outs": tuple(outs)}
+
+
+def _meta_footprint(meta):
+    """(reads, writes): every input chain's container is read, every out
+    container rebuilt whole."""
+    reads = []
+    for _name, ch in meta["chains"].items():
+        if ch[0] not in reads:
+            reads.append(ch[0])
+    return tuple(reads), tuple((c, True) for c in meta["outs"])
 
 
 # ---------------------------------------------------------------------------
@@ -513,6 +593,25 @@ def groupby_aggregate(keys, values, out_keys, out_values,
     larger than the capacity raises ``ProgramError`` after the op ran
     (the first ``len(out_keys)`` groups are valid)."""
     _check_agg(values, agg)
+    _kc, _vc, okc, ovc = _check_groupby(keys, values, out_keys,
+                                        out_values)
+    p = _plan_active()
+    if p is not None:
+        box: list = []
+        inputs = {"keys": keys}
+        if values is not None:
+            inputs["values"] = values
+        meta = _opaque_meta(
+            "groupby", inputs,
+            (okc.cont,) + ((ovc.cont,) if ovc is not None else ()))
+        reads, writes = _meta_footprint(meta)
+        p.record_opaque(
+            "groupby_aggregate",
+            lambda m=meta: box.append(_groupby_eager(
+                m["inputs"]["keys"], m["inputs"].get("values"), out_keys,
+                out_values, agg)),
+            reads=reads, writes=writes, meta=meta)
+        return DeferredCount(p, box)
     return _groupby_eager(keys, values, out_keys, out_values, agg)
 
 
@@ -521,7 +620,18 @@ def unique(r, out) -> int:
     distributed_vector; positions ``>= count`` are zero); returns the
     distinct count.  The keys-only groupby."""
     _in_chain(r, "unique")
-    _whole_out(out, "unique")
+    okc = _whole_out(out, "unique")
+    p = _plan_active()
+    if p is not None:
+        box: list = []
+        meta = _opaque_meta("unique", {"r": r}, (okc.cont,))
+        reads, writes = _meta_footprint(meta)
+        p.record_opaque(
+            "unique",
+            lambda m=meta: box.append(_groupby_eager(
+                m["inputs"]["r"], None, out, None, "count")),
+            reads=reads, writes=writes, meta=meta)
+        return DeferredCount(p, box)
     return _groupby_eager(r, None, out, None, "count")
 
 
@@ -959,6 +1069,25 @@ def join(left_keys, left_values, right_keys, right_values, out_keys,
     the row count; a result beyond the capacity raises ``ProgramError``
     after the op ran (the first ``capacity`` rows are valid)."""
     _check_how(how)
+    *_sides, okc, olc, orc = _check_join(left_keys, left_values, right_keys,
+                                         right_values, out_keys, out_left,
+                                         out_right)
+    p = _plan_active()
+    if p is not None:
+        box: list = []
+        meta = _opaque_meta(
+            "join", {"lk": left_keys, "lv": left_values,
+                     "rk": right_keys, "rv": right_values},
+            (okc.cont, olc.cont, orc.cont))
+        reads, writes = _meta_footprint(meta)
+        p.record_opaque(
+            "join",
+            lambda m=meta: box.append(_join_eager(
+                m["inputs"]["lk"], m["inputs"]["lv"], m["inputs"]["rk"],
+                m["inputs"]["rv"], out_keys, out_left, out_right, how,
+                fill)),
+            reads=reads, writes=writes, meta=meta)
+        return DeferredCount(p, box)
     return _join_eager(left_keys, left_values, right_keys, right_values,
                        out_keys, out_left, out_right, how, fill)
 
@@ -975,32 +1104,60 @@ def _pow2_cap(n: int) -> int:
 
 class AutoResult:
     """Result of an auto-capacity relational op: the output containers
-    (allocated from the probed count, pow2-sized) and the row count."""
+    (allocated from the probed count, pow2-sized) and the row count.
+    Recorded in a deferred region it is pending until first use, which
+    flushes the plan; one whose flush was dropped raises."""
 
-    __slots__ = ("_containers", "_count")
+    __slots__ = ("_plan", "_box")
 
-    def __init__(self, containers, count):
-        self._containers = tuple(containers)
-        self._count = int(count)
+    def __init__(self, containers, count, *, plan=None, box=None):
+        self._plan = plan
+        self._box = box if box is not None \
+            else [(tuple(containers), int(count))]
+
+    def _get(self):
+        if not self._box:
+            self._plan.flush("relational count read")
+        if not self._box:
+            raise RuntimeError(
+                "deferred auto-capacity result was discarded before it "
+                "resolved (faulted flush or abandoned region)")
+        return self._box[-1]
 
     @property
     def count(self) -> int:
-        return self._count
+        return int(self._get()[1])
 
     @property
     def containers(self) -> tuple:
         """The allocated output containers (capacity-padded)."""
-        return self._containers
+        return tuple(self._get()[0])
 
     def arrays(self):
         """Materialized outputs trimmed to the real row count."""
-        return [_to_numpy(c)[:self._count] for c in self._containers]
+        conts, m = self._get()
+        return [_to_numpy(c)[:int(m)] for c in conts]
 
     def __int__(self):
-        return self._count
+        return self.count
 
     def __repr__(self):
-        return f"AutoResult(count={self._count})"
+        state = self._box[-1][1] if self._box else "pending"
+        return f"AutoResult(count={state})"
+
+
+def _auto(name, meta, run):
+    """An auto op: recorded opaque (pending :class:`AutoResult`) inside a
+    deferred region, else run now.  ``run(inputs)`` gives (containers,
+    count)."""
+    p = _plan_active()
+    if p is None:
+        return AutoResult(*run(meta["inputs"]))
+    box: list = []
+    reads, _w = _meta_footprint(meta)
+    p.record_opaque(name, lambda: box.append(run(meta["inputs"])),
+                    reads=reads, writes=(), meta=meta)
+    return AutoResult(None, None, plan=p, box=box)
 
 
 def _fresh_outs(rt, dtypes, cap):
@@ -1085,8 +1242,11 @@ def join_auto(left_keys, left_values, right_keys, right_values, *,
     are allocated at its pow2 ceiling.  Returns an :class:`AutoResult`
     over ``(out_keys, out_left, out_right)``."""
     _check_how(how)
-    return AutoResult(*_join_auto_eager(left_keys, left_values, right_keys,
-                                        right_values, how, fill))
+    _check_join_sides(left_keys, left_values, right_keys, right_values)
+    meta = _opaque_meta("join", {"lk": left_keys, "lv": left_values,
+                                 "rk": right_keys, "rv": right_values}, ())
+    return _auto("join(auto)", meta, lambda i: _join_auto_eager(
+        i["lk"], i["lv"], i["rk"], i["rv"], how, fill))
 
 
 def groupby_auto(keys, values, agg: str = "sum") -> AutoResult:
@@ -1094,15 +1254,27 @@ def groupby_auto(keys, values, agg: str = "sum") -> AutoResult:
     distinct-key count probe).  Returns an :class:`AutoResult` over
     ``(out_keys, out_values)``."""
     _check_agg(values, agg)
-    return AutoResult(*_groupby_auto_eager(keys, values, agg))
+    kc = _in_chain(keys, "groupby_aggregate")
+    inputs = {"keys": keys}
+    if values is not None:
+        vc = _in_chain(values, "groupby_aggregate")
+        if vc.n != kc.n:
+            raise ValueError(
+                f"groupby_aggregate: keys and values must have equal "
+                f"length ({kc.n} != {vc.n})")
+        inputs["values"] = values
+    meta = _opaque_meta("groupby", inputs, ())
+    return _auto("groupby(auto)", meta, lambda i: _groupby_auto_eager(
+        i["keys"], i.get("values"), agg))
 
 
 def unique_auto(r) -> AutoResult:
     """:func:`unique` with inferred output capacity.  Returns an
     :class:`AutoResult` over ``(out,)``."""
     _in_chain(r, "unique")
-    return AutoResult(*_groupby_auto_eager(r, None, "count",
-                                           keys_only=True))
+    meta = _opaque_meta("unique", {"r": r}, ())
+    return _auto("unique(auto)", meta, lambda i: _groupby_auto_eager(
+        i["r"], None, "count", keys_only=True))
 
 
 # ---------------------------------------------------------------------------
@@ -1134,27 +1306,33 @@ def histogram(r, out, lo, hi):
     oc = _whole_out(out, "histogram")
     if not _same_ranks(oc.cont, chain.cont):
         raise TypeError("histogram: out must live on the input's ranks")
+    p = _plan_active()
+    if p is not None:
+        p.record_histogram(chain, oc, lo, hi)
+        return out
     _rel_tap("relhist", chain.cont.runtime, _chain_key(chain), oc.n,
              dtype_name(oc.cont.dtype))
     sid = _obs.begin("relational.histogram", cat="relational", n=chain.n,
                      bins=oc.n)
     try:
-        _histogram(chain, oc, lo, hi)
+        oc.cont._rows = _histogram_rows(
+            chain.cont._rows, chain.cont.layout, chain.off, chain.n,
+            chain.ops, _chain_scalars([chain]), oc.cont.layout,
+            oc.cont.dtype, oc.n, lo, hi)
         return out
     finally:
         _obs.end(sid)
 
 
-def _histogram(chain, oc, lo, hi) -> None:
+def _histogram_rows(in_rows, in_layout, off, n, ops, chain_sc, out_layout,
+                    out_dtype, bins, lo, hi) -> list:
     """Bucket each rank's window cells, count them (K8 or
-    ``index_add_``), sum the counts and write ``oc``'s rows."""
-    cont, bins = chain.cont, oc.n
-    devs = cont.runtime.devices
+    ``index_add_``), sum the counts: the out container's new rows."""
     local = []
-    for rk, row in enumerate(cont._rows):
-        dev = devs[rk]
-        c0, c1 = window_cols(cont.layout, chain.off, chain.n, rk)
-        x = _apply_ops(row[0, c0:c1], chain.ops)
+    for rk, row in enumerate(in_rows):
+        dev = row.device
+        c0, c1 = window_cols(in_layout, off, n, rk)
+        x = _apply_chain_ops(row[0, c0:c1], ops, iter(chain_sc))
         pt = torch.promote_types(x.dtype, torch.float32)
         xv = x.to(pt)
         lov, hiv = _bound(lo, pt, dev), _bound(hi, pt, dev)
@@ -1167,13 +1345,14 @@ def _histogram(chain, oc, lo, hi) -> None:
         else:
             local.append(torch.zeros(bins, dtype=torch.int32, device=dev)
                          .index_add_(0, bc, cnt))
-    ol = oc.cont.layout
-    for rk in range(len(devs)):
-        dev = devs[rk]
+    new = []
+    for rk, row in enumerate(in_rows):
+        dev = row.device
         total = collectives.psum(local, dev)
-        t = _slots(ol, rk, dev)
-        vals = total[t.clamp(0, bins - 1)].to(oc.cont.dtype)
-        oc.cont._rows[rk] = _pack_out_row(vals, t < bins, ol, rk)
+        t = _slots(out_layout, rk, dev)
+        vals = total[t.clamp(0, bins - 1)].to(out_dtype)
+        new.append(_pack_out_row(vals, t < bins, out_layout, rk))
+    return new
 
 
 # ---------------------------------------------------------------------------
@@ -1234,47 +1413,59 @@ def top_k(r, out_vals, out_idx=None, *, largest: bool = True,
         raise TypeError(
             "top_k: merge=True needs out_vals and out_idx on ONE "
             "layout (their current contents pair by slot)")
+    p = _plan_active()
+    if p is not None:
+        p.record_top_k(chain, ovc, oic, largest, merge)
+        return out_vals
     _rel_tap("reltopk", chain.cont.runtime, _chain_key(chain), ovc.n,
              dtype_name(ovc.cont.dtype), oic is not None, largest, merge)
     sid = _obs.begin("relational.top_k", cat="relational", n=chain.n,
                      k=ovc.n, largest=largest, merge=merge)
     try:
-        _top_k(chain, ovc, oic, largest, merge)
+        new_v, new_i = _top_k_rows(
+            chain.cont._rows, chain.cont.layout, chain.off, chain.n,
+            chain.ops, _chain_scalars([chain]), ovc.cont._rows,
+            ovc.cont.layout, ovc.cont.dtype,
+            oic.cont._rows if oic is not None else None,
+            oic.cont.layout if oic is not None else None, ovc.n, largest,
+            merge)
+        ovc.cont._rows = new_v
+        if oic is not None:
+            oic.cont._rows = new_i
         return out_vals
     finally:
         _obs.end(sid)
 
 
-def _top_k(chain, ovc, oic, largest, merge) -> None:
+def _top_k_rows(in_rows, in_layout, off, n, ops, chain_sc, ov_rows,
+                ov_layout, ov_dtype, oi_rows, oi_layout, k, largest,
+                merge):
     """Each rank's k best (order key, index) pairs, gathered and sorted
-    once more, into the rows of ``ovc`` (and ``oic``)."""
-    cont, k = chain.cont, ovc.n
-    devs = cont.runtime.devices
-    p = len(devs)
-    ov_dtype = ovc.cont.dtype
+    once more: the new rows of the value (and index) container."""
+    p = len(in_rows)
     sentinel = _worst(ov_dtype, largest)
     cands = []
     for rk in range(p):
-        dev = devs[rk]
-        x = _apply_ops(cont._rows[rk][0], chain.ops)
-        mask, gid = owned_window_mask(cont.layout, chain.off, chain.n, rk,
-                                      dev)
+        dev = in_rows[rk].device
+        x = _apply_chain_ops(in_rows[rk][0], ops, iter(chain_sc))
+        mask, gid = owned_window_mask(in_layout, off, n, rk, dev)
         xv = torch.where(mask, x.to(ov_dtype), sentinel)
-        gv = torch.where(mask, (gid - chain.off).to(torch.int32), _GMAX)
+        gv = torch.where(mask, (gid - off).to(torch.int32), _GMAX)
         if merge:
-            omask, _ = owned_window_mask(ovc.cont.layout, 0, k, rk, dev)
-            mv = torch.where(omask, ovc.cont._rows[rk][0], sentinel)
-            mg = torch.where(omask, oic.cont._rows[rk][0], _GMAX) \
-                if oic is not None else torch.full_like(mv, _GMAX,
-                                                        dtype=torch.int32)
+            omask, _ = owned_window_mask(ov_layout, 0, k, rk, dev)
+            mv = torch.where(omask, ov_rows[rk][0], sentinel)
+            mg = torch.where(omask, oi_rows[rk][0], _GMAX) \
+                if oi_rows is not None else torch.full_like(
+                    mv, _GMAX, dtype=torch.int32)
             xv, gv = torch.cat([xv, mv]), torch.cat([gv, mg])
         order = _order_of(xv, largest)
         kk = min(k, xv.numel())
         best = _sort_perm2(order, gv)[:kk]
         cands.append((order[best], gv[best], xv[best]))
     results = {}
+    new_v, new_i = [], []
     for rk in range(p):
-        dev = devs[rk]
+        dev = in_rows[rk].device
         if dev not in results:
             Go, Gg, Gv = (collectives.all_gather([c[i] for c in cands], dev)
                           .reshape(-1) for i in range(3))
@@ -1287,14 +1478,15 @@ def _top_k(chain, ovc, oic, largest, merge) -> None:
             best = _sort_perm2(Go, Gg)[:k]
             results[dev] = (Gv[best], Gg[best])
         res_v, res_g = results[dev]
-        t = _slots(ovc.cont.layout, rk, dev)
+        t = _slots(ov_layout, rk, dev)
         live = t < k
-        ovc.cont._rows[rk] = _pack_out_row(
+        new_v.append(_pack_out_row(
             torch.where(live, res_v[t.clamp(0, k - 1)], sentinel), live,
-            ovc.cont.layout, rk)
-        if oic is not None:
-            ti = _slots(oic.cont.layout, rk, dev)
+            ov_layout, rk))
+        if oi_rows is not None:
+            ti = _slots(oi_layout, rk, dev)
             ilive = ti < k
-            oic.cont._rows[rk] = _pack_out_row(
+            new_i.append(_pack_out_row(
                 torch.where(ilive, res_g[ti.clamp(0, k - 1)], _GMAX),
-                ilive, oic.cont.layout, rk)
+                ilive, oi_layout, rk))
+    return new_v, (new_i if oi_rows is not None else None)

@@ -18,6 +18,11 @@ of the input window (:func:`_prefix_scan` for a custom op, K4 for an
 f32/bf16/f16 add-scan), folds the totals of the ranks before it that own
 cells, and the scanned slices are copied into the ranks that own the
 output window (the realign of ``dr_tpu/algorithms/scan.py:425-540``).
+
+Inside ``dt.deferred()`` both scans record OPAQUE (``Plan.record_opaque``
+with :func:`_scan_footprint`): they run through this eager path at the
+flush, in record order, so an f32 add-scan launches K4 there.
+``inclusive_scan_n`` reads the rows directly and flushes first.
 """
 
 from __future__ import annotations
@@ -33,7 +38,8 @@ from ..ops import scan_pallas
 from .elementwise import _Chain, _apply_ops, _out_chain, _resolve, \
     _write_window
 from .reduce import _classify_op
-from .elementwise import _op_key, _prog_cache, _traced_op_key
+from .elementwise import (_op_key, _plan_active, _prog_cache,
+                          _traced_op_key)
 from ..core.pinning import pinned_id
 from ..utils.spmd_guard import dtype_name
 from ..containers.distributed_vector import _as_tensor
@@ -271,14 +277,48 @@ def _scan(in_r, out, op, init, exclusive):
     return out
 
 
+def _scan_footprint(in_r, out):
+    """The optimizer footprint of a recorded scan: the input chains'
+    containers are read, the out container is read and window-written.
+    A shape that does not resolve is a barrier (None, None)."""
+    try:
+        ins = _resolve(in_r)
+        oc = _out_chain(out)
+    except Exception:
+        return None, None
+    if ins is None:
+        return None, None
+    reads = {id(c.cont): c.cont for c in ins}
+    reads[id(oc.cont)] = oc.cont
+    return tuple(reads.values()), ((oc.cont, False),)
+
+
 def inclusive_scan(in_r, out, op: Callable = None, init=None):
     """Distributed inclusive prefix scan; ``init`` folds into every
     prefix (std::inclusive_scan)."""
+    p = _plan_active()
+    if p is not None:
+        reads, writes = _scan_footprint(in_r, out)
+        p.record_opaque("inclusive_scan",
+                        lambda: _scan(in_r, out, op, init, exclusive=False),
+                        reads=reads, writes=writes)
+        return out
     return _scan(in_r, out, op, init, exclusive=False)
 
 
 def exclusive_scan(in_r, out, init=0, op: Callable = None):
     """Exclusive prefix scan; position 0 takes ``init``."""
+    p = _plan_active()
+    if p is not None:
+        reads, writes = _scan_footprint(in_r, out)
+        p.record_opaque("exclusive_scan",
+                        lambda: _exclusive_scan(in_r, out, init, op),
+                        reads=reads, writes=writes)
+        return out
+    return _exclusive_scan(in_r, out, init, op)
+
+
+def _exclusive_scan(in_r, out, init, op):
     out = _scan(in_r, out, op, None, exclusive=True)
     kind = _classify_op(op)
     skip = init is None or (kind == "add" and isinstance(init, (int, float))
@@ -290,7 +330,10 @@ def exclusive_scan(in_r, out, init=0, op: Callable = None):
 
 def inclusive_scan_n(in_v, out, iters: int):
     """``iters`` chained add-scans (each round scans the previous
-    round's output): a measurement aid, not cumsum(in)."""
+    round's output): a measurement aid, not cumsum(in).  It reads the
+    rows directly, so a recording plan flushes first."""
+    from ..plan import flush_reads
+    flush_reads("inclusive_scan_n")
     ins = _resolve(in_v)
     out_chain = _out_chain(out)
     assert (ins is not None and len(ins) == 1 and not ins[0].ops

@@ -41,9 +41,11 @@ values (int64 keys stay 64-bit; narrower ones widen to int32).  Keys-only
 and ``is_sorted`` give both zeros one key.  The payload moves as raw bits,
 so a -0.0 payload stays -0.0.
 
+Every entry point is a deferred-plan barrier: inside ``dt.deferred()``
+the plan flushes (``plan.barrier``) before the sort runs eagerly.
+
 Not carried over: the ``DR_TPU_SORT_STABLE`` comparator knob (the output
-is the same either way, every channel set being a total order) and the
-deferred-plan barrier.
+is the same either way, every channel set being a total order).
 """
 
 from __future__ import annotations
@@ -97,6 +99,12 @@ def _decode(k: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     if not dtype.is_floating_point:
         return k.to(dtype)
     return order_keys.from_keys(k, dtype, torch.iinfo(k.dtype).max - 1)
+
+
+def _plan_barrier(what: str) -> None:
+    """Sort-family ops do not fuse: a recording plan flushes first."""
+    from ..plan import barrier
+    barrier(what)
 
 
 def _const(values, dev) -> torch.Tensor:
@@ -370,6 +378,7 @@ def sort(r, *, descending: bool = False):
     """Sort a ``distributed_vector`` or a subrange window over one in
     place, ascending by default.  Keys-only: the result is a bit-exact
     permutation of the input (-0.0 before +0.0, NaNs last)."""
+    _plan_barrier("sort")
     chain = _out_chain(r)
     if chain.n:
         _sort_tap(chain, None, descending)
@@ -384,6 +393,7 @@ def sort_by_key(keys, values, *, descending: bool = False):
     distributions and dtypes; two windows of one container may overlap,
     and then the payload's value wins.  A payload on another rank list
     is copied onto the keys' ranks, sorted there and copied back."""
+    _plan_barrier("sort_by_key")
     kc, vc = _out_chain(keys), _out_chain(values)
     if kc.n != vc.n:
         raise ValueError(
@@ -424,6 +434,7 @@ def _whole_pair(keys, values):
 def sort_n(v, iters: int):
     """``iters`` chained whole-container sorts (a timing aid: after the
     first round the data is sorted; the result is the sorted input)."""
+    _plan_barrier("sort_n")
     chain = _whole(v)
     _n_tap("sort_n", chain, None, iters)
     for _ in range(iters):
@@ -434,6 +445,7 @@ def sort_n(v, iters: int):
 
 def sort_by_key_n(keys, values, iters: int):
     """``iters`` chained key-value sorts of two whole containers."""
+    _plan_barrier("sort_by_key_n")
     kc, vc = _whole_pair(keys, values)
     _n_tap("sortkv_n", kc, vc, iters)
     for _ in range(iters):
@@ -447,6 +459,7 @@ def sort_phases_n(v, stop_after, iters: int):
     :data:`SORT_PHASES` (a profiling aid: the container then holds a
     phase-dependent mix of values, not a sorted range; use scratch
     data)."""
+    _plan_barrier("sort_phases_n")
     chain = _whole(v)
     _n_tap("sortph_n", chain, None, iters, stop_after)
     for _ in range(iters):
@@ -459,6 +472,7 @@ def sort_by_key_phases_n(keys, values, stop_after, iters: int):
     """Key-value twin of :func:`sort_phases_n` over
     :data:`SORTKV_PHASES`; truncations before ``"payload"`` leave the
     payload container untouched."""
+    _plan_barrier("sort_by_key_phases_n")
     kc, vc = _whole_pair(keys, values)
     _n_tap("sortkvph_n", kc, vc, iters, stop_after)
     for _ in range(iters):
@@ -472,6 +486,7 @@ def argsort(r, *, descending: bool = False):
     ``distributed_vector``: element i holds the original position of the
     i-th element of the sorted order.  ``r`` is read only (transform
     views are accepted: the copy applies them)."""
+    _plan_barrier("argsort")
     from ..containers.distributed_vector import distributed_vector
     res = _resolve(r)
     if res is None or len(res) != 1:
@@ -492,6 +507,7 @@ def is_sorted(r) -> bool:
     views run in place: each rank checks its cells, and each nonempty
     rank's first key against the largest last key of the nonempty ranks
     before it.  One host read at the end."""
+    _plan_barrier("is_sorted")
     res = _resolve(r)
     if res is None:
         raise TypeError("is_sorted takes a distributed range")

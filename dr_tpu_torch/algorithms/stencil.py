@@ -14,6 +14,11 @@ framework's north-star workload (counterpart of
 The op is a weight vector ``w[-prev..+next]`` or a callable over the
 ``prev+next+1`` shifted neighbourhood tensors.  Preconditions are the
 JAX package's asserts, so both packages accept and refuse the same calls.
+
+Inside ``dt.deferred()``, ``stencil_transform`` records one fused
+exchange + step (``Plan.record_stencil``, :func:`_step_rows` at the
+flush), and the iterated, blocked (K2) and matmul (K1) stencils record
+OPAQUE: they run through their eager path at the flush, in record order.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ from typing import Callable, Optional, Sequence, Union
 import torch
 
 from ._common import uniform_layout
-from .elementwise import _op_key, _out_chain, _prog_cache, _resolve
+from .elementwise import (_op_key, _out_chain, _plan_active, _prog_cache,
+                          _resolve)
 from ..core.pinning import pinned_id
 from ..utils import spmd_guard
 from ..utils.spmd_guard import dtype_name
@@ -120,6 +126,11 @@ def stencil_transform(in_dv, out_dv, op: Union[Callable, Sequence[float]],
     body_op, prev, nxt = _radius(cont, op)
     if radius is not None:
         prev = nxt = radius
+    p = _plan_active()
+    if p is not None:
+        p.record_stencil(cont, oc.cont, cont.halo_bounds.periodic, prev, nxt,
+                         _key_op(op), body_op)
+        return
     _prog_cache.tap(("stencil", pinned_id(cont.runtime), cont.layout,
                      cont.halo_bounds.periodic, prev, nxt, _key_op(op),
                      dtype_name(cont.dtype)))
@@ -132,6 +143,13 @@ def stencil_iterate(a_dv, b_dv, op: Union[Callable, Sequence[float]],
                     steps: int):
     """``steps`` fused stencil steps with double buffering; returns
     ``a_dv`` holding the final state (``b_dv`` holds the other buffer)."""
+    p = _plan_active()
+    if p is not None:
+        p.record_opaque("stencil_iterate",
+                        lambda: stencil_iterate(a_dv, b_dv, op, steps),
+                        reads=(a_dv, b_dv),
+                        writes=((a_dv, False), (b_dv, False)))
+        return a_dv
     cont = a_dv
     assert b_dv.layout == cont.layout
     assert uniform_layout(cont.layout), \
@@ -193,6 +211,13 @@ def stencil_iterate_blocked(dv, weights, steps: int, *, time_block: int = 8):
     data (K2), one ring exchange per block.  Needs the periodic ring,
     halo >= time_block * radius and equal full shards.  Returns ``dv``
     stepped ``steps`` times."""
+    p = _plan_active()
+    if p is not None:
+        p.record_opaque("stencil_iterate_blocked",
+                        lambda: stencil_iterate_blocked(
+                            dv, weights, steps, time_block=time_block),
+                        reads=(dv,), writes=((dv, False),))
+        return dv
     from ..ops import stencil_pallas
     r, seg, halo = _blocked_asserts(dv, weights, time_block, "time_block")
     # one hop supplies at most seg fresh neighbour cells
@@ -212,6 +237,13 @@ def stencil_iterate_matmul(dv, weights, steps: int, *, k_block: int = 32):
     one banded operator per pass (K1), one ring exchange per block.  Same
     contract as :func:`stencil_iterate_blocked`, plus
     k_block <= max_ksteps(radius) and 128-aligned seg and halo."""
+    p = _plan_active()
+    if p is not None:
+        p.record_opaque("stencil_iterate_matmul",
+                        lambda: stencil_iterate_matmul(
+                            dv, weights, steps, k_block=k_block),
+                        reads=(dv,), writes=((dv, False),))
+        return dv
     from ..ops import stencil_matmul
     r, seg, halo = _blocked_asserts(dv, weights, k_block, "k_block")
     assert k_block <= stencil_matmul.max_ksteps(r), \

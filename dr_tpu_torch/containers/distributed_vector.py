@@ -14,6 +14,13 @@ container's rows.
 Unlike the JAX arrays, the rows are mutable: algorithms update them in
 place where that saves a copy.
 
+Host reads and writes of a vector (``to_array``, ``get``, ``put``,
+indexing, ``materialize``, ``assign_array``) flush a recording deferred
+plan first when its queue touches the vector (``plan.flush_reads``).
+``_rows`` is a property so that the plan verifier's container watcher
+(``utils/sanitize.watch_containers``) sees every read and rebind; with
+no watcher armed it costs one module-global check.
+
 Allocating the rows, :meth:`~distributed_vector.to_array` and
 :meth:`~distributed_vector.assign_array` look up ``_jit_cache`` (the
 dispatch tap of ``utils/spmd_guard``) with the JAX package's keys for
@@ -30,6 +37,7 @@ import torch
 
 from ..core.pinning import pinned_id
 from ..core.segment import Segment
+from ..utils import sanitize as _sanitize
 from ..utils.spmd_guard import TappedCache, dtype_name
 from ..parallel import runtime as _rt
 from ..parallel.halo import halo_bounds, span_halo
@@ -74,6 +82,14 @@ def _as_tensor(values) -> torch.Tensor:
     if not arr.flags.writeable:  # e.g. np.asarray of a jax.Array
         arr = arr.copy()
     return torch.from_numpy(np.ascontiguousarray(arr))
+
+
+def _plan_flush(reason: str, cont=None) -> None:
+    """Pending recorded ops land before a host read or write; with
+    ``cont``, only when the plan's queue touches it.  Lazy import: the
+    plan module builds on the algorithm layer above this one."""
+    from ..plan import flush_reads
+    flush_reads(reason, cont)
 
 
 def _host_numpy(t: torch.Tensor) -> np.ndarray:
@@ -136,7 +152,7 @@ class distributed_vector:
             starts = sizes = None
         prior = {k: self.__dict__.get(k)
                  for k in ("_rt", "_nshards", "_dist_entry", "_seg",
-                           "_starts", "_sizes", "_rows", "_halo")}
+                           "_starts", "_sizes", "_rows_arr", "_halo")}
         try:
             self._rt = runtime
             self._nshards = P
@@ -156,6 +172,23 @@ class distributed_vector:
             if prior["_rt"] is not None:  # a live re-layout, not __init__
                 self.__dict__.update(prior)
             raise
+        if prior["_rt"] is None and _sanitize._born_hook is not None:
+            _sanitize._born_hook(self)
+
+    @property
+    def _rows(self):
+        """The per-rank rows (watched: see the module docstring)."""
+        h = _sanitize._access_hook
+        if h is not None:
+            h("r", self)
+        return self._rows_arr
+
+    @_rows.setter
+    def _rows(self, value):
+        h = _sanitize._access_hook
+        if h is not None:
+            h("w", self)
+        self._rows_arr = value
 
     # ------------------------------------------------------------------ meta
     @property
@@ -245,6 +278,7 @@ class distributed_vector:
 
     def to_array(self) -> torch.Tensor:
         """Current logical value as a 1-D tensor on rank 0's device."""
+        _plan_flush("to_array", self)
         self._tap("extract")
         prev = self._hb.prev
         dev = self._rt.devices[0]
@@ -262,6 +296,7 @@ class distributed_vector:
         zero)."""
         values = _as_tensor(values)
         assert values.shape == (self._n,)
+        _plan_flush("assign_array", self)
         self._tap("pack")
         prev = self._hb.prev
         rows = []
@@ -284,6 +319,7 @@ class distributed_vector:
         return dv
 
     def _local_values(self, rank: int, begin: int, end: int):
+        _plan_flush("local segment read", self)
         lo = self._rank_window(rank)[0]
         prev = self._hb.prev
         return self._rows[rank][0, prev + (begin - lo): prev + (end - lo)]
@@ -309,6 +345,7 @@ class distributed_vector:
 
     def get(self, indices) -> torch.Tensor:
         """Batched read, gathered onto rank 0's device."""
+        _plan_flush("get", self)
         idx = self._check_indices(indices)
         r, c = self._locate(idx)
         dev = self._rt.devices[0]
@@ -322,6 +359,7 @@ class distributed_vector:
 
     def put(self, indices, values) -> None:
         """Batched write."""
+        _plan_flush("put", self)
         idx = self._check_indices(indices)
         vals = _as_tensor(values).reshape(-1)
         if vals.numel() == 1 and len(idx) != 1:
@@ -340,6 +378,7 @@ class distributed_vector:
             start, stop, step = key.indices(self._n)
             assert step == 1, "stride-1 subranges only"
             return subrange(self, start, stop)
+        _plan_flush("__getitem__", self)
         i = int(key)
         if i < 0:
             i += self._n
@@ -348,6 +387,7 @@ class distributed_vector:
         return self.get([i])[0].item()
 
     def __setitem__(self, key, value) -> None:
+        _plan_flush("__setitem__", self)
         if isinstance(key, slice):
             start, stop, step = key.indices(self._n)
             assert step == 1
@@ -364,9 +404,11 @@ class distributed_vector:
         return iter(self.materialize())
 
     def materialize(self) -> np.ndarray:
+        _plan_flush("materialize", self)
         return _host_numpy(self.to_array())
 
     def block_until_ready(self) -> "distributed_vector":
+        _plan_flush("block_until_ready")
         self._rt.fence()
         return self
 

@@ -160,12 +160,14 @@ def library(name: str):
 
 def on_cuda(*tensors) -> bool:
     """True when every tensor lies on a CUDA device (the kernel route),
-    False when every one lies on the CPU (the plain route); a mix or any
-    other device raises."""
+    False when every one lies on the CPU (the plain route) or every one
+    is a ``meta`` tensor (the plan verifier's shape-only replay, which
+    the plain version serves without data); a mix or any other device
+    raises."""
     types = {t.device.type for t in tensors}
     if types == {"cuda"}:
         return True
-    if types == {"cpu"}:
+    if types == {"cpu"} or types == {"meta"}:
         return False
     raise ValueError(f"tensors on mixed or unsupported devices: {types}")
 

@@ -18,7 +18,10 @@ the results are bit-identical to the JAX package's.
 ``halo.reduce`` fault sites and then look up ``_program_cache`` (the
 dispatch tap) before any row is touched, as the JAX package does; the
 stencils' fused exchanges call :func:`exchange_rows` directly, like the
-JAX stencil programs, and fire neither.
+JAX stencil programs, and fire neither.  Inside ``dt.deferred()`` the
+exchange, ``exchange_n`` and reduce record into the plan
+(``Plan.record_halo``: the same row functions at the flush, no fault
+site of their own), and the ``*_finalize`` calls flush it.
 """
 
 from __future__ import annotations
@@ -128,6 +131,11 @@ def reduce_rows(rows, devices, layout, periodic, op):
             rows[r][:, prev: prev + nxt] = _combine(op, owned, got_n[r])
 
 
+def _plan_active():
+    from ..plan import active
+    return active()
+
+
 #: the halo's dispatch cache (the JAX package's exchange / reduce programs)
 _program_cache: dict = TappedCache()
 
@@ -186,6 +194,10 @@ class span_halo:
     def exchange(self) -> None:
         if self._active():
             dv = self._dv
+            p = _plan_active()
+            if p is not None:
+                p.record_halo(dv, "exchange")
+                return
             _faults.fire("halo.exchange")
             _tap("exchange", dv)
             exchange_rows(dv._rows, dv.runtime.devices, dv.layout,
@@ -197,6 +209,10 @@ class span_halo:
         if not self._active() or iters <= 0:
             return
         dv = self._dv
+        p = _plan_active()
+        if p is not None:
+            p.record_halo(dv, "exchange_n", iters=iters)
+            return
         _faults.fire("halo.exchange")
         _tap("exchange_n", dv, iters=iters)
         for _ in range(iters):
@@ -208,11 +224,17 @@ class span_halo:
         self.exchange()
 
     def exchange_finalize(self) -> None:
+        from ..plan import flush_reads
+        flush_reads("exchange_finalize")
         self._dv.runtime.fence()
 
     def reduce(self, op: str = halo_ops.plus) -> None:
         if self._active():
             dv = self._dv
+            p = _plan_active()
+            if p is not None:
+                p.record_halo(dv, "reduce", op)
+                return
             _faults.fire("halo.reduce")
             _tap("reduce", dv, op)
             reduce_rows(dv._rows, dv.runtime.devices, dv.layout,
@@ -222,6 +244,8 @@ class span_halo:
         self.reduce(op)
 
     def reduce_finalize(self) -> None:
+        from ..plan import flush_reads
+        flush_reads("reduce_finalize")
         self._dv.runtime.fence()
 
     def reduce_plus(self):

@@ -36,9 +36,12 @@ communication", arXiv:2112.01075).
   faulted exchange rolls the rebind back: the vector is exactly as it
   was.
 
-Not carried over yet: the ``DR_TPU_REDISTRIBUTE`` override, the
-deferred-plan recording (``plan/``) and ``reshard_copy``, which nothing
-in the port calls.
+Inside ``dt.deferred()`` a collective re-layout records into the plan
+(``Plan.record_redistribute``): the layout flips at record time and the
+rows move at the flush through :func:`exchange_rows`.
+
+Not carried over yet: the ``DR_TPU_REDISTRIBUTE`` override and
+``reshard_copy``, which nothing in the port calls.
 """
 
 from __future__ import annotations
@@ -198,8 +201,18 @@ def _collective(cont, new_dist, rt):
 def redistribute_vector(cont, new_dist, rt):
     """Re-lay one ``distributed_vector`` out under ``new_dist`` on
     ``rt``: the collective exchange when the source and target share the
-    device list, the host-staged route otherwise."""
+    device list, the host-staged route otherwise.  Inside
+    ``dt.deferred()`` a collective move records into the plan
+    (``Plan.record_redistribute``); the host-staged route flushes it
+    first."""
     collective = cont.runtime.devices == rt.devices
+    from ..plan import active
+    p = active()
+    if p is not None:
+        if collective:
+            p.record_redistribute(cont, new_dist, rt)
+            return cont
+        p.nonfusible("redistribute (host-staged route)")
     sid = _obs.begin("redistribute", cat="redistribute",
                      impl="collective" if collective else "host",
                      n=len(cont), nshards=rt.nprocs)

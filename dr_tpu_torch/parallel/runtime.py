@@ -49,7 +49,10 @@ class Runtime:
 
     def fence(self) -> None:
         """Wait for all work queued on the runtime's CUDA devices (CPU
-        work is synchronous already)."""
+        work is synchronous already); a recording deferred plan flushes
+        first."""
+        from ..plan import flush_reads
+        flush_reads("fence")
         for d in dict.fromkeys(self.devices):
             if d.type == "cuda":
                 torch.cuda.synchronize(d)

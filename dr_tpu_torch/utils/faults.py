@@ -29,10 +29,13 @@ checkpoint.write       ``checkpoint.save``, between the write and the
 checkpoint.read        ``checkpoint.load / read``
 kernel.build           ``ops/kernels``: every build and every launch of
                        a CUDA kernel
+plan.flush             ``plan.Plan.flush``, before anything of the
+                       queue runs
+sanitize.verify        ``plan.Plan.flush``, right after ``plan.flush``
+                       (armed or not)
 =====================  ===============================================
 
-Sites whose modules are not ported fire nowhere yet: ``plan.flush`` and
-``sanitize.verify`` come with ``plan/``; ``mesh.shrink``, ``mesh.grow``
+Sites whose modules are not ported fire nowhere yet: ``mesh.shrink``, ``mesh.grow``
 and ``device.recover`` with ``elastic``; ``serve.*``, ``arena.*`` and
 ``router.*`` with ``serve/``.  ``runtime.probe`` and ``fallback.warn``
 never fire in the port: it has no device probe and no fallback.
@@ -113,7 +116,6 @@ SITES: Dict[str, Tuple[str, ...]] = {
 #: the sites that fire in the port; the others wait for the slice that
 #: ports their module (``None``: never, the port has no such code)
 PORT_PENDING: Dict[str, Optional[str]] = {
-    "plan.flush": "plan/", "sanitize.verify": "plan/",
     "mesh.shrink": "elastic", "mesh.grow": "elastic",
     "device.recover": "elastic",
     "serve.accept": "serve/", "serve.request": "serve/",

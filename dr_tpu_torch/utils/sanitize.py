@@ -11,8 +11,10 @@
   :func:`zero_recompile` is the strict region form: no insert at all may
   occur inside.
 * **Finite flush** (:func:`is_finite` / :func:`check_finite`): every
-  inexact tensor a deferred-plan run touched must be NaN/Inf-free.  The
-  checks are ported here; their caller comes with ``plan/``.
+  inexact row and scalar a deferred-plan run produced must be
+  NaN/Inf-free; ``plan.Plan.flush`` checks after each run (a run whose
+  inputs were already non-finite is exempt).  The plan's footprint
+  verifier (``plan/plansan.py``) arms too.
 * **Canon portability**: every dispatch key recorded under an active
   guard must canonicalize without a process-local ``0x...`` address (an
   address in the canon would make ``spmd_guard.verify()`` report a false
@@ -147,8 +149,8 @@ def zero_recompile(what: str = "region"):
 
 
 # ---------------------------------------------------------------------------
-# container-access watching (the observation channel of the plan/ slice's
-# footprint verifier)
+# container-access watching (the observation channel of the plan's
+# footprint verifier, plan/plansan.watch)
 # ---------------------------------------------------------------------------
 
 #: module-global fast gates for instrumented containers: a read pays
@@ -179,9 +181,8 @@ def watch_containers(access, born=None):
     block: instrumented containers report every read
     (``access("r", cont)``), every rebind (``access("w", cont)``), and
     every container creation (``born(cont)``).  Nests (the previous
-    watcher is restored); other threads stay unobserved.  The port's
-    containers report through it from the ``plan/`` slice on, which
-    brings its one caller."""
+    watcher is restored); other threads stay unobserved.
+    ``distributed_vector`` reports through it (its ``_rows``)."""
     global _access_hook, _born_hook, _watchers
     prev = (getattr(_watch_tls, "access", None),
             getattr(_watch_tls, "born", None))

@@ -69,7 +69,6 @@ def test_registry_and_pending_sites():
     assert faults.sites() == jfaults.sites()
     assert set(faults.PORT_PENDING) < set(faults.sites())
     assert faults.PORT_PENDING == {
-        "plan.flush": "plan/", "sanitize.verify": "plan/",
         "mesh.shrink": "elastic", "mesh.grow": "elastic",
         "device.recover": "elastic",
         **{s: "serve/" for s in ("serve.accept", "serve.request",
@@ -185,4 +184,4 @@ def test_phase22_rehearsal(tmp_path):
                            **SHAPE, **SIZES)
     assert out["kernel.build:program"] == "plain route"
     assert out["checkpoint.write:truncate"] == "CheckpointCorruptError"
-    assert sum(v == "same bits" for v in out.values()) == 10
+    assert sum(v == "same bits" for v in out.values()) == 12

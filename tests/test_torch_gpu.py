@@ -1269,3 +1269,191 @@ def test_real_oom_classifies_as_device_oom(cuda):
         resilience.retry(alloc, attempts=3, sleep=lambda s: None)
     assert calls == [1]
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------- deferred plans
+
+def _pl_scale(x, c):
+    return x * c
+
+
+def _pl_shift(x, c):
+    return x + c
+
+
+@pytest.fixture
+def dtc(cuda):
+    """``dr_tpu_torch`` on 4 ranks of the card (every row on cuda:0, so
+    a flushed run is captured into a CUDA graph)."""
+    import dr_tpu_torch as dt
+    dt.init(dt.get_duplicated_devices(4, ["cuda:0"]))
+    yield dt
+    dt.plan._plan_cache.clear()
+    dt.final()
+
+
+def _small(dt, a, b, s=0.5):
+    dt.for_each(a, _pl_scale, 1.5)
+    dt.halo(a).exchange()
+    dt.transform(a, b, _pl_shift, s)
+    return dt.reduce(b)
+
+
+def _pair_vectors(dt, gen, n, halo=1, count=2):
+    src = torch.randn(n, generator=gen, device="cuda")
+    hb = dt.halo_bounds(halo, halo, periodic=True)
+    return [dt.distributed_vector.from_array(src, halo=hb)
+            for _ in range(count)]
+
+
+def _rows_equal(u, v):
+    return all(torch.equal(x, y) for x, y in zip(u.rows, v.rows))
+
+
+def test_plan_graph_replay_matches_eager_across_calls_and_streams(dtc, cuda):
+    dt, (_, gen) = dtc, cuda
+    ea, da = _pair_vectors(dt, gen, 1 << 16)
+    eb, db = _pair_vectors(dt, gen, 1 << 16)
+    plan = dt.plan.Plan()
+    side = torch.cuda.Stream()
+    for k in range(5):
+        want = float(_small(dt, ea, eb))
+        if k == 4:  # the last replay on a side stream
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                with plan.record():
+                    got = _small(dt, da, db)
+                val = float(got)
+            torch.cuda.current_stream().wait_stream(side)
+        else:
+            with plan.record():
+                got = _small(dt, da, db)
+            val = float(got)
+        torch.cuda.synchronize()
+        assert val == want, k
+        assert _rows_equal(da, ea) and _rows_equal(db, eb), k
+    st = plan.stats()
+    assert st["eager_runs"] == 1 and st["graph_captures"] == 1
+    assert st["graph_replays"] == 4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_plan_new_scalars_give_the_eager_bits(dtc, dtype):
+    dt = dtc
+    v = dt.distributed_vector(1 << 16, dtype)
+    w = dt.distributed_vector(1 << 16, dtype)
+    plan = dt.plan.Plan()
+    for fv, cv in ((1.1, 3.3), (1.1, 3.3), (1.1, 3.3), (2.2, 0.7),
+                   (2.2, 0.7)):
+        with plan.record():
+            dt.fill(v, fv)
+            dt.for_each(v, _pl_scale, cv)
+        dt.fill(w, fv)
+        dt.for_each(w, _pl_scale, cv)
+        assert _rows_equal(v, w), (fv, cv)
+    st = plan.stats()
+    # new values run in order once, then capture: never a stale replay
+    assert st["graph_replays"] == 3 and st["graph_captures"] == 2
+
+
+def _k1_k4_region(dt, x, a, res):
+    dt.iota(x, 0)
+    dt.for_each(x, _pl_scale, 2.0 ** -12)
+    dt.inclusive_scan(x, res)
+    dt.transform(x, a, _pl_shift, -0.5)
+    dt.halo(a).exchange()
+    dt.stencil_iterate_matmul(a, W5, 64, k_block=64)
+    return dt.dot(a, a)
+
+
+def test_plan_region_with_k1_and_k4_gives_the_eager_bits(cuda):
+    import dr_tpu_torch as dt
+    dt.init(["cuda:0"])
+    try:
+        hb = dt.halo_bounds(512, 512, periodic=True)
+        x, a, res = (dt.distributed_vector(1 << 16, torch.float32, halo=hb)
+                     for _ in range(3))
+        kernels.reset_counts()
+        want = _k1_k4_region(dt, x, a, res)
+        rows = [[r.clone() for r in v.rows] for v in (x, a, res)]
+        want_counts = dict(kernels.launches)
+        assert want_counts["stencil_matmul"] == 1
+        assert want_counts["chunked_cumsum"] == 1
+        plan = dt.plan.Plan()
+        for _ in range(2):
+            kernels.reset_counts()
+            with plan.record():
+                got = _k1_k4_region(dt, x, a, res)
+            assert float(got) == want
+            assert dict(kernels.launches) == want_counts
+            for v, w in zip((x, a, res), rows):
+                assert all(torch.equal(g, e) for g, e in zip(v.rows, w))
+        st = plan.stats()
+        # the run over x alone replays; K1 and K4 replace the rows of a
+        # and res, so the runs over a run in order at every flush
+        assert st["opaque_ops"] == 4 and st["fused_runs"] == 6
+        assert st["graph_replays"] == 1 and st["graph_captures"] == 1
+    finally:
+        dt.plan._plan_cache.clear()
+        dt.final()
+
+
+def test_plan_graph_never_replays_into_another_container(dtc, cuda):
+    """A graph bakes in its rows' addresses: a flush over another
+    container of the same layout captures anew and leaves the first
+    container as it was."""
+    dt, (_, gen) = dtc, cuda
+    a1, a2, e1, e2 = _pair_vectors(dt, gen, 1 << 16, count=4)
+    b1, b2, f1, f2 = _pair_vectors(dt, gen, 1 << 16, count=4)
+    plan = dt.plan.Plan()
+    for _ in range(2):
+        with plan.record():
+            _small(dt, a1, b1)
+        _small(dt, e1, f1)
+    keep = [[r.clone() for r in v.rows] for v in (a1, b1)]
+    with plan.record():
+        s = _small(dt, a2, b2)
+    want = float(_small(dt, e2, f2))
+    torch.cuda.synchronize()
+    for v, w in zip((a1, b1), keep):
+        assert all(torch.equal(g, e) for g, e in zip(v.rows, w))
+    assert _rows_equal(a1, e1) and _rows_equal(b1, f1)
+    assert _rows_equal(a2, e2) and _rows_equal(b2, f2)
+    assert float(s) == want
+    st = plan.stats()
+    # a2/b2's first flush runs in order: its rows are not the graph's
+    assert st["graph_captures"] == 1 and st["graph_replays"] == 1
+    assert st["eager_runs"] == 2
+
+
+def _k7_k8_region(dt, v, h, t, i):
+    dt.histogram(v, h, -3.0, 3.0)
+    dt.top_k(v, t, i)
+    return dt.reduce(v, op=min)
+
+
+def test_plan_graph_replays_k7_k8_and_counts_their_launches(dtc, cuda):
+    """A run with a histogram (K8), a top_k and a min reduce (K7) is
+    captured and replayed with the eager bits, and each replay adds the
+    launches its capture recorded."""
+    dt, (_, gen) = dtc, cuda
+    v = dt.distributed_vector.from_array(
+        torch.randn(1 << 16, generator=gen, device="cuda"))
+    outs = [(dt.distributed_vector(64, torch.int32),
+             dt.distributed_vector(8, torch.float32),
+             dt.distributed_vector(8, torch.int32)) for _ in range(2)]
+    kernels.reset_counts()
+    want = float(_k7_k8_region(dt, v, *outs[0]))
+    want_counts = dict(kernels.launches)
+    assert want_counts["hist"] == 4 and want_counts["segred"] == 4
+    plan = dt.plan.Plan()
+    for _ in range(3):
+        kernels.reset_counts()
+        with plan.record():
+            got = _k7_k8_region(dt, v, *outs[1])
+        assert float(got) == want
+        assert dict(kernels.launches) == want_counts
+        for x, y in zip(*outs):
+            assert _rows_equal(x, y)
+    st = plan.stats()
+    assert st["graph_captures"] == 1 and st["graph_replays"] == 2

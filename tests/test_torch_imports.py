@@ -50,7 +50,8 @@ def test_port_files_exist():
             "redistribute.py", "checkpoint.py", "elastic.py", "expr.py",
             "logging.py", "debug.py", "env.py", "recorder.py", "metrics.py",
             "export.py", "profiling.py", "faults.py", "spmd_guard.py",
-            "sanitize.py", "pinning.py", "chip_smoke.py"} <= names
+            "sanitize.py", "pinning.py", "chip_smoke.py", "opt.py",
+            "plansan.py", "interference.py"} <= names
     for rel in ("utils/faults.py", "utils/spmd_guard.py",
                 "utils/sanitize.py", "core/pinning.py"):
         assert (REPO / "dr_tpu_torch" / rel) in PORT_FILES, rel
@@ -58,11 +59,9 @@ def test_port_files_exist():
 
 
 #: the names of ``dr_tpu.__all__`` the port does not have yet: the
-#: host-side layers of ROADMAP.md queue 1 item 3 (plans, tuning,
-#: elastic) and the multi-host and mesh names of item 4.  Later slices
-#: shrink it.
-REMAINDER = {"DeferredCount", "Plan", "PlanScalar", "deferred", "plan",
-             "tuning", "elastic", "init_distributed", "mesh"}
+#: host-side layers of ROADMAP.md queue 1 item 3 (tuning, elastic) and
+#: the multi-host and mesh names of item 4.  Later slices shrink it.
+REMAINDER = {"tuning", "elastic", "init_distributed", "mesh"}
 
 
 def test_public_surface_remainder():

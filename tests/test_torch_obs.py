@@ -727,3 +727,41 @@ def test_empty_join_and_auto_tier_spans(traced):
     assert [e["name"] for e in autos] == ["relational.join",
                                           "relational.groupby",
                                           "relational.groupby"]
+
+
+def test_plan_flush_span_with_runs(traced):
+    """Mirrors ``tests/test_obs.py::test_plan_flush_span_with_runs``: a
+    flush is a ``plan.flush`` span (beside the ``plan.flush`` fault-site
+    event) with a ``plan.run`` child of its ops, and the plan counters
+    move, in both packages; an opaque item is a ``plan.opaque`` child."""
+    arr = np.random.default_rng(41).standard_normal(8 * P).astype(np.float32)
+    jv, tv = _pair(arr)
+    jout, tout = _outs(8 * P, np.float32)
+    got = {}
+    for m, v, out in ((dr_tpu, jv, jout), (dt, tv, tout)):
+        with m.deferred():
+            m.fill(v, 0.5)
+            s = m.reduce(v)
+            m.inclusive_scan(v, out)
+        got[m] = float(s)
+    assert got[dt] == got[dr_tpu] == 0.5 * len(arr)
+    np.testing.assert_allclose(dt.to_numpy(tout), dr_tpu.to_numpy(jout),
+                               rtol=1e-6)
+    for o in (jobs, tobs):
+        evs = o.events()
+        flush = [e for e in evs if e["name"] == "plan.flush"
+                 and e["ph"] == "X"]
+        assert flush and flush[0]["args"]["reason"] == "region exit"
+        assert flush[0]["args"]["items"] == 2
+        assert any(e["name"] == "plan.flush" and e["cat"] == "site"
+                   for e in evs)
+        runs = [e for e in evs if e["name"] == "plan.run"]
+        assert runs and runs[0]["args"]["parent"] == flush[0]["id"]
+        assert runs[0]["args"]["ops"] == 2
+        opq = [e for e in evs if e["name"] == "plan.opaque"]
+        assert opq and opq[0]["args"]["parent"] == flush[0]["id"]
+        assert opq[0]["args"]["op"] == "inclusive_scan"
+        snap = o.snapshot()
+        assert snap["counters"]["plan.flushes"] >= 1
+        assert snap["counters"]["plan.fused_ops"] >= 2
+        assert snap["counters"]["plan.opaque_ops"] >= 1

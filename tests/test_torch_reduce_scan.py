@@ -372,3 +372,17 @@ def test_reduce_min_max_any_ranks_match_one_shard_reference(P, src, op):
             assert np.isnan(got)
         else:
             assert _f32_bits(got) == _f32_bits(ref), (got, ref)
+
+
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("op", ["min", 3])
+def test_reduce_non_callable_op_raises_type_error(n, op):
+    """An ``op`` that is neither a named monoid nor callable raises
+    ``TypeError`` in both packages, however few elements there are (the
+    port once returned the single element without touching ``op``)."""
+    _init_both(8)
+    j, t = _pair(np.arange(5, 5 + n, dtype=np.float32))
+    with pytest.raises(TypeError):
+        dr_tpu.reduce(j, op=op)
+    with pytest.raises(TypeError):
+        dt.reduce(t, op=op)
