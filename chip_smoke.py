@@ -163,7 +163,28 @@ checks the kernels at small shapes only).  Phases:
     ``check_serializable``) and a NaN made in a run raising at
     ``check_finite``; a traced region's ``plan.flush`` > ``plan.run`` /
     ``plan.opaque`` spans and counters; the phase's peak device memory.
-    ``--phase23`` runs phases 1-3 and this one.
+    ``--phase23`` runs phases 1-3 and this one;
+24. the tuning DB and elastic sessions: ``tuning.context()`` on the
+    card; phase 18's matrix timed in the ELL and CSR formats in turns,
+    the faster recorded in a DB and picked by a fresh session, a
+    ``DR_GPU_SPMV_FORMAT`` pin beating it; ``join.broadcast_max = 0``
+    from the DB sending a 4-rank join to the partition route with the
+    broadcast route's bits; ``join_auto`` twice under
+    ``DR_GPU_PLAN_OPT=all``, the second without its count probe.  Then
+    on 4 ranks of the card with f32 vectors of 2^26 (a team vector on
+    rank 0, a checkpointed one written after its checkpoint, one with
+    no checkpoint): ``device.lost`` once under ``retry`` around a K2
+    pass, ``dot_n`` and a scan with ``DR_GPU_ELASTIC=1``, the path
+    finishing on 3 ranks with a fresh 3-rank runtime's bits, fates
+    1 / 1 / 1 bit for bit, the lost vector raising, the shrink's wall
+    time and each fate's GB/s, and the graph a deferred run captured on
+    4 ranks released with its pool; ``mesh.grow`` injected (the session
+    stays on 3 ranks), ``grow_session()`` back to 4 (the probe finds the
+    dropped slot on cuda:0); ``device.lost`` at the flush of a deferred
+    fill / for_each / reduce region, replayed on 3 ranks with the eager
+    chain's bits; the region exit's grow poll
+    (``DR_GPU_ELASTIC_GROW=1``); ``session_story()`` with both chapters.
+    ``--phase24`` runs phases 1-3 and this one.
 
 ``--halo-ab DIR`` times phase 17's halo p50 with the ``dr_tpu_torch`` of
 another checkout at ``DIR`` and this one's, in turns, and stops.
@@ -264,6 +285,12 @@ GUARD_LOG2 = 30
 # four ops, 9 timed turns each way) and the scalar checks at 2^20
 PLAN_SMALL_LOG2, PLAN_SMALL_ITERS, PLAN_TURNS = 20, 64, 9
 PLAN_DTYPES_LOG2 = 20
+# phase 24: the fate vectors (f32), the 1-D path's length (a segment a
+# multiple of 1024 on 3 and on 4 ranks: K2's geometry), the replayed
+# region, the DB-routed join (2^16 fact rows over 2^12 keys, below the
+# 2^18 default threshold) and the SpMV turns
+EL_LOG2, EL_PATH, EL_REPLAY_LOG2 = 26, 3 << 24, 24
+EL_JOIN, EL_SPMV_TURNS = (16, 12), 3
 
 
 #: a copy of every log line, opened by main(), so the whole log survives
@@ -3380,9 +3407,11 @@ def chaos_battery(dt, inp, path, device="cuda:0", ranks=4, k_block=K_BLOCK,
     all-to-all -> a sort (K6) -> a scan (K4) -> ``dot_n`` (K3) -> a
     stencil block (K1) -> a ring gemv -> bf16 ring attention (K9) ->
     a deferred region (``plan.flush``, ``sanitize.verify``) -> three
-    collective re-layouts -> a checkpoint write and read at ``path``.  Every dispatch rides the tap (``dispatch.cache``,
-    ``device.lost``), every launch ``kernel.build``.  Returns the
-    results on the host."""
+    collective re-layouts -> a checkpoint write and read at ``path`` ->
+    an elastic shrink of the last rank and the grow back
+    (``mesh.shrink``, ``device.recover``, ``mesh.grow``).  Every
+    dispatch rides the tap (``dispatch.cache``, ``device.lost``), every
+    launch ``kernel.build``.  Returns the results on the host."""
     import torch
     from dr_tpu_torch.algorithms import gemv as dt_gemv
     dt.init(dt.get_duplicated_devices(ranks, [device]))
@@ -3445,6 +3474,33 @@ def chaos_battery(dt, inp, path, device="cuda:0", ranks=4, k_block=K_BLOCK,
     out["redistribute"] = rdv.to_array().cpu()
     dt.checkpoint.save(path, rdv)
     out["checkpoint"] = dt.checkpoint.load(path).to_array().cpu()
+    # the elastic leg, last (it shrinks the runtime): mesh.shrink fires
+    # in the rescue, device.recover at the grow's probe and mesh.grow in
+    # the grow; a team vector off the lost rank rides both bit for bit,
+    # a vector with a segment there is lost and stays lost
+    from dr_tpu_torch.utils import elastic, resilience as R
+    esrc = src[:4 * ranks]
+    team = dt.distributed_vector.from_array(
+        esrc, distribution=[esrc.numel()] + [0] * (ranks - 1))
+    gone = dt.distributed_vector.from_array(esrc)
+    rep = elastic.rescue_session(R.DeviceLostError(
+        "chaos battery: simulated loss", rank=ranks - 1))
+    if rep.nprocs_after != ranks - 1 or dt.nprocs() != ranks - 1:
+        raise AssertionError(f"chaos battery: the shrink left "
+                             f"{dt.nprocs()} ranks")
+    out["shrink"] = team.to_array().cpu()
+    grown = elastic.grow_session(reason="chaos battery: the rank returned")
+    if grown.nprocs_after != ranks or dt.nprocs() != ranks:
+        raise AssertionError(f"chaos battery: the grow left {dt.nprocs()} "
+                             "ranks")
+    out["grow"] = team.to_array().cpu()
+    for when in ("shrink", "grow"):
+        try:
+            dt.to_numpy(gone)
+        except R.DeviceLostError:
+            continue
+        raise AssertionError(f"chaos battery: the lost vector answered "
+                             f"after the {when}")
     return out
 
 
@@ -4242,6 +4298,415 @@ def plans_phase(dt, kernels, seed, card):
     return out
 
 
+# ------------------------------ phase 24: the tuning DB and elastic sessions
+
+def _el_scale(x, c):
+    return x * c
+
+
+def env_set(**kw):
+    """``utils.env.env_override`` of the port (None unsets)."""
+    from dr_tpu_torch.utils.env import env_override
+    return env_override(**kw)
+
+
+def tuning_phase(dt, seed, tmpdir, device="cuda:0", m_log2=SP_LOG2,
+                 join=EL_JOIN, turns=EL_SPMV_TURNS):
+    """Phase 24.1: the tuning DB on the card.  ``tuning.context()`` on a
+    CUDA runtime; phase 18's matrix timed in the ELL and CSR formats in
+    turns (``gemv_n``, forced by ``DR_GPU_SPMV_FORMAT``), the faster
+    recorded in a DB under ``tmpdir``, read back in a fresh session by
+    the format picker, and a pin beating it; ``join.broadcast_max = 0``
+    recorded, so a 4-rank join below the default threshold takes the
+    partition route with the broadcast route's bits; ``join_auto``
+    twice under ``DR_GPU_PLAN_OPT=all``, the second skipping its count
+    probe (the ratio the first noted).  Returns its numbers."""
+    import importlib
+    import torch
+    from dr_tpu_torch import obs, tuning
+    from dr_tpu_torch.algorithms import relational as rel
+    tg = importlib.import_module("dr_tpu_torch.algorithms.gemv")
+    on_card = torch.device(device).type == "cuda"
+    out = {}
+    db = os.path.join(tmpdir, "tuning_db.json")
+    with env_set(DR_GPU_TUNING_DB=db, DR_GPU_TUNING_DIR=None,
+                 DR_GPU_SPMV_FORMAT=None, DR_GPU_JOIN_BROADCAST_MAX=None,
+                 DR_GPU_PLAN_OPT=None):
+        tuning.clear_session()
+        tuning.reload()
+        dt.init([device])
+        ctx = out["context"] = tuning.context()
+        log(f"  24.1 tuning.context(): {json.dumps(ctx)}")
+        want_kind = (torch.cuda.get_device_name(torch.device(device).index
+                                                or 0).replace(" ", "_")
+                     if on_card else "cpu")
+        check_true("24.1 the context names this runtime",
+                   ctx == {"backend": torch.device(device).type,
+                           "kind": want_kind, "nshards": 1})
+        m = 1 << m_log2
+        rows, cols, vals, _ = config5_coo(m)
+        A = dt.sparse_matrix.from_coo((m, m), rows, cols, vals)
+        del rows, cols, vals
+        b = dt.distributed_vector.from_array(torch.from_numpy(
+            np.random.default_rng(seed).standard_normal(m).astype(
+                np.float32)).to(device))
+        c = dt.distributed_vector(m)
+        ms = {"ell": [], "csr": []}
+        for _ in range(turns):
+            for fmt in ms:
+                with env_set(DR_GPU_SPMV_FORMAT=fmt):
+                    check_true(f"24.1 the pin takes {fmt}",
+                               tg.resolved_format(A) == fmt)
+                    if on_card:
+                        ms[fmt].append(marginal_ms(
+                            lambda r: tg.gemv_n(c, A, b, r)))
+                    else:
+                        ms[fmt].append(host_ms(lambda: tg.gemv_n(c, A, b, 1),
+                                               1, dt.fence))
+        med = {f: float(np.median(v)) for f, v in ms.items()}
+        win = min(med, key=med.get)
+        lose = "csr" if win == "ell" else "ell"
+        out["spmv_ms"], out["spmv_ms_all"], out["spmv_winner"] = med, ms, win
+        key = tuning.record("spmv", "format", win,
+                            source="chip_smoke phase 24.1")
+        log(f"  24.1 gemv_n on config 5 (2^{m_log2} rows) in turns: ELL "
+            f"{med['ell']!r} ms, CSR {med['csr']!r} ms a round (all "
+            f"{json.dumps(ms)}); recorded {key} = {win!r}")
+        tuning.reload()
+        tuning.clear_session()
+        check_true("24.1 the DB's winner is picked in a fresh session",
+                   tg._pick_format(A) == win
+                   and tg.resolved_format(A) == win)
+        with env_set(DR_GPU_SPMV_FORMAT=lose):
+            check_true("24.1 a DR_GPU_SPMV_FORMAT pin beats the DB",
+                       tg._pick_format(A) == lose)
+        del A, b, c
+        release(torch)
+
+        dt.init(dt.get_duplicated_devices(4, [device]))
+        data = relational_data(1 << join[0], 1 << join[1], seed, device)
+        tuning.record("join", "broadcast_max", 0,
+                      source="chip_smoke phase 24.1")
+        tuning.reload()
+        tuning.clear_session()
+        res = {}
+        for forced in (False, True):
+            F, FV, D, DV = (dt.distributed_vector.from_array(a)
+                            for a in data)
+            outs = [dt.distributed_vector(2 * (1 << join[0]))
+                    for _ in range(3)]
+            with contextlib.ExitStack() as st:
+                if forced:
+                    st.enter_context(env_set(
+                        DR_GPU_JOIN_BROADCAST_MAX=str(1 << 30)))
+                mm = dt.join(F, FV, D, DV, *outs)
+            res[forced] = (rel.last_join_route()["impl"], mm,
+                           [o.to_array()[:mm].cpu() for o in outs])
+        log(f"  24.1 join of 2^{join[0]} fact rows over 2^{join[1]} keys on "
+            f"4 ranks: DB route {res[False][0]}, pinned route "
+            f"{res[True][0]}")
+        check_true("24.1 join.broadcast_max = 0 in the DB takes the "
+                   "partition route", res[False][0] == "partition"
+                   and res[True][0] == "broadcast")
+        check_true("24.1 partition route (from the DB) equals broadcast "
+                   "(bits)", res[False][1] == res[True][1] and all(
+                       torch_equal(x, y) for x, y in zip(res[False][2],
+                                                         res[True][2])))
+        F, FV, D, DV = (dt.distributed_vector.from_array(a) for a in data)
+        runs = {"probe": [], "hint": []}
+        with env_set(DR_GPU_PLAN_OPT="all"):
+            dt.join_auto(F, FV, D, DV).count  # warm-up
+            for _ in range(turns + 2):
+                for mode in runs:
+                    if mode == "probe":
+                        tuning.clear_session()  # no hint: the probe runs
+                    obs.reset()
+                    obs.arm(True)
+                    try:
+                        dt.fence()
+                        t0 = time.perf_counter()
+                        r = dt.join_auto(F, FV, D, DV)
+                        cnt = r.count
+                        dt.fence()
+                        secs = time.perf_counter() - t0
+                        evs = obs.events()
+                    finally:
+                        obs.arm(False)
+                        obs.reset()
+                    probes = sum(1 for e in evs if e.get("args", {}).get(
+                        "phase") == "cap_probe")
+                    runs[mode].append((secs * 1e3, cnt, probes, [
+                        torch.from_numpy(a) for a in r.arrays()]))
+        med = {k: float(np.median([x[0] for x in v]))
+               for k, v in runs.items()}
+        out["join_auto_ms"] = med
+        out["join_auto_ms_all"] = {k: [x[0] for x in v]
+                                   for k, v in runs.items()}
+        log(f"  24.1 join_auto (DR_GPU_PLAN_OPT=all), {turns + 2} turns: "
+            f"{med['probe']!r} ms with its count probe, {med['hint']!r} ms "
+            f"on the noted hint (all {json.dumps(out['join_auto_ms_all'])}; "
+            f"{runs['probe'][0][1]} rows)")
+        first = runs["probe"][0]
+        check_true("24.1 join_auto after a noted ratio skips its probe, "
+                   "same bits", all(
+                       x[2] == 1 for x in runs["probe"]) and all(
+                       x[2] == 0 and x[1] == first[1] == res[True][1]
+                       and all(torch_equal(a, b)
+                               for a, b in zip(x[3], first[3]))
+                       for x in runs["hint"]))
+        tuning.clear_session()
+        tuning.reload()
+    dt.final()
+    return out
+
+
+def elastic_path(dt, xs, ys, t_block=T_BLOCK, halo=BLK_HALO):
+    """The 1-D path of phase 24.2: one K2 pass of ``t_block`` steps over
+    a periodic halo-``halo`` copy of ``xs``, ``dot_n`` (K3) of the result
+    with ``ys``, and its inclusive scan (K4); results on the host."""
+    hb = dt.halo_bounds(halo, halo, periodic=True)
+    x = dt.distributed_vector.from_array(xs, halo=hb)
+    y = dt.distributed_vector.from_array(ys, halo=hb)  # dot_n: x's layout
+    dt.stencil_iterate_blocked(x, W5, t_block, time_block=t_block)
+    d = dt.dot_n(x, y, 1)
+    s = dt.distributed_vector(len(x))
+    dt.inclusive_scan(x, s)
+    return {"stencil": x.to_array().cpu(), "dot": d.reshape(1).cpu(),
+            "scan": s.to_array().cpu()}
+
+
+def captured_graphs(dt, rt, n=1 << 20):
+    """A deferred for_each flushed twice on ``rt``'s ranks of one card:
+    the second flush captures a CUDA graph.  Returns (weak reference,
+    memory pool) of each graph cached for ``rt``."""
+    import weakref
+    from dr_tpu_torch.core.pinning import pinned_id
+    w = dt.distributed_vector(n)
+    for _ in range(2):
+        with dt.deferred():
+            dt.for_each(w, _el_scale, 2.0)
+    pid = pinned_id(rt)
+    return [(weakref.ref(e.graph), e.graph.pool())
+            for k, e in dt.plan._plan_cache.items()
+            if k[1] == pid and e.graph is not None]
+
+
+def pool_bytes(pool):
+    """Bytes the caching allocator holds in the private pool ``pool``
+    (None when its snapshot does not name the pools)."""
+    import torch
+    segs = torch.cuda.memory_snapshot()
+    if segs and "segment_pool_id" not in segs[0]:
+        return None
+    return sum(s["total_size"] for s in segs
+               if tuple(s["segment_pool_id"]) == tuple(pool))
+
+
+def fate_line(rep, nbytes, what):
+    """Log a report's wall time and each container's GB/s."""
+    per = [f"{f[0]} {f[1]} {s!r} s ({nbytes / s / 1e9!r} GB/s)"
+           for f, s in zip(rep.fates, rep.seconds)]
+    log(f"  {what}: wall {rep.wall_s!r} s; " + "; ".join(per))
+    return [{"fate": f[0], "s": s, "gbps": nbytes / s / 1e9}
+            for f, s in zip(rep.fates, rep.seconds)]
+
+
+def elastic_sessions(dt, kernels, seed, tmpdir, device="cuda:0",
+                     log2=EL_LOG2, path_n=EL_PATH, replay_log2=EL_REPLAY_LOG2,
+                     t_block=T_BLOCK, halo=BLK_HALO):
+    """Phases 24.2-24.4 on 4 ranks of ``device``, in this order: the
+    shrink under ``retry`` (24.2), a faulted grow and the grow (24.4.1-2),
+    the mid-flush replay (24.3) and the grow by the region-exit poll
+    (24.4.3), then the story (24.4.4).  Returns its numbers."""
+    import torch
+    from dr_tpu_torch.utils import elastic, faults, resilience as R
+    on_card = torch.device(device).type == "cuda"
+    out = {}
+    n = 1 << log2
+    nbytes = 4 * n
+    g = torch.Generator(device=device).manual_seed(seed)
+    team_src, ck_src, gone_src = (torch.randn(n, generator=g, device=device)
+                                  for _ in range(3))
+    ck_want = ck_src.clone()
+    ck_want[:8] = 99.0
+    # the path's bits on a fresh 3-rank runtime over the values it reads
+    # after the shrink
+    dt.init(dt.get_duplicated_devices(3, [device]))
+    ref = elastic_path(dt, ck_want[:path_n], team_src[:path_n], t_block,
+                       halo)
+    rt = dt.init(dt.get_duplicated_devices(4, [device]))
+    elastic.reset()
+    release(torch)
+    graphs = captured_graphs(dt, rt) if on_card else []
+    check_true(f"24.2 a deferred run captured {len(graphs)} graph(s) on "
+               "the 4-rank runtime", len(graphs) > 0 or not on_card)
+    pools = [pool_bytes(p) for _w, p in graphs]
+    team = dt.distributed_vector.from_array(team_src,
+                                            distribution=[n, 0, 0, 0])
+    ck = dt.distributed_vector.from_array(ck_src)
+    t0 = time.perf_counter()
+    dt.checkpoint.save(os.path.join(tmpdir, "ck.npz"), ck)
+    out["save_s"] = time.perf_counter() - t0
+    ck.put(np.arange(8), np.full(8, 99.0, np.float32))  # rank 0's window
+    gone = dt.distributed_vector.from_array(gone_src)
+    del ck_src, gone_src
+    dt.fence()
+    reserved = torch.cuda.memory_reserved() if on_card else 0
+    before = dict(kernels.launches)
+    with env_set(DR_GPU_ELASTIC="1"):
+        with faults.injected("device.lost", "device_lost", times=1) as sp:
+            t0 = time.perf_counter()
+            got = R.retry(lambda: elastic_path(
+                dt, ck.to_array()[:path_n], team.to_array()[:path_n],
+                t_block, halo), attempts=2, sleep=lambda s: None)
+            out["retry_s"] = time.perf_counter() - t0
+    rep = elastic.last_report()
+    launched = {k: kernels.launches[k] - before[k] for k in before}
+    log(f"  24.2 device.lost once under retry (DR_GPU_ELASTIC=1): the path "
+        f"{out['retry_s']!r} s on {dt.nprocs()} ranks, fates rescued / "
+        f"restored / lost {rep.rescued} / {rep.restored} / {rep.lost}, "
+        f"launches {json.dumps(launched)}")
+    check_true("24.2 the path finished on 3 ranks after one injected loss",
+               sp.fired == 1 and dt.nprocs() == 3 and rep.nprocs_after == 3)
+    check_true("24.2 fates 1 / 1 / 1",
+               (rep.rescued, rep.restored, rep.lost) == (1, 1, 1))
+    check_true("24.2 rescued and restored values bit for bit",
+               torch_equal(team.to_array(), team_src)
+               and torch_equal(ck.to_array(), ck_want))
+    try:
+        dt.to_numpy(gone)
+        lost_raises = False
+    except R.DeviceLostError:
+        lost_raises = True
+    check_true("24.2 the lost vector raises DeviceLostError", lost_raises)
+    check_true("24.2 K2, K3 and K4 on the shrunken runtime: the bits of a "
+               "fresh 3-rank runtime", all(torch_equal(got[k], ref[k])
+                                           for k in ref))
+    if on_card:
+        check_true("24.2 the path launched K2, K3 and K4 on 3 ranks",
+                   all(launched[k] > 0 for k in ("stencil_blocked",
+                                                 "chunked_dot",
+                                                 "chunked_cumsum")))
+    out["shrink_wall_s"] = rep.wall_s
+    out["shrink_fates"] = fate_line(rep, nbytes, "24.2 shrink 4 -> 3")
+    del got, ref
+    release(torch)
+    if on_card:
+        after = [pool_bytes(p) for _w, p in graphs]
+        out["reserved_before"] = reserved
+        out["reserved_after"] = torch.cuda.memory_reserved()
+        out["graph_pool_bytes"] = [pools, after]
+        log(f"  24.2 memory reserved {reserved} bytes before the shrink, "
+            f"{out['reserved_after']} after; graph pool bytes {pools} -> "
+            f"{after}")
+        check_true("24.2 the shrink released the 4-rank runtime's graphs",
+                   all(w() is None for w, _p in graphs))
+        check_true("24.2 ... and their pools", all(
+            b == 0 for b in after if b is not None))
+    with faults.injected("mesh.grow", "transient", times=1):
+        try:
+            elastic.grow_session()
+            grow_fault = None
+        except R.TransientBackendError as e:
+            grow_fault = e.site
+    check_true("24.4.2 mesh.grow injected: classified, the session stays on "
+               "3 ranks with its values", grow_fault == "mesh.grow"
+               and dt.nprocs() == 3 and elastic.grow_count() == 0
+               and torch_equal(team.to_array(), team_src)
+               and torch_equal(ck.to_array(), ck_want))
+    from dr_tpu_torch.parallel import runtime as rtm
+    found = rtm.probe_recovered()
+    check_true(f"24.4.1 the probe finds the dropped slot on {device}: "
+               f"{found}", found == [torch.device(device)])
+    grep = elastic.grow_session()
+    check_true("24.4.1 back on 4 ranks, the moved values bit for bit, the "
+               "lost one still lost", dt.nprocs() == 4
+               and (grep.moved, grep.kept) == (2, 0)
+               and torch_equal(team.to_array(), team_src)
+               and torch_equal(ck.to_array(), ck_want)
+               and elastic.is_lost(gone))
+    out["grow_wall_s"] = grep.wall_s
+    out["grow_fates"] = fate_line(grep, nbytes, "24.4.1 grow 3 -> 4")
+    del team, ck, gone, team_src, ck_want
+    release(torch)
+
+    nr = 1 << replay_log2
+    v = dt.distributed_vector.from_array(
+        torch.arange(nr, dtype=torch.float32, device=device))
+    dt.checkpoint.save(os.path.join(tmpdir, "v.npz"), v)
+    with env_set(DR_GPU_ELASTIC="1"):
+        with faults.injected("device.lost", "device_lost", times=1) as sp:
+            t0 = time.perf_counter()
+            with dt.deferred() as p:
+                dt.fill(v, 2.0)
+                dt.for_each(v, _el_scale, 0.5)
+                tot = dt.reduce(v)
+            total = float(tot)
+            out["replay_s"] = time.perf_counter() - t0
+    e = dt.distributed_vector(nr)
+    dt.fill(e, 2.0)
+    dt.for_each(e, _el_scale, 0.5)
+    eager = float(dt.reduce(e))
+    reasons = [x["reason"] for x in p.log]
+    log(f"  24.3 device.lost at the flush of a fill / for_each / reduce "
+        f"region (2^{replay_log2}): {out['replay_s']!r} s, flushes "
+        f"{reasons}, replayed {[x.get('elastic_replayed') for x in p.log]}")
+    check_true("24.3 the replay equals the eager chain on 3 ranks",
+               sp.fired == 1 and dt.nprocs() == 3 and total == eager == nr
+               and rows_equal(v, e))
+    check_true("24.3 the log holds the elastic replay",
+               "elastic replay" in reasons
+               and any(x.get("elastic_replayed") for x in p.log))
+    del e
+    with env_set(DR_GPU_ELASTIC_GROW="1", DR_GPU_ELASTIC_GROW_PROBE_S="0"):
+        with dt.deferred():
+            dt.for_each(v, _el_scale, 0.5)
+    last = elastic.last_grow_report()
+    check_true("24.4.3 the region exit's maybe_grow re-admitted the slot",
+               dt.nprocs() == 4 and elastic.grow_count() == 2
+               and last.moved == 1 and torch_equal(
+                   v.to_array(), torch.full((nr,), 0.5, device=device)))
+    out["poll_grow_wall_s"] = last.wall_s
+    story = out["story"] = R.session_story()
+    log(f"  24.4.4 session_story(): {json.dumps(story)}")
+    check_true("24.4.4 the story carries both chapters",
+               story["shrink"]["shrinks"] == 2
+               and story["grow"]["grows"] == 2
+               and story["shrink"]["rescued"] == 1
+               and story["shrink"]["restored"] == 2
+               and story["shrink"]["lost"] == 1)
+    del v
+    elastic.reset()
+    dt.final()
+    release(torch)
+    return out
+
+
+def elastic_phase(dt, kernels, seed, card):
+    """Phase 24 (the counts reset just before it): the tuning DB and
+    the elastic sessions on the card.  Returns its numbers."""
+    import tempfile
+    import torch
+    log(f"phase 24: the tuning DB (config 5's SpMV at 2^{SP_LOG2} rows, a "
+        f"4-rank join of 2^{EL_JOIN[0]} rows) and elastic sessions on 4 "
+        f"ranks of cuda:0 (f32 vectors of 2^{EL_LOG2}; the path at "
+        f"{EL_PATH}; the replay at 2^{EL_REPLAY_LOG2})")
+    out = {"card": card}
+    t0 = time.perf_counter()
+    kernels.reset_counts()
+    with tempfile.TemporaryDirectory() as td:
+        t1 = time.perf_counter()
+        out["tuning"] = tuning_phase(dt, seed, td)
+        log(f"  phase 24.1 {time.perf_counter() - t1:.1f} s")
+        release(torch)
+        t1 = time.perf_counter()
+        out["elastic"] = elastic_sessions(dt, kernels, seed, td)
+        log(f"  phases 24.2-24.4 {time.perf_counter() - t1:.1f} s")
+    log(f"  [{card}] phase 24 {time.perf_counter() - t0:.1f} s, launches "
+        f"{dict(kernels.launches)}")
+    return out
+
+
 _HALO_AB = """
 import importlib.util, json, sys
 sys.path.insert(0, {tree!r})
@@ -4357,7 +4822,8 @@ def main(argv):
 
     only22 = "--phase22" in argv
     only23 = "--phase23" in argv
-    short = quick or only22 or only23
+    only24 = "--phase24" in argv
+    short = quick or only22 or only23 or only24
     n = 1 << (20 if short else 30)
     m2d = 2048 if short else M2D
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -4378,6 +4844,10 @@ def main(argv):
     if only23:  # a short run: the checks above, small, then phase 23
         log("  phase 23 numbers: " + json.dumps(
             plans_phase(dt, kernels, seed, card)))
+        return 0
+    if only24:  # a short run: the checks above, small, then phase 24
+        log("  phase 24 numbers: " + json.dumps(
+            elastic_phase(dt, kernels, seed, card)))
         return 0
 
     log(f"phase 4: main path, 1 rank on cuda:0, n={n}")
@@ -4605,6 +5075,9 @@ def main(argv):
 
     g23 = plans_phase(dt, kernels, seed, card)
     log("  phase 23 numbers: " + json.dumps(g23))
+
+    g24 = elastic_phase(dt, kernels, seed, card)
+    log("  phase 24 numbers: " + json.dumps(g24))
 
     log(f"peak device memory (1-D main path): {peak} bytes "
         f"({peak / 2 ** 30:.2f} GiB)")

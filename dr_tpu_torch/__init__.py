@@ -35,7 +35,8 @@ Public surface of this slice:
   ``checkpoint`` (``save / load``, the JAX package's file format),
   ``unstructured_halo`` (index-list ghosts)
 - resilience and guards: ``resilience`` (the classified taxonomy,
-  ``retry``, ``with_deadline``), ``faults`` (the injection sites,
+  ``retry``, ``with_deadline``, ``session_story``), ``faults`` (the
+  injection sites,
   ``DR_GPU_FAULT_SPEC``), ``spmd_guard`` (the dispatch tap and its
   digest), ``utils.sanitize`` (``DR_GPU_SANITIZE=1``)
 - debugging:  ``drlog`` (``DR_GPU_LOG``), ``print_range``,
@@ -69,6 +70,11 @@ Public surface of this slice:
   ``Plan``, ``PlanScalar``, ``plan`` (``plan.opt``, ``plan.plansan``,
   ``plan.interference``); on a card a flushed run replays as one CUDA
   graph
+- tuning:     ``tuning`` (measured config winners: ``lookup``,
+  ``record``, ``note``; ``DR_GPU_TUNING_DB`` / ``DR_GPU_TUNING_DIR``)
+- elastic:    ``elastic`` (``rescue_session`` shrinks onto the surviving
+  ranks, ``grow_session`` / ``maybe_grow`` re-admit dropped ones;
+  ``DR_GPU_ELASTIC=1`` arms the shrink in ``retry`` and at a flush)
 """
 
 from . import obs
@@ -126,6 +132,8 @@ from .utils import faults
 from .utils import resilience
 from .utils import spmd_guard
 from .utils.elastic import redistribute
+from .utils import elastic
+from . import tuning
 from . import plan
 from .plan import Plan, PlanScalar, deferred
 
@@ -162,5 +170,5 @@ __all__ = [
     "distributed_span", "drlog", "print_range", "print_matrix",
     "range_details", "checkpoint", "resilience", "redistribute",
     "obs", "profiling", "faults", "spmd_guard",
-    "plan", "Plan", "PlanScalar", "deferred",
+    "plan", "Plan", "PlanScalar", "deferred", "tuning", "elastic",
 ]

@@ -37,8 +37,12 @@ round adds ``1e-38`` times a value of the last output to ``b``);
 on the logical arrays (the JAX package's ``jnp.matmul`` with f32
 accumulation): full f32 unless the caller turns TF32 on.
 
-Not carried over: the ``DR_TPU_SPMV_FORMAT`` override, the tuning-DB
-format lookup and the TPU gather knobs (``DR_TPU_GATHER_MODE`` / ``_W``,
+The layout a call asks for is :func:`_pick_format`'s: the
+``DR_GPU_SPMV_FORMAT`` pin (csr / ell / bcsr / ring), else a
+``spmv.format`` winner in the tuning DB (``dr_tpu_torch/tuning.py``),
+else the matrix's build-time choice; a pinned or recorded layout whose
+gate refuses the matrix falls down the same chain.  Not carried over:
+the TPU gather knobs (``DR_TPU_GATHER_MODE`` / ``_W``,
 ``DR_TPU_SPMM_W``, ``DR_TPU_SPMV_COMBINE``: the 2-D grids sum their
 partials as the JAX default ``psum`` does, with no ring).  Inside
 ``dt.deferred()`` ``gemv`` records OPAQUE (run at the flush, in record
@@ -62,6 +66,7 @@ from ..containers.sparse_matrix import sparse_matrix
 from ..parallel import collectives
 from ..parallel import pipeline as _pl
 from ..core.pinning import pinned_id
+from ..utils.env import env_str
 from ..utils.spmd_guard import dtype_name
 from .elementwise import _prog_cache
 
@@ -85,6 +90,25 @@ def viable_formats(a) -> dict:
             "bcsr": a.ensure_bcsr(), "ring": a.ensure_ring()}
 
 
+_FORMATS = ("csr", "ell", "bcsr", "ring")
+
+
+def _pick_format(a) -> str:
+    """The layout a dispatch asks for: ``DR_GPU_SPMV_FORMAT`` beats a
+    ``spmv.format`` entry of the tuning DB (matched on this runtime's
+    context; a value that is not one of the four names is ignored),
+    which beats ``a.format``.  Read per call; :func:`_resolve` then
+    takes it down the fallback chain."""
+    env = env_str("DR_GPU_SPMV_FORMAT").lower()
+    if env in _FORMATS:
+        return env
+    from .. import tuning as _tuning
+    v = _tuning.lookup("spmv", "format")
+    if isinstance(v, str) and v.lower() in _FORMATS:
+        return v.lower()
+    return a.format
+
+
 def _resolve(a, fmt: str) -> str:
     """``fmt`` resolved down the dispatch chain: ring, then bcsr, then
     ell unless csr was asked for, then csr."""
@@ -98,15 +122,16 @@ def _resolve(a, fmt: str) -> str:
 
 
 def resolved_format(a) -> str:
-    """The layout ``gemv`` / ``gemv_n`` run for ``a``: its autoselected
-    format resolved down the fallback chain."""
-    return _resolve(a, a.format)
+    """The layout ``gemv`` / ``gemv_n`` run for ``a``:
+    :func:`_pick_format` resolved down the fallback chain."""
+    return _resolve(a, _pick_format(a))
 
 
 def resolved_spmm_format(a) -> str:
     """The layout ``spmm_n`` runs: only the grouped ones exist there,
     so csr and ring resolve to ELL."""
-    return "bcsr" if a.format == "bcsr" and a.ensure_bcsr() else "ell"
+    return "bcsr" if _pick_format(a) == "bcsr" and a.ensure_bcsr() \
+        else "ell"
 
 
 # ----------------------------------------------------- one tile's partial
@@ -334,7 +359,7 @@ def gemv(c: distributed_vector, a: sparse_matrix, b) -> distributed_vector:
         p.record_opaque("gemv", lambda: gemv(c, a, b), reads=reads,
                         writes=writes)
         return c
-    return _gemv_as(c, a, b, a.format)
+    return _gemv_as(c, a, b, _pick_format(a))
 
 
 def _fast_args(c, a, b):
@@ -410,7 +435,7 @@ def spmm(a: sparse_matrix, b) -> torch.Tensor:
     if a._vals is None:
         return torch.zeros((m, B.shape[1]), dtype=a.dtype,
                            device=a.runtime.devices[0])
-    fmt = a.format  # "ring" has no spmm form: the grouped path
+    fmt = _pick_format(a)  # "ring" has no spmm form: the grouped path
     if fmt != "csr":
         bcsr = fmt == "bcsr" and a.ensure_bcsr()
         if bcsr or a.ensure_ell():

@@ -42,7 +42,8 @@ package's program phase for phase, with the same results bit for bit
   ``k`` best of every rank and sorts them once more (ties go to the
   smaller index).
 * ``join_auto`` / ``groupby_auto`` / ``unique_auto`` sort once, probe
-  the exact result count, allocate pow2-sized outputs and run the op.
+  the exact result count (or take a capacity hint: see Tuning below),
+  allocate pow2-sized outputs and run the op.
 
 Keys compare by the sort family's order keys (``sort._encode``): -0.0
 equals +0.0 and every NaN is one key.  The host reads only what the
@@ -74,9 +75,17 @@ OPAQUE (run through their eager path at the flush) and return a lazy
 use).  Their input views stay in the opaque item's ``meta``, which the
 plan's pushdown pass may rewrite.
 
-Not carried over yet: the tuning-DB route and capacity hints (the auto
-tier always probes the exact count, so it always records
-``cap_probe``).
+Tuning: with ``DR_GPU_JOIN_BROADCAST_MAX`` unset and the ``joinroute``
+pass armed, a ``join.broadcast_max`` entry of the tuning DB
+(``dr_tpu_torch/tuning.py``) replaces the route threshold's default.
+With the ``capinfer`` pass armed (``DR_GPU_PLAN_OPT=all``), the auto
+tier sizes its outputs from a ``relational.cap_ratio_<kind>`` hint (the
+ratio the last auto run of that kind noted in the session overlay, or
+a DB entry) and skips the count probe; a hint that undershoots runs the
+op again at the exact count.  Without a hint, and whenever the pass is
+off, the auto tier probes the exact count (``cap_probe``): the JAX
+package's pass-off guess (``4 * (nl + nr)`` rows for a join, ``n`` for
+a groupby) would allocate up to four times the memory on a card.
 """
 
 from __future__ import annotations
@@ -99,7 +108,7 @@ from ..parallel.pipeline import fire_ppermute, ring_pipeline
 from .elementwise import _prog_cache, _traced_op_key
 from ..core.pinning import pinned_id
 from ..utils.spmd_guard import dtype_name
-from ..utils.env import env_int
+from ..utils.env import env_int, env_raw
 from ..utils.resilience import ProgramError
 from ..views import views as _v
 
@@ -766,7 +775,22 @@ def _broadcast_max() -> int:
     up to which ``join`` keeps the broadcast merge (per-device memory
     O(nl + nr)); above it, with more than one rank and both sides
     non-empty, the merge takes the partition route.  ``0`` forces the
-    partition route; a malformed value reads as the default, 2^18."""
+    partition route; a malformed value reads as the default, 2^18.
+
+    With the variable unset and the plan optimizer's ``joinroute`` pass
+    armed, a ``join.broadcast_max`` entry of the tuning DB
+    (``dr_tpu_torch/tuning.py``, matched on this runtime's context)
+    replaces the default; a value that is not an integer is ignored."""
+    if env_raw("DR_GPU_JOIN_BROADCAST_MAX") is None:
+        from ..plan import opt as _opt
+        if _opt.enabled("joinroute"):
+            from .. import tuning as _tuning
+            v = _tuning.lookup("join", "broadcast_max")
+            if v is not None and not isinstance(v, bool):
+                try:
+                    return max(0, int(v))
+                except (TypeError, ValueError):
+                    pass
     return env_int("DR_GPU_JOIN_BROADCAST_MAX", 1 << 18, floor=0)
 
 
@@ -1165,6 +1189,40 @@ def _fresh_outs(rt, dtypes, cap):
                  for dt in dtypes)
 
 
+def _capinfer_enabled() -> bool:
+    from ..plan import opt as _opt
+    return _opt.enabled("capinfer")
+
+
+def _cap_hint(kind: str, base: int):
+    """The capacity hint of an auto op while the ``capinfer`` pass is
+    armed: the rows/input ratio of ``relational.cap_ratio_<kind>`` (the
+    session overlay the last auto run noted, else the tuning DB) times
+    ``base``, widened by 1.25.  None (no hint, or a value that is not a
+    number): the caller probes the exact count."""
+    if base <= 0:
+        return None
+    from .. import tuning as _tuning
+    r = _tuning.lookup("relational", "cap_ratio_" + kind)
+    if isinstance(r, bool):
+        return None
+    try:
+        r = float(r) if r is not None else None
+    except (TypeError, ValueError):
+        return None
+    if r is None or not np.isfinite(r) or r <= 0:
+        return None
+    return max(1, int(np.ceil(r * base * 1.25)))
+
+
+def _note_ratio(kind: str, base: int, m: int) -> None:
+    """Note the observed rows/input ratio in the session overlay, so the
+    next auto op of this kind skips its probe."""
+    if base > 0:
+        from .. import tuning as _tuning
+        _tuning.note("relational", "cap_ratio_" + kind, max(m, 1) / base)
+
+
 def _join_auto_eager(lk, lv, rk, rv, how, fill):
     if how == "right":
         conts, m = _join_auto_eager(rk, rv, lk, lv, "left", fill)
@@ -1185,17 +1243,30 @@ def _join_auto_eager(lk, lv, rk, rv, how, fill):
         slk, slv, nl = _sorted_scratch(lkc, lvc, sid=sid, phase="sort_left")
         srk, srv, nr = _sorted_scratch(rkc, rvc, sid=sid,
                                        phase="sort_right")
-        # the exact count: the broadcast merge's row arithmetic on one
-        # device
-        t0 = _obs.now()
-        exact = int(_broadcast_plan(slk, srk, nl, nr,
-                                    how in ("left", "outer"),
-                                    how == "outer",
-                                    rt.devices[0])[-1].total)
-        _obs.complete("relational.phase", t0, cat="relational", parent=sid,
-                      phase="cap_probe", rows=exact)
-        conts = _fresh_outs(rt, dtypes, _pow2_cap(exact))
+        base = nl + nr
+        cap = _cap_hint("join_" + how, base) if _capinfer_enabled() \
+            else None
+        if cap is None:
+            # the exact count: the broadcast merge's row arithmetic on
+            # one device
+            t0 = _obs.now()
+            cap = int(_broadcast_plan(slk, srk, nl, nr,
+                                      how in ("left", "outer"),
+                                      how == "outer",
+                                      rt.devices[0])[-1].total)
+            _obs.complete("relational.phase", t0, cat="relational",
+                          parent=sid, phase="cap_probe", rows=cap)
+        cap = _pow2_cap(cap)
+        conts = _fresh_outs(rt, dtypes, cap)
         m = _merge_sorted(sid, slk, slv, nl, srk, srv, nr, conts, how, fill)
+        if m > cap:
+            # a hinted capacity undershot: merge again at the exact
+            # count, never a capacity error on the auto tier
+            conts = _fresh_outs(rt, dtypes, _pow2_cap(m))
+            m2 = _merge_sorted(sid, slk, slv, nl, srk, srv, nr, conts, how,
+                               fill)
+            assert m2 == m, "join count drifted between merges"
+        _note_ratio("join_" + how, base, m)
         return conts, m
     finally:
         _obs.end(sid, rows=m)
@@ -1222,14 +1293,21 @@ def _groupby_auto_eager(keys, values, agg, keys_only=False):
     ng = -1
     try:
         sk, sv, n = _sorted_scratch(kc, vc, sid=sid)
-        t0 = _obs.now()
-        cap = _group_count(sk, n)
-        _obs.complete("relational.phase", t0, cat="relational", parent=sid,
-                      phase="cap_probe", groups=cap)
+        cap = _cap_hint("groupby", n) if _capinfer_enabled() else None
+        if cap is None:
+            t0 = _obs.now()
+            cap = _group_count(sk, n)
+            _obs.complete("relational.phase", t0, cat="relational",
+                          parent=sid, phase="cap_probe", groups=cap)
         cap = _pow2_cap(min(cap, max(n, 1)))
-        ok = _fresh_outs(rt, (kc.cont.dtype,), cap)[0]
-        ov = None if keys_only else _fresh_outs(rt, (vdt,), cap)[0]
-        ng = _groupby_sorted(sid, sk, sv, n, ok, ov, agg)
+        while True:
+            ok = _fresh_outs(rt, (kc.cont.dtype,), cap)[0]
+            ov = None if keys_only else _fresh_outs(rt, (vdt,), cap)[0]
+            ng = _groupby_sorted(sid, sk, sv, n, ok, ov, agg)
+            if ng <= cap:
+                break
+            cap = _pow2_cap(ng)  # a hinted capacity undershot
+        _note_ratio("groupby", n, ng)
         return ((ok,) if ov is None else (ok, ov)), ng
     finally:
         _obs.end(sid, groups=ng)

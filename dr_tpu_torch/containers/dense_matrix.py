@@ -176,6 +176,7 @@ class dense_matrix:
         self._shards = [torch.zeros(self._shape_local, dtype=self._dtype,
                                     device=d)
                         for d in self._rt.devices[:gp * gq]]
+        self._rt.register(self)
 
     # ------------------------------------------------------------------ meta
     @property

@@ -174,6 +174,7 @@ class distributed_vector:
             raise
         if prior["_rt"] is None and _sanitize._born_hook is not None:
             _sanitize._born_hook(self)
+        runtime.register(self)
 
     @property
     def _rows(self):

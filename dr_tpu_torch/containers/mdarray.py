@@ -110,6 +110,7 @@ class distributed_mdarray:
                        dtype_name(self._dtype)))
         self._blocks = [torch.zeros(self._block, dtype=self._dtype, device=d)
                         for d in self._rt.devices[:math.prod(self._grid)]]
+        self._rt.register(self)
 
     # ------------------------------------------------------------------ meta
     @property

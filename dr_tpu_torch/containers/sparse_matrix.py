@@ -238,6 +238,7 @@ class sparse_matrix:
         self._tile_nnz = np.asarray(counts, dtype=np.int64)
         self._nnz = int(self._tile_nnz.sum())
         self._decide_format(self._tile_nnz)
+        self._rt.register(self)
 
     @classmethod
     def from_reference_state(cls, shape, grid, tile_nnz, vals, rows, cols, *,

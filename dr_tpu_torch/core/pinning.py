@@ -64,6 +64,17 @@ def _purge(idents) -> None:
     _caches[:] = live
 
 
+def release(obj) -> None:
+    """Unpin ``obj`` and drop every cache entry whose key references it
+    (the elastic layer calls this for a runtime a shrink or a grow
+    replaced: no key over its ranks can match again, and a plan entry
+    holds a CUDA graph and its private memory pool)."""
+    i = id(obj)
+    if _pins.get(i) is obj:
+        del _pins[i]
+    _purge({i})
+
+
 def pinned_id(obj):
     """Stable identity key for ``obj`` (None passes through)."""
     if obj is None:

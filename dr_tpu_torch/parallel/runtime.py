@@ -9,6 +9,19 @@ hosts several ranks (``get_duplicated_devices``, the reference's
 
 ``init()`` with no arguments takes the visible CUDA devices and raises
 when there are none; the CPU is used only when the caller names it.
+
+Elastic bookkeeping (``utils/elastic.py``).  Containers register with
+their runtime at creation (:meth:`Runtime.register`, a weak set), so a
+shrink or a grow can walk the live ones.  Because ranks may repeat a
+device, a lost rank is a rank slot, never a ``torch.device``: each
+runtime keeps its rank slots (``slots``: one id a rank, the position the
+rank had in the list ``init()`` first admitted) and the slots earlier
+shrinks dropped (``dropped``: ``(slot, device)`` pairs).
+:func:`probe_recovered` answers from ``dropped``.  On one card a real
+device loss kills every rank at once, so only an injected
+``device.lost`` (or a failure pinned on a rank by
+``elastic.attribute``) leaves surviving ranks; a shrink over ranks that
+share a card moves state between ranks of the same card.
 ``init()`` fires the ``runtime.init`` fault site first, then touches
 every CUDA device of the list once under ``with_deadline``
 (:data:`INIT_DEADLINE_S`): a failed or hung first touch raises
@@ -18,6 +31,7 @@ CPU instead.
 
 from __future__ import annotations
 
+import weakref
 from typing import Optional, Sequence
 
 import torch
@@ -27,7 +41,7 @@ from ..utils import resilience as _res
 
 __all__ = ["Runtime", "init", "final", "finalize", "runtime",
            "is_initialized", "nprocs", "devices", "barrier", "fence",
-           "get_duplicated_devices"]
+           "get_duplicated_devices", "probe_recovered"]
 
 
 def _as_device(d) -> torch.device:
@@ -38,10 +52,24 @@ def _as_device(d) -> torch.device:
 
 
 class Runtime:
-    """One entry of ``devices`` per rank; ``nprocs`` ranks."""
+    """One entry of ``devices`` per rank; ``nprocs`` ranks.  ``slots``
+    and ``dropped`` are the elastic layer's rank-slot bookkeeping (see
+    the module docstring)."""
 
     def __init__(self, devices: Sequence[torch.device]):
         self.devices = [_as_device(d) for d in devices]
+        self.slots = list(range(len(self.devices)))
+        self.dropped: list = []
+        self._live = weakref.WeakSet()
+
+    def register(self, container) -> None:
+        """Track ``container`` (weakly) as living on this runtime."""
+        self._live.add(container)
+
+    def live_containers(self) -> list:
+        """The registered containers still alive: the population an
+        elastic shrink or grow walks."""
+        return list(self._live)
 
     @property
     def nprocs(self) -> int:
@@ -134,6 +162,38 @@ def init(devices: Optional[Sequence] = None, *,
     _first_touch(devs)
     _runtime = Runtime(devs)
     return _runtime
+
+
+def probe_recovered(timeout_s: float = 30.0):
+    """The devices of the rank slots a shrink dropped that answer now:
+    the grow-back candidates (``utils/elastic.grow_session``), in slot
+    order.  Fires the ``device.recover`` site first.  A CPU slot always
+    answers; a CUDA slot answers when its index is below
+    ``torch.cuda.device_count()`` and a one-element allocation there
+    completes.  The whole probe runs under ``with_deadline``, so a
+    wedged card costs at most ``timeout_s``.  ``[]`` before ``init()``
+    or when no slot was dropped."""
+    _faults.fire("device.recover")
+    if _runtime is None or not _runtime.dropped:
+        return []
+    cand = [d for _slot, d in _runtime.dropped]
+
+    def answer():
+        out = []
+        for d in cand:
+            if d.type == "cuda":
+                if d.index >= torch.cuda.device_count():
+                    continue
+                try:
+                    torch.empty(1, device=d)
+                    torch.cuda.synchronize(d)
+                except RuntimeError:
+                    continue
+            out.append(d)
+        return out
+
+    return _res.with_deadline(answer, timeout_s, site="device.recover",
+                              dump=False)
 
 
 def runtime() -> Runtime:

@@ -70,8 +70,18 @@ anything runs.  A fault there (or in a run's ``pre`` hooks, which fire
 before the run executes) drops the unexecuted suffix of the queue: the
 containers keep their pre-flush values for it, recorded re-layouts undo
 their metadata flip, and unresolved :class:`PlanScalar` handles raise.
-The elastic rescue of the JAX package is not ported: a device loss
-mid-flush drops the queue as any other fault does.
+
+Elastic replay: every record call also logs a thunk that records it
+again.  With ``DR_GPU_ELASTIC=1``, a ``DeviceLostError`` in the middle
+of a flush undoes the unexecuted suffix's re-layouts, shrinks the
+session (``utils/elastic.try_rescue``), records the suffix again on the
+rescued containers and flushes it with reason ``"elastic replay"``;
+pending handles of the dropped suffix take the values of their
+re-recorded twins, and the faulted flush's log entry carries
+``elastic_replayed``.  With elastic off, or when no rescue is possible,
+the loss drops the queue as any other fault does.  The outermost
+:func:`deferred` region's clean exit polls ``elastic.maybe_grow()``
+(one environment check unless ``DR_GPU_ELASTIC_GROW=1``).
 
 Optimizer: ``plan/opt.py`` rewrites the recorded queue at each flush
 (merge, dce, pushdown; ``DR_GPU_PLAN_OPT`` / ``DR_GPU_PLAN_OPT_DISABLE``).
@@ -403,9 +413,26 @@ class Plan:
         self.log: list = []
         #: (queue item, undo thunk) of each recorded re-layout
         self._undo: list = []
+        #: (queue item, thunk recording the op again, its handle or
+        #: None) of each recorded op: the elastic replay log
+        self._replay: list = []
+        #: during an elastic replay only: id(old pending handle) -> its
+        #: re-recorded handle
+        self._subst: dict = {}
 
     def _note_undo(self, thunk) -> None:
         self._undo.append((self._queue[-1], thunk))
+
+    def _note_replay(self, thunk, handle=None) -> None:
+        self._replay.append((self._queue[-1], thunk, handle))
+
+    def _subst_scalars(self, values) -> list:
+        """``values`` with pending handles mapped to their re-recorded
+        twins (the identity outside an elastic replay)."""
+        if not self._subst:
+            return list(values)
+        return [self._subst.get(id(v), v) if isinstance(v, PlanScalar)
+                else v for v in values]
 
     @staticmethod
     def _undo_items(undos, items) -> None:
@@ -475,6 +502,7 @@ class Plan:
     def record_generator(self, out_chain, gkind: str, value) -> bool:
         """fill / iota over an aligned output window."""
         cont = out_chain.cont
+        value = self._subst_scalars([value])[0]
         run = self._fusible_run(cont, [value])
         slot = run.slot(cont)
         layout, off, n = cont.layout, out_chain.off, out_chain.n
@@ -489,6 +517,8 @@ class Plan:
         run.ops.append(_FusedOp(gkind, key, emit, spec, vals,
                                 writes=((slot, off, n, False),),
                                 pure=True))
+        self._note_replay(lambda oc=out_chain, g=gkind, v=value:
+                          self.record_generator(oc, g, v))
         return True
 
     def record_transform(self, ins, out_chain, op, scalars,
@@ -496,8 +526,9 @@ class Plan:
         """Aligned transform / for_each: chain ``BoundOp`` scalars and
         the trailing scalars are operands."""
         cont = out_chain.cont
-        chain_sc = _ew._chain_scalars(ins)
-        all_sc = chain_sc + list(scalars)
+        chain_sc = self._subst_scalars(_ew._chain_scalars(ins))
+        scalars = self._subst_scalars(scalars)
+        all_sc = chain_sc + scalars
         run = self._fusible_run(cont, all_sc)
         out_slot = run.slot(cont)
         in_slots = tuple(run.slot(c.cont) for c in ins)
@@ -525,11 +556,15 @@ class Plan:
         run.ops.append(_FusedOp(
             name, key, emit, spec, vals, reads=in_slots,
             writes=((out_slot, off, n, False),), pure=True, push=push))
+        self._note_replay(lambda i=ins, oc=out_chain, o=op,
+                          sc=tuple(scalars), nm=name:
+                          self.record_transform(i, oc, o, sc, nm))
         return True
 
     def record_zip_foreach(self, ins, outs, fn, scalars) -> bool:
         """Aligned for_each over a zip (its components are the outputs)."""
         conts = [oc.cont for oc in outs]
+        scalars = self._subst_scalars(scalars)
         run = self._fusible_run(conts[0], scalars)
         out_slots = tuple(run.slot(c) for c in conts)
         in_slots = tuple(run.slot(ch.cont) for ch in ins)
@@ -549,6 +584,8 @@ class Plan:
             "for_each(zip)", key, emit, spec, vals, reads=in_slots,
             writes=tuple((s, off, n, False) for s in out_slots),
             pure=True))
+        self._note_replay(lambda i=ins, o=outs, f=fn, sc=tuple(scalars):
+                          self.record_zip_foreach(i, o, f, sc))
         return True
 
     def record_reduce(self, chains, kind: str, zip_op=None) -> PlanScalar:
@@ -557,8 +594,9 @@ class Plan:
         from ..algorithms import reduce as _red
         c0 = chains[0]
         cont = c0.cont
-        chain_sc = _ew._chain_scalars(chains)
-        zsc = list(zip_op.scalars) if isinstance(zip_op, _v.BoundOp) else []
+        chain_sc = self._subst_scalars(_ew._chain_scalars(chains))
+        zsc = self._subst_scalars(zip_op.scalars) \
+            if isinstance(zip_op, _v.BoundOp) else []
         all_sc = chain_sc + zsc
         run = self._fusible_run(cont, all_sc)
         slots = tuple(run.slot(c.cont) for c in chains)
@@ -582,6 +620,8 @@ class Plan:
         run.handles.append(handle)
         run.ops.append(_FusedOp("reduce", key, emit, spec, vals,
                                 reads=slots))
+        self._note_replay(lambda ch=chains, k=kind, z=zip_op:
+                          self.record_reduce(ch, k, z), handle)
         return handle
 
     def record_splice(self, out_chain, values) -> bool:
@@ -611,6 +651,8 @@ class Plan:
         full = off == 0 and n == len(cont) and not cont.halo_bounds.width
         run.ops.append(_FusedOp("copy(host)", key, emit, spec, vals,
                                 writes=((slot, off, n, full),)))
+        self._note_replay(lambda oc=out_chain, v=values:
+                          self.record_splice(oc, v))
         return True
 
     def record_halo(self, dv, kind: str, op=None, iters: int = 1) -> bool:
@@ -633,6 +675,8 @@ class Plan:
 
         run.ops.append(_FusedOp(f"halo.{kind}", key, emit, reads=(slot,),
                                 writes=((slot, 0, len(dv), False),)))
+        self._note_replay(lambda d=dv, k=kind, o=op, it=iters:
+                          self.record_halo(d, k, o, it))
         return True
 
     def record_stencil(self, in_cont, out_cont, periodic, prev, nxt,
@@ -653,6 +697,9 @@ class Plan:
 
         run.ops.append(_FusedOp("stencil", key, emit, reads=(si, so),
                                 writes=((so, 0, len(out_cont), False),)))
+        self._note_replay(lambda ic=in_cont, oc=out_cont, per=periodic,
+                          pv=prev, nx=nxt, ko=key_op, bo=body_op:
+                          self.record_stencil(ic, oc, per, pv, nx, ko, bo))
         return True
 
     def record_redistribute(self, cont, new_dist, rt) -> bool:
@@ -662,6 +709,7 @@ class Plan:
         dropped first.  Rows change shape, so the op is not graph-safe."""
         from ..parallel import pipeline as _pipe
         from ..parallel import redistribute as _rdx
+        from ..parallel import runtime as _rtm
         src_rt, src_dist, src_layout = (cont.runtime, cont.distribution,
                                         cont.layout)
         cont._rebind(rt, new_dist, _rows=cont._rows)
@@ -690,6 +738,9 @@ class Plan:
             writes=((slot, 0, len(cont), False),), graph_safe=False))
         self._note_undo(lambda c=cont, r=src_rt, d=src_dist:
                         c._rebind(r, d, _rows=c._rows))
+        # a replay records against the runtime current then
+        self._note_replay(lambda c=cont, d=new_dist:
+                          self.record_redistribute(c, d, _rtm.runtime()))
         return True
 
     def record_histogram(self, in_chain, out_chain, lo, hi) -> bool:
@@ -698,7 +749,8 @@ class Plan:
         scalars and ``lo`` / ``hi`` as operands."""
         from ..algorithms import relational as _rel
         in_cont, out_cont = in_chain.cont, out_chain.cont
-        all_sc = _ew._chain_scalars([in_chain]) + [lo, hi]
+        all_sc = self._subst_scalars(_ew._chain_scalars([in_chain])
+                                     + [lo, hi])
         run = self._fusible_run(out_cont, all_sc)
         si, so = run.slot(in_cont), run.slot(out_cont)
         spec, vals = self._scalar_spec(run, all_sc)
@@ -720,6 +772,8 @@ class Plan:
             "histogram", key, emit, spec, vals, reads=(si,),
             writes=((so, 0, bins, True),), pure=True,
             graph_safe=all(s == "t" for s in spec)))
+        self._note_replay(lambda ic=in_chain, oc=out_chain, a=lo, b=hi:
+                          self.record_histogram(ic, oc, a, b))
         return True
 
     def record_top_k(self, in_chain, ov_chain, oi_chain, largest,
@@ -730,7 +784,7 @@ class Plan:
         from ..algorithms import relational as _rel
         in_cont, ov_cont = in_chain.cont, ov_chain.cont
         oi_cont = oi_chain.cont if oi_chain is not None else None
-        all_sc = _ew._chain_scalars([in_chain])
+        all_sc = self._subst_scalars(_ew._chain_scalars([in_chain]))
         run = self._fusible_run(ov_cont, all_sc)
         si, sov = run.slot(in_cont), run.slot(ov_cont)
         soi = run.slot(oi_cont) if oi_cont is not None else None
@@ -763,6 +817,9 @@ class Plan:
         run.ops.append(_FusedOp("top_k", key, emit, spec, vals,
                                 reads=reads, writes=writes, pure=True,
                                 graph_safe=all(s == "t" for s in spec)))
+        self._note_replay(lambda ic=in_chain, vc=ov_chain, xc=oi_chain,
+                          lg=largest, mg=merge:
+                          self.record_top_k(ic, vc, xc, lg, mg))
         return True
 
     def record_opaque(self, name: str, thunk, reads=None, writes=None,
@@ -772,6 +829,8 @@ class Plan:
         ``writes`` makes it a barrier to the optimizer passes."""
         self._queue.append(_Opaque(name, thunk, reads=reads, writes=writes,
                                    meta=meta))
+        self._note_replay(lambda n=name, t=thunk, r=reads, w=writes, m=meta:
+                          self.record_opaque(n, t, r, w, m))
         return True
 
     def nonfusible(self, what: str) -> None:
@@ -790,6 +849,7 @@ class Plan:
         from . import opt as _opt
         queue, self._queue = self._queue, []
         undos, self._undo = self._undo, []
+        replay, self._replay = self._replay, []
         self._flushing = True
         sid = _obs.begin("plan.flush", cat="plan", reason=reason,
                          items=len(queue))
@@ -813,6 +873,23 @@ class Plan:
                 _plansan.check_serializable(snap, exec_queue)
             for idx, item in enumerate(exec_queue):
                 self._exec_item(item, entry, sid, _plansan)
+        except _resilience.DeviceLostError as de:
+            # the unexecuted suffix, as recorded items: its re-layouts
+            # undo first (the rescue then reads consistent containers),
+            # then it is recorded again on the shrunken runtime
+            suffix = _opt.expand_items(exec_queue[idx:])
+            self._undo_items(undos, suffix)
+            self._flushing = False
+            try:
+                recovered = self._elastic_recover(suffix, replay, de, entry)
+            except BaseException:
+                self._break_handles(queue)
+                entry["error"] = True
+                raise
+            if not recovered:
+                self._break_handles(queue)
+                entry["error"] = True
+                raise
         except BaseException:
             self._undo_items(undos, _opt.expand_items(exec_queue[idx:]))
             self._break_handles(queue)
@@ -880,6 +957,38 @@ class Plan:
                         h._broken = True
                         h._run = None
 
+    def _elastic_recover(self, suffix, replay, err, entry) -> bool:
+        """A device loss in the middle of a flush: shrink the session,
+        record the unexecuted ``suffix`` again (its thunks re-read the
+        rescued containers' layouts) and flush it.  Pending handles take
+        their twins' values.  False when elastic is off or no rescue is
+        possible: the caller then drops the queue."""
+        from ..utils import elastic as _elastic
+        if not (_elastic.enabled() and _elastic.try_rescue(err)):
+            return False
+        ids = {id(it) for it in suffix}
+        links = []
+        replayed = 0
+        self._subst = {}
+        try:
+            for item, thunk, old_h in replay:
+                if id(item) not in ids:
+                    continue
+                new = thunk()
+                replayed += 1
+                if old_h is not None and isinstance(new, PlanScalar):
+                    self._subst[id(old_h)] = new
+                    links.append((old_h, new))
+        finally:
+            self._subst = {}
+        entry["elastic_replayed"] = replayed
+        self.flush("elastic replay")
+        for old_h, new_h in links:
+            old_h._val = new_h._val
+            old_h._run = None
+            old_h._broken = new_h._val is None
+        return True
+
     def _exec_run(self, run: _Run):
         """Execute one run: (cache hit, route, captured)."""
         for o in run.ops:
@@ -938,6 +1047,7 @@ class Plan:
         re-layouts undo their metadata flip."""
         queue, self._queue = self._queue, []
         undos, self._undo = self._undo, []
+        self._replay = []
         self._undo_items(undos, queue)
         self._break_handles(queue)
         if queue:
@@ -1023,3 +1133,7 @@ def deferred():
     p = Plan()
     with p.record():
         yield p
+    # the outermost region's clean exit, after its flush, is the moment
+    # between flushes where re-admitting a recovered rank is safe
+    from ..utils import elastic as _elastic
+    _elastic.maybe_grow()

@@ -18,8 +18,12 @@ module rewrites it just before execution:
   scratch copy (a view-chain ``BoundOp``), and the dce pass then drops
   the intermediate write.
 * **capinfer** / **joinroute**: config-level passes consulted at op
-  execution; they register here so one knob family covers them.  The
-  port has no tuning DB yet: ``joinroute`` reads none.
+  execution; they register here so one knob family covers them.
+  ``capinfer`` lets the auto relational tier size its outputs from a
+  ``relational.cap_ratio_<kind>`` hint and skip its count probe;
+  ``joinroute`` lets the join read its route threshold,
+  ``join.broadcast_max``, from the tuning DB
+  (``algorithms/relational.py``, ``dr_tpu_torch/tuning.py``).
 
 Every rewrite keeps the exact value of every observable: container
 contents, resolved scalars, relational counts.  A merged run executes

@@ -24,8 +24,10 @@ in the other.
   kill leaves a non-atomic writer in), ``checkpoint.read`` at the start
   of :func:`read` / :func:`load`.
 
-One process drives every rank, so ``save`` writes from it alone.  Not
-carried over yet: the elastic layer's checkpoint registry (``elastic``).
+One process drives every rank, so ``save`` writes from it alone.  A
+successful ``save`` registers the file as the container's restore
+source with the elastic layer (``elastic.note_checkpoint``): a shrink
+restores from it the segments that died with a rank.
 """
 
 from __future__ import annotations
@@ -170,7 +172,10 @@ def save(path: str, container) -> None:
     """Write ``container`` to ``path`` (``.npz`` appended if missing),
     atomically."""
     meta, arrays = snapshot(container)
-    _write_atomic(_final_path(path), meta, arrays)
+    final = _final_path(path)
+    _write_atomic(final, meta, arrays)
+    from . import elastic
+    elastic.note_checkpoint(container, final)
 
 
 def rebuild(meta, arrays, *, runtime=None, reblock=False):

@@ -33,11 +33,14 @@ plan.flush             ``plan.Plan.flush``, before anything of the
                        queue runs
 sanitize.verify        ``plan.Plan.flush``, right after ``plan.flush``
                        (armed or not)
+mesh.shrink            ``elastic.rescue_session``, before the runtime
+                       flips
+device.recover         ``runtime.probe_recovered`` (the grow's probe)
+mesh.grow              ``elastic.grow_session``, before the rebuild
 =====================  ===============================================
 
-Sites whose modules are not ported fire nowhere yet: ``mesh.shrink``, ``mesh.grow``
-and ``device.recover`` with ``elastic``; ``serve.*``, ``arena.*`` and
-``router.*`` with ``serve/``.  ``runtime.probe`` and ``fallback.warn``
+Sites whose modules are not ported fire nowhere yet: ``serve.*``,
+``arena.*`` and ``router.*`` with ``serve/``.  ``runtime.probe`` and ``fallback.warn``
 never fire in the port: it has no device probe and no fallback.
 
 Exception kinds map onto the taxonomy of ``utils/resilience``:
@@ -116,8 +119,6 @@ SITES: Dict[str, Tuple[str, ...]] = {
 #: the sites that fire in the port; the others wait for the slice that
 #: ports their module (``None``: never, the port has no such code)
 PORT_PENDING: Dict[str, Optional[str]] = {
-    "mesh.shrink": "elastic", "mesh.grow": "elastic",
-    "device.recover": "elastic",
     "serve.accept": "serve/", "serve.request": "serve/",
     "serve.flush": "serve/", "serve.drain": "serve/",
     "serve.journal": "serve/", "arena.map": "serve/",

@@ -20,12 +20,16 @@
   ``spmd_guard`` dispatch trace and the obs tail, and raises
   :class:`DeadlineExpired`.
 
-Not in this slice: ``retry``'s elastic shrink on a
-:class:`DeviceLostError` comes with the ``elastic`` slice; until then a
-device loss surfaces classified and is not retried.
-``degradation_story`` reads re-exec markers of the JAX package's bench
-and serving daemon, which the port does not have; it comes with
-``serve/``, if at all.
+* **Elastic retry**: with ``DR_GPU_ELASTIC=1`` a :class:`DeviceLostError`
+  raised under :func:`retry` shrinks the session onto the surviving
+  ranks (``utils/elastic.try_rescue``) and the call runs again there;
+  with elastic off, or when no rescue is possible, the loss surfaces
+  classified and is not retried.
+* **session_story**: :func:`session_story` folds the elastic layer's
+  ``_DR_GPU_ELASTIC_*`` markers into a ``shrink`` and a ``grow``
+  chapter.  The JAX package's ``degradation_story`` also tells a CPU
+  fallback's first touch and a benchmark re-exec, which the port does
+  not have; its serving chapters come with ``serve/``.
 
 Dropped: ``first_touch_or_cpu``, ``route_first_touch``,
 ``relay_listening``, ``dead_relay`` and ``FirstTouch``.  They switch a
@@ -36,6 +40,7 @@ touch raises classified under the site ``runtime.init``.
 
 from __future__ import annotations
 
+import os
 import random
 import sys
 import threading
@@ -50,6 +55,7 @@ __all__ = [
     "classify", "classified",
     "backoff_schedule", "ProbeTimer", "TokenBudget",
     "retry", "with_deadline", "dump_dispatch_trace", "dump_obs_tail",
+    "session_story",
 ]
 
 
@@ -123,8 +129,8 @@ class DeviceLostError(ResilienceError):
     """A device died mid-session: retrying the same program on the same
     ranks cannot succeed.  ``rank`` attributes the loss to a rank when
     known (fault injection sets it; a raw error classified here leaves
-    it None).  Surfaces classified and is not retried until the
-    ``elastic`` slice brings the shrink."""
+    it None).  :func:`retry` retries it only after an elastic shrink
+    (``DR_GPU_ELASTIC=1``)."""
 
     def __init__(self, message: str, *, site: str = "",
                  rank: Optional[int] = None):
@@ -309,9 +315,13 @@ def retry(fn: Callable, *, attempts: int = 3, base: float = 0.05,
     at once (counted as ``resilience.retry_budget_denied``).
 
     Each retry records a ``retry`` event (category ``resilience``) and
-    the ``resilience.retries`` counter while tracing is armed.  A
-    :class:`DeviceLostError` is not retried: the shrink that makes it
-    retryable comes with the ``elastic`` slice."""
+    the ``resilience.retries`` counter while tracing is armed.
+
+    With ``DR_GPU_ELASTIC=1`` a :class:`DeviceLostError` from ``fn``
+    shrinks the session (``utils/elastic.try_rescue``) and ``fn`` runs
+    again on the shrunken runtime, with no backoff delay and no budget
+    token (the shrink paid the recovery).  With elastic off, or when no
+    rescue is possible, the loss surfaces classified."""
     if attempts < 1:
         # a config-derived attempts=0 must fail loudly, not silently
         # skip the protected call and hand back None
@@ -325,16 +335,22 @@ def retry(fn: Callable, *, attempts: int = 3, base: float = 0.05,
         except Exception as e:
             ce = classified(e)
             recoverable = isinstance(ce, tuple(retry_on))
+            shrunk = False
+            if (not recoverable and isinstance(ce, DeviceLostError)
+                    and i < attempts - 1):
+                from . import elastic
+                shrunk = recoverable = (elastic.enabled()
+                                        and elastic.try_rescue(ce))
             if i == attempts - 1 or not recoverable:
                 if ce is e:
                     raise  # already classified: keep its cause chain
                 raise ce from e
-            if deadline_s is not None and \
+            if deadline_s is not None and not shrunk and \
                     time.monotonic() - t0 + delays[i] > deadline_s:
                 if ce is e:
                     raise
                 raise ce from e
-            if budget is not None and not budget.spend():
+            if budget is not None and not shrunk and not budget.spend():
                 from .. import obs as _obs
                 _obs.count("resilience.retry_budget_denied")
                 if ce is e:
@@ -345,9 +361,10 @@ def retry(fn: Callable, *, attempts: int = 3, base: float = 0.05,
             from .. import obs as _obs
             _obs.event("retry", cat="resilience", attempt=i,
                        error=type(ce).__name__, site=ce.site,
-                       delay_s=round(delays[i], 4), shrunk=False)
+                       delay_s=round(delays[i], 4), shrunk=shrunk)
             _obs.count("resilience.retries")
-            sleep(delays[i])
+            if not shrunk:
+                sleep(delays[i])
 
 
 # ---------------------------------------------------------------------------
@@ -430,3 +447,49 @@ def with_deadline(fn: Callable, timeout_s: float, *, site: str = "",
     return box.get("value")
 
 
+
+
+# ---------------------------------------------------------------------------
+# the session's story
+# ---------------------------------------------------------------------------
+
+_SHRINK_FIELDS = (("reason", "_DR_GPU_ELASTIC_REASON", str),
+                  ("shrinks", "_DR_GPU_ELASTIC_SHRINKS", int),
+                  ("lost_ranks", "_DR_GPU_ELASTIC_LOST_RANKS", str),
+                  ("rescued", "_DR_GPU_ELASTIC_RESCUED", int),
+                  ("restored", "_DR_GPU_ELASTIC_RESTORED", int),
+                  ("lost", "_DR_GPU_ELASTIC_LOST", int),
+                  ("nprocs", "_DR_GPU_ELASTIC_NPROCS", int),
+                  ("wall_s", "_DR_GPU_ELASTIC_WALL_S", float))
+_GROW_FIELDS = (("reason", "_DR_GPU_ELASTIC_GROW_REASON", str),
+                ("grows", "_DR_GPU_ELASTIC_GROWS", int),
+                ("moved", "_DR_GPU_ELASTIC_GROW_MOVED", int),
+                ("kept", "_DR_GPU_ELASTIC_GROW_KEPT", int),
+                ("nprocs", "_DR_GPU_ELASTIC_GROW_NPROCS", int),
+                ("wall_s", "_DR_GPU_ELASTIC_GROW_WALL_S", float))
+
+
+def session_story(env=None) -> Optional[dict]:
+    """The session's elastic story from the ``_DR_GPU_ELASTIC_*``
+    markers of ``env`` (default ``os.environ``): ``reason`` and a
+    ``shrink`` chapter (shrinks, lost ranks, rescued / restored / lost
+    counts, ranks after, wall seconds) and a ``grow`` chapter (grows,
+    moved / kept counts, ranks after, wall seconds), each with the
+    fields of the JAX package's ``degradation_story`` chapters of the
+    same name.  None when the session never shrank or grew."""
+    env = os.environ if env is None else env
+    story = {}
+    for chapter, fields in (("shrink", _SHRINK_FIELDS),
+                            ("grow", _GROW_FIELDS)):
+        got = {}
+        for key, marker, conv in fields:
+            raw = env.get(marker)
+            if raw not in (None, ""):
+                got[key] = conv(raw)
+        if got:
+            story[chapter] = got
+    if not story:
+        return None
+    story["reason"] = (story.get("shrink", {}).get("reason")
+                       or story.get("grow", {}).get("reason"))
+    return story

@@ -10,8 +10,12 @@ package's on the same numpy-seeded inputs.
 ``kernel.build`` fires only where a CUDA kernel is built or launched:
 on the CPU every wrapper takes its plain version by routing, fault or
 not, which its two cases assert (the card's cases are chip_smoke phase
-22 and ``tests/test_torch_gpu.py``).  The registry's other sites wait
-for the slices that port their modules (``faults.PORT_PENDING``)."""
+22 and ``tests/test_torch_gpu.py``).  The battery ends with the elastic
+leg of ``tests/test_chaos.py``'s battery: a shrink of the last rank
+(``mesh.shrink``) and the grow back (``device.recover``, ``mesh.grow``),
+a team vector rescued bit for bit through both and a lost one raising.
+The registry's other sites wait for the slices that port their modules
+(``faults.PORT_PENDING``)."""
 
 import importlib.util
 import os
@@ -22,8 +26,10 @@ import pytest
 
 import dr_tpu
 import dr_tpu_torch as dt
+from dr_tpu.utils import elastic as jelastic
 from dr_tpu.utils import faults as jfaults
-from dr_tpu_torch.utils import faults, resilience
+from dr_tpu.utils import resilience as jresilience
+from dr_tpu_torch.utils import elastic, faults, resilience
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _spec = importlib.util.spec_from_file_location(
@@ -55,6 +61,7 @@ def clean(inputs, tmp_path_factory):
 def _disarm():
     yield
     faults.clear()
+    elastic.reset()
     dt.final()
 
 
@@ -69,8 +76,6 @@ def test_registry_and_pending_sites():
     assert faults.sites() == jfaults.sites()
     assert set(faults.PORT_PENDING) < set(faults.sites())
     assert faults.PORT_PENDING == {
-        "mesh.shrink": "elastic", "mesh.grow": "elastic",
-        "device.recover": "elastic",
         **{s: "serve/" for s in ("serve.accept", "serve.request",
                                  "serve.flush", "serve.drain",
                                  "serve.journal", "arena.map",
@@ -174,6 +179,18 @@ def test_battery_matches_reference(inputs, clean, tmp_path):
         np.testing.assert_array_equal(clean[k].numpy(), dr_tpu.to_numpy(rdv))
     assert np.isfinite(clean["attention"].numpy()).all()
     assert np.isfinite(clean["stencil"].numpy()).all()
+    # the elastic leg: the JAX package's shrink and grow of the last rank
+    esrc = src[:4 * P]
+    team = dr_tpu.distributed_vector.from_array(
+        esrc, distribution=[esrc.size] + [0] * (P - 1))
+    jelastic.rescue_session(jresilience.DeviceLostError("loss", rank=P - 1))
+    np.testing.assert_array_equal(clean["shrink"].numpy(),
+                                  dr_tpu.to_numpy(team))
+    jelastic.grow_session()
+    np.testing.assert_array_equal(clean["grow"].numpy(),
+                                  dr_tpu.to_numpy(team))
+    np.testing.assert_array_equal(clean["grow"].numpy(), esrc)
+    jelastic.reset()
     dr_tpu.final()
 
 
@@ -184,4 +201,4 @@ def test_phase22_rehearsal(tmp_path):
                            **SHAPE, **SIZES)
     assert out["kernel.build:program"] == "plain route"
     assert out["checkpoint.write:truncate"] == "CheckpointCorruptError"
-    assert sum(v == "same bits" for v in out.values()) == 12
+    assert sum(v == "same bits" for v in out.values()) == 15

@@ -1457,3 +1457,73 @@ def test_plan_graph_replays_k7_k8_and_counts_their_launches(dtc, cuda):
             assert _rows_equal(x, y)
     st = plan.stats()
     assert st["graph_captures"] == 1 and st["graph_replays"] == 2
+
+
+def _bits_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def test_elastic_shrink_and_grow_on_card(dtc, cuda, tmp_path):
+    """A shrink of rank 3 and the grow back on CUDA ranks: a team vector
+    rescued and a checkpointed one restored bit for bit, both on the
+    card through both moves; the uncheckpointed one lost and staying
+    lost."""
+    from dr_tpu_torch.utils import elastic, resilience
+    dt, (_, gen) = dtc, cuda
+    n = 1 << 16
+    team_src = torch.randn(n, generator=gen, device="cuda")
+    ck_src = torch.randn(n, generator=gen, device="cuda")
+    team = dt.distributed_vector.from_array(team_src,
+                                            distribution=[n, 0, 0, 0])
+    ck = dt.distributed_vector.from_array(ck_src)
+    dt.checkpoint.save(str(tmp_path / "ck.npz"), ck)
+    gone = dt.distributed_vector.from_array(ck_src)
+    try:
+        rep = elastic.rescue_session(resilience.DeviceLostError("loss",
+                                                                rank=3))
+        assert (rep.rescued, rep.restored, rep.lost) == (1, 1, 1)
+        for v, want in ((team, team_src), (ck, ck_src)):
+            assert [r.device.type for r in v.rows] == ["cuda"] * 3
+            assert _bits_equal(v.to_array(), want)
+        with pytest.raises(resilience.DeviceLostError):
+            dt.to_numpy(gone)
+        grow = elastic.grow_session()
+        assert (grow.moved, grow.kept) == (2, 0) and dt.nprocs() == 4
+        for v, want in ((team, team_src), (ck, ck_src)):
+            assert [r.device.type for r in v.rows] == ["cuda"] * 4
+            assert _bits_equal(v.to_array(), want)
+        assert elastic.is_lost(gone)
+    finally:
+        elastic.reset()
+
+
+def test_elastic_shrink_releases_the_graph_pool(dtc, cuda):
+    """A graph a deferred run captured on the 4-rank runtime goes with
+    the shrink, and its private memory pool with it."""
+    import gc
+    import weakref
+    from dr_tpu_torch.core.pinning import pinned_id
+    from dr_tpu_torch.utils import elastic
+    dt = dtc
+    pid = pinned_id(dt.runtime())
+    w = dt.distributed_vector(1 << 20)
+    for _ in range(2):
+        with dt.deferred():
+            dt.for_each(w, _pl_scale, 2.0)
+    ents = [e for k, e in dt.plan._plan_cache.items()
+            if k[1] == pid and e.graph is not None]
+    assert ents
+    refs = [weakref.ref(e.graph) for e in ents]
+    pools = {tuple(e.graph.pool()) for e in ents}
+    del ents, w
+    try:
+        elastic.rescue_session(lost_ranks=[3])
+        gc.collect()
+        torch.cuda.empty_cache()
+        assert all(r() is None for r in refs)
+        segs = torch.cuda.memory_snapshot()
+        assert not [s for s in segs
+                    if tuple(s.get("segment_pool_id", ())) in pools]
+    finally:
+        elastic.reset()

@@ -16,10 +16,10 @@ before anything ran, the error propagates): the JAX package's
 ``test_pass_failure_after_merge_keeps_recorded_queue_executable`` have
 counterparts that pin that instead.
 
-Left out until ``tuning.py`` is ported (the next slice): the tuning DB
-and what reads it, ``test_capinfer_hint_skips_probe_and_survives_
-undershoot``, ``test_joinroute_reads_tuning_db_and_env_pin_wins`` and the
-five ``test_tuning_*`` cases.
+The tuning DB and what reads it are in ``tests/test_torch_tuning.py``:
+``test_capinfer_hint_skips_probe_and_survives_undershoot``,
+``test_joinroute_reads_tuning_db_and_env_pin_wins`` and the five
+``test_tuning_*`` cases.
 """
 
 import jax
@@ -41,6 +41,7 @@ def _both():
     dr_tpu.init(jax.devices()[:P])
     dt.init(["cpu"] * P)
     yield
+    dt.tuning.clear_session()  # the auto tier notes capacity ratios
     dt.final()
 
 
