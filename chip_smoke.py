@@ -184,7 +184,29 @@ checks the kernels at small shapes only).  Phases:
     fill / for_each / reduce region, replayed on 3 ranks with the eager
     chain's bits; the region exit's grow poll
     (``DR_GPU_ELASTIC_GROW=1``); ``session_story()`` with both chapters.
-    ``--phase24`` runs phases 1-3 and this one.
+    ``--phase24`` runs phases 1-3 and this one;
+25. the serving daemon (``dr_tpu_torch.serve``) in process on the card,
+    client threads over its Unix socket: on one rank, 8 tenants each put
+    two residents of 2^25 f32 over the wire (2 GiB), then send 64
+    requests (dot, reduce, histogram of 1024 bins, top_k 1024, scan and
+    sort over the residents; K6's sort of 2^14 keys, scale, fill,
+    groupby sum and min, unique and join at 2^20 rows inline), every
+    reply bit for bit against the direct call on the same containers,
+    K3, K4, K6, K7 and K8 launched as often as the direct calls imply,
+    per-op client p50 / p99, requests/s, the daemon's queue-wait /
+    service / flush percentiles, batch high-water mark, arena and
+    resident counters, plan captures / replays / in-order runs and peak
+    memory (25.1); each ``serve.*`` / ``arena.*`` (site, kind) once
+    against the live daemon, classified or right, the daemon serving on;
+    ``drain`` and a restart on the same state directory bringing the 2
+    GiB back bit-equal (the replay's GB/s); ``python -m
+    dr_tpu_torch.serve`` on the device route answering a scale and
+    exiting 0 on ``shutdown`` (25.3); then on 4 ranks of the card, a
+    device loss injected into a held batch of six clients' requests
+    with ``DR_GPU_ELASTIC=1``: every answer with a fresh 3-rank
+    runtime's bits, one shrink in ``stats()`` and the story's serve
+    chapter, the grow back between batches and a fresh 4-rank runtime's
+    bits after it (25.2).  ``--phase25`` runs phases 1-3 and this one.
 
 ``--halo-ab DIR`` times phase 17's halo p50 with the ``dr_tpu_torch`` of
 another checkout at ``DIR`` and this one's, in turns, and stops.
@@ -3514,10 +3536,24 @@ def same_bits(got, want) -> bool:
         for k in want)
 
 
+#: the serving daemon's site prefixes: phase 25.3 drives them against a
+#: live daemon; the library calls of phase 22's battery never reach them
+SERVE_SITES = ("serve.", "arena.")
+
+
 def port_sites(faults):
-    """(site, kind) of every injection the port fires, in table order."""
+    """(site, kind) of every injection the port's library fires, in table
+    order (the daemon's sites: :func:`serve_sites`)."""
     return [(s, k) for s, kinds in faults.sites().items()
-            if s not in faults.PORT_PENDING for k in kinds]
+            if s not in faults.PORT_PENDING
+            and not s.startswith(SERVE_SITES) for k in kinds]
+
+
+def serve_sites(faults):
+    """(site, kind) of every injection the serving daemon fires."""
+    return [(s, k) for s, kinds in faults.sites().items()
+            if s not in faults.PORT_PENDING and s.startswith(SERVE_SITES)
+            for k in kinds]
 
 
 def chaos_phase(dt, seed, tmpdir, device="cuda:0", deadline=CHAOS_DEADLINE,
@@ -4707,6 +4743,655 @@ def elastic_phase(dt, kernels, seed, card):
     return out
 
 
+# -------------------------------------------- phase 25: the serving daemon
+
+#: the request mix of one tenant in phase 25.1 (op, count): 64 requests
+#: over the tenant's two residents ``a`` and ``b`` and its inline
+#: operands
+SV_MIX = (("dot", 12), ("reduce", 11), ("histogram", 10), ("topk", 10),
+          ("scan", 2), ("sort", 1), ("sort_k6", 3), ("scale", 4),
+          ("fill", 2), ("groupby_sum", 2), ("groupby_min", 2),
+          ("groupby_min_k7", 1), ("unique", 2), ("join", 2))
+#: the ops whose reply is one kernel on the same rows in a fixed order:
+#: bit-identical to the direct call (top_k by its values)
+SV_FIXED = ("dot", "reduce", "histogram", "topk", "scan", "sort")
+
+
+def sv_inputs(seed, t, res_log2, inline_log2, k6_n, device):
+    """Tenant ``t``'s data, from the seed: residents ``a``, ``b`` of
+    2^res_log2 f32 normals (drawn on ``device``, read back to the
+    host); inline operands of 2^inline_log2 rows (a vector, fact keys
+    with 16 rows a key and their values, a dimension table of one row a
+    key), ``k6_n`` keys for K6's sort and a groupby of ``k6_n`` rows,
+    a size K7 takes."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed * 1000 + t)
+    rng = np.random.default_rng([seed, 25, t])
+    n, m = 1 << res_log2, 1 << inline_log2
+    nk = max(1, m >> 4)
+    return {"a": torch.randn(n, generator=gen, device=device).cpu().numpy(),
+            "b": torch.randn(n, generator=gen, device=device).cpu().numpy(),
+            "x": rng.standard_normal(m, dtype=np.float32),
+            "keys": rng.integers(0, nk, m).astype(np.float32),
+            "vals": rng.standard_normal(m, dtype=np.float32),
+            "dk": rng.permutation(nk).astype(np.float32),
+            "dv": rng.standard_normal(nk, dtype=np.float32),
+            "k6": rng.standard_normal(k6_n, dtype=np.float32),
+            "gk": rng.integers(0, max(1, k6_n >> 4), k6_n)
+            .astype(np.float32),
+            "gv": rng.standard_normal(k6_n, dtype=np.float32)}
+
+
+def sv_request(c, ref, op, inp, bins, k):
+    """One request of the mix through client ``c`` (``ref``: its Ref)."""
+    if op == "dot":
+        return c.dot(ref("a"), ref("b"))
+    if op == "reduce":
+        return c.reduce(ref("a"))
+    if op == "histogram":
+        return c.histogram(ref("a"), bins, -4.0, 4.0)
+    if op == "topk":
+        return c.top_k(ref("a"), k)
+    if op == "scan":
+        return c.scan(ref("a"))
+    if op == "sort":
+        return c.sort(ref("b"))
+    if op == "sort_k6":
+        return c.sort(inp["k6"])
+    if op == "scale":
+        return c.scale(inp["x"], a=1.5, b=-0.5)
+    if op == "fill":
+        return c.fill(len(inp["x"]), 0.25)
+    if op in ("groupby_sum", "groupby_min"):
+        return c.groupby(inp["keys"], inp["vals"], agg=op[8:])
+    if op == "groupby_min_k7":
+        return c.groupby(inp["gk"], inp["gv"], agg="min")
+    if op == "unique":
+        return c.unique(inp["keys"])
+    if op == "join":
+        return c.join(inp["keys"], inp["vals"], inp["dk"], inp["dv"])
+    raise ValueError(op)
+
+
+def sv_direct(dt, op, inp, ra, rb, bins, k):
+    """The port's direct call for ``op`` on the same containers (the
+    residents ``ra``, ``rb``) or the same inputs: what the reply must
+    equal."""
+    from dr_tpu_torch.serve.daemon import _op_scale
+    f32, vec = np.float32, dt.distributed_vector
+    if op == "dot":
+        return float(dt.dot(ra, rb))
+    if op == "reduce":
+        return float(dt.reduce(ra))
+    if op == "histogram":
+        out = vec(bins, np.int32)
+        dt.histogram(ra, out, -4.0, 4.0)
+        return dt.to_numpy(out)
+    if op == "topk":
+        tv, ti = vec(k, f32), vec(k, np.int32)
+        dt.top_k(ra, tv, ti)
+        return [dt.to_numpy(tv), dt.to_numpy(ti)]
+    if op == "scan":
+        out = vec(len(ra), f32)
+        dt.inclusive_scan(ra, out)
+        return dt.to_numpy(out)
+    if op == "sort":
+        s = vec(len(rb), rb.dtype)
+        dt.copy(rb, s)
+        dt.sort(s)
+        return dt.to_numpy(s)
+    if op == "sort_k6":
+        v = vec.from_array(inp["k6"])
+        dt.sort(v)
+        return dt.to_numpy(v)
+    if op == "scale":
+        v = vec.from_array(inp["x"])
+        dt.for_each(v, _op_scale, 1.5, -0.5)
+        return dt.to_numpy(v)
+    if op == "fill":
+        v = vec(len(inp["x"]), f32)
+        dt.fill(v, 0.25)
+        return dt.to_numpy(v)
+    if op in ("groupby_sum", "groupby_min", "groupby_min_k7"):
+        small = op == "groupby_min_k7"
+        kk = vec.from_array(inp["gk" if small else "keys"])
+        vv = vec.from_array(inp["gv" if small else "vals"])
+        ok, ov = vec(len(kk), f32), vec(len(kk), f32)
+        m = int(dt.groupby_aggregate(kk, vv, ok, ov,
+                                     agg="min" if small else op[8:]))
+        return [dt.to_numpy(ok)[:m], dt.to_numpy(ov)[:m]]
+    if op == "unique":
+        v = vec.from_array(inp["keys"])
+        out = vec(len(v), f32)
+        m = int(dt.unique(v, out))
+        return dt.to_numpy(out)[:m]
+    if op == "join":
+        lk, lv = vec.from_array(inp["keys"]), vec.from_array(inp["vals"])
+        rk, rv = vec.from_array(inp["dk"]), vec.from_array(inp["dv"])
+        cap = 4 * (len(lk) + len(rk))
+        ok, ol, orr = vec(cap, f32), vec(cap, f32), vec(cap, f32)
+        m = int(dt.join(lk, lv, rk, rv, ok, ol, orr))
+        return [dt.to_numpy(ok)[:m], dt.to_numpy(ol)[:m],
+                dt.to_numpy(orr)[:m]]
+    raise ValueError(op)
+
+
+def sv_same(got, want) -> bool:
+    """Bit for bit: scalars, arrays and lists of arrays (top_k by its
+    values, and its indices pointing at them)."""
+    if isinstance(want, float):
+        return isinstance(got, float) and \
+            np.float32(got).view(np.int32) == np.float32(want).view(np.int32)
+    got = got if isinstance(got, list) else [got]
+    want = want if isinstance(want, list) else [want]
+    return len(got) == len(want) and all(
+        np.asarray(g).dtype == np.asarray(w).dtype
+        and np.asarray(g).shape == np.asarray(w).shape
+        and np.array_equal(np.asarray(g).view(np.uint8),
+                           np.asarray(w).view(np.uint8))
+        for g, w in zip(got, want))
+
+
+def pct(xs, q):
+    """The ``q``-th percentile of ``xs`` (nearest rank), or None."""
+    if not xs:
+        return None
+    s = sorted(xs)
+    return s[min(len(s) - 1, int(round(q / 100.0 * (len(s) - 1))))]
+
+
+def sv_shm_bytes():
+    """The size of ``/dev/shm`` (0 without one)."""
+    import shutil
+    try:
+        return shutil.disk_usage("/dev/shm").total
+    except OSError:
+        return 0
+
+
+def serve_one_rank(dt, kernels, seed, state_dir, device="cuda:0",
+                   tenants=8, res_log2=25, reqs=SV_MIX, inline_log2=20,
+                   k6_n=1 << 14, bins=1024, k=1024):
+    """Phase 25.1: an in-process daemon on one rank of ``device``, 8
+    tenants each with two residents put over the wire and one client
+    thread sending the mix in a seeded order.  Every reply against the
+    direct call on the same containers (or inputs), the kernels' launch
+    counts against the counts the direct calls make, per-op client
+    latency, the daemon's histograms.  Returns ``(server, numbers,
+    inputs)``; the server is still serving."""
+    import threading
+    import torch
+    from dr_tpu_torch import serve
+    from dr_tpu_torch.obs import metrics as om
+    on_card = device.startswith("cuda")
+    dt.init([device])
+    shm = sv_shm_bytes()
+    res_bytes = tenants * 2 * 4 << res_log2
+    arena = min(1 << 31, (shm // 2) & ~((1 << 20) - 1))
+    env = {"DR_GPU_SERVE_RESIDENT_BYTES": str(res_bytes + (1 << 30)),
+           "DR_GPU_SERVE_ARENA": "1" if arena >= 1 << 20 else "0",
+           "DR_GPU_SERVE_ARENA_BYTES": str(max(arena, 1 << 20))}
+    log(f"  25.1 /dev/shm {shm} bytes; arena "
+        f"{env['DR_GPU_SERVE_ARENA_BYTES'] if arena >= 1 << 20 else 'off'}"
+        f" bytes; residents {tenants} x 2 x 2^{res_log2} f32 = "
+        f"{res_bytes} bytes")
+    t0 = time.perf_counter()
+    inputs = [sv_inputs(seed, t, res_log2, inline_log2, k6_n, device)
+              for t in range(tenants)]
+    log(f"  25.1 inputs {time.perf_counter() - t0:.1f} s; the journal in "
+        f"{os.path.join(state_dir, 'state')}")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    with env_set(**env):
+        srv = serve.Server(os.path.join(state_dir, "d.sock"),
+                           cpu=not on_card, batch_window=0.002,
+                           state_dir=os.path.join(state_dir, "state"))
+        srv.start()
+    check_true(f"25.1 claim: the runtime on {device} kept "
+               f"({srv.stats()['route']})",
+               dt.nprocs() == 1 and srv.devices == [torch.device(device)])
+    clients = [serve.Client(srv.path, timeout=300.0, tenant=f"t{t}",
+                            arena=True) for t in range(tenants)]
+    t0 = time.perf_counter()
+    ok = True
+    for t, c in enumerate(clients):
+        for name in ("a", "b"):
+            r = c.put(name, inputs[t][name])
+            ok = ok and r["bytes"] == inputs[t][name].nbytes \
+                and not r["cached"]
+    put_s = time.perf_counter() - t0
+    check_true(f"25.1 {2 * tenants} residents put, none cached", ok)
+    log(f"  25.1 {2 * tenants} puts over the wire {put_s:.2f} s "
+        f"({res_bytes / put_s / 1e9:.3f} GB/s)")
+    # the direct calls on the same containers, with their launches: the
+    # daemon is idle, so the main thread may use the card
+    want, per = {}, {}
+    t0 = time.perf_counter()
+    for t in range(tenants):
+        ra = srv._resident.get(f"t{t}", "a").cont
+        rb = srv._resident.get(f"t{t}", "b").cont
+        for op, _n in reqs:
+            kernels.reset_counts()
+            want[t, op] = sv_direct(dt, op, inputs[t], ra, rb, bins, k)
+            if on_card:
+                torch.cuda.synchronize()
+            per[t, op] = dict(kernels.launches)
+    log(f"  25.1 direct calls {time.perf_counter() - t0:.1f} s")
+    implied = {name: sum(per[t, op][name] * n for t in range(tenants)
+                         for op, n in reqs) for name in kernels.COUNTERS}
+    plan = [[op for op, n in reqs for _ in range(n)]
+            for _t in range(tenants)]
+    for t, p in enumerate(plan):
+        np.random.default_rng([seed, 251, t]).shuffle(p)
+    lat = {op: [] for op, _n in reqs}
+    bad, errs = [], []
+    lock = threading.Lock()
+
+    def client(t):
+        c = clients[t]
+        try:
+            for op in plan[t]:
+                t1 = time.perf_counter()
+                got = sv_request(c, serve.Ref, op, inputs[t], bins, k)
+                ms = (time.perf_counter() - t1) * 1e3
+                ok = sv_same(got, want[t, op])
+                with lock:
+                    lat[op].append(ms)
+                    if not ok:
+                        bad.append((t, op))
+        except Exception as e:  # reported below, never swallowed
+            with lock:
+                errs.append(f"t{t}: {type(e).__name__}: {e}")
+
+    om.reset()  # the daemon's histograms and counters: this run's alone
+    st0 = srv.stats()
+    kernels.reset_counts()
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(tenants)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    launched = dict(kernels.launches)
+    st = srv.stats()
+    nreq = sum(len(p) for p in plan)
+    check_true(f"25.1 every client got every answer ({errs[:3]})",
+               not errs and sum(len(v) for v in lat.values()) == nreq)
+    check_true(f"25.1 every reply equals the direct call bit for bit "
+               f"(mismatches {sorted(set(bad))[:8]})", not bad)
+    for name in kernels.COUNTERS:
+        if implied[name] or launched[name]:
+            check_true(f"25.1 {name} launches {launched[name]} == "
+                       f"{implied[name]} the mix implies",
+                       launched[name] == implied[name])
+    if on_card:
+        for name in ("chunked_dot", "chunked_cumsum", "bitonic_sort",
+                     "segred", "hist"):
+            check_true(f"25.1 {name} launched from the daemon",
+                       launched[name] > 0)
+    hists = st["obs"]["histograms"]
+    counters = st["obs"].get("counters", {})
+    out = {"requests": nreq, "wall_s": wall, "req_per_s": nreq / wall,
+           "put_s": put_s, "launches": launched, "implied": implied,
+           "ops": {op: {"n": len(v), "p50_ms": pct(v, 50),
+                        "p99_ms": pct(v, 99)} for op, v in lat.items()},
+           "daemon": {h: {q: hists.get(h, {}).get(q)
+                          for q in ("count", "p50", "p95", "p99", "max")}
+                      for h in ("serve.queue_wait_ms", "serve.service_ms",
+                                "serve.flush_ms")},
+           "batch_hw": st["batch_hw"], "flushes": st["flushes"] -
+           st0["flushes"], "errors": st["errors"] - st0["errors"],
+           "plan": {k_: st["plan"][k_] - st0["plan"][k_]
+                    for k_ in st["plan"]},
+           "resident_hits": counters.get("serve.resident.hits", 0),
+           "shm_bytes": shm, "arena_fallbacks": st["arena_fallbacks"]}
+    ar = st.get("arena")
+    if ar is not None and (ar["allocs"] or
+                           counters.get("serve.arena.maps", 0)):
+        out["arena"] = {"size": ar["size"], "allocs": ar["allocs"],
+                        "high_water": ar["high_water"],
+                        "exhaustions": ar["exhaustions"],
+                        "mapped_bytes": counters.get(
+                            "serve.arena.mapped_bytes", 0),
+                        "maps": counters.get("serve.arena.maps", 0)}
+        carried = "the arena (and the inline wire past its room)"
+    else:
+        carried = "the inline wire"
+    out["carried_by"] = carried
+    if on_card:
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    for op, v in out["ops"].items():
+        log(f"  25.1 {op}: {v['n']} requests, client p50 "
+            f"{v['p50_ms']!r} ms, p99 {v['p99_ms']!r} ms")
+    log(f"  25.1 {nreq} requests in {wall:.3f} s = "
+        f"{out['req_per_s']!r} requests/s; bytes carried by {carried}")
+    log(f"  25.1 daemon {json.dumps(out['daemon'])}; batch high-water "
+        f"{out['batch_hw']}; flushes {out['flushes']}; plan "
+        f"{json.dumps(out['plan'])}; resident hits "
+        f"{out['resident_hits']}; arena "
+        f"{json.dumps(out.get('arena'))}; fallbacks "
+        f"{out['arena_fallbacks']}; peak device memory "
+        f"{out.get('peak_bytes')} bytes")
+    log(f"  25.1 launches {json.dumps(launched)}")
+    for c in clients:
+        c.close()
+    return srv, out, inputs
+
+
+def sv_probe(site, kind, path, serve, faults, x, big):
+    """One (site, kind) injected once against the live daemon at
+    ``path``: the call that reaches the site, and its outcome, which must
+    be a classified error or the right answer."""
+    from dr_tpu_torch.utils import resilience as R
+    with faults.injected(site, kind, times=1) as sp:
+        try:
+            if site == "serve.accept":
+                with serve.Client(path, timeout=60.0) as c:
+                    got = c.scale(x, a=2.0)
+            elif site == "serve.drain":
+                with serve.Client(path, timeout=60.0) as c:
+                    c.drain()
+                got = None  # a drain that went through: not expected
+            elif site == "serve.journal":
+                with serve.Client(path, timeout=60.0) as c:
+                    c.put("chaos", x)
+                    got = c.get("chaos") * 2.0
+            elif site == "arena.release":
+                with serve.Client(path, timeout=60.0, arena=True) as c:
+                    c.scale(big, a=1.0)  # its reply slot is owed back
+                    got = c.scale(x, a=2.0)
+            elif site == "arena.map":
+                with serve.Client(path, timeout=60.0, arena=True) as c:
+                    got = c.scale(big, a=2.0)[:len(x)]
+            else:
+                with serve.Client(path, timeout=60.0) as c:
+                    got = c.scale(x, a=2.0)
+            outcome = "correct" if got is not None and np.array_equal(
+                got, x * np.float32(2.0)) else "WRONG"
+        except R.ResilienceError as e:
+            outcome = f"{type(e).__name__}@{e.site}"
+        fired = sp.fired
+    with serve.Client(path, timeout=60.0) as c:  # the daemon serves on
+        alive = np.array_equal(c.scale(x, a=3.0), x * np.float32(3.0))
+    return outcome, fired, alive
+
+
+def serve_chaos(srv, serve, faults, chip_sites):
+    """Phase 25.3 (chaos): each ``serve.*`` / ``arena.*`` (site, kind),
+    once, against the live daemon: a classified error or the right
+    answer, and the daemon serving on after it."""
+    x = np.arange(1 << 12, dtype=np.float32)
+    big = np.arange(1 << 16, dtype=np.float32)
+    out = {}
+    for site, kind in chip_sites:
+        outcome, fired, alive = sv_probe(site, kind, srv.path, serve,
+                                         faults, x, big)
+        out[f"{site}:{kind}"] = outcome
+        check_true(f"25.3 chaos {site}:{kind} -> {outcome} (fired "
+                   f"{fired}); the daemon serves on",
+                   outcome != "WRONG" and alive
+                   and not srv.draining())
+    return out
+
+
+def serve_restart(dt, srv, inputs, serve, state_dir, device="cuda:0"):
+    """Phase 25.3 (lifecycle): ``drain`` the daemon of 25.1, start a new
+    one on the same state directory: its journal brings every resident
+    back bit-equal.  Returns the replay's seconds and GB/s."""
+    with serve.Client(srv.path, timeout=120.0) as c:
+        check_true("25.3 drain acknowledged",
+                   c.drain().get("draining") is True)
+    check_true("25.3 the drained daemon stopped",
+               srv._stopped.wait(120.0))
+    nbytes = sum(inputs[t][n].nbytes for t in range(len(inputs))
+                 for n in ("a", "b"))
+    t0 = time.perf_counter()
+    # the resident budget of 25.1's daemon, or the replay evicts
+    with env_set(DR_GPU_SERVE_RESIDENT_BYTES=str(srv._resident.budget)):
+        srv2 = serve.Server(srv.path, cpu=not device.startswith("cuda"),
+                            state_dir=os.path.join(state_dir, "state"))
+        srv2.start()
+    replay_s = time.perf_counter() - t0
+    try:
+        same = all(np.array_equal(
+            dt.to_numpy(srv2._resident.get(f"t{t}", n).cont).view(
+                np.int32), inputs[t][n].view(np.int32))
+            for t in range(len(inputs)) for n in ("a", "b"))
+        st = srv2.stats()["journal"]
+        with serve.Client(srv2.path, timeout=120.0, tenant="t0") as c:
+            wire = np.array_equal(c.get("a").view(np.int32),
+                                  inputs[0]["a"].view(np.int32))
+        check_true(f"25.3 restart on the same state dir: "
+                   f"{st['replayed']} residents replayed, the "
+                   f"{2 * len(inputs)} of 25.1 bit-equal (one read back "
+                   "over the wire)", same and wire)
+    finally:
+        srv2.stop()
+    gbs = nbytes / replay_s / 1e9
+    log(f"  25.3 replay: {nbytes} bytes in {replay_s:.3f} s = "
+        f"{gbs!r} GB/s (start, journal read, decode, rebuild)")
+    return {"replay_s": replay_s, "replay_gb_s": gbs,
+            "replayed": st["replayed"]}
+
+
+def serve_subprocess(state_dir, cpu=False):
+    """Phase 25.3 (entry point): ``python -m dr_tpu_torch.serve --socket
+    P`` on the device route answers a ``scale``, then exits 0 on
+    ``shutdown``."""
+    from dr_tpu_torch import serve
+    path = os.path.join(state_dir, "sub.sock")
+    env = dict(os.environ)
+    env.pop("DR_GPU_FAULT_SPEC", None)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dr_tpu_torch.serve", "--socket", path]
+        + (["--cpu"] if cpu else []), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=HERE)
+    try:
+        t0 = time.perf_counter()
+        line = proc.stdout.readline()
+        ready = json.loads(line) if line.strip() else {}
+        if ready.get("serving") != path:
+            proc.kill()
+            err = proc.communicate(timeout=30)[1]
+            raise AssertionError(f"25.3 subprocess daemon did not start: "
+                                 f"{line.strip()} {err[-2000:]}")
+        log(f"  25.3 subprocess daemon ready: {line.strip()}")
+        x = np.arange(1 << 16, dtype=np.float32)
+        with serve.Client(path, timeout=120.0) as c:
+            got = c.scale(x, a=2.0, b=1.0)
+            route = c.route()
+            c.shutdown()
+        rc = proc.wait(timeout=120)
+        check_true(f"25.3 subprocess: scale right on the {route} route, "
+                   f"exit {rc} after shutdown",
+                   np.array_equal(got, x * np.float32(2.0) + np.float32(1.0))
+                   and rc == 0 and route["current"] ==
+                   ("cpu" if cpu else "device"))
+        return {"seconds": time.perf_counter() - t0, "route": route}
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def sv4_inputs(seed, log2):
+    rng = np.random.default_rng([seed, 252])
+    n = 1 << log2
+    return {"x": rng.standard_normal(n, dtype=np.float32),
+            "y": rng.standard_normal(n, dtype=np.float32)}
+
+
+#: phase 25.2's requests: one fused batch of batchable ops
+SV4_OPS = ("dot", "reduce", "scan", "histogram", "topk", "scale")
+
+
+def sv4_request(c, op, inp):
+    x, y = inp["x"], inp["y"]
+    if op == "dot":
+        return c.dot(x, y)
+    if op == "reduce":
+        return c.reduce(x)
+    if op == "scan":
+        return c.scan(x)
+    if op == "histogram":
+        return c.histogram(x, 1024, -4.0, 4.0)
+    if op == "topk":
+        return c.top_k(x, 1024)
+    return c.scale(x, a=1.5, b=-0.5)
+
+
+def sv4_direct(dt, op, inp):
+    """The same op, eagerly, on fresh containers of the runtime."""
+    vec = dt.distributed_vector
+    if op == "dot":
+        return sv_direct(dt, "dot", None, vec.from_array(inp["x"]),
+                         vec.from_array(inp["y"]), 1024, 1024)
+    if op == "scale":
+        return sv_direct(dt, "scale", inp, None, None, 1024, 1024)
+    return sv_direct(dt, op, None, vec.from_array(inp["x"]), None, 1024,
+                     1024)
+
+
+def serve_four_ranks(dt, seed, state_dir, device="cuda:0", log2=22):
+    """Phase 25.2: a daemon on 4 ranks of one card (``init`` before the
+    claim), ``DR_GPU_ELASTIC=1``, a device loss injected in the middle
+    of a held batch of six clients' requests: every client gets its
+    answer with the bits a fresh 3-rank runtime gives, ``shrinks == 1``
+    and the story's serve chapter set; then, with the grow armed, the
+    mesh grows back between batches and the answers take the fresh
+    4-rank runtime's bits again."""
+    import threading
+    from dr_tpu_torch import serve
+    from dr_tpu_torch.utils import elastic, faults
+    inp = sv4_inputs(seed, log2)
+    want = {}
+    for p in (3, 4):
+        dt.init([device] * p)
+        want[p] = {op: sv4_direct(dt, op, inp) for op in SV4_OPS}
+    dt.init([device] * 4)
+    elastic.reset()
+    out = {}
+    with env_set(DR_GPU_ELASTIC="1"):
+        srv = serve.Server(os.path.join(state_dir, "d4.sock"),
+                           cpu=not device.startswith("cuda"),
+                           batch_window=0.0).start()
+        try:
+            check_true("25.2 claim: the 4-rank runtime kept",
+                       dt.nprocs() == 4)
+            srv.hold()
+            got, errs = {}, []
+
+            def client(op):
+                try:
+                    with serve.Client(srv.path, timeout=300.0,
+                                      tenant=op) as c:
+                        got[op] = sv4_request(c, op, inp)
+                except Exception as e:
+                    errs.append(f"{op}: {type(e).__name__}: {e}")
+
+            threads = [threading.Thread(target=client, args=(op,))
+                       for op in SV4_OPS]
+            for th in threads:
+                th.start()
+            deadline = time.monotonic() + 60.0
+            while len(srv._queue) < len(SV4_OPS) and \
+                    time.monotonic() < deadline:
+                time.sleep(0.01)
+            faults.inject("device.lost", "device_lost", times=1)
+            t0 = time.perf_counter()
+            srv.release()
+            for th in threads:
+                th.join()
+            out["loss_batch_s"] = time.perf_counter() - t0
+            faults.clear()
+            st = srv.stats()
+            story = dt.resilience.session_story() or {}
+            check_true(f"25.2 every client answered across the loss "
+                       f"({errs})", not errs and len(got) == len(SV4_OPS))
+            check_true(f"25.2 shrinks {st['shrinks']} == 1, "
+                       f"{dt.nprocs()} ranks, batch of {st['batch_hw']}",
+                       st["shrinks"] == 1 and dt.nprocs() == 3)
+            check_true("25.2 the story's serve chapter: "
+                       f"{story.get('serve')}",
+                       (story.get("serve") or {}).get("reason", "")
+                       .startswith("serve: device loss"))
+            for op in SV4_OPS:
+                check_true(f"25.2 {op} after the loss: a fresh 3-rank "
+                           "runtime's bits", sv_same(got[op], want[3][op]))
+            with env_set(DR_GPU_ELASTIC_GROW="1",
+                         DR_GPU_ELASTIC_GROW_PROBE_S="0.01"):
+                t0 = time.perf_counter()
+                with serve.Client(srv.path, timeout=300.0) as c:
+                    while time.perf_counter() - t0 < 60.0:
+                        r = sv4_request(c, "reduce", inp)
+                        if c.stats()["grows"]:
+                            break
+                        time.sleep(0.02)
+                    out["grow_s"] = time.perf_counter() - t0
+                    st = c.stats()
+                    after = {op: sv4_request(c, op, inp) for op in SV4_OPS}
+            check_true(f"25.2 grew back between batches: grows "
+                       f"{st['grows']}, {dt.nprocs()} ranks, degraded "
+                       f"{st['degraded']!r}", st["grows"] == 1
+                       and dt.nprocs() == 4 and st["degraded"] is None)
+            for op in SV4_OPS:
+                check_true(f"25.2 {op} after the grow: a fresh 4-rank "
+                           "runtime's bits",
+                           sv_same(after[op], want[4][op]))
+            out["story"] = story
+        finally:
+            faults.clear()
+            srv.stop()
+            serve.reset()
+            elastic.reset()
+    log(f"  25.2 loss batch {out['loss_batch_s']:.3f} s, grow back "
+        f"{out['grow_s']:.3f} s")
+    return out
+
+
+def serve_phase(dt, kernels, seed, card, device="cuda:0", **sizes):
+    """Phase 25 (the counts reset just before each part): the serving
+    daemon on the card.  25.1 on one rank at full size, 25.3 chaos and
+    lifecycle against it, then 25.2 on 4 ranks.  Returns its numbers."""
+    import tempfile
+    import torch
+    from dr_tpu_torch import serve
+    from dr_tpu_torch.utils import faults
+    log("phase 25: the serving daemon: 8 tenants x 2 residents of 2^25 "
+        "f32 (2 GiB) on one rank, 64 requests a tenant from 8 client "
+        "threads; chaos, drain and journal restart, the entry point; 4 "
+        "ranks with a device loss and the grow back")
+    out = {"card": card}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        srv, out["one_rank"], inputs = serve_one_rank(
+            dt, kernels, seed, td, device=device, **sizes)
+        log(f"  phase 25.1 {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        try:
+            out["chaos"] = serve_chaos(srv, serve, faults,
+                                       serve_sites(faults))
+            out["restart"] = serve_restart(dt, srv, inputs, serve, td,
+                                           device=device)
+        finally:
+            srv.stop()
+            serve.reset()
+        del inputs
+        release(torch)
+        out["subprocess"] = serve_subprocess(
+            td, cpu=not device.startswith("cuda"))
+        log(f"  phase 25.3 {time.perf_counter() - t1:.1f} s")
+        t1 = time.perf_counter()
+        out["four_ranks"] = serve_four_ranks(dt, seed, td, device=device)
+        log(f"  phase 25.2 {time.perf_counter() - t1:.1f} s")
+    dt.final()
+    release(torch)
+    log(f"  [{card}] phase 25 {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 _HALO_AB = """
 import importlib.util, json, sys
 sys.path.insert(0, {tree!r})
@@ -4823,7 +5508,8 @@ def main(argv):
     only22 = "--phase22" in argv
     only23 = "--phase23" in argv
     only24 = "--phase24" in argv
-    short = quick or only22 or only23 or only24
+    only25 = "--phase25" in argv
+    short = quick or only22 or only23 or only24 or only25
     n = 1 << (20 if short else 30)
     m2d = 2048 if short else M2D
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -4848,6 +5534,10 @@ def main(argv):
     if only24:  # a short run: the checks above, small, then phase 24
         log("  phase 24 numbers: " + json.dumps(
             elastic_phase(dt, kernels, seed, card)))
+        return 0
+    if only25:  # a short run: the checks above, small, then phase 25
+        log("  phase 25 numbers: " + json.dumps(
+            serve_phase(dt, kernels, seed, card)))
         return 0
 
     log(f"phase 4: main path, 1 rank on cuda:0, n={n}")
@@ -5078,6 +5768,9 @@ def main(argv):
 
     g24 = elastic_phase(dt, kernels, seed, card)
     log("  phase 24 numbers: " + json.dumps(g24))
+
+    g25 = serve_phase(dt, kernels, seed, card)
+    log("  phase 25 numbers: " + json.dumps(g25))
 
     log(f"peak device memory (1-D main path): {peak} bytes "
         f"({peak / 2 ** 30:.2f} GiB)")

@@ -17,7 +17,8 @@ result is read modulo 2^32, jnp's uint32).  ``dot_n`` of f32/bf16/f16
 containers runs its rounds through the K3 kernel
 (``ops/reduce_pallas.py``) on each rank's owned window cells, whatever
 the length, halo or window, with the salt read from a device scalar, so
-the loop never waits for the host.
+the loop never waits for the host; ``dot`` of two plain f32 containers
+takes K3 too, one launch a rank (no salt), eagerly and inside a plan.
 
 An op that is none of those four (an identityless custom fold, which
 ``std::reduce`` already requires to be associative) folds each rank's
@@ -137,11 +138,16 @@ def _reduce_rows(rows_list, ops_list, layout, off, n, kind, zip_op, k7,
     chain's rows, ``chain_sc`` the chains' ``BoundOp`` scalars; with
     ``zip_sc`` given, a ``BoundOp`` zip op takes its scalars from it."""
     parts = []
+    k3 = _k3_dot(rows_list, ops_list, kind, zip_op)
     for r in range(len(rows_list[0])):
         a, b = window_cols(layout, off, n, r)
         sc = iter(chain_sc)
         vals = [_apply_chain_ops(rows[r][0, a:b], ops, sc)
                 for rows, ops in zip(rows_list, ops_list)]
+        if k3 and b > a:
+            src = vals[0].dtype
+            parts.append(reduce_pallas.chunked_dot(vals[0], vals[1]))
+            continue
         if zip_op is None:
             v = vals[0]
         elif zip_sc is not None and isinstance(zip_op, _v.BoundOp):
@@ -160,6 +166,20 @@ def _reduce_rows(rows_list, ops_list, layout, off, n, kind, zip_op, k7,
     for p in parts[1:]:
         acc = MONOID_COMBINE[kind](acc, p.to(dev))
     return _unsigned_wrap(acc, src)
+
+
+def _k3_dot(rows_list, ops_list, kind, zip_op) -> bool:
+    """K3 serves ``dot`` of two plain f32 containers: each rank's window
+    is one launch (its plain version, the f32 sum of the products, on
+    the CPU: the same bits as the torch route there).  The reference
+    keeps ``dot`` on XLA and gives only ``dot_n`` its kernel; on CUDA
+    ranks this route changes the order of the f32 sum, so the bits
+    differ from the torch route's (ROADMAP, conventions).  f32 only: on
+    the reference's route a bf16/f16 product is rounded in its own
+    dtype before the sum, and K3 widens first, a different value."""
+    return (zip_op is _multiply2 and kind == "add" and len(rows_list) == 2
+            and not any(ops_list)
+            and all(rows[0].dtype == torch.float32 for rows in rows_list))
 
 
 def _unsigned_wrap(acc: torch.Tensor, src: torch.dtype) -> torch.Tensor:

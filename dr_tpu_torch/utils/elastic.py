@@ -64,8 +64,11 @@ once as an :class:`ElasticWarning`.  Grow pacing:
 ``DR_GPU_ELASTIC_GROW_PROBE_CAP_S`` (delay cap, 60 s),
 ``DR_GPU_ELASTIC_GROW_PROBES`` (probe budget, 64).
 
-Not carried over: the multi-process cases (``init_distributed`` is not
-ported) and the serving daemon's hooks (they come with ``serve/``).
+The serving daemon (``serve/daemon.py``) rides these hooks: a batch's
+retry shrinks on a lost rank, and it counts shrinks and grows through
+:func:`shrink_count` / :func:`grow_count` and polls :func:`maybe_grow`
+between batches.  Not carried over: the multi-process cases
+(``init_distributed`` is not ported).
 """
 
 from __future__ import annotations

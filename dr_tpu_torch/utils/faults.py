@@ -37,11 +37,19 @@ mesh.shrink            ``elastic.rescue_session``, before the runtime
                        flips
 device.recover         ``runtime.probe_recovered`` (the grow's probe)
 mesh.grow              ``elastic.grow_session``, before the rebuild
+serve.accept           ``serve.Server``'s accept loop, each connection
+serve.request          ``serve.Server``, each request frame at intake
+serve.flush            ``serve.Server``, each batch inside its retried
+                       body
+serve.drain            ``serve.Server.drain`` and the ``drain`` wire op
+serve.journal          ``serve.Journal`` append / replay / compact
+arena.map              ``serve.Arena.alloc`` and ``.map``
+arena.release          ``serve.Arena.release``
 =====================  ===============================================
 
-Sites whose modules are not ported fire nowhere yet: ``serve.*``,
-``arena.*`` and ``router.*`` with ``serve/``.  ``runtime.probe`` and ``fallback.warn``
-never fire in the port: it has no device probe and no fallback.
+``router.*`` fire nowhere yet: the router is the next slice.
+``runtime.probe`` and ``fallback.warn`` never fire in the port: it has
+no device probe and no fallback.
 
 Exception kinds map onto the taxonomy of ``utils/resilience``:
 ``transient`` -> TransientBackendError, ``relay_down`` ->
@@ -119,11 +127,7 @@ SITES: Dict[str, Tuple[str, ...]] = {
 #: the sites that fire in the port; the others wait for the slice that
 #: ports their module (``None``: never, the port has no such code)
 PORT_PENDING: Dict[str, Optional[str]] = {
-    "serve.accept": "serve/", "serve.request": "serve/",
-    "serve.flush": "serve/", "serve.drain": "serve/",
-    "serve.journal": "serve/", "arena.map": "serve/",
-    "arena.release": "serve/", "router.route": "serve/",
-    "router.probe": "serve/",
+    "router.route": "the router slice", "router.probe": "the router slice",
     "runtime.probe": None, "fallback.warn": None,
 }
 

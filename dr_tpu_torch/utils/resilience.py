@@ -27,9 +27,10 @@
   classified and is not retried.
 * **session_story**: :func:`session_story` folds the elastic layer's
   ``_DR_GPU_ELASTIC_*`` markers into a ``shrink`` and a ``grow``
-  chapter.  The JAX package's ``degradation_story`` also tells a CPU
-  fallback's first touch and a benchmark re-exec, which the port does
-  not have; its serving chapters come with ``serve/``.
+  chapter and the serving daemon's ``_DR_GPU_SERVE_*`` markers into a
+  ``serve`` chapter.  The JAX package's ``degradation_story`` also
+  tells a CPU fallback's first touch and a benchmark re-exec, which the
+  port does not have.
 
 Dropped: ``first_touch_or_cpu``, ``route_first_touch``,
 ``relay_listening``, ``dead_relay`` and ``FirstTouch``.  They switch a
@@ -469,18 +470,44 @@ _GROW_FIELDS = (("reason", "_DR_GPU_ELASTIC_GROW_REASON", str),
                 ("wall_s", "_DR_GPU_ELASTIC_GROW_WALL_S", float))
 
 
+#: the serve chapter: the daemon's markers (``serve/daemon.py``), and
+#: the router's, which stay unset until the router is ported
+_SERVE_FIELDS = (("reason", "_DR_GPU_SERVE_DEGRADED", str),
+                 ("queue_depth", "_DR_GPU_SERVE_QUEUE_DEPTH", int),
+                 ("shed", "_DR_GPU_SERVE_SHED", int),
+                 ("restarts", "_DR_GPU_SERVE_RESTARTS", int),
+                 ("router_dead", "_DR_GPU_SERVE_ROUTER_DEAD", int),
+                 ("router_reason", "_DR_GPU_SERVE_ROUTER_REASON", str),
+                 ("drains", "_DR_GPU_SERVE_DRAINS", int),
+                 ("drained_rehashes", "_DR_GPU_SERVE_ROUTER_DRAINED", int),
+                 ("respawns", "_DR_GPU_SERVE_RESPAWNS", int),
+                 ("router_recovered", "_DR_GPU_SERVE_ROUTER_RECOVERED",
+                  int),
+                 ("journal_recovered", "_DR_GPU_SERVE_JOURNAL_RECOVERED",
+                  int),
+                 ("journal_truncated", "_DR_GPU_SERVE_JOURNAL_TRUNCATED",
+                  int))
+
+
 def session_story(env=None) -> Optional[dict]:
-    """The session's elastic story from the ``_DR_GPU_ELASTIC_*``
-    markers of ``env`` (default ``os.environ``): ``reason`` and a
-    ``shrink`` chapter (shrinks, lost ranks, rescued / restored / lost
-    counts, ranks after, wall seconds) and a ``grow`` chapter (grows,
-    moved / kept counts, ranks after, wall seconds), each with the
-    fields of the JAX package's ``degradation_story`` chapters of the
-    same name.  None when the session never shrank or grew."""
+    """The session's story from the ``_DR_GPU_ELASTIC_*`` and
+    ``_DR_GPU_SERVE_*`` markers of ``env`` (default ``os.environ``):
+    ``reason``, a ``shrink`` chapter (shrinks, lost ranks, rescued /
+    restored / lost counts, ranks after, wall seconds), a ``grow``
+    chapter (grows, moved / kept counts, ranks after, wall seconds) and
+    a ``serve`` chapter (the daemon's degraded reason, queue high-water
+    mark, shed, restarts, drains, journal recovered / truncated, and the
+    router's fields), each with the fields of the JAX package's
+    ``degradation_story`` chapters of the same name.  The serve markers
+    alone make a story only when they tell of a fault (a degraded
+    daemon, a dead replica, a respawn, a torn journal): a clean stop
+    publishes queue counts, and a drain is planned.  None when there is
+    no story."""
     env = os.environ if env is None else env
     story = {}
     for chapter, fields in (("shrink", _SHRINK_FIELDS),
-                            ("grow", _GROW_FIELDS)):
+                            ("grow", _GROW_FIELDS),
+                            ("serve", _SERVE_FIELDS)):
         got = {}
         for key, marker, conv in fields:
             raw = env.get(marker)
@@ -488,8 +515,16 @@ def session_story(env=None) -> Optional[dict]:
                 got[key] = conv(raw)
         if got:
             story[chapter] = got
-    if not story:
+    serve = story.get("serve", {})
+    told = ("shrink" in story or "grow" in story
+            or any(serve.get(k) for k in ("reason", "router_reason",
+                                          "respawns", "journal_truncated")))
+    if not told:
         return None
-    story["reason"] = (story.get("shrink", {}).get("reason")
-                       or story.get("grow", {}).get("reason"))
+    story["reason"] = (
+        serve.get("reason") or story.get("shrink", {}).get("reason")
+        or story.get("grow", {}).get("reason") or serve.get("router_reason")
+        or (serve.get("respawns")
+            and f"{serve['respawns']} serve replica(s) respawned")
+        or f"journal tail truncated ({serve['journal_truncated']} bytes)")
     return story

@@ -14,8 +14,10 @@ not, which its two cases assert (the card's cases are chip_smoke phase
 leg of ``tests/test_chaos.py``'s battery: a shrink of the last rank
 (``mesh.shrink``) and the grow back (``device.recover``, ``mesh.grow``),
 a team vector rescued bit for bit through both and a lost one raising.
-The registry's other sites wait for the slices that port their modules
-(``faults.PORT_PENDING``)."""
+The serving daemon's ``serve.*`` and ``arena.*`` sites are driven
+against a live daemon (``tests/test_torch_serve.py``,
+``tests/test_torch_serve_dataplane.py``); the router's wait for its
+slice (``faults.PORT_PENDING``)."""
 
 import importlib.util
 import os
@@ -76,12 +78,14 @@ def test_registry_and_pending_sites():
     assert faults.sites() == jfaults.sites()
     assert set(faults.PORT_PENDING) < set(faults.sites())
     assert faults.PORT_PENDING == {
-        **{s: "serve/" for s in ("serve.accept", "serve.request",
-                                 "serve.flush", "serve.drain",
-                                 "serve.journal", "arena.map",
-                                 "arena.release", "router.route",
-                                 "router.probe")},
+        "router.route": "the router slice",
+        "router.probe": "the router slice",
         "runtime.probe": None, "fallback.warn": None}
+    # the daemon's sites fire in the port, outside this battery
+    assert {s for s, _ in chip.serve_sites(faults)} == {
+        "serve.accept", "serve.request", "serve.flush", "serve.drain",
+        "serve.journal", "arena.map", "arena.release"}
+    assert not set(chip.serve_sites(faults)) & set(chip.port_sites(faults))
 
 
 def test_battery_reaches_every_site(inputs, clean, tmp_path):

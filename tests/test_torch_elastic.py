@@ -20,14 +20,20 @@ Elsewhere or left out:
   ``test_redistribute_exchange_fault_leaves_vector_intact`` and
   ``test_redistribute_forced_collective_cross_mesh_falls_back``) are in
   ``tests/test_torch_redistribute.py``;
-* the serving daemon's cases come with ``serve/``:
+* the serving daemon's mesh cases are here:
   ``test_serve_daemon_survives_device_loss``, the ``"serve"`` arm of
   ``test_chaos_device_loss_every_kind``,
-  ``test_serve_requested_cpu_route_is_pinned``,
-  ``test_serve_repromotion_end_to_end``,
-  ``test_serve_promotion_grow_fault_stays_on_cpu_route``,
   ``test_serve_mesh_growback_between_batches`` and
-  ``test_serve_shrink_recorded_even_when_replay_fails``;
+  ``test_serve_shrink_recorded_even_when_replay_fails``, each daemon a
+  ``serve.Server(cpu=True)`` on the 8 CPU ranks;
+* not carried over: the daemon's route re-promotion cases
+  (``test_serve_requested_cpu_route_is_pinned``,
+  ``test_serve_repromotion_end_to_end`` and
+  ``test_serve_promotion_grow_fault_stays_on_cpu_route``).  They test a
+  daemon that degraded to the CPU route finding its way back to the
+  device; the port's daemon never leaves its requested route, so there
+  is no degraded route to pin or to leave (``tests/test_torch_serve.py::
+  test_serve_flush_relay_down_fails_classified_same_ranks``);
 * ``test_multihost_killed_worker_downgrades_mesh`` needs
   ``init_distributed``, which is not carried over.
 """
@@ -110,6 +116,9 @@ def _fresh():
     dt.tuning.reload()
     for mk in elastic.MARKERS + elastic.GROW_MARKERS:
         os.environ.pop(mk, None)
+    serve = sys.modules.get("dr_tpu_torch.serve")
+    if serve is not None:
+        serve.reset()  # a daemon a failed case leaked, and its markers
     dt.final()
 
 
@@ -515,7 +524,19 @@ def test_plan_flush_loss_without_elastic_drops_queue():
         assert k.m.nprocs() == P
 
 
-@pytest.mark.parametrize("kind", ["eager", "plan"])
+def _serve_pkg(k):
+    """The package's ``serve`` module."""
+    import importlib
+    return importlib.import_module(k.m.__name__ + ".serve")
+
+
+def _server(k, path):
+    srv = _serve_pkg(k).Server
+    return (srv(path, batch_window=0.0, cpu=True) if k is T
+            else srv(path, batch_window=0.0)).start()
+
+
+@pytest.mark.parametrize("kind", ["eager", "plan", "serve"])
 def test_chaos_device_loss_every_kind(kind, _dirs):
     """An injected loss at each dispatch kind ends in the right result on
     the shrunken runtime, with the shrink chapter in the story."""
@@ -526,6 +547,17 @@ def test_chaos_device_loss_every_kind(kind, _dirs):
         k.init()
 
         def run():
+            if kind == "serve":
+                srv = _server(k, str(_dirs / f"{k._pre}c.sock"))
+                try:
+                    with _serve_pkg(k).Client(srv.path, timeout=60.0) as c:
+                        k.faults.inject("device.lost", "device_lost",
+                                        times=1)
+                        return (c.scale(src, a=2.0, b=1.0),
+                                src * 2.0 + 1.0)
+                finally:
+                    srv.stop()
+                    _serve_pkg(k).reset()
             v = k.m.distributed_vector.from_array(src)
             k.m.checkpoint.save(str(_dirs / k._pre / "c.npz"), v)
             k.faults.inject("device.lost", "device_lost", times=1)
@@ -1083,3 +1115,97 @@ def test_phase24_rehearsal(tmp_path):
                                 t_block=8, halo=1024)
     assert out["story"]["shrink"]["shrinks"] == 2
     assert [f["fate"] for f in out["grow_fates"]] == ["moved", "moved"]
+
+
+# ---------------------------------------------------------------------------
+# the serving daemon's mesh (tests/test_elastic.py's serve cases)
+# ---------------------------------------------------------------------------
+
+def test_serve_daemon_survives_device_loss(tmp_path):
+    """Mid-batch device loss: the batch's retry shrinks the claim and
+    replays it — the live client gets its answer, later requests land,
+    and stats and the story's serve chapter carry the shrink."""
+    from dr_tpu_torch import serve
+    with env_override(DR_GPU_ELASTIC="1"):
+        srv = _server(T, str(tmp_path / "el.sock"))
+        try:
+            with serve.Client(srv.path, timeout=60.0) as c:
+                x = np.arange(16, dtype=np.float32)
+                np.testing.assert_array_equal(c.scale(x, a=2.0), x * 2.0)
+                faults.inject("device.lost", "device_lost", times=1)
+                np.testing.assert_array_equal(c.scale(x, a=3.0),
+                                              x * np.float32(3.0))
+                st = c.stats()
+                assert st["shrinks"] == 1 and st["restarts"] == 0
+                assert "shrunken mesh" in st["degraded"]
+                assert abs(c.reduce(np.ones(8, np.float32)) - 8.0) < 1e-4
+        finally:
+            faults.clear()
+            srv.stop()
+    assert dt.nprocs() == P - 1
+    story = resilience.session_story()
+    assert story and story["shrink"]["shrinks"] == 1
+    assert story["serve"]["reason"].startswith("serve: device loss")
+    serve.reset()
+
+
+def test_serve_mesh_growback_between_batches(tmp_path):
+    """The shrunken claim grows back between batches with the grow hook
+    armed: same client, bit-equal answers, the grow in stats()."""
+    from dr_tpu_torch import serve
+    with env_override(DR_GPU_ELASTIC="1", DR_GPU_ELASTIC_GROW="1",
+                      DR_GPU_ELASTIC_GROW_PROBE_S="0.01"):
+        srv = _server(T, str(tmp_path / "gb.sock"))
+        try:
+            with serve.Client(srv.path, timeout=60.0) as c:
+                x = np.arange(16, dtype=np.float32)
+                faults.inject("device.lost", "device_lost", times=1)
+                np.testing.assert_array_equal(c.scale(x, a=3.0),
+                                              x * np.float32(3.0))
+                st = c.stats()
+                assert st["shrinks"] == 1
+                deadline = time.monotonic() + 60.0
+                while time.monotonic() < deadline:
+                    np.testing.assert_array_equal(c.scale(x, a=4.0),
+                                                  x * np.float32(4.0))
+                    st = c.stats()
+                    if st["grows"]:
+                        break
+                    time.sleep(0.02)
+                assert st["grows"] == 1, st
+                assert st["degraded"] is None
+        finally:
+            faults.clear()
+            srv.stop()
+    assert dt.nprocs() == P
+    story = resilience.session_story()
+    assert story and story["shrink"]["shrinks"] == 1
+    assert story["grow"]["grows"] == 1
+    serve.reset()
+
+
+def test_serve_shrink_recorded_even_when_replay_fails(tmp_path):
+    """A shrink whose replay then fails still changed the claim:
+    stats()["shrinks"] and the degraded marker record it."""
+    from dr_tpu_torch import serve
+    with env_override(DR_GPU_ELASTIC="1"):
+        srv = _server(T, str(tmp_path / "sf.sock"))
+        try:
+            with serve.Client(srv.path, timeout=60.0) as c:
+                x = np.arange(8, dtype=np.float32)
+                np.testing.assert_array_equal(c.scale(x, a=2.0), x * 2.0)
+                # attempt 1: a clean serve.flush visit, then the loss;
+                # attempt 2 (the replay): a deterministic fault
+                faults.inject("device.lost", "device_lost", times=1)
+                faults.inject("serve.flush", "program", after=1)
+                with pytest.raises(resilience.ResilienceError):
+                    c.scale(x, a=3.0)
+                faults.clear()
+                st = c.stats()
+                assert st["shrinks"] == 1, st
+                assert "shrunken mesh" in (st["degraded"] or ""), st
+                np.testing.assert_array_equal(c.scale(x, a=4.0), x * 4.0)
+        finally:
+            faults.clear()
+            srv.stop()
+    serve.reset()

@@ -111,6 +111,42 @@ def test_k3_kernel_matches_plain(cuda, dtype):
     assert torch.equal(got, again)  # fixed order: same bits every run
 
 
+@pytest.mark.parametrize("ranks", [1, 4])
+def test_dot_takes_k3_at_2_25_and_matches_plain(cuda, ranks):
+    """``dot`` of two plain f32 containers launches K3 once a rank at
+    the serving phase's size, within a tight tolerance of the plain
+    version, the same bits every run; a bf16 ``dot`` stays off K3."""
+    import dr_tpu_torch as dt
+    dev, gen = cuda
+    n = 1 << 25
+    dt.init(dt.get_duplicated_devices(ranks, ["cuda:0"]))
+    try:
+        x = torch.randn(n, generator=gen, device=dev)
+        y = torch.randn(n, generator=gen, device=dev)
+        a = dt.distributed_vector.from_array(x)
+        b = dt.distributed_vector.from_array(y)
+        k3 = kernels.launches["chunked_dot"]
+        got = dt.dot(a, b)
+        torch.cuda.synchronize()
+        assert kernels.launches["chunked_dot"] == k3 + ranks
+        ref = float(reduce_pallas.plain_dot(x, y))
+        mag = float((x.double() * y.double()).abs().sum())
+        # f32 sums of 2^25 products in two orders: 1e-6 of sum |x*y|
+        assert abs(float(got) - ref) <= 1e-6 * mag
+        assert abs(float(got) - float((x.double() * y.double()).sum())) \
+            <= 1e-6 * mag
+        again = dt.dot(a, b)
+        assert np.float32(got).view(np.int32) == \
+            np.float32(again).view(np.int32)
+        h = dt.distributed_vector.from_array(x.to(torch.bfloat16))
+        k3 = kernels.launches["chunked_dot"]
+        dt.dot(h, h)
+        torch.cuda.synchronize()
+        assert kernels.launches["chunked_dot"] == k3
+    finally:
+        dt.final()
+
+
 def _bits(t):
     return t.view({4: torch.int32, 2: torch.int16}[t.element_size()])
 
@@ -1527,3 +1563,91 @@ def test_elastic_shrink_releases_the_graph_pool(dtc, cuda):
                     if tuple(s.get("segment_pool_id", ())) in pools]
     finally:
         elastic.reset()
+
+
+# ------------------------------------------------------- the serving daemon
+
+@pytest.fixture
+def served(cuda, tmp_path):
+    """A port daemon on 4 ranks of the card, in process, and a client."""
+    import dr_tpu_torch as dt
+    from dr_tpu_torch import serve
+    dt.init(dt.get_duplicated_devices(4, ["cuda:0"]))
+    srv = serve.Server(str(tmp_path / "g.sock"), batch_window=0.0).start()
+    c = serve.Client(srv.path, timeout=120.0)
+    try:
+        yield dt, srv, c
+    finally:
+        c.close()
+        srv.stop()
+        serve.reset()
+        dt.plan._plan_cache.clear()
+        dt.final()
+
+
+def test_serve_claims_cuda_ranks_by_default(cuda, tmp_path):
+    import dr_tpu_torch as dt
+    from dr_tpu_torch import serve
+    dt.final()
+    srv = serve.Server(str(tmp_path / "d.sock")).start()
+    try:
+        assert all(d.type == "cuda" for d in dt.devices())
+        assert dt.nprocs() == torch.cuda.device_count()
+        with serve.Client(srv.path, timeout=120.0) as c:
+            assert c.route() == {"requested": "device",
+                                 "current": "device"}
+            x = np.arange(1 << 12, dtype=np.float32)
+            np.testing.assert_array_equal(c.scale(x, a=2.0), x * 2.0)
+    finally:
+        srv.stop()
+        serve.reset()
+        dt.final()
+
+
+def test_serve_dot_and_scan_launch_k3_k4_with_the_direct_bits(served):
+    """A served dot and scan over residents launch K3 and K4 (as many as
+    the direct calls on the same containers), and reply with the direct
+    calls' bits."""
+    from dr_tpu_torch import serve
+    dt, srv, c = served
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(1 << 20).astype(np.float32)
+    y = rng.standard_normal(1 << 20).astype(np.float32)
+    c.put("x", x)
+    c.put("y", y)
+    cx = srv._resident.get("default", "x").cont
+    cy = srv._resident.get("default", "y").cont
+    kernels.reset_counts()
+    want_dot = float(dt.dot(cx, cy))
+    out = dt.distributed_vector(len(cx), np.float32)
+    dt.inclusive_scan(cx, out)
+    want_scan = dt.to_numpy(out)
+    direct = dict(kernels.launches)
+    assert direct["chunked_dot"] == 4 and direct["chunked_cumsum"] > 0
+    kernels.reset_counts()
+    got_dot = c.dot(serve.Ref("x"), serve.Ref("y"))
+    got_scan = c.scan(serve.Ref("x"))
+    served_counts = dict(kernels.launches)
+    assert got_dot == want_dot
+    np.testing.assert_array_equal(got_scan.view(np.int32),
+                                  want_scan.view(np.int32))
+    for k in ("chunked_dot", "chunked_cumsum"):
+        assert served_counts[k] == direct[k], (k, served_counts, direct)
+
+
+def test_serve_resident_group_replays_its_graph(served):
+    """The same fused group over residents, sent three times: the second
+    flush captures its run, the third replays it, every reply with the
+    first one's bits."""
+    from dr_tpu_torch import serve
+    dt, srv, c = served
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal(1 << 18).astype(np.float32)
+    c.put("x", x)
+    got = []
+    for _ in range(3):
+        got.append((c.reduce(serve.Ref("x")),
+                    c.dot(serve.Ref("x"), serve.Ref("x"))))
+    assert got[0] == got[1] == got[2]
+    st = c.stats()["plan"]
+    assert st["graph_captures"] >= 1 and st["graph_replays"] >= 1, st

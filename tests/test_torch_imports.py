@@ -52,6 +52,10 @@ def test_port_files_exist():
             "export.py", "profiling.py", "faults.py", "spmd_guard.py",
             "sanitize.py", "pinning.py", "chip_smoke.py", "opt.py",
             "plansan.py", "interference.py", "tuning.py"} <= names
+    for rel in ("__init__.py", "__main__.py", "protocol.py", "queue.py",
+                "arena.py", "resident.py", "journal.py", "client.py",
+                "daemon.py"):
+        assert (REPO / "dr_tpu_torch" / "serve" / rel) in PORT_FILES, rel
     for rel in ("utils/faults.py", "utils/spmd_guard.py",
                 "utils/sanitize.py", "core/pinning.py"):
         assert (REPO / "dr_tpu_torch" / rel) in PORT_FILES, rel
@@ -121,3 +125,15 @@ def test_no_degrade_route_in_the_port():
     for name in ("use_kernel", "NO_KERNEL", "Decision"):
         assert not hasattr(kernels, name), name
     assert not (REPO / "dr_tpu_torch" / "utils" / "fallback.py").exists()
+    # the serving daemon never leaves its requested route: no CPU-route
+    # degrade, no re-promotion, no platform switch, no fallback warnings
+    from dr_tpu_torch import serve
+    for name in ("_degrade", "_promote_attempt", "_maybe_promote",
+                 "_orig_platforms", "_grow_sup"):
+        assert not hasattr(serve.Server, name), name
+        assert not hasattr(serve.Server("/tmp/unused.sock"), name), name
+    for path in sorted((REPO / "dr_tpu_torch" / "serve").glob("*.py")):
+        text = path.read_text()
+        for word in ("jax_platforms", "warn_fallback",
+                     "first_touch_or_cpu", "route_first_touch"):
+            assert word not in text, f"{path.name} mentions {word}"

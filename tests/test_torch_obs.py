@@ -765,3 +765,109 @@ def test_plan_flush_span_with_runs(traced):
         assert snap["counters"]["plan.flushes"] >= 1
         assert snap["counters"]["plan.fused_ops"] >= 2
         assert snap["counters"]["plan.opaque_ops"] >= 1
+
+
+# ---------------------------------------------------------------------------
+# serve: cross-thread span tree + stats wire op (tests/test_obs.py's serve
+# cases, both daemons traced on the same request)
+# ---------------------------------------------------------------------------
+
+def _serve_tree(pkg, path):
+    srv = (pkg.Server(path, cpu=True) if pkg.__name__.startswith(
+        "dr_tpu_torch") else pkg.Server(path))
+    srv.start()
+    try:
+        with pkg.Client(srv.path, timeout=60.0) as c:
+            x = np.arange(48, dtype=np.float32)
+            np.testing.assert_allclose(c.scale(x, a=2.0), x * 2.0)
+            st = c.stats()
+    finally:
+        srv.stop()
+        pkg.reset()
+    return st
+
+
+def _check_tree(evs, st):
+    reqs = [e for e in evs if e["name"] == "serve.request"
+            and e["ph"] == "X"]
+    assert reqs, "request span missing"
+    rid = reqs[0]["id"]
+    qw = [e for e in evs if e["name"] == "serve.queue_wait"]
+    assert any(e["args"].get("parent") == rid for e in qw)
+    bf = [e for e in evs if e["name"] == "serve.batch_flush"]
+    assert any(rid in e["args"].get("links", ()) for e in bf)
+    assert any(e["tid"] != reqs[0]["tid"] for e in bf)
+    assert any(e["ph"] == "s" and e["id"] == rid for e in evs)
+    assert any(e["ph"] == "f" and e["id"] == rid for e in evs)
+    assert any(e["name"] == "serve.reply" and
+               e["args"].get("parent") == rid for e in evs)
+    assert any(e["name"] == "serve.accept" and e["cat"] == "site"
+               for e in evs)
+    hists = st["obs"]["histograms"]
+    for key in ("serve.queue_wait_ms", "serve.service_ms",
+                "serve.flush_ms"):
+        assert hists[key]["count"] >= 1
+        assert hists[key]["p50"] is not None
+
+
+def test_serve_span_tree_links_across_threads(traced, tmp_path):
+    from dr_tpu import serve as jserve
+    from dr_tpu_torch import serve as tserve
+    shapes = []
+    for pkg, o, name in ((jserve, jobs, "j.sock"), (tserve, tobs, "t.sock")):
+        st = _serve_tree(pkg, str(tmp_path / name))
+        evs = o.events()
+        _check_tree(evs, st)
+        shapes.append(sorted({(e["ph"], e["name"],
+                               tuple(sorted(e.get("args", {}))))
+                              for e in evs if e.get("cat") == "serve"}))
+    assert shapes[0] == shapes[1]
+
+
+def test_serve_cancelled_request_closes_its_span(traced, tmp_path):
+    from dr_tpu_torch import serve
+    from dr_tpu_torch.obs import recorder
+    from dr_tpu_torch.serve import protocol as proto
+    srv = serve.Server(str(tmp_path / "d.sock"), cpu=True)
+    srv.start()
+    srv.hold()
+    try:
+        c = serve.Client(srv.path, timeout=60.0)
+        proto.send_frame(c._sock, {"op": "fill", "params": {"n": 8},
+                                   "tenant": "ghost", "id": 1})
+        deadline = 50
+        while not recorder._open and deadline:
+            threading.Event().wait(0.02)
+            deadline -= 1
+        assert recorder._open, "request span never opened"
+        c.close()
+        threading.Event().wait(0.1)
+        srv.release()
+        deadline = 100
+        while recorder._open and deadline:
+            threading.Event().wait(0.02)
+            deadline -= 1
+    finally:
+        srv.stop()
+        serve.reset()
+    assert recorder._open == {}, "cancelled request leaked its span"
+
+
+def test_serve_daemon_samples_untraced(tmp_path):
+    from dr_tpu_torch import serve
+    from dr_tpu_torch.obs import metrics as om
+    h = om.histogram("serve.queue_wait_ms")
+    c0 = h.count
+    srv = serve.Server(str(tmp_path / "d.sock"), cpu=True)
+    srv.start()
+    try:
+        with serve.Client(srv.path, timeout=60.0) as c:
+            c.fill(16, 1.0)
+            m = c.metrics()
+    finally:
+        srv.stop()
+        serve.reset()
+    assert h.count > c0
+    assert m["histograms"]["serve.queue_wait_ms"]["count"] >= 1
+    assert not m["trace_armed"]
+    assert tobs.events() == []

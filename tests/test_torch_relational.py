@@ -427,3 +427,118 @@ def test_bench_pipeline_matches_reference():
     np.testing.assert_array_equal(dt.to_numpy(ti[1]), order)
     _hist_both((jl[0][0:rows], jl[1][0:rows]), _outs(16, np.int32),
                -3.0, 3.0)
+
+
+# ----------------------------------------------------------------- serve
+
+def _hist_count(x, bins, lo, hi):
+    """The bucket rule in numpy: floor((x-lo)*bins/(hi-lo)), right edge
+    inclusive in the last bucket, out-of-range dropped."""
+    x = np.asarray(x, np.float64)
+    inr = (x >= lo) & (x <= hi)
+    b = np.minimum(np.floor((x[inr] - lo) * bins / (hi - lo))
+                   .astype(np.int64), bins - 1)
+    return np.bincount(b, minlength=bins)
+
+
+def test_serve_relational_round_trip(tmp_path):
+    """The relational ops over the port daemon's wire (mirrors
+    ``tests/test_relational.py::test_serve_relational_round_trip``),
+    each reply against the JAX daemon's on the same inputs and against
+    numpy."""
+    from dr_tpu import serve as jserve
+    from dr_tpu_torch import serve
+    rng = np.random.default_rng(24)
+    lk = rng.integers(0, 6, 24).astype(np.float32)
+    lv = rng.standard_normal(24).astype(np.float32)
+    rk = rng.integers(0, 6, 18).astype(np.float32)
+    rv = rng.standard_normal(18).astype(np.float32)
+    jsrv = jserve.Server(str(tmp_path / "j.sock"), batch_window=0.0)
+    tsrv = serve.Server(str(tmp_path / "t.sock"), batch_window=0.0,
+                        cpu=True)
+    jsrv.start()
+    tsrv.start()
+    try:
+        with jserve.Client(jsrv.path, timeout=60.0) as jc, \
+                serve.Client(tsrv.path, timeout=60.0) as c:
+            jk, jl, jr = c.join(lk, lv, rk, rv)
+            want = sorted((k, a, b) for k, a in zip(lk, lv)
+                          for k2, b in zip(rk, rv) if k == k2)
+            assert sorted(zip(jk, jl, jr)) == want
+            for how in ("inner", "outer"):
+                got = c.join(lk, lv, rk, rv, how=how, fill=-5.0)
+                ref = jc.join(lk, lv, rk, rv, how=how, fill=-5.0)
+                assert sorted(zip(*got)) == sorted(zip(*ref))
+            gk, gv = c.groupby(lk, lv, agg="mean")
+            np.testing.assert_array_equal(gk, np.unique(lk))
+            np.testing.assert_allclose(
+                gv, [lv[lk == k].astype(np.float64).mean() for k in gk],
+                rtol=1e-5)
+            np.testing.assert_array_equal(c.unique(lk), np.unique(lk))
+            tv, ti = c.top_k(lv, 4)
+            np.testing.assert_array_equal(tv, np.sort(lv)[::-1][:4])
+            np.testing.assert_array_equal(lv[ti.astype(np.int64)], tv)
+            h = c.histogram(lv, 6, -2.0, 2.0)
+            np.testing.assert_array_equal(h, _hist_count(lv, 6, -2, 2))
+            np.testing.assert_array_equal(
+                h, jc.histogram(lv, 6, -2.0, 2.0))
+            with pytest.raises(ProgramError):
+                c.groupby(lk, lv, agg="median")
+            with pytest.raises(ProgramError):
+                ones = np.ones(64, np.float32)
+                c.join(ones, ones, ones, ones, capacity=8)
+            assert c.ping()["pong"]
+    finally:
+        jsrv.stop()
+        tsrv.stop()
+        serve.reset()
+        jserve.reset()
+
+
+def test_serve_topk_histogram_batch_into_one_flush(tmp_path):
+    """topk + histogram + scale queued together dispatch as ONE fused
+    batch (mirrors ``tests/test_relational.py::
+    test_serve_topk_histogram_batch_into_one_flush``)."""
+    import threading
+    import time
+    from dr_tpu_torch import serve
+    rng = np.random.default_rng(25)
+    srv = serve.Server(str(tmp_path / "relb.sock"), batch_window=0.05,
+                       batch_max=8, cpu=True)
+    srv.start()
+    try:
+        x = rng.standard_normal(64).astype(np.float32)
+        with serve.Client(srv.path, timeout=60.0) as c:
+            c.top_k(x, 3)
+            c.histogram(x, 4, -2.0, 2.0)
+        srv.hold()
+        results = {}
+
+        def go(name, fn):
+            results[name] = fn()
+
+        with serve.Client(srv.path, timeout=60.0) as c1, \
+                serve.Client(srv.path, timeout=60.0) as c2, \
+                serve.Client(srv.path, timeout=60.0) as c3:
+            ts = [threading.Thread(target=go, args=(
+                      "t", lambda: c1.top_k(x, 3))),
+                  threading.Thread(target=go, args=(
+                      "h", lambda: c2.histogram(x, 4, -2.0, 2.0))),
+                  threading.Thread(target=go, args=(
+                      "s", lambda: c3.scale(x, a=2.0)))]
+            for t in ts:
+                t.start()
+            time.sleep(0.3)
+            srv.release()
+            for t in ts:
+                t.join(timeout=30.0)
+        st = srv.stats()
+        assert st["batch_hw"] >= 3, st
+        np.testing.assert_array_equal(results["t"][0],
+                                      np.sort(x)[::-1][:3])
+        np.testing.assert_array_equal(results["h"],
+                                      _hist_count(x, 4, -2, 2))
+        np.testing.assert_array_equal(results["s"], x * np.float32(2.0))
+    finally:
+        srv.stop()
+        serve.reset()
