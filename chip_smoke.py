@@ -206,7 +206,28 @@ checks the kernels at small shapes only).  Phases:
     with ``DR_GPU_ELASTIC=1``: every answer with a fresh 3-rank
     runtime's bits, one shrink in ``stats()`` and the story's serve
     chapter, the grow back between batches and a fresh 4-rank runtime's
-    bits after it (25.2).  ``--phase25`` runs phases 1-3 and this one.
+    bits after it (25.2).  ``--phase25`` runs phases 1-3 and this one;
+26. the replica router (``serve.Router``, ``serve.RouterClient``) on
+    the card: 3 in-process replicas on one rank, 12 tenants each put
+    two residents of 2^24 f32 (1.5 GiB; cut from 2^25 for the phase's
+    time) through their ``RouterClient``
+    and send phase 25's 64-request mix from one thread a tenant, every
+    reply bit for bit against the direct call on the same containers,
+    each tenant's residents on the replica its ring names alone, K3,
+    K4, K6, K7 and K8 launched as often as the direct calls imply,
+    requests/s (26.1); ``router.route`` and ``router.probe`` with each
+    kind against that fleet, classified at their sites, a retried
+    transient with the same bits (26.3); then 3 spawned daemons on one
+    state directory, every replica on the device route: the residents
+    put and one round of the mix, the mix of one replica's tenants
+    through that replica alone (requests/s against the three), a
+    SIGKILL of the replica homing the most tenants (re-hash, the
+    breaker open, the story's serve chapter, a ``Ref`` to a lost
+    resident classified, re-put residents right), ``poll()``'s respawn
+    replaying the journal and a probe re-admitting it (its tenants read
+    their journalled residents bit for bit), and ``rolling_restart()``
+    under 12 client threads with zero classified errors and every reply
+    right (26.2).  ``--phase26`` runs phases 1-3 and this one.
 
 ``--halo-ab DIR`` times phase 17's halo p50 with the ``dr_tpu_torch`` of
 another checkout at ``DIR`` and this one's, in turns, and stops.
@@ -3539,14 +3560,25 @@ def same_bits(got, want) -> bool:
 #: the serving daemon's site prefixes: phase 25.3 drives them against a
 #: live daemon; the library calls of phase 22's battery never reach them
 SERVE_SITES = ("serve.", "arena.")
+#: the router's site prefix: phase 26.3 drives it against a live fleet
+ROUTER_SITES = ("router.",)
 
 
 def port_sites(faults):
     """(site, kind) of every injection the port's library fires, in table
-    order (the daemon's sites: :func:`serve_sites`)."""
+    order (the daemon's sites: :func:`serve_sites`; the router's:
+    :func:`router_sites`)."""
     return [(s, k) for s, kinds in faults.sites().items()
             if s not in faults.PORT_PENDING
-            and not s.startswith(SERVE_SITES) for k in kinds]
+            and not s.startswith(SERVE_SITES + ROUTER_SITES)
+            for k in kinds]
+
+
+def router_sites(faults):
+    """(site, kind) of every injection the replica router fires."""
+    return [(s, k) for s, kinds in faults.sites().items()
+            if s not in faults.PORT_PENDING and s.startswith(ROUTER_SITES)
+            for k in kinds]
 
 
 def serve_sites(faults):
@@ -5392,6 +5424,638 @@ def serve_phase(dt, kernels, seed, card, device="cuda:0", **sizes):
     return out
 
 
+# ------------------------------------------- phase 26: the replica router
+
+#: the mix's ops with no resident operand: the traffic of a rolling
+#: restart, which a tenant may ride onto a replica without its residents
+SV_INLINE = ("sort_k6", "scale", "fill", "groupby_sum", "groupby_min",
+             "groupby_min_k7", "unique", "join")
+#: the class each injected kind raises
+KIND_CLASS = {"transient": "TransientBackendError",
+              "program": "ProgramError"}
+
+
+def fleet_env(tenants, res_log2, replicas):
+    """``(resident bytes, env)`` of a fleet: each replica's resident
+    budget holds every tenant's residents (the ring may home them all on
+    one), and its arena takes its share of half of ``/dev/shm``."""
+    shm = sv_shm_bytes()
+    res_bytes = tenants * 2 * 4 << res_log2
+    arena = min(1 << 31, (shm // (2 * replicas)) & ~((1 << 20) - 1))
+    return res_bytes, {
+        "DR_GPU_SERVE_RESIDENT_BYTES": str(res_bytes + (1 << 30)),
+        "DR_GPU_SERVE_ARENA": "1" if arena >= 1 << 20 else "0",
+        "DR_GPU_SERVE_ARENA_BYTES": str(max(arena, 1 << 20))}
+
+
+def fleet_orders(seed, tenants, reqs, salt):
+    """Each tenant's requests of ``reqs`` in a seeded order."""
+    orders = {}
+    for t in range(tenants):
+        orders[t] = [op for op, n in reqs for _ in range(n)]
+        np.random.default_rng([seed, salt, t]).shuffle(orders[t])
+    return orders
+
+
+def proc_cpu_s(pid):
+    """CPU seconds (user + system) process ``pid`` has used so far."""
+    with open(f"/proc/{pid}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def cpu_share(run, pids=()):
+    """``run()``, and the CPU seconds over wall seconds it took in this
+    process and in each of ``pids``: how near one core each came."""
+    c0, p0 = time.process_time(), [proc_cpu_s(p) for p in pids]
+    t0 = time.perf_counter()
+    out = run()
+    wall = time.perf_counter() - t0
+    return out, {"clients": (time.process_time() - c0) / wall,
+                 "replicas": [(proc_cpu_s(p) - a) / wall
+                              for p, a in zip(pids, p0)]}
+
+
+#: what a spawned replica pays before it serves, step by step
+_SPAWN_COST = """
+import json, sys, time
+t0 = time.perf_counter()
+import torch
+t1 = time.perf_counter()
+torch.zeros(1, device={device!r})
+torch.cuda.synchronize() if {device!r}.startswith("cuda") else None
+t2 = time.perf_counter()
+sys.path.insert(0, {here!r})
+import dr_tpu_torch as dt
+t3 = time.perf_counter()
+dt.init([{device!r}])
+t4 = time.perf_counter()
+print(json.dumps({{"import_torch_s": t1 - t0, "device_context_s": t2 - t1,
+                  "import_dr_tpu_torch_s": t3 - t2, "init_s": t4 - t3}}))
+"""
+
+
+def spawn_cost(device):
+    """A fresh interpreter's steps to a claimed rank, in seconds (the
+    part of a replica's start that is not the daemon's own)."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", _SPAWN_COST.format(device=device, here=HERE)],
+        capture_output=True, text=True, timeout=300, check=True)
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    got["process_s"] = time.perf_counter() - t0
+    return got
+
+
+def fleet_traffic(rcs, orders, inputs, want, serve, bins, k):
+    """One thread a tenant of ``orders`` sends its requests through its
+    ``RouterClient``; every reply against ``want``.  Returns ``(wall
+    seconds, requests, mismatches, errors)``."""
+    import threading
+    bad, errs, lock = [], [], threading.Lock()
+
+    def client(t):
+        try:
+            for op in orders[t]:
+                got = sv_request(rcs[t], serve.Ref, op, inputs[t], bins, k)
+                if not sv_same(got, want[t, op]):
+                    with lock:
+                        bad.append((t, op))
+        except Exception as e:  # reported by the caller, never swallowed
+            with lock:
+                errs.append(f"t{t}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in orders]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return (time.perf_counter() - t0, sum(len(o) for o in orders.values()),
+            sorted(set(bad)), errs)
+
+
+def fleet_homes(paths, home):
+    """The tenants each replica homes, by replica path."""
+    return {p: [t for t, h in enumerate(home) if h == p] for p in paths}
+
+
+def fleet_one_rank(dt, kernels, seed, state_dir, card, device="cuda:0",
+                   replicas=3, tenants=12, res_log2=25, reqs=SV_MIX,
+                   inline_log2=20, k6_n=1 << 14, bins=1024, k=1024):
+    """Phase 26.1: a ``Router`` of in-process replicas on one rank of
+    ``device``; each tenant puts two residents through its
+    ``RouterClient`` and one thread a tenant sends the mix in a seeded
+    order.  Every reply against the direct call on the same containers,
+    each tenant's residents on its ring's replica alone, the launch
+    counts against the counts the direct calls make.  Returns ``(fleet,
+    clients, inputs, want, numbers)``; the fleet is still serving."""
+    import torch
+    from dr_tpu_torch import serve
+    from dr_tpu_torch.obs import metrics as om
+    on_card = device.startswith("cuda")
+    dt.init([device])
+    res_bytes, env = fleet_env(tenants, res_log2, replicas)
+    log(f"  26.1 {replicas} in-process replicas on one rank of {device}; "
+        f"residents {tenants} x 2 x 2^{res_log2} f32 = {res_bytes} bytes; "
+        f"arena {env['DR_GPU_SERVE_ARENA_BYTES']} bytes a replica")
+    t0 = time.perf_counter()
+    inputs = [sv_inputs(seed, t, res_log2, inline_log2, k6_n, device)
+              for t in range(tenants)]
+    log(f"  [{card}] 26.1 inputs {time.perf_counter() - t0:.1f} s")
+    with env_set(**env):
+        fleet = serve.Router(os.path.join(state_dir, "f"), replicas,
+                             cpu=not on_card, batch_window=0.002).start()
+    servers = {s.path: s for s in fleet._servers}
+    check_true(f"26.1 claim: {replicas} replicas on the runtime of "
+               f"{device}", dt.nprocs() == 1 and all(
+                   s.devices == [torch.device(device)]
+                   and s.stats()["route"]["current"] ==
+                   ("cpu" if not on_card else "device")
+                   for s in servers.values()))
+    rcs = [serve.RouterClient(fleet.paths(), tenant=f"t{t}", timeout=300.0,
+                              arena=True) for t in range(tenants)]
+    home = [rc.route() for rc in rcs]
+    homes = fleet_homes(fleet.paths(), home)
+    log("  26.1 tenants by replica: " + json.dumps(
+        {os.path.basename(p): ts for p, ts in homes.items()}))
+    t0 = time.perf_counter()
+    ok = True
+    for t, rc in enumerate(rcs):
+        for name in ("a", "b"):
+            r = rc.put(name, inputs[t][name])
+            ok = ok and r["bytes"] == inputs[t][name].nbytes \
+                and not r["cached"]
+    put_s = time.perf_counter() - t0
+    check_true(f"26.1 {2 * tenants} residents put, none cached", ok)
+    st = rcs[0].stats()
+    check_true("26.1 each tenant's residents on its ring's replica alone "
+               "(stats: " + json.dumps(
+                   {os.path.basename(p): st[p]["resident"]["entries"]
+                    for p in fleet.paths()}) + ")",
+               all(st[p]["resident"]["entries"] == 2 * len(homes[p])
+                   for p in fleet.paths())
+               and all((servers[p]._resident.get(f"t{t}", n) is not None)
+                       == (home[t] == p) for p in fleet.paths()
+                       for t in range(tenants) for n in ("a", "b")))
+    log(f"  [{card}] 26.1 {2 * tenants} puts {put_s:.2f} s "
+        f"({res_bytes / put_s / 1e9:.3f} GB/s)")
+    # the direct calls on the same containers, with their launches: the
+    # fleet is idle, so the main thread may use the card
+    want, per = {}, {}
+    t0 = time.perf_counter()
+    for t in range(tenants):
+        srv = servers[home[t]]
+        ra = srv._resident.get(f"t{t}", "a").cont
+        rb = srv._resident.get(f"t{t}", "b").cont
+        for op, _n in reqs:
+            kernels.reset_counts()
+            want[t, op] = sv_direct(dt, op, inputs[t], ra, rb, bins, k)
+            if on_card:
+                torch.cuda.synchronize()
+            per[t, op] = dict(kernels.launches)
+    log(f"  [{card}] 26.1 direct calls {time.perf_counter() - t0:.1f} s")
+    implied = {name: sum(per[t, op][name] * n for t in range(tenants)
+                         for op, n in reqs) for name in kernels.COUNTERS}
+    orders = fleet_orders(seed, tenants, reqs, 261)
+    om.reset()
+    st0 = {p: s.stats() for p, s in servers.items()}
+    kernels.reset_counts()
+    (wall, nreq, bad, errs), cpu = cpu_share(lambda: fleet_traffic(
+        rcs, orders, inputs, want, serve, bins, k))
+    launched = dict(kernels.launches)
+    st1 = {p: s.stats() for p, s in servers.items()}
+    check_true(f"26.1 every client got every answer ({errs[:3]})",
+               not errs)
+    check_true(f"26.1 every reply equals the direct call bit for bit "
+               f"(mismatches {bad[:8]})", not bad)
+    for name in kernels.COUNTERS:
+        if implied[name] or launched[name]:
+            check_true(f"26.1 {name} launches {launched[name]} == "
+                       f"{implied[name]} the mix implies",
+                       launched[name] == implied[name])
+    if on_card:
+        for name in ("chunked_dot", "chunked_cumsum", "bitonic_sort",
+                     "segred", "hist"):
+            check_true(f"26.1 {name} launched from the fleet",
+                       launched[name] > 0)
+    per_replica = {os.path.basename(p): {
+        "tenants": len(homes[p]),
+        "requests": st1[p]["requests"] - st0[p]["requests"],
+        "flushes": st1[p]["flushes"] - st0[p]["flushes"],
+        "batch_hw": st1[p]["batch_hw"],
+        "plan": {q: st1[p]["plan"][q] - st0[p]["plan"][q]
+                 for q in st1[p]["plan"]}} for p in fleet.paths()}
+    out = {"requests": nreq, "wall_s": wall, "req_per_s": nreq / wall,
+           "cpu_share": cpu["clients"], "put_s": put_s,
+           "launches": launched, "implied": implied,
+           "replicas": per_replica}
+    if on_card:
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"  [{card}] 26.1 {nreq} requests in {wall:.3f} s = "
+        f"{out['req_per_s']!r} requests/s through {replicas} in-process "
+        f"replicas, the process at {cpu['clients']!r} cores; per replica "
+        f"{json.dumps(per_replica)}")
+    log(f"  26.1 launches {json.dumps(launched)}")
+    return fleet, rcs, inputs, want, out
+
+
+def probe_notes(obs, path):
+    """The classes of the probes of ``path`` that failed classified, from
+    the ``serve.note`` events the router recorded."""
+    pat = re.compile(rf"probe of {re.escape(path)} failed classified "
+                     r"\((\w+)\)")
+    return [m.group(1) for e in obs.events() if e.get("name") == "serve.note"
+            for m in [pat.search(str(e.get("args", {}).get("msg", "")))]
+            if m]
+
+
+def fleet_chaos(fleet, rcs, inputs, want, serve, faults, sites):
+    """Phase 26.3: each ``router.*`` (site, kind) once against the fleet
+    of 26.1.  ``router.route``: the lookup fails classified at its site
+    before any replica is touched, and a retried transient answers with
+    the direct call's bits.  ``router.probe``: a replica stopped and
+    restarted, the tenant re-hashed; the faulted half-open probe fails
+    classified at its site, the replica stays out and the request is
+    answered right by a survivor; the next probe re-admits it."""
+    from dr_tpu_torch import obs
+    from dr_tpu_torch.utils import resilience as R
+    out = {}
+    t = 0
+    rc = rcs[t]
+    ref = serve.Ref
+    for site, kind in sites:
+        if site != "router.route":
+            continue
+        with faults.injected(site, kind, times=1) as sp:
+            try:
+                rc.reduce(ref("a"))
+                outcome = "answered"
+            except R.ResilienceError as e:
+                outcome = f"{type(e).__name__}@{e.site}"
+            fired = sp.fired
+        out[f"{site}:{kind}"] = outcome
+        check_true(f"26.3 chaos {site}:{kind} -> {outcome} (fired {fired})",
+                   outcome == f"{KIND_CLASS[kind]}@{site}" and fired == 1)
+        if kind == "transient":
+            with faults.injected(site, kind, times=1) as sp:
+                got = R.retry(lambda: rc.reduce(ref("a")), attempts=2,
+                              base=0.01, seed=0)
+                fired = sp.fired
+            check_true(f"26.3 {site}:{kind} retried: the direct call's "
+                       f"bits (fired {fired})",
+                       sv_same(got, want[t, "reduce"]) and fired == 1)
+    probe = [k_ for s_, k_ in sites if s_ == "router.probe"]
+    if not probe:
+        return out
+    path = rc.route()
+    vi = fleet.paths().index(path)
+    was = obs.armed()
+    obs.arm(True)
+    try:
+        with env_set(DR_GPU_SERVE_PROBE_S="0.0"):
+            fleet._servers[vi].stop()  # abrupt: no drain
+            check_true("26.3 the stopped replica's tenant re-hashed, "
+                       "answered right",
+                       sv_same(rc.scale(inputs[t]["x"], a=1.5, b=-0.5),
+                               want[t, "scale"]) and rc.rehashes == 1
+                       and path not in rc.live_replicas())
+            fleet.restart_replica(vi)
+            for kind in probe:
+                obs.reset()
+                with faults.injected("router.probe", kind, times=1) as sp:
+                    got = rc.scale(inputs[t]["x"], a=1.5, b=-0.5)
+                    fired = sp.fired
+                seen = probe_notes(obs, path)
+                outcome = (f"{seen[0]}@router.probe" if seen
+                           else "not classified")
+                out[f"router.probe:{kind}"] = outcome
+                check_true(f"26.3 chaos router.probe:{kind} -> {outcome} "
+                           f"(fired {fired}); the replica stays out, a "
+                           "survivor answers right",
+                           outcome == f"{KIND_CLASS[kind]}@router.probe"
+                           and fired == 1 and path not in
+                           rc.live_replicas()
+                           and sv_same(got, want[t, "scale"]))
+            got = rc.scale(inputs[t]["x"], a=1.5, b=-0.5)
+            check_true("26.3 the next probe re-admits the replica; the "
+                       "tenant re-hashes back and answers right",
+                       path in rc.live_replicas() and rc.route() == path
+                       and rc.recoveries == 1
+                       and sv_same(got, want[t, "scale"]))
+    finally:
+        obs.arm(was)
+    return out
+
+
+def fleet_spawned(dt, inputs, want, seed, state_dir, card, device="cuda:0",
+                  replicas=3, res_log2=25, reqs=SV_MIX, bins=1024, k=1024,
+                  **_sizes):
+    """Phase 26.2: ``replicas`` spawned daemons on one state directory,
+    serving the tenants of 26.1's ``inputs`` (``want``: 26.1's direct
+    calls).  Puts and one round of the mix (every replica on the
+    requested route), the mix of one replica's tenants through that
+    replica alone, a SIGKILL of the replica homing the most tenants with
+    its re-hash, lost ``Ref`` and re-put, ``poll()``'s respawn replaying
+    its journal and the probe re-admitting it, then
+    ``rolling_restart()`` under one client thread a tenant.  ``_sizes``:
+    the rest of 26.1's sizes, which ``inputs`` already fixes."""
+    import signal
+    import threading
+    from dr_tpu_torch import serve
+    from dr_tpu_torch.utils import resilience as R
+    on_card = device.startswith("cuda")
+    route = "device" if on_card else "cpu"
+    tenants = len(inputs)
+    dt.init([device])
+    res_bytes, env = fleet_env(tenants, res_log2, replicas)
+    log(f"  26.2 {replicas} spawned replicas (python -m dr_tpu_torch.serve"
+        f"{'' if on_card else ' --cpu'}), one state directory; residents "
+        f"{tenants} x 2 x 2^{res_log2} f32 = {res_bytes} bytes")
+    out = {}
+    ref = serve.Ref
+    env["DR_GPU_SERVE_PROBE_S"] = "0.1"
+    with env_set(**env):
+        t0 = time.perf_counter()
+        fleet = serve.Router(os.path.join(state_dir, "s"), replicas,
+                             cpu=not on_card, spawn=True,
+                             state_dir=os.path.join(state_dir, "state26"))
+        fleet.start()
+        out["start_s"] = time.perf_counter() - t0
+        rcs = []
+        try:
+            routes = []
+            for p in fleet.paths():
+                with serve.Client(p, timeout=60.0) as c:
+                    routes.append(c.route())
+            check_true(f"26.2 every replica serves on the {route} route "
+                       f"({routes})", all(r == {"requested": route,
+                                                "current": route}
+                                          for r in routes))
+            log(f"  [{card}] 26.2 {replicas} replicas started in "
+                f"{out['start_s']:.2f} s")
+            rcs = [serve.RouterClient(fleet.paths(), tenant=f"t{t}",
+                                      timeout=300.0, arena=True)
+                   for t in range(tenants)]
+            home = [rc.route() for rc in rcs]
+            homes = fleet_homes(fleet.paths(), home)
+            log("  26.2 tenants by replica: " + json.dumps(
+                {os.path.basename(p): ts for p, ts in homes.items()}))
+            t0 = time.perf_counter()
+            bad_puts = []
+
+            def put(t):
+                for name in ("a", "b"):
+                    r = rcs[t].put(name, inputs[t][name])
+                    if r["bytes"] != inputs[t][name].nbytes or r["cached"]:
+                        bad_puts.append((t, name))
+
+            threads = [threading.Thread(target=put, args=(t,))
+                       for t in range(tenants)]
+            for th in threads:
+                th.start()
+            for th in threads:
+                th.join()
+            out["put_s"] = time.perf_counter() - t0
+            check_true(f"26.2 {2 * tenants} residents put from {tenants} "
+                       f"threads, none cached ({bad_puts[:3]})",
+                       not bad_puts and sum(
+                           s["resident"]["entries"]
+                           for s in rcs[0].stats().values()) == 2 * tenants)
+            log(f"  [{card}] 26.2 puts {out['put_s']:.2f} s "
+                f"({res_bytes / out['put_s'] / 1e9:.3f} GB/s)")
+            orders = fleet_orders(seed, tenants, reqs, 262)
+            pids = [proc.pid for proc in fleet._procs]
+            (wall, nreq, bad, errs), cpu = cpu_share(
+                lambda: fleet_traffic(rcs, orders, inputs, want, serve,
+                                      bins, k), pids)
+            check_true(f"26.2 one round of the mix through {replicas} "
+                       f"replicas: every reply right ({bad[:4]}, "
+                       f"{errs[:2]})", not bad and not errs)
+            out["rate_all"] = {"replicas": replicas, "requests": nreq,
+                               "wall_s": wall, "req_per_s": nreq / wall,
+                               "cpu_share": cpu}
+            victim = max(fleet.paths(), key=lambda p: len(homes[p]))
+            vi = fleet.paths().index(victim)
+            lost = homes[victim]
+            (wall1, n1, bad, errs), cpu1 = cpu_share(
+                lambda: fleet_traffic(rcs, {t: orders[t] for t in lost},
+                                      inputs, want, serve, bins, k),
+                [pids[vi]])
+            check_true(f"26.2 the mix of the {len(lost)} tenants of "
+                       f"{os.path.basename(victim)} through it alone: "
+                       f"every reply right", not bad and not errs)
+            out["rate_one"] = {"replicas": 1, "tenants": len(lost),
+                               "requests": n1, "wall_s": wall1,
+                               "req_per_s": n1 / wall1, "cpu_share": cpu1}
+            log(f"  [{card}] 26.2 requests/s: {nreq / wall!r} through "
+                f"{replicas} spawned replicas ({nreq} requests, {tenants} "
+                f"tenants) vs {n1 / wall1!r} through 1 ({n1} requests, its "
+                f"{len(lost)} tenants), ratio "
+                f"{(nreq / wall) / (n1 / wall1)!r}; cores busy (clients' "
+                f"process, replicas): {json.dumps(cpu)} vs "
+                f"{json.dumps(cpu1)}")
+            # SIGKILL: the replica homing the most tenants
+            fleet._procs[vi].send_signal(signal.SIGKILL)
+            fleet._procs[vi].wait(timeout=30)
+            t_kill = time.perf_counter()
+            seen = {}
+            for t in lost:
+                try:
+                    rcs[t].reduce(ref("a"))
+                    seen[t] = "answered"
+                except R.ResilienceError as e:
+                    seen[t] = f"{type(e).__name__}@{e.site}"
+            story = (dt.resilience.session_story() or {}).get("serve") or {}
+            check_true(f"26.2 SIGKILL of {os.path.basename(victim)}: its "
+                       f"{len(lost)} tenants re-hashed (breakers open, a Ref "
+                       f"to a lost resident {sorted(set(seen.values()))}); "
+                       f"the story: router_dead {story.get('router_dead')}, "
+                       f"{story.get('router_reason')!r}",
+                       all(rcs[t].rehashes == 1 and victim not in
+                           rcs[t].live_replicas() and
+                           rcs[t].breaker_states()[victim] == "open"
+                           and rcs[t].route() != victim
+                           and seen[t] == "ProgramError@serve.request"
+                           for t in lost)
+                       and story.get("router_dead", 0) >= len(lost)
+                       and "re-hashed" in (story.get("router_reason") or ""))
+            ok = True
+            for t in lost:
+                for name in ("a", "b"):
+                    rcs[t].put(name, inputs[t][name])
+                for op in ("dot", "reduce", "histogram", "topk"):
+                    ok = ok and sv_same(sv_request(rcs[t], ref, op,
+                                                   inputs[t], bins, k),
+                                        want[t, op])
+            check_true("26.2 re-put residents on the survivors answer "
+                       "right", ok)
+            # the respawn: the supervisor's poll, then a probe re-admits
+            while True:
+                t0 = time.perf_counter()
+                back = fleet.poll()
+                if back:
+                    break
+                if time.perf_counter() - t_kill > 120.0:
+                    raise AssertionError("26.2 no respawn within 120 s")
+                time.sleep(0.02)
+            out["respawn_s"] = time.perf_counter() - t0
+            deadline = time.monotonic() + 60.0
+            while any(victim not in rcs[t].live_replicas() for t in lost) \
+                    and time.monotonic() < deadline:
+                for t in lost:
+                    rcs[t].scale(inputs[t]["x"], a=1.5, b=-0.5)
+                time.sleep(0.01)
+            out["kill_to_readmitted_s"] = time.perf_counter() - t_kill
+            ok = all(rcs[t].route() == victim and rcs[t].recoveries == 1
+                     for t in lost)
+            for t in lost:
+                for op in ("dot", "reduce", "histogram", "topk"):
+                    ok = ok and sv_same(sv_request(rcs[t], ref, op,
+                                                   inputs[t], bins, k),
+                                        want[t, op])
+            with serve.Client(victim, timeout=300.0, tenant=f"t{lost[0]}",
+                              arena=True) as c:
+                ok = ok and np.array_equal(
+                    c.get("a").view(np.int32),
+                    inputs[lost[0]]["a"].view(np.int32))
+                replayed = c.stats().get("journal", {}).get("replayed")
+            story = (dt.resilience.session_story() or {}).get("serve") or {}
+            check_true(f"26.2 respawned by poll() ({back}), {replayed} "
+                       f"residents replayed from the journal, re-admitted by "
+                       f"a probe; its tenants re-hashed back and read their "
+                       f"residents bit for bit; story respawns "
+                       f"{story.get('respawns')}, recovered "
+                       f"{story.get('router_recovered')}",
+                       ok and back == [victim] and
+                       fleet.stats()["respawns"] == 1 and
+                       story.get("respawns", 0) >= 1)
+            log(f"  [{card}] 26.2 respawn (spawn, claim, journal replay "
+                f"of {replayed} residents) {out['respawn_s']!r} s; SIGKILL "
+                f"to re-admitted {out['kill_to_readmitted_s']!r} s")
+            out["spawn_cost"] = spawn_cost(device)
+            log(f"  [{card}] 26.2 a fresh interpreter to a claimed rank: "
+                f"{json.dumps(out['spawn_cost'])}")
+            # the rolling restart under one client thread a tenant
+            done = threading.Event()
+            lock = threading.Lock()
+            tally = {"requests": 0, "bad": [], "errors": []}
+
+            def traffic(t):
+                i = 0
+                while not done.is_set():
+                    op = SV_INLINE[(t + i) % len(SV_INLINE)]
+                    i += 1
+                    try:
+                        got = sv_request(rcs[t], ref, op, inputs[t], bins, k)
+                        right = sv_same(got, want[t, op])
+                        with lock:
+                            tally["requests"] += 1
+                            if not right:
+                                tally["bad"].append((t, op))
+                    except Exception as e:
+                        with lock:
+                            tally["errors"].append(
+                                f"t{t} {op}: {type(e).__name__}: {e}")
+
+            threads = [threading.Thread(target=traffic, args=(t,))
+                       for t in range(tenants)]
+            for th in threads:
+                th.start()
+            try:
+                time.sleep(0.2)
+                t0 = time.perf_counter()
+                restarted = fleet.rolling_restart()
+                out["rolling_restart_s"] = time.perf_counter() - t0
+                time.sleep(0.2)
+            finally:
+                done.set()
+                for th in threads:
+                    th.join(timeout=300.0)
+            check_true(f"26.2 rolling_restart of {len(restarted)} replicas "
+                       f"under {tenants} client threads: "
+                       f"{tally['requests']} requests, classified errors "
+                       f"{tally['errors'][:3]}, wrong "
+                       f"{tally['bad'][:3]}", len(restarted) == replicas
+                       and not tally["errors"] and not tally["bad"]
+                       and tally["requests"] > 0)
+            deadline = time.monotonic() + 60.0
+            while any(len(rc.live_replicas()) < replicas for rc in rcs) \
+                    and time.monotonic() < deadline:
+                for t, rc in enumerate(rcs):
+                    rc.scale(inputs[t]["x"], a=1.5, b=-0.5)
+                time.sleep(0.01)
+            ok = all(len(rc.live_replicas()) == replicas for rc in rcs)
+            for t, rc in enumerate(rcs):
+                for op in ("dot", "reduce"):
+                    ok = ok and sv_same(sv_request(rc, ref, op, inputs[t],
+                                                   bins, k), want[t, op])
+            check_true("26.2 after the roll every breaker closed again and "
+                       "every tenant's residents (journal-replayed) answer "
+                       "right", ok)
+            out["rolling_requests"] = tally["requests"]
+            log(f"  [{card}] 26.2 rolling restart {out['rolling_restart_s']!r}"
+                f" s, {tally['requests']} requests answered right during it")
+        finally:
+            for rc in rcs:
+                rc.close()
+            fleet.stop()
+            serve.reset()
+    return out
+
+
+#: phase 26's residents: cut from 2^25 (3 GiB over 12 tenants) to keep
+#: the phase near its 120 s budget, most of which the spawned replicas'
+#: starts and journal replays take
+ROUTER_RES_LOG2 = 24
+
+
+def router_phase(dt, kernels, seed, card, device="cuda:0", **sizes):
+    """Phase 26 (the counts reset just before each part): the replica
+    router on the card.  26.1 in process, 26.3 the router's fault sites
+    against it, then 26.2 spawned, over the same tenants.  Returns its
+    numbers."""
+    import tempfile
+    import torch
+    from dr_tpu_torch import serve
+    from dr_tpu_torch.utils import faults
+    sizes.setdefault("res_log2", ROUTER_RES_LOG2)
+    log(f"phase 26: the replica router: 3 in-process replicas on one rank, "
+        f"12 tenants x 2 residents of 2^{sizes['res_log2']} f32, 64 "
+        f"requests a tenant from 12 client threads; the router's fault "
+        f"sites; 3 spawned replicas: SIGKILL, respawn, journal, rolling "
+        f"restart")
+    if sizes["res_log2"] < 25:
+        log(f"  phase 26 residents cut from 2^25 to 2^{sizes['res_log2']} "
+            f"f32 to keep the phase near its 120 s budget")
+    out = {"card": card}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        fleet, rcs, inputs, want, out["in_process"] = fleet_one_rank(
+            dt, kernels, seed, td, card, device=device, **sizes)
+        log(f"  [{card}] phase 26.1 {time.perf_counter() - t0:.1f} s")
+        t1 = time.perf_counter()
+        try:
+            out["chaos"] = fleet_chaos(fleet, rcs, inputs, want, serve,
+                                       faults, router_sites(faults))
+        finally:
+            for rc in rcs:
+                rc.close()
+            fleet.stop()
+            serve.reset()
+        log(f"  [{card}] phase 26.3 {time.perf_counter() - t1:.1f} s")
+        release(torch)
+        t1 = time.perf_counter()
+        out["spawned"] = fleet_spawned(dt, inputs, want, seed, td, card,
+                                       device=device, **sizes)
+        log(f"  [{card}] phase 26.2 {time.perf_counter() - t1:.1f} s")
+    dt.final()
+    release(torch)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  [{card}] phase 26 {out['seconds']:.1f} s")
+    return out
+
+
 _HALO_AB = """
 import importlib.util, json, sys
 sys.path.insert(0, {tree!r})
@@ -5509,7 +6173,8 @@ def main(argv):
     only23 = "--phase23" in argv
     only24 = "--phase24" in argv
     only25 = "--phase25" in argv
-    short = quick or only22 or only23 or only24 or only25
+    only26 = "--phase26" in argv
+    short = quick or only22 or only23 or only24 or only25 or only26
     n = 1 << (20 if short else 30)
     m2d = 2048 if short else M2D
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -5538,6 +6203,10 @@ def main(argv):
     if only25:  # a short run: the checks above, small, then phase 25
         log("  phase 25 numbers: " + json.dumps(
             serve_phase(dt, kernels, seed, card)))
+        return 0
+    if only26:  # a short run: the checks above, small, then phase 26
+        log("  phase 26 numbers: " + json.dumps(
+            router_phase(dt, kernels, seed, card)))
         return 0
 
     log(f"phase 4: main path, 1 rank on cuda:0, n={n}")
@@ -5771,6 +6440,9 @@ def main(argv):
 
     g25 = serve_phase(dt, kernels, seed, card)
     log("  phase 25 numbers: " + json.dumps(g25))
+
+    g26 = router_phase(dt, kernels, seed, card)
+    log("  phase 26 numbers: " + json.dumps(g26))
 
     log(f"peak device memory (1-D main path): {peak} bytes "
         f"({peak / 2 ** 30:.2f} GiB)")

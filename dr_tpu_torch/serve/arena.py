@@ -68,6 +68,10 @@ ALIGN = 64
 #: in-process clients (tests, the smoke run) would steal the creator's entry
 #: and the final unlink would log a tracker KeyError
 _OWNED: set = set()
+#: one attach at a time: the tracker keeps a SET of names, so two
+#: threads' register, register, unregister, unregister of one segment
+#: would unregister a name it no longer holds and log a KeyError
+_attach_lock = threading.Lock()
 
 _c_maps = _om.counter("serve.arena.maps")
 _c_mapped_bytes = _om.counter("serve.arena.mapped_bytes")
@@ -305,15 +309,16 @@ def attach(name: str):
     segment this very process created keeps the creator's one
     registration intact)."""
     from multiprocessing import shared_memory
-    shm = shared_memory.SharedMemory(name=name)
-    if name not in _OWNED:
-        try:
-            from multiprocessing import resource_tracker
-            resource_tracker.unregister(shm._name, "shared_memory")
-        # best effort: an unregister miss only re-arms the tracker's own
-        # (noisy but harmless) cleanup
-        except Exception:  # pragma: no cover - tracker internals moved
-            pass
+    with _attach_lock:
+        shm = shared_memory.SharedMemory(name=name)
+        if name not in _OWNED:
+            try:
+                from multiprocessing import resource_tracker
+                resource_tracker.unregister(shm._name, "shared_memory")
+            # best effort: an unregister miss only re-arms the tracker's
+            # own (noisy but harmless) cleanup
+            except Exception:  # pragma: no cover - tracker internals moved
+                pass
     return shm
 
 

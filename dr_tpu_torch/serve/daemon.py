@@ -68,7 +68,9 @@ the requested one.  A batch runs on a fresh watchdog thread, which sets
 the device of the ranks it runs on; no other thread of the daemon
 touches the card while a batch may be capturing a CUDA graph (the
 reader threads decode npy on the host, and ``stop()`` waits for the
-running batch before it drops the residents).  A reply's write is
+running batch before it drops the residents), and no batch of another
+server in the process runs at once (``_RANKS``: the replicas of an
+in-process router fleet share one runtime).  A reply's write is
 bounded by the connection's ``SO_SNDTIMEO``, not by ``settimeout()``
 around the send as in the JAX daemon: that flips the descriptor
 non-blocking under the connection's reader thread, whose next
@@ -488,10 +490,25 @@ class _Conn:
 #: live in-process servers; serve.reset() stops leaks
 _live_servers: "weakref.WeakSet" = weakref.WeakSet()
 
+
+class _RankGate:
+    """The ranks of the process's runtime, shared by every in-process
+    ``Server`` (an in-process fleet's replicas claim the same runtime):
+    ``busy`` counts the batch workers running on them, of any server,
+    under ``cv``.  One batch at a time: a second server's worker would
+    launch into a CUDA graph another is capturing, share a kernel's
+    per-stream workspace, and move launch counts under a capture."""
+
+    def __init__(self):
+        self.cv = threading.Condition()
+        self.busy = 0
+
+
+_RANKS = _RankGate()
+
 #: the env markers the daemon publishes for ``resilience.session_story``
-#: (the router markers belong to the router, which is not ported yet;
-#: they are cleared here all the same, so a story never outlives its
-#: test)
+#: (the router's markers are cleared here too, so a story never
+#: outlives its test)
 _MARKERS = ("_DR_GPU_SERVE_DEGRADED", "_DR_GPU_SERVE_QUEUE_DEPTH",
             "_DR_GPU_SERVE_SHED", "_DR_GPU_SERVE_RESTARTS",
             "_DR_GPU_SERVE_ROUTER_DEAD", "_DR_GPU_SERVE_ROUTER_REASON",
@@ -588,12 +605,13 @@ class Server:
         self._stopped = threading.Event()
         self._stop_lock = threading.Lock()
         self._hold = threading.Event()  # test hook: park dispatch
-        #: batch workers still running, a flush abandoned at its
-        #: deadline included: no batch starts and stop() drops no
-        #: resident while one runs (it may be capturing a graph over
-        #: them, and a second thread's CUDA calls would break that)
+        #: this server's batch workers still running, a flush
+        #: abandoned at its deadline included: stop() drops no resident
+        #: while one runs (it may be capturing a graph over them, and a
+        #: second thread's CUDA calls would break that).  No batch of
+        #: any server starts while one runs (``_RANKS``, whose condition
+        #: guards this count too)
         self._workers = 0
-        self._workers_cv = threading.Condition()
         self._sock = None
         self._bound = False
         self._threads = []
@@ -748,8 +766,8 @@ class Server:
 
     def _do_stop(self) -> None:
         self._stop.set()
-        with self._workers_cv:  # a batch waiting on a worker gives up
-            self._workers_cv.notify_all()
+        with _RANKS.cv:  # a batch waiting on a worker gives up
+            _RANKS.cv.notify_all()
         sock, self._sock = self._sock, None
         if sock is not None:
             try:
@@ -1254,10 +1272,13 @@ class Server:
                     self._exec_group(group)
                 # BETWEEN batches — the only moment the dispatcher
                 # provably owns no in-flight device work, once no
-                # abandoned worker runs — poll the mesh grow-back.
-                # Never raises, cheap when off.
-                if self._await_workers(0):
-                    self._maybe_grow()
+                # worker of any server runs — poll the mesh grow-back,
+                # holding the ranks.  Never raises, cheap when off.
+                if self._take_ranks(0):
+                    try:
+                        self._maybe_grow()
+                    finally:
+                        self._free_ranks()
             except Exception as e:  # the dispatcher must never die: a
                 # dead dispatch loop turns every later request into a
                 # silent hang — fail what we hold, classified, and keep
@@ -1322,19 +1343,19 @@ class Server:
                 return resilience.retry(run, attempts=2, base=0.01,
                                         seed=0)
             finally:
-                with self._workers_cv:
-                    self._workers -= 1
-                    self._workers_cv.notify_all()
+                self._free_ranks()
 
-        # one worker on the ranks at a time: a flush abandoned at its
-        # deadline runs on, so the next batch waits for it (bounded by
-        # the deadline, and by stop()) and else fails classified,
-        # never launched
-        if not self._await_workers(self.flush_deadline, or_stop=True):
+        # one worker on the ranks at a time, across every server of the
+        # process: a batch of another replica, or a flush abandoned at
+        # its deadline that runs on, makes this batch wait (bounded by
+        # the deadline, and by stop()); past it the batch fails
+        # classified, never launched.  Taken here, the ranks are this
+        # batch's worker's until it ends.
+        if not self._take_ranks(self.flush_deadline):
             ce = resilience.DeadlineExpired(
-                "serve: a flush abandoned at its deadline still runs on "
-                "the ranks; this batch was not started",
-                site="serve.flush")
+                "serve: another batch (a flush abandoned at its deadline, "
+                "or another server's) still runs on the ranks; this "
+                "batch was not started", site="serve.flush")
             for req in group:
                 self._finish(req, error=ce)
             return
@@ -1356,8 +1377,6 @@ class Server:
         shrinks0 = _elastic.shrink_count()
         grows0 = _elastic.grow_count()
         nprocs0 = dt.nprocs()
-        with self._workers_cv:
-            self._workers += 1  # counted before the thread can start
         try:
             try:
                 results = resilience.with_deadline(
@@ -1418,14 +1437,31 @@ class Server:
             for req in group:
                 self._finish(req, error=ce)
 
-    def _await_workers(self, timeout, *, or_stop=False) -> bool:
-        """Wait up to ``timeout`` s (or, with ``or_stop``, until the
-        daemon stops) for every batch worker to end; True if none runs."""
-        with self._workers_cv:
-            self._workers_cv.wait_for(
-                lambda: self._workers == 0
-                or (or_stop and self._stop.is_set()), timeout)
+    def _await_workers(self, timeout) -> bool:
+        """Wait up to ``timeout`` s for every batch worker of this
+        server to end; True if none runs."""
+        with _RANKS.cv:
+            _RANKS.cv.wait_for(lambda: self._workers == 0, timeout)
             return self._workers == 0
+
+    def _take_ranks(self, timeout) -> bool:
+        """Wait up to ``timeout`` s (or until this daemon stops) for the
+        ranks to be free of every server's batch worker, and take them:
+        True once this server's worker is counted on them."""
+        with _RANKS.cv:
+            _RANKS.cv.wait_for(
+                lambda: _RANKS.busy == 0 or self._stop.is_set(), timeout)
+            if _RANKS.busy:
+                return False
+            _RANKS.busy += 1
+            self._workers += 1
+            return True
+
+    def _free_ranks(self) -> None:
+        with _RANKS.cv:
+            _RANKS.busy -= 1
+            self._workers -= 1
+            _RANKS.cv.notify_all()
 
     def _maybe_grow(self) -> None:
         """Mesh grow-back poll, BETWEEN batches on the dispatch thread:

@@ -45,9 +45,12 @@ serve.drain            ``serve.Server.drain`` and the ``drain`` wire op
 serve.journal          ``serve.Journal`` append / replay / compact
 arena.map              ``serve.Arena.alloc`` and ``.map``
 arena.release          ``serve.Arena.release``
+router.route           ``serve.RouterClient.route``, each lookup,
+                       before any replica is touched
+router.probe           ``serve.RouterClient``, each half-open probe of
+                       an open breaker
 =====================  ===============================================
 
-``router.*`` fire nowhere yet: the router is the next slice.
 ``runtime.probe`` and ``fallback.warn`` never fire in the port: it has
 no device probe and no fallback.
 
@@ -124,10 +127,9 @@ SITES: Dict[str, Tuple[str, ...]] = {
     "fallback.warn": (),
 }
 
-#: the sites that fire in the port; the others wait for the slice that
-#: ports their module (``None``: never, the port has no such code)
+#: the sites that never fire in the port (``None``: it has no such
+#: code); every other site fires
 PORT_PENDING: Dict[str, Optional[str]] = {
-    "router.route": "the router slice", "router.probe": "the router slice",
     "runtime.probe": None, "fallback.warn": None,
 }
 

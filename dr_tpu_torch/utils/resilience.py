@@ -470,8 +470,8 @@ _GROW_FIELDS = (("reason", "_DR_GPU_ELASTIC_GROW_REASON", str),
                 ("wall_s", "_DR_GPU_ELASTIC_GROW_WALL_S", float))
 
 
-#: the serve chapter: the daemon's markers (``serve/daemon.py``), and
-#: the router's, which stay unset until the router is ported
+#: the serve chapter: the daemon's markers (``serve/daemon.py``) and
+#: the router's (``serve/router.py``)
 _SERVE_FIELDS = (("reason", "_DR_GPU_SERVE_DEGRADED", str),
                  ("queue_depth", "_DR_GPU_SERVE_QUEUE_DEPTH", int),
                  ("shed", "_DR_GPU_SERVE_SHED", int),

@@ -16,8 +16,9 @@ leg of ``tests/test_chaos.py``'s battery: a shrink of the last rank
 a team vector rescued bit for bit through both and a lost one raising.
 The serving daemon's ``serve.*`` and ``arena.*`` sites are driven
 against a live daemon (``tests/test_torch_serve.py``,
-``tests/test_torch_serve_dataplane.py``); the router's wait for its
-slice (``faults.PORT_PENDING``)."""
+``tests/test_torch_serve_dataplane.py``), and the router's
+``router.*`` sites against a live fleet
+(``tests/test_torch_serve_router.py``, chip_smoke phase 26.3)."""
 
 import importlib.util
 import os
@@ -73,19 +74,22 @@ def _run(inputs, tmp_path):
 
 
 def test_registry_and_pending_sites():
-    """The registry is the JAX package's; every site the port does not
-    fire yet is listed with the slice that brings it."""
+    """The registry is the JAX package's; the sites the port never fires
+    are the two it has no code for."""
     assert faults.sites() == jfaults.sites()
     assert set(faults.PORT_PENDING) < set(faults.sites())
-    assert faults.PORT_PENDING == {
-        "router.route": "the router slice",
-        "router.probe": "the router slice",
-        "runtime.probe": None, "fallback.warn": None}
-    # the daemon's sites fire in the port, outside this battery
+    assert faults.PORT_PENDING == {"runtime.probe": None,
+                                   "fallback.warn": None}
+    # the daemon's and the router's sites fire in the port, outside
+    # this battery
     assert {s for s, _ in chip.serve_sites(faults)} == {
         "serve.accept", "serve.request", "serve.flush", "serve.drain",
         "serve.journal", "arena.map", "arena.release"}
+    assert chip.router_sites(faults) == [
+        ("router.route", "transient"), ("router.route", "program"),
+        ("router.probe", "transient"), ("router.probe", "program")]
     assert not set(chip.serve_sites(faults)) & set(chip.port_sites(faults))
+    assert not set(chip.router_sites(faults)) & set(chip.port_sites(faults))
 
 
 def test_battery_reaches_every_site(inputs, clean, tmp_path):

@@ -1651,3 +1651,80 @@ def test_serve_resident_group_replays_its_graph(served):
     assert got[0] == got[1] == got[2]
     st = c.stats()["plan"]
     assert st["graph_captures"] >= 1 and st["graph_replays"] >= 1, st
+
+
+def test_router_in_process_replicas_share_ranks_with_captures(cuda,
+                                                             tmp_path):
+    """Two in-process replicas of one runtime on the card, a tenant on
+    each sending the same resident group again and again from its own
+    thread: each replica's plan captures and replays its graph while the
+    other serves, every reply has the direct calls' bits, and the
+    launches are as many as the direct calls imply (none lost to, or
+    counted under, the other replica's capture).  A fleet on the CPU
+    route is refused next to this runtime."""
+    import threading
+    import dr_tpu_torch as dt
+    from dr_tpu_torch import serve
+    from dr_tpu_torch.utils import resilience
+    dt.init(dt.get_duplicated_devices(4, ["cuda:0"]))
+    fleet = serve.Router(str(tmp_path / "g"), replicas=2,
+                         batch_window=0.0).start()
+    rcs = {}
+    try:
+        ring = serve.HashRing(fleet.paths())
+        names = [f"t{i}" for i in range(64)]
+        tenants = [next(n for n in names if ring.lookup(n) == p)
+                   for p in fleet.paths()]
+        # two layouts: one plan key (and one graph) a replica
+        rng = np.random.default_rng(8)
+        xs = {t: rng.standard_normal(n).astype(np.float32)
+              for t, n in zip(tenants, (1 << 18, 3 << 17))}
+        servers = {s.path: s for s in fleet._servers}
+        want, per = {}, {}
+        for t, x in xs.items():
+            rcs[t] = serve.RouterClient(fleet.paths(), tenant=t,
+                                        timeout=120.0)
+            rcs[t].put("x", x)
+            cx = servers[rcs[t].route()]._resident.get(t, "x").cont
+            kernels.reset_counts()
+            want[t] = (float(dt.reduce(cx)), float(dt.dot(cx, cx)))
+            torch.cuda.synchronize()
+            per[t] = dict(kernels.launches)
+        rounds = 12
+        got, errs = {t: [] for t in xs}, []
+
+        def client(t):
+            ref = serve.Ref("x")
+            try:
+                for _ in range(rounds):
+                    got[t].append((rcs[t].reduce(ref), rcs[t].dot(ref, ref)))
+            except Exception as e:  # reported by the assertion below
+                errs.append(repr(e))
+
+        kernels.reset_counts()
+        threads = [threading.Thread(target=client, args=(t,)) for t in xs]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300.0)
+        torch.cuda.synchronize()
+        launched = dict(kernels.launches)
+        assert not errs, errs[:3]
+        for t in xs:
+            assert got[t] == [want[t]] * rounds, t
+        for k, n in launched.items():
+            assert n == rounds * sum(per[t][k] for t in xs), (k, launched)
+        assert launched["chunked_dot"] > 0
+        for s in fleet._servers:
+            st = s.stats()["plan"]
+            assert st["graph_captures"] >= 1 and st["graph_replays"] >= 1, st
+        with pytest.raises(resilience.ProgramError) as ei:
+            serve.Router(str(tmp_path / "c"), replicas=2, cpu=True).start()
+        assert ei.value.site == "router.route"
+    finally:
+        for rc in rcs.values():
+            rc.close()
+        fleet.stop()
+        serve.reset()
+        dt.plan._plan_cache.clear()
+        dt.final()

@@ -54,7 +54,7 @@ def test_port_files_exist():
             "plansan.py", "interference.py", "tuning.py"} <= names
     for rel in ("__init__.py", "__main__.py", "protocol.py", "queue.py",
                 "arena.py", "resident.py", "journal.py", "client.py",
-                "daemon.py"):
+                "daemon.py", "router.py"):
         assert (REPO / "dr_tpu_torch" / "serve" / rel) in PORT_FILES, rel
     for rel in ("utils/faults.py", "utils/spmd_guard.py",
                 "utils/sanitize.py", "core/pinning.py"):

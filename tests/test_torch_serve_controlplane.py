@@ -1,4 +1,4 @@
-"""dr_tpu_torch's serving control plane without the router: the shared
+"""dr_tpu_torch's serving control plane, the router aside: the shared
 retry budget, the graceful drain and the crash-safe resident journal
 (``dr_tpu_torch/serve``), against dr_tpu's.
 
@@ -10,7 +10,8 @@ to ``test_client_retries_draw_shared_budget``,
 ``test_journal_replay_restores_residents`` to
 ``test_degradation_story_controlplane_counters``) on
 ``dt.init(["cpu"] * 8)`` with ``Server(cpu=True)``; the breaker, fleet,
-rolling-restart and respawn cases wait for the router slice.  The
+rolling-restart and respawn cases are in
+``tests/test_torch_serve_router.py``.  The
 story case reads ``resilience.session_story`` (the port's counterpart of
 ``degradation_story``) from the ``_DR_GPU_SERVE_*`` markers.  The
 journal parity case reads each package's journal file with the other's

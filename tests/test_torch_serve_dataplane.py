@@ -7,8 +7,9 @@ Mirrors every case of ``tests/test_serve_dataplane.py`` but the router's
 ``test_router_fleet_tenant_affinity_and_stats``,
 ``test_router_dead_replica_rehash_with_story_marker``,
 ``test_router_route_fault_site_classified`` and
-``test_router_subprocess_fleet_churn_and_kill``: the router is the next
-slice), on ``dt.init(["cpu"] * 8)`` with ``Server(cpu=True)``.  The
+``test_router_subprocess_fleet_churn_and_kill``, which
+``tests/test_torch_serve_router.py`` mirrors), on ``dt.init(["cpu"] *
+8)`` with ``Server(cpu=True)``.  The
 per-tenant rollup case reads the port's own Chrome trace instead of
 synthetic events, and ``test_parity_dataplane_*`` hold the arena's and
 the queue's behaviour against the JAX package's on the same inputs.
