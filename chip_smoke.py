@@ -227,7 +227,17 @@ checks the kernels at small shapes only).  Phases:
     replaying the journal and a probe re-admitting it (its tenants read
     their journalled residents bit for bit), and ``rolling_restart()``
     under 12 client threads with zero classified errors and every reply
-    right (26.2).  ``--phase26`` runs phases 1-3 and this one.
+    right (26.2).  ``--phase26`` runs phases 1-3 and this one;
+27. the C++ bridge (``dr_tpu_torch/native``): ``bridge_demo`` and
+    ``bridge_parity`` built with the card's ``g++`` and run through
+    ``native.env()``; ``bridge_demo 0`` (``thp::session(0)``, the card)
+    passes and its process launches K3, K4, K6 and K7 as often as the
+    same calls made directly (27.1); ``bridge_parity`` from a checkpoint
+    of 2^28 f32 (windowed sorts of 2^14 keys, which take K6), three
+    runs: every result's digest equal to the same sequence made directly
+    here from the same checkpoint, the launch counts equal, each call's
+    least host time both ways and the child's start (27.2).
+    ``--phase27`` runs phases 1-3 and this one.
 
 ``--halo-ab DIR`` times phase 17's halo p50 with the ``dr_tpu_torch`` of
 another checkout at ``DIR`` and this one's, in turns, and stops.
@@ -6056,6 +6066,540 @@ def router_phase(dt, kernels, seed, card, device="cuda:0", **sizes):
     return out
 
 
+# ------------------------------------------------ phase 27: the C++ bridge
+
+#: phase 27.2: the parity driver's input (2^28 f32, 1 GiB: phase 9's sort
+#: size), its windowed sorts (2^14 keys: K6's geometry on one rank) and
+#: its runs (results from the last, each call's least host time)
+BRIDGE_LOG2, BRIDGE_WINDOW, BRIDGE_REPS = 28, 1 << 14, 3
+#: the statement the bridge programs run after each timed call, and the
+#: one that prints the child's launch counts
+BRIDGE_SYNC = "import dr_tpu_torch as _dt; _dt.fence()"
+BRIDGE_COUNTS = ("import json\nfrom dr_tpu_torch.ops import kernels\n"
+                 "print('launches ' + json.dumps(kernels.launches), "
+                 "flush=True)\n")
+_U64 = (1 << 64) - 1
+
+
+def _s64(c):
+    """A 64-bit constant as the int64 with the same bits."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+def _lsr(z, k):
+    """Logical right shift of an int64 tensor."""
+    return (z >> k) & ((1 << (64 - k)) - 1)
+
+
+def bridge_digest(t, chunk=1 << 26):
+    """``bridge_parity``'s digest of a result's f64 bytes, computed on
+    the tensor's device in int64 (wrapping as uint64 does): the sum over
+    i of a splitmix64 finaliser of bits(t[i]) + (i + 1) * golden."""
+    import torch
+    t = t.reshape(-1)
+    h = 0
+    for s in range(0, t.numel(), chunk):
+        w = t[s:s + chunk].to(torch.float64).contiguous().view(torch.int64)
+        i = torch.arange(s + 1, s + 1 + w.numel(), dtype=torch.int64,
+                         device=w.device)
+        z = w + i * _s64(0x9E3779B97F4A7C15)
+        z = (z ^ _lsr(z, 30)) * _s64(0xBF58476D1CE4E5B9)
+        z = (z ^ _lsr(z, 27)) * _s64(0x94D049BB133111EB)
+        h = (h + int((z ^ _lsr(z, 31)).sum())) & _U64
+    return f"{t.numel()} {h:016x}"
+
+
+def mt19937_64(seed, count):
+    """The first ``count`` draws of C++'s ``std::mt19937_64(seed)``
+    (uint64), the twist vectorised in three slices."""
+    n, m, a = 312, 156, np.uint64(0xB5026F5AA96619E9)
+    upper, lower = np.uint64(0xFFFFFFFF80000000), np.uint64(0x7FFFFFFF)
+    state = [seed & _U64]
+    for i in range(1, n):
+        prev = state[-1]
+        state.append((6364136223846793005 * (prev ^ (prev >> 62)) + i)
+                     & _U64)
+    mt = np.array(state, dtype=np.uint64)
+    one = np.uint64(1)
+
+    def mix(hi, lo):
+        x = (hi & upper) | (lo & lower)
+        return (x >> one) ^ np.where(x & one, a, np.uint64(0))
+
+    out = []
+    for _ in range(-(-count // n)):
+        mt[:n - m] = mt[m:] ^ mix(mt[:n - m], mt[1:n - m + 1])
+        mt[n - m:n - 1] = mt[:m - 1] ^ mix(mt[n - m:n - 1], mt[n - m + 1:])
+        mt[n - 1] = mt[m - 1] ^ mix(mt[n - 1:], mt[:1])[0]
+        y = mt.copy()
+        y ^= (y >> np.uint64(29)) & np.uint64(0x5555555555555555)
+        y ^= (y << np.uint64(17)) & np.uint64(0x71D67FFFEDA60000)
+        y ^= (y << np.uint64(37)) & np.uint64(0xFFF7EEE000000000)
+        y ^= y >> np.uint64(43)
+        out.append(y)
+    return np.concatenate(out)[:count]
+
+
+class _Draws:
+    """``bridge_parity``'s draws: ``std::mt19937_64(seed)`` in order."""
+
+    def __init__(self, seed, count=1 << 17):
+        self.g, self.k = mt19937_64(seed, count), 0
+
+    def take(self, k):
+        self.k += k
+        return self.g[self.k - k:self.k]
+
+    def uniform(self, k, lo, hi):
+        # lo + (hi - lo) * (double)(g >> 11) * 2^-53, in C++'s order
+        u = (self.take(k) >> np.uint64(11)).astype(np.float64)
+        return lo + (hi - lo) * u * 2.0 ** -53
+
+
+def parity_direct(dt, ckpt, seed=1, window=0, reps=1, sync=None):
+    """``bridge_parity``'s sequence made directly from Python, with the
+    same arguments (Python floats where the bridge passes doubles, the
+    same DSL strings); returns ({name: digest} of the last run, {call:
+    least host ms over the runs})."""
+    import torch
+    from dr_tpu_torch.utils.expr import op_from_expr as E
+    f32 = np.float32
+    times = {}
+    for rep in range(reps):
+        last = rep == reps - 1
+        digests = {}
+
+        def tm(name, fn):
+            t0 = time.perf_counter()
+            r = fn()
+            ms = (time.perf_counter() - t0) * 1e3
+            if sync is not None:
+                sync()
+            times[name] = min(ms, times.get(name, ms))
+            return r
+
+        def emit(name, c):
+            """Digest a container (on the last run only), or a list
+            of scalars."""
+            if not last:
+                return
+            if isinstance(c, list):
+                t = torch.tensor(c, dtype=torch.float64)
+            elif hasattr(c, "to_array"):
+                t = c.to_array()
+            else:
+                t = torch.from_numpy(np.ascontiguousarray(c.materialize()))
+            digests[name] = bridge_digest(t)
+
+        def vec(n, **kw):
+            return dt.distributed_vector(n, dtype=kw.pop("dtype", f32), **kw)
+
+        def copy_of(x):
+            c = vec(len(x))
+            dt.transform(x, c, E("x0", 1))
+            return c
+
+        x = tm("load_vector", lambda: dt.checkpoint.load(ckpt))
+        n = len(x)
+        w = window or min(n // 4, 1 << 14)
+        tm("to_host", lambda: np.asarray(dt.to_numpy(x), dtype=np.float64))
+        emit("input", x)
+
+        y, z = vec(n), vec(n)
+        tm("transform", lambda: dt.transform(x, y, E("((x0 * 0.5) - 1.25)",
+                                                      1)))
+        emit("transform", y)
+        d = tm("dot", lambda: dt.dot(x, y))
+        emit("dot", [d])
+        tm("transform2", lambda: dt.transform(
+            dt.views.zip(x, y), z, E("((maximum(x0, x1) * 2) - x1)", 2)))
+        emit("transform2", z)
+        tm("for_each", lambda: dt.for_each(
+            z, E("(sqrt(abs(x0)) + (x0 * 0.25))", 1)))
+        emit("for_each", z)
+        tr = tm("transform_reduce", lambda: dt.transform_reduce(
+            x, transform_op=E("(x0 * x0)", 1)))
+        emit("transform_reduce", [tr])
+
+        sc = vec(n)
+        tm("inclusive_scan", lambda: dt.inclusive_scan(x, sc))
+        emit("inclusive_scan", sc)
+        tm("exclusive_scan", lambda: dt.exclusive_scan(x, sc, 0.5))
+        emit("exclusive_scan", sc)
+        ln = n // 2
+        dt.fill(sc, -1.0)
+        tm("inclusive_scan_window", lambda: dt.inclusive_scan(
+            x[n // 4 + 3:n // 4 + 3 + ln], sc[7:7 + ln]))
+        emit("inclusive_scan_window", sc)
+        tm("exclusive_scan_window", lambda: dt.exclusive_scan(
+            x[5:5 + ln], sc[n // 3:n // 3 + ln], -2.0))
+        emit("exclusive_scan_window", sc)
+        del sc
+
+        t = copy_of(x)
+        tm("sort", lambda: dt.sort(t, descending=False))
+        emit("sort", t)
+        a = tm("is_sorted", lambda: dt.is_sorted(t))
+        emit("is_sorted", [float(a), float(dt.is_sorted(x))])
+        t = copy_of(x)
+        tm("sort_desc", lambda: dt.sort(t, descending=True))
+        emit("sort_desc", t)
+        lo1, lo2 = n // 8 + 3, n // 2 + 5
+        t = copy_of(x)
+        tm("sort_window", lambda: dt.sort(t[lo1:lo1 + w], descending=False))
+        tm("sort_window_desc", lambda: dt.sort(t[lo2:lo2 + w],
+                                               descending=True))
+        emit("sort_windows", t)
+        a = tm("is_sorted_window", lambda: dt.is_sorted(t[lo1:lo1 + w]))
+        emit("is_sorted_windows",
+             [float(a), float(dt.is_sorted(t[lo2:lo2 + w]))])
+        keys, vals = copy_of(x), vec(n)
+        dt.transform(x, vals, E("(x0 * -2)", 1))
+        tm("sort_by_key", lambda: dt.sort_by_key(keys, vals,
+                                                 descending=False))
+        emit("sort_by_key_keys", keys)
+        emit("sort_by_key_values", vals)
+        lo = n // 3 + 1
+        keys, vals = copy_of(x), vec(n)
+        dt.iota(vals, 0.0)
+        tm("sort_by_key_window", lambda: dt.sort_by_key(
+            keys[lo:lo + w], vals[lo:lo + w], descending=True))
+        emit("sort_by_key_window_keys", keys)
+        emit("sort_by_key_window_values", vals)
+        del t, keys, vals
+        perm = tm("argsort", lambda: dt.argsort(x, descending=False))
+        emit("argsort", perm)
+        del perm
+
+        hb = dt.halo_bounds(2, 2, False)
+        a, b = vec(n, halo=hb), vec(n, halo=hb)
+        dt.transform(x, a, E("x0", 1))
+        r = tm("stencil_iterate", lambda: dt.stencil_iterate(
+            a, b, [0.05, 0.25, 0.4, 0.25, 0.05], 6))
+        emit("stencil_iterate", r)
+        del a, b, r
+
+        g = _Draws(seed)
+        m = k = 4096
+        per_row = 8
+        rows, cols, vv = [], [], []
+        for i in range(m):
+            c0 = int(g.take(1)[0] % np.uint64(k - per_row))
+            rows += [i] * per_row
+            cols += range(c0, c0 + per_row)
+            vv.append(g.uniform(per_row, -1.0, 1.0))
+        A = dt.sparse_matrix.from_coo(
+            (m, k), np.array(rows, np.int64), np.array(cols, np.int64),
+            np.concatenate(vv).astype(f32))
+        bv, cv = vec(k), vec(m)
+        dt.iota(bv, 1.0)
+        dt.for_each(bv, E("((x0 * 0.001) - 2)", 1))
+        dt.fill(cv, 0.5)
+        tm("gemv", lambda: dt.gemv(cv, A, bv))
+        emit("gemv", cv)
+        mm, kk, pp = 256, 128, 192
+        da = g.uniform(mm * kk, -1.0, 1.0).astype(f32).reshape(mm, kk)
+        db = g.uniform(kk * pp, -1.0, 1.0).astype(f32).reshape(kk, pp)
+        Am, Bm = dt.dense_matrix.from_array(da), dt.dense_matrix.from_array(db)
+        Cm = dt.dense_matrix((mm, pp))
+        tm("gemm", lambda: dt.gemm(Am, Bm, Cm))
+        emit("gemm", Cm)
+        shape = (24, 20, 16)
+        d3 = g.uniform(24 * 20 * 16, -8.0, 8.0).astype(f32).reshape(shape)
+        M = dt.distributed_mdarray.from_array(d3)
+        T = dt.distributed_mdarray((16, 24, 20))
+        tm("transpose", lambda: dt.transpose(T, M, (2, 0, 1)))
+        emit("transpose", T)
+        W = tm("submdspan", lambda: M.submdspan(slice(3, 19), slice(2, 17),
+                                                slice(1, 13)))
+        emit("submdspan", W)
+
+        iv = vec(n, dtype=np.int32)
+        dt.iota(iv, 3.0 - float(n // 2))
+        dt.for_each(iv, E("((x0 * 3) - 1)", 1))
+        r = tm("reduce_i32", lambda: dt.reduce(iv))
+        emit("reduce_i32", [float(r)])
+        emit("i32", iv)
+        del iv, x, y, z
+    return digests, times
+
+
+def demo_direct(dt, n=1 << 14):
+    """``bridge_demo``'s device calls made directly from Python, in its
+    order and with its sizes (host reads left out: they launch
+    nothing)."""
+    import tempfile
+    from dr_tpu_torch.utils.expr import op_from_expr as E, op_from_source as S
+    f32 = np.float32
+
+    def vec(k, **kw):
+        return dt.distributed_vector(k, dtype=kw.pop("dtype", f32), **kw)
+
+    P = dt.nprocs()
+    a, b = vec(n), vec(n)
+    dt.iota(a, 1.0)
+    dt.reduce(a)
+    dt.fill(b, 2.0)
+    dt.dot(a, b)
+    vsum = vec(n)
+    dt.transform(dt.views.zip(a, b), vsum, E("(x0 + x1)", 2))
+    dt.reduce(vsum)
+    t = vec(n)
+    dt.transform(a, t, E("((x0 * 2) + 1)", 1))
+    dt.reduce(t)
+    dt.for_each(t, E("sqrt((abs((x0 - 1)) / 2))", 1))
+    dt.reduce(t)
+    dt.transform_reduce(b, transform_op=E("(x0 * x0)", 1))
+    sc = vec(n)
+    dt.inclusive_scan(a, sc)
+    dt.exclusive_scan(a, sc, 10.0)
+    wi, wo = vec(96), vec(96)
+    dt.iota(wi, 1.0)
+    dt.fill(wo, -1.0)
+    dt.inclusive_scan(wi[0:50], wo[7:57])
+    dt.exclusive_scan(wi[10:40], wo[0:30], 5.0)
+    sizes = [0] * P
+    sizes[0] = 10
+    if P > 2:
+        each = 47 // (P - 2)
+        for r in range(2, P):
+            sizes[r] = each
+        sizes[P - 1] += 47 - each * (P - 2)
+    else:
+        sizes[P - 1] += 47
+    uv = vec(57, distribution=sizes)
+    dt.iota(uv, 1.0)
+    dt.reduce(uv)
+    dt.sort(uv, descending=True)
+    us = vec(57, distribution=sizes)
+    dt.inclusive_scan(uv, us)
+    sv = vec(n)
+    dt.iota(sv, 0.0)
+    dt.for_each(sv, E("(0 - x0)", 1))
+    dt.sort(sv, descending=False)
+    dt.sort(sv, descending=True)
+    pv = vec(n)
+    dt.iota(pv, 0.0)
+    dt.sort_by_key(sv, pv, descending=False)
+    dt.is_sorted(sv)
+    dt.is_sorted(pv)
+    wv = vec(64)
+    dt.iota(wv, 0.0)
+    dt.sort(wv[5:40], descending=True)
+    dt.is_sorted(wv[5:40])
+    dt.is_sorted(wv[40:64])
+    ov = vec(64)
+    dt.iota(ov, 0.0)
+    dt.for_each(ov, E("(x0 * -1)", 1))
+    dt.sort_by_key(ov[0:20], ov[10:30], descending=False)
+    dt.argsort(sv, descending=False)
+    hb = dt.halo_bounds(1, 1, False)
+    x, y = vec(n, halo=hb), vec(n, halo=hb)
+    dt.iota(x, 0.0)
+    dt.iota(y, 0.0)
+    dt.stencil_iterate(x, y, [1.0 / 3] * 3, 4)
+    m = 1024
+    ri, ci, vv = [], [], []
+    for i in range(m):
+        for dj in (-1, 0, 1):
+            if 0 <= i + dj < m:
+                ri.append(i)
+                ci.append(i + dj)
+                vv.append(1.0 + 0.001 * i + 0.01 * dj)
+    A = dt.sparse_matrix.from_coo((m, m), np.array(ri, np.int64),
+                                  np.array(ci, np.int64),
+                                  np.array(vv).astype(f32))
+    bv, cv = vec(m), vec(m)
+    dt.iota(bv, 1.0)
+    dt.fill(cv, 0.5)
+    dt.gemv(cv, A, bv)
+    mm, kk, pp = 96, 64, 80
+    da = (0.01 * (np.arange(mm * kk) % 37) - 0.1).astype(f32)
+    db = (0.02 * (np.arange(kk * pp) % 29) - 0.2).astype(f32)
+    dt.gemm(dt.dense_matrix.from_array(da.reshape(mm, kk)),
+            dt.dense_matrix.from_array(db.reshape(kk, pp)),
+            dt.dense_matrix((mm, pp)))
+    dm = (np.arange(64 * 48) * 0.5 - 3.0).astype(f32).reshape(64, 48)
+    dt.transpose(dt.distributed_mdarray((48, 64)),
+                 dt.distributed_mdarray.from_array(dm))
+    d3 = (np.arange(960) * 0.25 - 40.0).astype(f32).reshape(12, 10, 8)
+    M = dt.distributed_mdarray.from_array(d3)
+    dt.transpose(dt.distributed_mdarray((8, 12, 10)), M, (2, 0, 1))
+    dt.transpose(dt.distributed_mdarray((8, 10, 12)), M)
+    M.submdspan(slice(2, 9), slice(1, 6), slice(3, 8)).materialize()
+    with tempfile.TemporaryDirectory() as td:
+        v = vec(777)
+        dt.iota(v, 3.0)
+        dt.checkpoint.save(os.path.join(td, "v.npz"), v)
+        dt.checkpoint.load(os.path.join(td, "v.npz"))
+        cin, cout, cz = vec(64), vec(64), vec(64)
+        dt.iota(cin, -32.0)
+        dt.transform(cin, cout, S(
+            "lambda x0: torch.where(x0 > 0, x0, 0.01 * x0)", 1))
+        dt.transform(dt.views.zip(cin, cout), cz,
+                     S("lambda x0, x1: torch.where(x0 > x1, x0, x1)", 2))
+        dt.reduce(cz)
+        dt.transform_reduce(cin, transform_op=S(
+            "lambda x0: torch.clip(x0, 0.0, 6.0)", 1))
+        vec(64)
+        iv = vec(100, dtype=np.int32)
+        dt.iota(iv, 0.0)
+        dt.reduce(iv)
+        dv = vec(64, dtype=np.float64)
+        dt.iota(dv, 16777216.5)
+        dt.reduce(dv)
+        dt.argsort(dv, descending=True)
+        for tag, src in (("f64", dv), ("i32", iv)):
+            path = os.path.join(td, f"{tag}.npz")
+            dt.checkpoint.save(path, src)
+            dt.checkpoint.load(path)
+
+
+def bridge_programs():
+    """Build the port's demo and parity driver (two g++ processes at
+    once); returns their paths and the seconds it took."""
+    from concurrent.futures import ThreadPoolExecutor
+    from dr_tpu_torch import native
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as ex:
+        demo, parity = ex.map(native.build, [
+            native.HERE / "bridge_demo.cpp",
+            native.HERE / "bridge_parity.cpp"])
+    return demo, parity, time.perf_counter() - t0
+
+
+def run_child(args, timeout=900):
+    """Run a bridge program with ``native.env()``; raise unless it exits
+    0; returns its standard output."""
+    from dr_tpu_torch import native
+    res = subprocess.run([str(a) for a in args], env=native.env(),
+                         capture_output=True, text=True, timeout=timeout,
+                         cwd=HERE)
+    if res.returncode != 0:
+        raise AssertionError(f"{os.path.basename(str(args[0]))} exited "
+                             f"{res.returncode}: {res.stdout[-3000:]}"
+                             f"{res.stderr[-3000:]}")
+    return res.stdout
+
+
+def child_lines(out, tag):
+    """The ``tag ...`` lines of a bridge program's output, as
+    {name: rest}."""
+    got = {}
+    for line in out.splitlines():
+        parts = line.split(" ", 2)
+        if parts[0] == tag and len(parts) == 3:
+            got[parts[1]] = parts[2]
+    return got
+
+
+def child_counts(out):
+    lines = [x for x in out.splitlines() if x.startswith("launches ")]
+    if len(lines) != 1:
+        raise AssertionError(f"no launch counts in the child's output: "
+                             f"{out[-2000:]}")
+    return json.loads(lines[0][len("launches "):])
+
+
+def check_counts(tag, child, direct, device):
+    """The child's launch counts equal the direct calls'; on the card,
+    K3, K4, K6 and K7 launched."""
+    log(f"  {tag} launches: bridge {child}, direct {direct}")
+    if child != direct:
+        raise AssertionError(f"{tag}: the bridge launched {child}, the "
+                             f"direct calls {direct}")
+    if device != "cpu":
+        for k in ("chunked_dot", "chunked_cumsum", "bitonic_sort", "segred"):
+            if child[k] <= 0:
+                raise AssertionError(f"{tag}: kernel {k} never launched "
+                                     f"from the C++ process")
+
+
+def bridge_phase(dt, kernels, seed, card, device="cuda:0", ranks=None,
+                 log2=BRIDGE_LOG2, window=BRIDGE_WINDOW, reps=BRIDGE_REPS,
+                 demo_n=1 << 14):
+    """Phase 27: the C++ bridge.  27.1 ``bridge_demo`` in a child on
+    ``session(0)`` (the card; ``ranks`` CPU ranks when given), its
+    launch counts against ``demo_direct``'s; 27.2 ``bridge_parity`` at
+    2^``log2`` f32 from one checkpoint, its digests and launch counts
+    against ``parity_direct``'s, and the host ms of every call both
+    ways.  Returns its numbers."""
+    import tempfile
+    import torch
+    log(f"phase 27: the C++ bridge: bridge_demo on session("
+        f"{ranks or 0}), bridge_parity at 2^{log2} f32 (windowed sorts of "
+        f"{window} keys, {reps} runs) against the same calls made "
+        f"directly")
+    child_ranks = 0 if ranks is None else ranks
+    devices = None if ranks is None else [device] * ranks
+    out = {"card": card}
+    t0 = time.perf_counter()
+    demo, parity, out["build_s"] = bridge_programs()
+    log(f"  [{card}] bridge programs built in {out['build_s']:.1f} s")
+
+    steps = out["steps_s"] = {}
+    t1 = time.perf_counter()
+    text = run_child([demo, child_ranks, demo_n])
+    steps["27.1 child"] = time.perf_counter() - t1
+    if "bridge demo PASSED" not in text:
+        raise AssertionError(f"bridge_demo did not pass: {text[-3000:]}")
+    dt.init(devices)
+    kernels.reset_counts()
+    demo_direct(dt, demo_n)
+    direct = dict(kernels.launches)
+    dt.final()
+    release(torch)
+    check_counts("27.1 bridge_demo", child_counts(text), direct, device)
+    out["demo_launches"] = direct
+
+    n = 1 << log2
+    with tempfile.TemporaryDirectory() as td:
+        ckpt = os.path.join(td, "x.npz")
+        dt.init(devices)
+        gen = torch.Generator(device=device).manual_seed(seed)
+        x = torch.randn(n, generator=gen, device=device)
+        dt.checkpoint.save(ckpt, dt.distributed_vector.from_array(x))
+        del x
+        dt.final()
+        release(torch)
+        t1 = time.perf_counter()
+        text = run_child([parity, child_ranks, ckpt, "-", "--window",
+                          window, "--reps", reps, "--seed", seed % 1000,
+                          "--sync", BRIDGE_SYNC, "--after", BRIDGE_COUNTS])
+        steps["27.2 child"] = time.perf_counter() - t1
+        got = child_lines(text, "digest")
+        b_times = {k: float(v) for k, v in child_lines(text, "time").items()}
+        dt.init(devices)
+        kernels.reset_counts()
+        t1 = time.perf_counter()
+        want, d_times = parity_direct(dt, ckpt, seed % 1000, window, reps,
+                                      sync=dt.fence)
+        steps["27.2 direct"] = time.perf_counter() - t1
+        direct = dict(kernels.launches)
+        dt.final()
+        release(torch)
+    if got != want:
+        bad = sorted(k for k in set(got) | set(want)
+                     if got.get(k) != want.get(k))
+        raise AssertionError(f"27.2 bridge_parity digests differ from the "
+                             f"direct calls' at {bad}: {got} vs {want}")
+    log(f"  27.2 bridge_parity at 2^{log2}: {len(got)} digests equal to "
+        f"the direct calls'")
+    check_counts("27.2 bridge_parity", child_counts(text), direct, device)
+    start = b_times.pop("start")
+    calls = {k: {"bridge_ms": b_times[k], "direct_ms": d_times[k]}
+             for k in d_times}
+    for k, v in calls.items():
+        log(f"  [{card}] {k}: bridge {v['bridge_ms']!r} ms, direct "
+            f"{v['direct_ms']!r} ms")
+    log(f"  [{card}] child start (Py_Initialize + import torch + init): "
+        f"{start!r} ms")
+    log(f"  [{card}] phase 27 seconds by step: " + json.dumps(steps))
+    out.update(parity_launches=direct, calls=calls, child_start_ms=start,
+               digests=got, seconds=time.perf_counter() - t0)
+    return out
+
+
 _HALO_AB = """
 import importlib.util, json, sys
 sys.path.insert(0, {tree!r})
@@ -6174,7 +6718,8 @@ def main(argv):
     only24 = "--phase24" in argv
     only25 = "--phase25" in argv
     only26 = "--phase26" in argv
-    short = quick or only22 or only23 or only24 or only25 or only26
+    only27 = "--phase27" in argv
+    short = quick or only22 or only23 or only24 or only25 or only26 or only27
     n = 1 << (20 if short else 30)
     m2d = 2048 if short else M2D
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -6207,6 +6752,10 @@ def main(argv):
     if only26:  # a short run: the checks above, small, then phase 26
         log("  phase 26 numbers: " + json.dumps(
             router_phase(dt, kernels, seed, card)))
+        return 0
+    if only27:  # a short run: the checks above, small, then phase 27
+        log("  phase 27 numbers: " + json.dumps(
+            bridge_phase(dt, kernels, seed, card)))
         return 0
 
     log(f"phase 4: main path, 1 rank on cuda:0, n={n}")
@@ -6443,6 +6992,9 @@ def main(argv):
 
     g26 = router_phase(dt, kernels, seed, card)
     log("  phase 26 numbers: " + json.dumps(g26))
+
+    g27 = bridge_phase(dt, kernels, seed, card)
+    log("  phase 27 numbers: " + json.dumps(g27))
 
     log(f"peak device memory (1-D main path): {peak} bytes "
         f"({peak / 2 ** 30:.2f} GiB)")

@@ -186,13 +186,22 @@ def _fill_rows(rows, layout, off, n, value) -> None:
 
 
 def _iota_rows(rows, layout, off, n, start) -> None:
+    """Element i of the window gets ``start + i``.  Float64 rows, and
+    integer rows with a non-int start, add in float64, so they hold
+    every value up to 2^53 exactly; other rows keep torch's promotion (a
+    float start adds in float32, as the JAX package does without x64)."""
     _, _, prev, _, _, starts, _ = layout_geometry(layout)
+    shift = start - off
     for rk, row in enumerate(rows):
         c0, c1 = window_cols(layout, off, n, rk)
         if c0 < c1:
             g0 = int(starts[rk]) + c0 - prev
             gid = torch.arange(g0, g0 + c1 - c0, device=row.device)
-            row[0, c0:c1] = (gid + (start - off)).to(row.dtype)
+            if row.dtype == torch.float64 or (
+                    not row.dtype.is_floating_point
+                    and not isinstance(shift, int)):
+                gid = gid.to(torch.float64)
+            row[0, c0:c1] = (gid + shift).to(row.dtype)
 
 
 def _transform_rows(out_rows, in_rows, in_ops, layout, off, n, op,

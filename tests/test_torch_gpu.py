@@ -1728,3 +1728,22 @@ def test_router_in_process_replicas_share_ranks_with_captures(cuda,
         serve.reset()
         dt.plan._plan_cache.clear()
         dt.final()
+
+
+def test_bridge_demo_on_the_card_launches_k3_k4_k6_k7(cuda):
+    """The C++ bridge on ``thp::session(0)``: ``bridge_demo`` takes the
+    visible CUDA devices, passes, and its process launches K3, K4, K6
+    and K7 (its sorts are 2^14 keys a rank, its reduce an int32 sum)."""
+    import json
+    import subprocess
+    from dr_tpu_torch import native
+    exe = native.build(native.HERE / "bridge_demo.cpp")
+    out = subprocess.run([str(exe), "0"], env=native.env(),
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert f"nprocs={torch.cuda.device_count()}" in out.stdout
+    assert "bridge demo PASSED" in out.stdout
+    line = [x for x in out.stdout.splitlines() if x.startswith("launches ")]
+    counts = json.loads(line[0][len("launches "):])
+    for k in ("chunked_dot", "chunked_cumsum", "bitonic_sort", "segred"):
+        assert counts[k] > 0, (k, counts)

@@ -1,6 +1,6 @@
 """The port stands alone: no file of ``dr_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX, the JAX package or pandas, and ``init()`` never
-falls back to the CPU on its own.
+``chip_smoke.py``) imports JAX, the JAX package or pandas, no C++ source of
+its bridge names them, and ``init()`` never falls back to the CPU on its own.
 
 The import check is static (the AST of every file): a runtime
 ``sys.modules`` check cannot work where an interpreter imports jax at
@@ -8,6 +8,7 @@ start-up."""
 
 import ast
 import pathlib
+import re
 
 import pytest
 import torch
@@ -17,6 +18,12 @@ import dr_tpu_torch as dt
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((REPO / "dr_tpu_torch").rglob("*.py")) + \
     [REPO / "chip_smoke.py"]
+#: the C++ bridge's sources (dr_tpu_torch/native)
+NATIVE_FILES = sorted(p for ext in ("*.cpp", "*.hpp")
+                      for p in (REPO / "dr_tpu_torch").rglob(ext))
+#: what a bridge source may not name: JAX, jax.numpy, or a dr_tpu module
+#: other than dr_tpu_torch
+NATIVE_FORBIDDEN = re.compile(r"(?i:\bjax)|\bjnp\b|\bdr_tpu(?!_torch)\b")
 
 
 def _forbidden(module: str) -> bool:
@@ -60,10 +67,15 @@ def test_port_files_exist():
                 "utils/sanitize.py", "core/pinning.py"):
         assert (REPO / "dr_tpu_torch" / rel) in PORT_FILES, rel
     assert (REPO / "dr_tpu_torch" / "obs" / "__init__.py") in PORT_FILES
+    assert (REPO / "dr_tpu_torch" / "native" / "__init__.py") in PORT_FILES
+    assert {p.name for p in NATIVE_FILES} == {
+        "thp_bridge.hpp", "thp_bridge.cpp", "thp_expr.cpp",
+        "bridge_demo.cpp", "bridge_parity.cpp"}
 
 
-#: the names of ``dr_tpu.__all__`` the port does not carry over: the
-#: multi-host and mesh names (ROADMAP.md, "Not carried over").
+#: the names of ``dr_tpu.__all__`` the port does not have: the multi-host
+#: ``init_distributed`` (ROADMAP.md, "Left to port") and ``mesh`` ("Not
+#: carried over").
 REMAINDER = {"init_distributed", "mesh"}
 
 
@@ -79,6 +91,26 @@ def test_public_surface_remainder():
 def test_no_jax_or_dr_tpu_import(path):
     bad = [(line, mod) for line, mod in _imports(path) if _forbidden(mod)]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+@pytest.mark.parametrize("path", NATIVE_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_native_sources_name_no_jax_or_dr_tpu(path):
+    text = path.read_text()
+    bad = [(text.count("\n", 0, m.start()) + 1, m.group())
+           for m in NATIVE_FORBIDDEN.finditer(text)]
+    assert not bad, f"{path.relative_to(REPO)} names {bad}"
+    if path.name == "bridge_parity.cpp":  # builds against either bridge
+        assert "dr_tpu" not in text
+
+
+def test_native_forbidden_rule_itself():
+    for bad in ("import jax", "JAX x64", "jnp.where", "dr_tpu.utils",
+                "PyImport_ImportModule(\"dr_tpu\")", "jaxlib"):
+        assert NATIVE_FORBIDDEN.search(bad), bad
+    for ok in ("dr_tpu_torch.utils.expr", "torch.where", "adjacent",
+               "dr_tpu_torch"):
+        assert not NATIVE_FORBIDDEN.search(ok), ok
 
 
 def test_forbidden_rule_itself():
