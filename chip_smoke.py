@@ -238,6 +238,19 @@ checks the kernels at small shapes only).  Phases:
     here from the same checkpoint, the launch counts equal, each call's
     least host time both ways and the child's start (27.2).
     ``--phase27`` runs phases 1-3 and this one.
+28. multi-process execution: phase 4's 1-D main path (K1 with halo 512
+    and k_block 256, K2 with halo 1024 and T = 64, ``dot_n``,
+    ``inclusive_scan`` / ``exclusive_scan`` / ``inclusive_scan_n``) at
+    n = 2^30 f32, first with one controller on two ranks of cuda:0
+    (28.1), then in two processes (``init_distributed``, gloo), each
+    owning one rank on cuda:0 (28.2): each child's int64 digests of its
+    rank's cells equal the single controller's bit for bit, its K1-K4
+    launch counts equal its rank's, ``to_host`` of 2^24 f32 returns the
+    source exactly on each process; each process's step times, its
+    start, the cross-process halo p50 (2^22 cells a rank,
+    ``exchange_n(64)``, host clock) and ``to_host``'s GB/s.  A child
+    that fails, hangs past its deadline or disagrees fails the phase.
+    ``--phase28`` runs phases 1-3 and this one.
 
 ``--halo-ab DIR`` times phase 17's halo p50 with the ``dr_tpu_torch`` of
 another checkout at ``DIR`` and this one's, in turns, and stops.
@@ -6644,7 +6657,296 @@ def halo_ab(parent, card):
     return got
 
 
+MP_LOG2, MP_HOST_LOG2 = 30, 24
+#: seconds the two children of phase 28 may take together
+MP_DEADLINE = 240.0
+MP_KERNELS = ("stencil_matmul", "stencil_blocked", "chunked_dot",
+              "chunked_cumsum")
+
+
+def mp_path(dt, n, seed, times=None):
+    """Phase 28's path: phase 4's main path (the same calls, sizes and
+    seed as :func:`main_path`) on the current runtime, one controller
+    or one process of several.  Returns ``{"<result>/<rank>": digest}``
+    for each rank this process holds (``bridge_digest`` of the rank's
+    owned cells, so nothing crosses the process boundary to be
+    checked) and the digest of ``dot_n``'s scalar under ``"dot_n"``."""
+    import torch
+    step = stepper(dt, {} if times is None else times)
+    rt = dt.runtime()
+    dev = rt.home
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dig = {}
+
+    def keep(name, v):
+        prev = v.halo_bounds.prev
+        for r in rt.local_ranks:
+            b, e = v._rank_window(r)
+            dig[f"{name}/{r}"] = bridge_digest(v.rows[r][0, prev:prev + e - b])
+
+    with step("data"):
+        src = torch.randn(n, generator=gen, device=dev)
+        a = dt.distributed_vector.from_array(
+            src, halo=dt.halo_bounds(MM_HALO, MM_HALO, periodic=True))
+    with step("stencil_iterate_matmul"):
+        dt.stencil_iterate_matmul(a, W5, STEPS, k_block=K_BLOCK)
+    keep("matmul", a)
+    del a
+    with step("data"):
+        b = dt.distributed_vector.from_array(
+            src, halo=dt.halo_bounds(BLK_HALO, BLK_HALO, periodic=True))
+    with step("stencil_iterate_blocked"):
+        dt.stencil_iterate_blocked(b, W5, STEPS, time_block=T_BLOCK)
+    keep("blocked", b)
+    del b
+    with step("data"):
+        x = dt.distributed_vector.from_array(
+            torch.rand(n, generator=gen, device=dev))
+        y = dt.distributed_vector.from_array(
+            torch.rand(n, generator=gen, device=dev))
+    with step("dot_n"):
+        d = dt.dot_n(x, y, DOT_ROUNDS)
+    dig["dot_n"] = bridge_digest(d)
+    del x, y
+    with step("data"):
+        s = dt.distributed_vector.from_array(src)
+        res = dt.distributed_vector(n)
+    with step("inclusive_scan"):
+        dt.inclusive_scan(s, res)
+    keep("scan", res)
+    with step("exclusive_scan"):
+        dt.exclusive_scan(s, res)
+    keep("exscan", res)
+    del s
+    with step("data"):
+        small = dt.distributed_vector.from_array(src * 2.0 ** -16)
+    with step("inclusive_scan_n"):
+        dt.inclusive_scan_n(small, res, 2)
+    keep("scan_n", res)
+    return dig
+
+
+def mp_halo_p50(dt, cells=HALO_CELLS):
+    """Phase 17's halo p50 across processes: a periodic
+    ``halo_bounds(1024, 1024)`` vector of ``cells`` a rank,
+    ``exchange_n(64)``, 4 calls a batch, 5 batches, on the host clock
+    (a gloo exchange waits on the host, which CUDA events would not
+    see); each process checks its rank's ghosts against the owners."""
+    import torch
+    rt = dt.runtime()
+    P = rt.nprocs
+    v = dt.distributed_vector(P * cells, np.float32, halo=dt.halo_bounds(
+        HALO_W, HALO_W, periodic=True))
+    dt.iota(v, 0)
+    h = v.halo()
+    h.exchange_n(HALO_ROUNDS)  # warm
+    dt.barrier()
+    per = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(4):
+            h.exchange_n(HALO_ROUNDS)
+        dt.fence()
+        per.append((time.perf_counter() - t0) * 1e6 / (4 * HALO_ROUNDS))
+    for r in rt.local_ranks:
+        left = ((r - 1) % P) * cells + cells - HALO_W
+        right = ((r + 1) % P) * cells
+        want = torch.cat([torch.arange(left, left + HALO_W),
+                          torch.arange(r * cells, (r + 1) * cells),
+                          torch.arange(right, right + HALO_W)]).float()
+        check(f"process {rt.process_index} halo rank {r} ghosts",
+              max_err(v.rows[r][0].cpu(), want), 0.0)
+    return float(np.median(per)), per
+
+
+def d2h_us(device, reps=200):
+    """Median host microseconds of one device-to-host copy of a
+    1024-cell f32 slice: what each cross-process edge send pays under
+    gloo before its message leaves."""
+    import torch
+    x = torch.zeros((1, 4096), device=device)
+    x[:, :1024].cpu()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        x[:, :1024].cpu()
+        ts.append((time.perf_counter() - t0) * 1e6)
+    return float(np.median(ts))
+
+
+def mp_child(argv):
+    """One process of phase 28: ``--mp-child PID NPROC PORT OUT SEED
+    DEVICE LOG2 HOST_LOG2 CELLS``.  Joins the group (gloo, one rank on
+    DEVICE), runs :func:`mp_path` at 2^LOG2, then ``to_host`` at
+    2^HOST_LOG2 and the halo p50 at CELLS a rank, and writes its numbers
+    to ``OUT/child<PID>.json``; raises on any disagreement."""
+    pid, nproc, port, out, seed, device = (
+        int(argv[0]), int(argv[1]), argv[2], argv[3], int(argv[4]), argv[5])
+    log2, host_log2, cells = int(argv[6]), int(argv[7]), int(argv[8])
+    import torch
+    sys.path.insert(0, HERE)
+    import dr_tpu_torch as dt
+    from dr_tpu_torch.ops import kernels
+    from dr_tpu_torch.utils.host import to_host
+    global LOG_FILE
+    LOG_FILE = open(os.path.join(out, f"child{pid}.log"), "w",
+                    encoding="utf-8")
+    rt = dt.init_distributed(f"localhost:{port}", nproc, pid,
+                             backend="gloo", device=device,
+                             timeout_s=MP_DEADLINE)
+    ready = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent
+    assert rt.local_ranks == [pid], rt
+    kernels.reset_counts()
+    steps = {}
+    t0 = time.perf_counter()
+    dig = mp_path(dt, 1 << log2, seed, steps)
+    path_s = time.perf_counter() - t0
+    counts = {k: kernels.launches[k] for k in MP_KERNELS}
+    n24 = 1 << host_log2
+    gen = torch.Generator(device=device).manual_seed(seed + 28)
+    src = torch.randn(n24, generator=gen, device=device)
+    v = dt.distributed_vector.from_array(src)
+    dt.barrier()
+    t0 = time.perf_counter()
+    host = to_host(v)
+    th_s = time.perf_counter() - t0
+    if not np.array_equal(host.view(np.int32),
+                          src.cpu().numpy().view(np.int32)):
+        raise AssertionError(f"process {pid}: to_host at 2^{host_log2} "
+                             "differs from the source")
+    del v, src, host
+    p50, per = mp_halo_p50(dt, cells)
+    dt.barrier()  # both processes copy at once, as in an exchange
+    d2h = d2h_us(device)
+    with open(os.path.join(out, f"child{pid}.json"), "w") as fh:
+        json.dump({"pid": pid, "ready": ready, "digests": dig, "d2h_us": d2h,
+                   "launches": counts, "steps": steps, "path_s": path_s,
+                   "to_host_s": th_s, "to_host_gbps": n24 * 4 / th_s / 1e9,
+                   "halo_p50_us": p50, "halo_batches_us": per}, fh)
+    dt.barrier()
+    dt.final()
+    return 0
+
+
+def free_port():
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def mp_spawn(nproc, seed, out, args):
+    """Start phase 28's children; wait for all, under MP_DEADLINE; a
+    child that exits non-zero gets its peers killed (they would wait in
+    a collective), and so does the deadline.  Raises unless every child
+    exits 0; returns their JSON records and their start times."""
+    port = free_port()
+    os.makedirs(out, exist_ok=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
+    t_spawn = time.time()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--mp-child",
+         str(pid), str(nproc), str(port), out, str(seed)] + args,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env, cwd=HERE) for pid in range(nproc)]
+    deadline = time.monotonic() + MP_DEADLINE
+    failed = None
+    while time.monotonic() < deadline:
+        if all(p.poll() is not None for p in procs):
+            break
+        bad = [i for i, p in enumerate(procs) if p.poll() not in (None, 0)]
+        if bad:
+            failed = bad[0]
+            time.sleep(2)  # let the peers fail and flush on their own
+            break
+        time.sleep(0.2)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+    outs = [p.communicate()[0] for p in procs]
+    for pid, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            why = ("failed" if failed is not None else
+                   f"missed the {MP_DEADLINE} s deadline")
+            raise AssertionError(f"phase 28: process {pid} {why} (exit "
+                                 f"{p.returncode}): {o[-3000:]}")
+    recs = []
+    for pid in range(nproc):
+        with open(os.path.join(out, f"child{pid}.json")) as fh:
+            recs.append(json.load(fh))
+    return recs, [r["ready"] - t_spawn for r in recs]
+
+
+def mp_phase(dt, kernels, seed, card, log2=MP_LOG2, nproc=2,
+             device="cuda:0", host_log2=MP_HOST_LOG2, cells=HALO_CELLS):
+    """Phase 28 (see the module docstring); returns its numbers.  On
+    the CPU (``device="cpu"``, small ``log2``) it rehearses the phase;
+    its launch checks then compare 0 with 0."""
+    n = 1 << log2
+    import torch
+    out = {"card": card, "n": n, "processes": nproc}
+    log(f"phase 28.1: the path with one controller on {nproc} ranks of "
+        f"{device}, n=2^{int(math.log2(n))}")
+    dt.init(dt.get_duplicated_devices(nproc, [device]))
+    kernels.reset_counts()
+    steps = {}
+    t0 = time.perf_counter()
+    want = mp_path(dt, n, seed, steps)
+    out["single_s"] = time.perf_counter() - t0
+    counts = {k: kernels.launches[k] for k in MP_KERNELS}
+    out["single_steps"] = steps
+    out["single_launches"] = counts
+    log(f"  28.1 {out['single_s']:.2f} s, launches {counts}, steps "
+        + json.dumps(steps))
+    per_rank = {}
+    for k, c in counts.items():
+        # every call of the path launches its kernel once a rank
+        if (c <= 0 and device != "cpu") or c % nproc:
+            raise AssertionError(f"phase 28.1: {k} launched {c} times on "
+                                 f"{nproc} ranks")
+        per_rank[k] = c // nproc
+    out["single_d2h_us"] = d2h_us(device)
+    dt.final()
+    release(torch)
+    log(f"phase 28.2: {nproc} processes (gloo), one rank each on {device}")
+    t0 = time.perf_counter()
+    recs, starts = mp_spawn(
+        nproc, seed, os.path.join(HERE, "chiprun_out", "phase28"),
+        [device, str(log2), str(host_log2), str(cells)])
+    out["spawn_s"] = time.perf_counter() - t0
+    out["starts_s"] = starts
+    for rec in recs:
+        pid = rec["pid"]
+        mine = {k: v for k, v in want.items()
+                if k == "dot_n" or k.endswith(f"/{pid}")}
+        if rec["digests"] != mine:
+            bad = sorted(k for k in mine if rec["digests"].get(k) != mine[k])
+            raise AssertionError(f"phase 28: process {pid}'s digests differ "
+                                 f"from the single controller's: {bad}")
+        log(f"  process {pid}: {len(mine)} digests equal bit for bit")
+        if rec["launches"] != per_rank:
+            raise AssertionError(f"phase 28: process {pid} launched "
+                                 f"{rec['launches']}, its rank "
+                                 f"{per_rank} with one controller")
+        log(f"  process {pid} launches {rec['launches']} == its rank's")
+        for k in ("steps", "path_s", "to_host_gbps", "halo_p50_us",
+                  "halo_batches_us", "d2h_us"):
+            out[f"p{pid}_{k}"] = rec[k]
+        log(f"  process {pid}: start {starts[pid]!r} s, path "
+            f"{rec['path_s']!r} s, to_host 2^{host_log2} "
+            f"{rec['to_host_gbps']!r} GB/s, halo p50 "
+            f"{rec['halo_p50_us']!r} us, a 4 KiB device-to-host copy "
+            f"{rec['d2h_us']!r} us (one controller: "
+            f"{out['single_d2h_us']!r}); steps " + json.dumps(rec["steps"]))
+    log(f"  phase 28 {out['spawn_s']:.1f} s for the processes")
+    return out
+
+
 def main(argv):
+    if argv[:1] == ["--mp-child"]:  # one process of phase 28
+        return mp_child(argv[1:])
     try:
         import torch
     except ImportError:
@@ -6719,7 +7021,9 @@ def main(argv):
     only25 = "--phase25" in argv
     only26 = "--phase26" in argv
     only27 = "--phase27" in argv
-    short = quick or only22 or only23 or only24 or only25 or only26 or only27
+    only28 = "--phase28" in argv
+    short = (quick or only22 or only23 or only24 or only25 or only26
+             or only27 or only28)
     n = 1 << (20 if short else 30)
     m2d = 2048 if short else M2D
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -6756,6 +7060,10 @@ def main(argv):
     if only27:  # a short run: the checks above, small, then phase 27
         log("  phase 27 numbers: " + json.dumps(
             bridge_phase(dt, kernels, seed, card)))
+        return 0
+    if only28:  # a short run: the checks above, small, then phase 28
+        log("  phase 28 numbers: " + json.dumps(
+            mp_phase(dt, kernels, seed, card)))
         return 0
 
     log(f"phase 4: main path, 1 rank on cuda:0, n={n}")
@@ -6995,6 +7303,11 @@ def main(argv):
 
     g27 = bridge_phase(dt, kernels, seed, card)
     log("  phase 27 numbers: " + json.dumps(g27))
+
+    t0 = time.perf_counter()
+    g28 = mp_phase(dt, kernels, seed, card)
+    log(f"  phase 28 {time.perf_counter() - t0:.1f} s")
+    log("  phase 28 numbers: " + json.dumps(g28))
 
     log(f"peak device memory (1-D main path): {peak} bytes "
         f"({peak / 2 ** 30:.2f} GiB)")

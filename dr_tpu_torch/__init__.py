@@ -3,9 +3,10 @@ CUDA (NVIDIA Hopper).
 
 The JAX package ``dr_tpu`` is the reference; module paths and names
 mirror it (``dr_tpu_torch/parallel/halo.py`` is the counterpart of
-``dr_tpu/parallel/halo.py``, and so on).  One process drives every rank:
-a ``distributed_vector`` keeps one padded row tensor per rank on that
-rank's device, and collectives are tensor copies between rank rows.
+``dr_tpu/parallel/halo.py``, and so on).  With one controller
+(``init()``) one process drives every rank: a ``distributed_vector``
+keeps one padded row tensor per rank on that rank's device, and
+collectives are tensor copies between rank rows.
 
 The kernels of the 1-D stencil -> dot -> scan path, of the 2-D heat
 stencil, of the sort's local phase, of ``reduce``'s min/max/integer
@@ -15,10 +16,19 @@ of ring attention's flash update are hand-written CUDA for
 tensor takes the kernel's plain PyTorch version.  ``init()`` takes the visible CUDA devices and raises
 without one; the CPU runs only when named (``init(["cpu"] * 8)``).
 
+``init_distributed(address, nprocs, pid, device=...)`` starts the
+multi-process mode instead (the reference's MPI ranks in separate
+processes): one rank a process, collectives across processes through
+``torch.distributed`` (gloo, or nccl between distinct cards), and every
+host read valid on every process.  The 1-D main path (elementwise,
+halo, stencils with K1 / K2, reduce and dot with K3, scans with K4,
+checkpoint) runs there; every other path raises a classified
+``ProgramError`` at its entry until its multi-process slice lands.
+
 Public surface of this slice:
 
-- runtime:    ``init / final / nprocs / devices / barrier / fence /
-  get_duplicated_devices``
+- runtime:    ``init / init_distributed / final / nprocs / devices /
+  barrier / fence / get_duplicated_devices``
 - vocabulary: ``rank / segments / local`` + concept predicates
 - containers: ``distributed_vector``, ``block_distribution``,
   ``from_reference_state``, ``distributed_span``
@@ -86,7 +96,8 @@ from .parallel.runtime import (init, final, finalize, runtime, nprocs,
                                get_duplicated_devices)
 from .parallel.halo import halo_bounds, span_halo, halo_ops
 from .parallel.unstructured_halo import unstructured_halo
-from .parallel.collectives import communicator, rma_window, default_comm
+from .parallel.collectives import (communicator, rma_window, default_comm,
+                                   init_distributed)
 from .core.vocabulary import (rank, segments, local, is_remote_range,
                               is_distributed_range,
                               is_remote_contiguous_range,
@@ -140,8 +151,8 @@ from .plan import Plan, PlanScalar, deferred
 __version__ = "0.1.0"
 
 __all__ = [
-    "init", "final", "finalize", "runtime", "nprocs", "devices",
-    "barrier", "fence", "get_duplicated_devices",
+    "init", "init_distributed", "final", "finalize", "runtime", "nprocs",
+    "devices", "barrier", "fence", "get_duplicated_devices",
     "halo_bounds", "span_halo", "halo_ops", "halo",
     "rank", "segments", "local", "is_remote_range", "is_distributed_range",
     "is_remote_contiguous_range", "is_distributed_contiguous_range",

@@ -13,7 +13,7 @@ from ..parallel.collectives import ordered_maximum, ordered_minimum
 
 __all__ = ["layout_geometry", "working_geometry", "window_geometry",
            "effective_sizes", "window_cols", "owned_window_mask",
-           "uniform_layout",
+           "uniform_layout", "saturating_cast",
            "f32_accumulable", "MONOID_COMBINE", "identity_for"]
 
 
@@ -21,6 +21,24 @@ def f32_accumulable(dtype) -> bool:
     """Input dtypes the kernels may accumulate in f32 without changing
     semantics (integers and f64 keep the plain torch routes)."""
     return dtype in (torch.float32, torch.bfloat16, torch.float16)
+
+
+def saturating_cast(t: torch.Tensor, dtype) -> torch.Tensor:
+    """``t.to(dtype)`` as XLA's convert does it for a float into an
+    integer dtype: truncation toward zero, NaN to 0, and values beyond
+    the dtype's range clamped to it (torch's own conversion wraps on the
+    CPU).  Every other conversion is ``t.to(dtype)``."""
+    if not t.is_floating_point() or dtype.is_floating_point \
+            or dtype == torch.bool:
+        return t.to(dtype)
+    info = torch.iinfo(dtype)
+    x = t.to(torch.float64)  # exact for every float dtype of a row
+    hi = x >= info.max
+    lo = x <= info.min
+    safe = torch.where(hi | lo | torch.isnan(x), 0.0, x)
+    out = safe.to(dtype)
+    out = torch.where(hi, torch.full_like(out, info.max), out)
+    return torch.where(lo, torch.full_like(out, info.min), out)
 
 
 def uniform_layout(layout) -> bool:

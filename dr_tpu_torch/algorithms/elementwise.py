@@ -17,6 +17,17 @@ recorded ops run the same row functions (``_fill_rows``, ``_iota_rows``,
 flush, so a flushed run has the eager sequence's bits.  The unaligned
 routes flush the plan first (``Plan.nonfusible``).
 
+In a multi-process runtime every row function skips the rows another
+process owns (None entries): each process writes its own ranks, and a
+logical window read (:func:`_window_values`) gathers the others' cells.
+
+A float written into an integer container by a transform, a copy
+between containers or an ``iota`` converts as XLA's convert does
+(``_common.saturating_cast``: NaN to 0, clamped to the dtype's range);
+a ``fill`` value is checked as the JAX package's ``jnp.asarray`` checks
+it (:func:`_fill_value`), and a copy from a host array keeps torch's
+cast, which is NumPy's.
+
 ``_prog_cache`` is the algorithm layer's shared dispatch cache (the JAX
 package's program cache, a ``utils/spmd_guard.TappedCache``): every
 algorithm looks it up once per dispatch with the JAX package's key, so
@@ -30,10 +41,11 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
-from ._common import layout_geometry, window_cols
-from ..containers.distributed_vector import (_as_tensor, _host_numpy,
+from ._common import layout_geometry, saturating_cast, window_cols
+from ..containers.distributed_vector import (_as_tensor,
                                              distributed_vector)
 from ..core.pinning import pinned_id
+from ..parallel import collectives
 from ..utils.spmd_guard import TappedCache, dtype_name
 from ..views import views as _v
 
@@ -148,39 +160,72 @@ def _out_chain(out) -> _Chain:
     return res[0]
 
 
-def _write_window(out_chain: _Chain, values) -> None:
-    """Splice a logical tensor into the output window."""
+def _write_window(out_chain: _Chain, values, saturate=False) -> None:
+    """Splice a logical tensor into the output window (``saturate``: a
+    float into integer rows converts as XLA's convert does)."""
     _write_window_rows(out_chain.cont._rows, out_chain.cont.layout,
-                       out_chain.off, out_chain.n, _as_tensor(values))
+                       out_chain.off, out_chain.n, _as_tensor(values),
+                       saturate)
 
 
-def _write_window_rows(rows, layout, off, n, values) -> None:
+def _write_window_rows(rows, layout, off, n, values, saturate=False) -> None:
     """:func:`_write_window` over rank rows of ``layout``."""
     _, _, prev, _, _, starts, _ = layout_geometry(layout)
     for r, row in enumerate(rows):
         c0, c1 = window_cols(layout, off, n, r)
-        if c0 == c1:
+        if c0 == c1 or row is None:
             continue
         lo = int(starts[r]) + c0 - prev - off
-        row[0, c0:c1] = values[lo:lo + c1 - c0].to(row.device, row.dtype)
+        vals = values[lo:lo + c1 - c0].to(row.device)
+        row[0, c0:c1] = saturating_cast(vals, row.dtype) if saturate \
+            else vals.to(row.dtype)
 
 
 def _window_values(rows, layout, off, n, dtype) -> torch.Tensor:
     """The logical window ``[off, off + n)`` of rank rows as one tensor on
-    rank 0's device (what ``to_array`` of a window gives)."""
-    dev = rows[0].device
-    parts = []
+    the home device (what ``to_array`` of a window gives): the first
+    present row's device, every process's cells gathered."""
+    dev = collectives._present(rows).device
+    parts, live = [], []
     for r, row in enumerate(rows):
         c0, c1 = window_cols(layout, off, n, r)
         if c0 < c1:
-            parts.append(row[0, c0:c1].to(dev))
-    if not parts:
+            live.append(r)
+        parts.append(None if row is None else row[0, c0:c1])
+    if not live:
         return torch.zeros((0,), dtype=dtype, device=dev)
-    return torch.cat(parts)
+    return torch.cat(collectives.gather_ranks(parts, dev, live))
+
+
+def _fill_value(value, dtype):
+    """A Python (or numpy) scalar ``fill`` value as the JAX package's
+    ``jnp.asarray(value, dtype)`` takes it into an integer dtype: NaN
+    raises ``ValueError``; a value whose truncation toward zero lies
+    outside the dtype's range raises ``OverflowError``, even for an
+    empty window; a float converts by truncation.  Other values pass
+    unchanged."""
+    if dtype.is_floating_point or dtype == torch.bool or \
+            isinstance(value, (bool, np.bool_)) or \
+            not isinstance(value, (int, float, np.integer, np.floating)):
+        return value
+    info = torch.iinfo(dtype)
+    if isinstance(value, (float, np.floating)):
+        if np.isnan(value):
+            raise ValueError(f"cannot fill a {dtype} range with NaN")
+        if np.isinf(value):
+            raise OverflowError(f"cannot fill a {dtype} range with "
+                                f"{value}")
+    whole = int(value)  # a float truncates toward zero
+    if not info.min <= whole <= info.max:
+        raise OverflowError(f"fill value {value!r} is out of bounds for "
+                            f"{dtype}")
+    return whole
 
 
 def _fill_rows(rows, layout, off, n, value) -> None:
     for rk, row in enumerate(rows):
+        if row is None:
+            continue
         c0, c1 = window_cols(layout, off, n, rk)
         row[0, c0:c1] = value
 
@@ -188,20 +233,22 @@ def _fill_rows(rows, layout, off, n, value) -> None:
 def _iota_rows(rows, layout, off, n, start) -> None:
     """Element i of the window gets ``start + i``.  Float64 rows, and
     integer rows with a non-int start, add in float64, so they hold
-    every value up to 2^53 exactly; other rows keep torch's promotion (a
-    float start adds in float32, as the JAX package does without x64)."""
+    every value up to 2^53 exactly (into integer rows the sum converts
+    as XLA's convert does, saturating); other rows keep torch's
+    promotion (a float start adds in float32, as the JAX package does
+    without x64)."""
     _, _, prev, _, _, starts, _ = layout_geometry(layout)
     shift = start - off
     for rk, row in enumerate(rows):
         c0, c1 = window_cols(layout, off, n, rk)
-        if c0 < c1:
+        if c0 < c1 and row is not None:
             g0 = int(starts[rk]) + c0 - prev
             gid = torch.arange(g0, g0 + c1 - c0, device=row.device)
             if row.dtype == torch.float64 or (
                     not row.dtype.is_floating_point
                     and not isinstance(shift, int)):
                 gid = gid.to(torch.float64)
-            row[0, c0:c1] = (gid + shift).to(row.dtype)
+            row[0, c0:c1] = saturating_cast(gid + shift, row.dtype)
 
 
 def _transform_rows(out_rows, in_rows, in_ops, layout, off, n, op,
@@ -211,15 +258,15 @@ def _transform_rows(out_rows, in_rows, in_ops, layout, off, n, op,
     scalars from ``chain_sc``) and writes its output columns."""
     for rk, row in enumerate(out_rows):
         c0, c1 = window_cols(layout, off, n, rk)
-        if c0 == c1:
+        if c0 == c1 or row is None:
             continue
         sc = iter(chain_sc)
         vals = [_apply_chain_ops(rows[rk][:, c0:c1], ops, sc)
                 for rows, ops in zip(in_rows, in_ops)]
         res = op(*vals, *scalars)
-        row[:, c0:c1] = torch.broadcast_to(
-            torch.as_tensor(res, device=row.device),
-            (1, c1 - c0)).to(row.dtype)
+        row[:, c0:c1] = saturating_cast(torch.broadcast_to(
+            torch.as_tensor(res, device=row.device), (1, c1 - c0)),
+            row.dtype)
 
 
 def _wins(chains) -> tuple:
@@ -237,7 +284,7 @@ def _zip_foreach_rows(in_rows, in_wins, out_rows, out_wins, fn,
     if not isinstance(vals, tuple):
         raise TypeError("for_each over zip: fn must return a tuple")
     for rows, (layout, off, wn, _dt), v in zip(out_rows, out_wins, vals):
-        _write_window_rows(rows, layout, off, wn, _as_tensor(v))
+        _write_window_rows(rows, layout, off, wn, _as_tensor(v), True)
 
 
 def _gen_tap(out: _Chain, kind: str) -> None:
@@ -248,6 +295,7 @@ def _gen_tap(out: _Chain, kind: str) -> None:
 def fill(r, value) -> None:
     """Collective fill (cpu_algorithms.hpp:14-28)."""
     out = _out_chain(r)
+    value = _fill_value(value, out.cont.dtype)
     p = _plan_active()
     if p is not None:
         p.record_generator(out, "fill", value)
@@ -302,7 +350,7 @@ def transform(in_r, out, op: Callable, *scalars) -> None:
     arr = in_r.to_array() if hasattr(in_r, "to_array") else _as_tensor(in_r)
     vals = op(*arr, *scalars) if isinstance(arr, tuple) \
         else op(arr, *scalars)
-    _write_window(out_chain, vals[:out_chain.n])
+    _write_window(out_chain, vals[:out_chain.n], saturate=True)
 
 
 def _identity(x):
@@ -380,16 +428,13 @@ def for_each(r, fn: Callable, *scalars) -> None:
         if not isinstance(vals, tuple):
             raise TypeError("for_each over zip: fn must return a tuple")
         for oc, v in zip(outs, vals):
-            _write_window(oc, v)
+            _write_window(oc, v, saturate=True)
         return
     transform(r, r, fn, *scalars)
 
 
 def to_numpy(r) -> np.ndarray:
-    """Materialize a distributed range on the host (test-oracle path)."""
-    if hasattr(r, "to_array"):
-        arr = r.to_array()
-        if isinstance(arr, tuple):
-            return tuple(_host_numpy(a) for a in arr)
-        return _host_numpy(arr)
-    return np.asarray(r)
+    """Materialize a distributed range on the host (test-oracle path),
+    on every process (``utils/host.to_host``)."""
+    from ..utils.host import to_host
+    return to_host(r)

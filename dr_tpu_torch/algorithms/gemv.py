@@ -69,6 +69,7 @@ from ..core.pinning import pinned_id
 from ..utils.env import env_str
 from ..utils.spmd_guard import dtype_name
 from .elementwise import _prog_cache
+from ..parallel import runtime as _rt
 
 __all__ = ["gemv", "gemv_n", "gemv_phases_n", "flat_gemv", "gemm", "spmm",
            "spmm_n", "viable_formats", "resolved_format",
@@ -342,6 +343,7 @@ def _gemv_as(c, a, b, fmt: str):
 def gemv(c: distributed_vector, a: sparse_matrix, b) -> distributed_vector:
     """c += A·b (reference gemv semantics: accumulate into ``c``) in the
     matrix's autoselected layout; returns ``c``."""
+    _rt.require_single_process("gemv", _rt.SPARSE)
     from ..plan import active
     p = active()
     if p is not None:
@@ -373,6 +375,7 @@ def gemv_n(c: distributed_vector, a: sparse_matrix, b, iters: int):
     the tiles): each round adds ``1e-38`` times the rank's first owned
     cell of ``c`` to ``b``, so every round re-reads ``b`` and waits for
     the last; like ``iters`` gemv calls up to that salt."""
+    _rt.require_single_process("gemv_n", _rt.SPARSE)
     from ..plan import flush_reads
     flush_reads("gemv_n")
     b = _fast_args(c, a, b)
@@ -396,6 +399,7 @@ def gemv_phases_n(c: distributed_vector, a: sparse_matrix, b,
     """``iters`` rounds of the ring SpMV truncated after ``stop_after``
     (:data:`SPMV_PHASES`); one round is exactly the ring ``gemv``.
     Needs the ring layout (``a.ensure_ring()``)."""
+    _rt.require_single_process("gemv_phases_n", _rt.SPARSE)
     from ..plan import flush_reads
     flush_reads("gemv_phases_n")
     assert stop_after in SPMV_PHASES, (stop_after, SPMV_PHASES)
@@ -414,6 +418,7 @@ def flat_gemv(a: sparse_matrix, b) -> torch.Tensor:
     """A·b as an ``(m,)`` tensor on rank 0's device (no output
     container): each tile's csr partial, summed over the tile rows'
     columns.  Any tile grid."""
+    _rt.require_single_process("flat_gemv", _rt.SPARSE)
     b = _rhs(b, a.shape[1], 1)
     if a._vals is None:
         return torch.zeros(a.shape[0], dtype=a.dtype,
@@ -427,6 +432,7 @@ def spmm(a: sparse_matrix, b) -> torch.Tensor:
     BCSR) contract all ``nv`` columns at once, on row tiles and 2-D
     grids; csr and the layouts their gates refuse take one
     :func:`flat_gemv` a column."""
+    _rt.require_single_process("spmm", _rt.SPARSE)
     assert isinstance(a, sparse_matrix)
     m, n = a.shape
     B = _as_tensor(b.to_array() if hasattr(b, "to_array") else b)
@@ -453,6 +459,7 @@ def spmm_n(a: sparse_matrix, b, iters: int) -> torch.Tensor:
     adds ``1e-38`` times the rank's first output value of the last
     round to ``B``.  Returns the last product, ``(m, nv)`` on rank 0's
     device."""
+    _rt.require_single_process("spmm_n", _rt.SPARSE)
     assert isinstance(a, sparse_matrix) and a.grid_shape[1] == 1
     m, n = a.shape
     B = _as_tensor(b.to_array() if hasattr(b, "to_array") else b)

@@ -28,6 +28,18 @@ partials in rank order, skipping ranks that own no cell of the window
 ``op`` that is neither a named kind nor callable raises ``TypeError``
 before anything is read, whatever the range's length.
 
+``reduce(r, init, op)`` folds ``init`` in as ``op(init, total)``.  A
+torch op (``torch.maximum``, ``torch.add``, ...) takes it as a 0-d
+tensor of the result's dtype, as ``jnp.maximum`` takes the JAX
+package's scalar; a Python op (``operator.add``, ``max``, a lambda)
+takes the host scalars (:func:`_fold_init`).  An empty window with an
+``init`` gives the ``init``.
+
+In a multi-process runtime each process reduces its own ranks' cells
+(K3 / K7 on its rows), and the partials meet in ``collectives.psum`` /
+``gather_ranks``, folded in rank order as with one controller, so every
+process gets the single controller's bits.
+
 Inside ``dt.deferred()`` a monoid reduce of aligned chains records into
 the plan (``Plan.record_reduce``) and returns a lazy ``PlanScalar``; the
 recorded op runs :func:`_reduce_rows`, the eager body.  A custom-op
@@ -137,16 +149,18 @@ def _reduce_rows(rows_list, ops_list, layout, off, n, kind, zip_op, k7,
     """:func:`_fused_reduce` over rank rows: ``rows_list`` holds each
     chain's rows, ``chain_sc`` the chains' ``BoundOp`` scalars; with
     ``zip_sc`` given, a ``BoundOp`` zip op takes its scalars from it."""
-    parts = []
+    parts = [None] * len(rows_list[0])
     k3 = _k3_dot(rows_list, ops_list, kind, zip_op)
     for r in range(len(rows_list[0])):
+        if rows_list[0][r] is None:
+            continue  # another process reduces this rank
         a, b = window_cols(layout, off, n, r)
         sc = iter(chain_sc)
         vals = [_apply_chain_ops(rows[r][0, a:b], ops, sc)
                 for rows, ops in zip(rows_list, ops_list)]
         if k3 and b > a:
             src = vals[0].dtype
-            parts.append(reduce_pallas.chunked_dot(vals[0], vals[1]))
+            parts[r] = reduce_pallas.chunked_dot(vals[0], vals[1])
             continue
         if zip_op is None:
             v = vals[0]
@@ -157,14 +171,15 @@ def _reduce_rows(rows_list, ops_list, layout, off, n, kind, zip_op, k7,
         src = v.dtype
         if k7:
             v = v.to(_acc_dtype(kind, src))
-            parts.append(segred_pallas.segmented(
-                None, 1, ((v, _KIND_TO_SEGRED[kind]),))[0][0])
+            parts[r] = segred_pallas.segmented(
+                None, 1, ((v, _KIND_TO_SEGRED[kind]),))[0][0]
         else:
-            parts.append(_vec_reduce(kind, v))
-    dev = rows_list[0][0].device
-    acc = parts[0].to(dev)
+            parts[r] = _vec_reduce(kind, v)
+    dev = collectives._present(rows_list[0]).device
+    parts = collectives.gather_ranks(parts, dev)
+    acc = parts[0]
     for p in parts[1:]:
-        acc = MONOID_COMBINE[kind](acc, p.to(dev))
+        acc = MONOID_COMBINE[kind](acc, p)
     return _unsigned_wrap(acc, src)
 
 
@@ -179,7 +194,8 @@ def _k3_dot(rows_list, ops_list, kind, zip_op) -> bool:
     dtype before the sum, and K3 widens first, a different value."""
     return (zip_op is _multiply2 and kind == "add" and len(rows_list) == 2
             and not any(ops_list)
-            and all(rows[0].dtype == torch.float32 for rows in rows_list))
+            and all(collectives._present(rows).dtype == torch.float32
+                    for rows in rows_list))
 
 
 def _unsigned_wrap(acc: torch.Tensor, src: torch.dtype) -> torch.Tensor:
@@ -226,14 +242,19 @@ def _custom_reduce(c, op) -> torch.Tensor:
     _prog_cache.tap(("gredd", pinned_id(c.cont.runtime), c.cont.layout,
                      _op_key(op), tuple(_traced_op_key(f) for f in c.ops),
                      (c.off, c.n)))
-    acc = None
-    dev = c.cont.runtime.devices[0]
+    dev = c.cont.runtime.home
+    parts = [None] * c.cont.nshards
+    live = []
     for r in range(c.cont.nshards):
         a, b = window_cols(c.cont.layout, c.off, c.n, r)
         if a == b:
             continue  # an empty rank has no partial to fold
-        part = _tree_fold(op, _apply_ops(c.cont._rows[r][0, a:b],
-                                        c.ops)).to(dev)
+        live.append(r)
+        row = c.cont._rows[r]
+        if row is not None:
+            parts[r] = _tree_fold(op, _apply_ops(row[0, a:b], c.ops))
+    acc = None
+    for part in collectives.gather_ranks(parts, dev, live):
         acc = part if acc is None else op(acc, part)
     return acc
 
@@ -275,6 +296,23 @@ def reduce_async(r, op: Callable = None) -> torch.Tensor:
     return _unsigned_wrap(_vec_reduce(kind, arr), arr.dtype)
 
 
+def _torch_op(op) -> bool:
+    """``op`` is a torch function (it wants tensors, not host
+    scalars)."""
+    return (getattr(op, "__module__", None) or "").startswith("torch")
+
+
+def _fold_init(init, total: torch.Tensor, op):
+    """``op(init, total)`` as a host scalar: a torch op folds ``init``
+    as a 0-d tensor of the result's dtype on its device, any other op
+    (``operator.add`` when None) folds the host scalars."""
+    if op is not None and _torch_op(op):
+        iv = torch.tensor(init, dtype=total.dtype, device=total.device)
+        return op(iv, total).item()
+    pyop = op if op is not None else operator.add
+    return pyop(init, total.item())
+
+
 def reduce(r, init=None, op: Callable = None):
     """Collective reduction; returns a host scalar (inside
     ``dt.deferred()``, a lazy ``PlanScalar`` that resolves on
@@ -283,14 +321,11 @@ def reduce(r, init=None, op: Callable = None):
     from ..plan import PlanScalar
     if isinstance(val, PlanScalar):
         if init is not None:
-            pyop = op if op is not None else operator.add
-            return val.with_post(lambda v: pyop(init, v))
+            return val.with_post(lambda t: _fold_init(init, t, op))
         return val
-    val = val.item()
     if init is not None:
-        pyop = op if op is not None else operator.add
-        return pyop(init, val)
-    return val
+        return _fold_init(init, val, op)
+    return val.item()
 
 
 def _identity(x):
@@ -352,24 +387,27 @@ def dot_n(a, b, iters: int) -> torch.Tensor:
     flush_reads("dot_n")
     c0, c1 = _dot_n_chains(a, b)
     cont = c0.cont
-    devs = cont.runtime.devices
-    s = torch.zeros((), dtype=torch.float32, device=devs[0])
+    home = cont.runtime.home
+    s = torch.zeros((), dtype=torch.float32, device=home)
     cols = [window_cols(cont.layout, c0.off, c0.n, r)
             for r in range(cont.nshards)]
-    xs = [row[0, lo:hi] for row, (lo, hi) in zip(c0.cont._rows, cols)]
-    ys = [row[0, lo:hi] for row, (lo, hi) in zip(c1.cont._rows, cols)]
+    # (x, y) of each rank this process holds, None for the others
+    xy = [None if row is None else (row[0, lo:hi], other[0, lo:hi])
+          for row, other, (lo, hi) in zip(c0.cont._rows, c1.cont._rows,
+                                          cols)]
     k3 = _k3_takes(c0, c1)
     _prog_cache.tap(("dot_n", c0.key, c1.key, int(iters), k3))
     if k3:
         for _ in range(iters):
             salt = s * 1e-38
-            local = [reduce_pallas.chunked_dot(x, y, salt=salt.to(x.device))
-                     for x, y in zip(xs, ys)]
-            s = collectives.psum(local, devs[0])
+            local = [None if p is None else reduce_pallas.chunked_dot(
+                p[0], p[1], salt=salt.to(p[0].device)) for p in xy]
+            s = collectives.psum(local, home)
         return s
     s = s.to(cont.dtype)
     for _ in range(iters):
-        parts = [(x * (y + (s * 1e-38).to(y.device))).sum()
-                 for x, y in zip(xs, ys)]
-        s = collectives.psum(parts, devs[0]).to(cont.dtype)
+        parts = [None if p is None else
+                 (p[0] * (p[1] + (s * 1e-38).to(p[1].device))).sum()
+                 for p in xy]
+        s = collectives.psum(parts, home).to(cont.dtype)
     return s

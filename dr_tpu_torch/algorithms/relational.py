@@ -111,6 +111,7 @@ from ..utils.spmd_guard import dtype_name
 from ..utils.env import env_int, env_raw
 from ..utils.resilience import ProgramError
 from ..views import views as _v
+from ..parallel import runtime as _rt
 
 __all__ = ["join", "groupby_aggregate", "unique", "histogram", "top_k",
            "join_auto", "groupby_auto", "unique_auto", "AutoResult",
@@ -601,6 +602,7 @@ def groupby_aggregate(keys, values, out_keys, out_values,
     ``count`` / ``mean`` (``count`` accepts ``values=None``).  A result
     larger than the capacity raises ``ProgramError`` after the op ran
     (the first ``len(out_keys)`` groups are valid)."""
+    _rt.require_single_process("groupby_aggregate", _rt.RELATIONAL)
     _check_agg(values, agg)
     _kc, _vc, okc, ovc = _check_groupby(keys, values, out_keys,
                                         out_values)
@@ -628,6 +630,7 @@ def unique(r, out) -> int:
     """Sorted distinct values of ``r`` into ``out[0:count]`` (a whole
     distributed_vector; positions ``>= count`` are zero); returns the
     distinct count.  The keys-only groupby."""
+    _rt.require_single_process("unique", _rt.RELATIONAL)
     _in_chain(r, "unique")
     okc = _whole_out(out, "unique")
     p = _plan_active()
@@ -1092,6 +1095,7 @@ def join(left_keys, left_values, right_keys, right_values, out_keys,
     outputs share one capacity, positions ``>= count`` are zero.  Returns
     the row count; a result beyond the capacity raises ``ProgramError``
     after the op ran (the first ``capacity`` rows are valid)."""
+    _rt.require_single_process("join", _rt.RELATIONAL)
     _check_how(how)
     *_sides, okc, olc, orc = _check_join(left_keys, left_values, right_keys,
                                          right_values, out_keys, out_left,
@@ -1319,6 +1323,7 @@ def join_auto(left_keys, left_values, right_keys, right_values, *,
     sorted, a count-only probe gives the exact row count and the outputs
     are allocated at its pow2 ceiling.  Returns an :class:`AutoResult`
     over ``(out_keys, out_left, out_right)``."""
+    _rt.require_single_process("join_auto", _rt.RELATIONAL)
     _check_how(how)
     _check_join_sides(left_keys, left_values, right_keys, right_values)
     meta = _opaque_meta("join", {"lk": left_keys, "lv": left_values,
@@ -1331,6 +1336,7 @@ def groupby_auto(keys, values, agg: str = "sum") -> AutoResult:
     """:func:`groupby_aggregate` with inferred output capacity (the
     distinct-key count probe).  Returns an :class:`AutoResult` over
     ``(out_keys, out_values)``."""
+    _rt.require_single_process("groupby_auto", _rt.RELATIONAL)
     _check_agg(values, agg)
     kc = _in_chain(keys, "groupby_aggregate")
     inputs = {"keys": keys}
@@ -1349,6 +1355,7 @@ def groupby_auto(keys, values, agg: str = "sum") -> AutoResult:
 def unique_auto(r) -> AutoResult:
     """:func:`unique` with inferred output capacity.  Returns an
     :class:`AutoResult` over ``(out,)``."""
+    _rt.require_single_process("unique_auto", _rt.RELATIONAL)
     _in_chain(r, "unique")
     meta = _opaque_meta("unique", {"r": r}, ())
     return _auto("unique(auto)", meta, lambda i: _groupby_auto_eager(
@@ -1376,6 +1383,7 @@ def histogram(r, out, lo, hi):
     ``promote_types(dtype, float32)``, ``lo``/``hi`` rounded to f32 and
     cast to it, then ``floor((x - lo) * bins / (hi - lo))`` as separate
     operations in that order, to int32."""
+    _rt.require_single_process("histogram", _rt.RELATIONAL)
     if isinstance(lo, (int, float, np.number)) \
             and isinstance(hi, (int, float, np.number)) \
             and not (float(hi) > float(lo)):
@@ -1484,6 +1492,7 @@ def top_k(r, out_vals, out_idx=None, *, largest: bool = True,
     ``merge=True`` folds the current ``out_vals``/``out_idx`` contents
     into the candidate pool, so chained calls over successive windows
     stream a running top-k.  Returns ``out_vals``."""
+    _rt.require_single_process("top_k", _rt.RELATIONAL)
     chain, ovc, oic = _top_k_chains(r, out_vals, out_idx)
     if merge and oic is not None \
             and oic.cont.layout != ovc.cont.layout:

@@ -19,6 +19,13 @@ f32/bf16/f16 add-scan), folds the totals of the ranks before it that own
 cells, and the scanned slices are copied into the ranks that own the
 output window (the realign of ``dr_tpu/algorithms/scan.py:425-540``).
 
+In a multi-process runtime each process scans its own ranks (K4 on its
+rows); the rank totals and the exclusive scan's last cells cross the
+process boundary through the collectives, and every carry is folded in
+rank order on the home device, as with one controller, so each rank's
+cells keep the single controller's bits.  The realign moves each
+scanned slice with ``collectives.route``.
+
 Inside ``dt.deferred()`` both scans record OPAQUE (``Plan.record_opaque``
 with :func:`_scan_footprint`): they run through this eager path at the
 flush, in record order, so an f32 add-scan launches K4 there.
@@ -94,20 +101,23 @@ def _scan_rows(cont, rows, kind, exclusive, dtype, ops=(), window=None,
     layout = cont.layout
     nshards, S, cap, prev, nxt, n, starts, sizes = working_geometry(layout)
     devs = cont.runtime.devices
+    home = cont.runtime.home
     exact = (bool((sizes == S).all()) and nshards * S == n
              and window is None)
     off, wn = window if window is not None else (0, n)
-    ident = identity_for(kind, rows[0].dtype)
-    xs = []
+    ident = identity_for(kind, collectives._present(rows).dtype)
+    xs = [None] * nshards  # None: a rank another process scans
     for r, row in enumerate(rows):
+        if row is None:
+            continue
         x = _apply_ops(row[0, prev:prev + S], ops)
         if not exact:
             a, b = window_cols(layout, off, wn, r)
             x = x.clone()
             x[:a - prev] = ident
             x[b - prev:] = ident
-        xs.append(x)
-    if _takes_k4(kind, xs[0].dtype):
+        xs[r] = x
+    if _takes_k4(kind, collectives._present(xs).dtype):
         if nshards == 1:
             scanned = [scan_pallas.chunked_cumsum(xs[0])]
         else:
@@ -115,22 +125,29 @@ def _scan_rows(cont, rows, kind, exclusive, dtype, ops=(), window=None,
             # seed is f32, and a bf16-rounded carry would poison every
             # later rank's prefixes
             totals = collectives.all_gather(
-                [x.sum(dtype=torch.float32) for x in xs], devs[0])
-            scanned = [scan_pallas.chunked_cumsum(
+                [None if x is None else x.sum(dtype=torch.float32)
+                 for x in xs], home)
+            scanned = [None if x is None else scan_pallas.chunked_cumsum(
                 x, carry=totals[:r].sum().to(x.device))
                 for r, x in enumerate(xs)]
         if exclusive:
-            lasts = collectives.ring_shift([s[-1:] for s in scanned], devs,
-                                           +1, False)
-            scanned = [torch.cat([_fill(s, kind, s.dtype) if r == 0
+            lasts = collectives.ring_shift(
+                [None if s is None else s[-1:] for s in scanned], devs, +1,
+                False, like=((1,), collectives._present(scanned).dtype))
+            scanned = [None if s is None else
+                       torch.cat([_fill(s, kind, s.dtype) if r == 0
                                   else lasts[r], s[:-1]])
                        for r, s in enumerate(scanned)]
     else:
         combine = MONOID_COMBINE[kind]
-        local = [_local_scan(kind, x) for x in xs]
-        totals = [lc[-1] for lc in local]
+        local = [None if x is None else _local_scan(kind, x) for x in xs]
+        totals = collectives.gather_ranks(
+            [None if lc is None else lc[-1] for lc in local], home)
         scanned = []
         for r, lc in enumerate(local):
+            if lc is None:
+                scanned.append(None)
+                continue
             carry = None
             for t in totals[:r]:
                 t = t.to(lc.device)
@@ -140,6 +157,9 @@ def _scan_rows(cont, rows, kind, exclusive, dtype, ops=(), window=None,
             scanned.append(lc if carry is None else combine(carry, lc))
     out = []
     for r, s in enumerate(scanned):
+        if s is None:
+            out.append(None)
+            continue
         s = s.to(dtype)
         if window is not None:
             a, b = window_cols(layout, off, wn, r)
@@ -162,43 +182,58 @@ def _window_scan(c, kind, op, exclusive, dtype):
     f32 sum of the earlier ranks' totals; other ops scan locally and fold
     the earlier nonempty ranks' totals into the slice."""
     cont = c.cont
-    devs = cont.runtime.devices
-    xs = []
+    home = cont.runtime.home
+    xs = [None] * cont.nshards  # None: a rank another process scans
+    live = []
     for r in range(cont.nshards):
         a, b = window_cols(cont.layout, c.off, c.n, r)
-        xs.append(_apply_ops(cont._rows[r][0, a:b], c.ops).contiguous())
-    live = [r for r, x in enumerate(xs) if x.numel()]
-    out = [x.to(dtype) for x in xs]
-    if kind is not None and _takes_k4(kind, xs[live[0]].dtype):
-        carry = torch.zeros((), dtype=torch.float32, device=devs[0])
-        for r in live:
+        if a < b:
+            live.append(r)
+        row = cont._rows[r]
+        if row is not None:
+            xs[r] = _apply_ops(row[0, a:b], c.ops).contiguous()
+    out = [None if x is None else x.to(dtype) for x in xs]
+    if kind is not None and _takes_k4(kind, collectives._present(xs).dtype):
+        totals = collectives.gather_ranks(
+            [None if x is None else x.sum(dtype=torch.float32) for x in xs],
+            home, live)
+        carry = torch.zeros((), dtype=torch.float32, device=home)
+        for r, total in zip(live, totals):
             x = xs[r]
-            s = scan_pallas.chunked_cumsum(x, carry=carry.to(x.device))
-            if exclusive:
-                s = torch.cat([carry.to(x.device, s.dtype)[None], s[:-1]])
-            carry = carry + x.sum(dtype=torch.float32).to(devs[0])
-            out[r] = s.to(dtype)
+            if x is not None:
+                s = scan_pallas.chunked_cumsum(x, carry=carry.to(x.device))
+                if exclusive:
+                    s = torch.cat([carry.to(x.device, s.dtype)[None],
+                                   s[:-1]])
+                out[r] = s.to(dtype)
+            carry = carry + total
         return out
     combine = _combine_of(kind, op)
-    carry = None
+    local = [None] * cont.nshards
     for r in live:
-        x = xs[r]
-        local = (_local_scan(kind, x) if kind is not None
-                 else _prefix_scan(op, x))
-        total = local[-1]
-        s = local if carry is None else combine(carry.to(x.device), local)
-        if exclusive:
-            if carry is not None:
-                first = carry.to(x.device, s.dtype)[None]
-            elif kind is not None:
-                first = _fill(x, kind, s.dtype)
-            else:
-                # no identity: a zero that exclusive_scan's init replaces
-                first = torch.zeros((1,), dtype=s.dtype, device=x.device)
-            s = torch.cat([first, s[:-1]])
-        t = total.to(devs[0])
+        if xs[r] is not None:
+            local[r] = (_local_scan(kind, xs[r]) if kind is not None
+                        else _prefix_scan(op, xs[r]))
+    totals = collectives.gather_ranks(
+        [None if lc is None else lc[-1] for lc in local], home, live)
+    carry = None
+    for r, t in zip(live, totals):
+        x, lc = xs[r], local[r]
+        if x is not None:
+            s = lc if carry is None else combine(carry.to(x.device), lc)
+            if exclusive:
+                if carry is not None:
+                    first = carry.to(x.device, s.dtype)[None]
+                elif kind is not None:
+                    first = _fill(x, kind, s.dtype)
+                else:
+                    # no identity: a zero that exclusive_scan's init
+                    # replaces
+                    first = torch.zeros((1,), dtype=s.dtype,
+                                        device=x.device)
+                s = torch.cat([first, s[:-1]])
+            out[r] = s.to(dtype)
         carry = t if carry is None else combine(carry, t)
-        out[r] = s.to(dtype)
     return out
 
 
@@ -210,18 +245,22 @@ def _realign(c, out_chain, slices) -> None:
     oc = out_chain.cont
     _, _, _, _, _, _, vout, wout, _ = window_geometry(oc.layout,
                                                       out_chain.off, c.n)
-    for q, row in enumerate(oc._rows):
+    moves, dsts = [], []
+    for q in range(oc.nshards):
         lo_q, hi_q = int(vout[q]), int(vout[q] + wout[q])
-        if lo_q == hi_q:
-            continue
-        pieces = []
-        for r, s in enumerate(slices):
+        for r in range(len(slices)):
             lo, hi = max(lo_q, int(vin[r])), min(hi_q, int(vin[r] + win[r]))
             if lo < hi:
-                pieces.append(s[lo - int(vin[r]): hi - int(vin[r])]
-                              .to(row.device, non_blocking=True))
+                a, b = lo - int(vin[r]), hi - int(vin[r])
+                moves.append((r, q, lambda r=r, a=a, b=b: slices[r][a:b]))
+                dsts.append(q)
+    pieces = collectives.route(moves, oc.runtime.devices)
+    for q, row in enumerate(oc._rows):
+        if row is None or not wout[q]:
+            continue
         a, b = window_cols(oc.layout, out_chain.off, c.n, q)
-        row[0, a:b] = torch.cat(pieces).to(row.dtype)
+        row[0, a:b] = torch.cat([pc for pc, d in zip(pieces, dsts)
+                                 if d == q]).to(row.dtype)
 
 
 def _scan(in_r, out, op, init, exclusive):
@@ -378,6 +417,9 @@ def _scan_apply_init(out, init, op, set_first=True):
     col0 = prev + (off0 - int(starts[owner]))
     rows = []
     for r, row in enumerate(cont._rows):
+        if row is None:  # another process folds this rank
+            rows.append(None)
+            continue
         iv = torch.tensor(init, dtype=cont.dtype, device=row.device)
         if full:
             folded = combine(iv, row[0, prev:prev + S]).to(cont.dtype)

@@ -61,6 +61,7 @@ from ..parallel import collectives
 from .elementwise import _prog_cache, _traced_op_key
 from ..core.pinning import pinned_id
 from ..utils.spmd_guard import dtype_name
+from ..parallel import runtime as _rt
 
 __all__ = ["sort", "sort_by_key", "argsort", "is_sorted", "sort_n",
            "sort_by_key_n", "sort_phases_n", "sort_by_key_phases_n",
@@ -378,6 +379,7 @@ def sort(r, *, descending: bool = False):
     """Sort a ``distributed_vector`` or a subrange window over one in
     place, ascending by default.  Keys-only: the result is a bit-exact
     permutation of the input (-0.0 before +0.0, NaNs last)."""
+    _rt.require_single_process("sort", _rt.SORT)
     _plan_barrier("sort")
     chain = _out_chain(r)
     if chain.n:
@@ -393,6 +395,7 @@ def sort_by_key(keys, values, *, descending: bool = False):
     distributions and dtypes; two windows of one container may overlap,
     and then the payload's value wins.  A payload on another rank list
     is copied onto the keys' ranks, sorted there and copied back."""
+    _rt.require_single_process("sort_by_key", _rt.SORT)
     _plan_barrier("sort_by_key")
     kc, vc = _out_chain(keys), _out_chain(values)
     if kc.n != vc.n:
@@ -434,6 +437,7 @@ def _whole_pair(keys, values):
 def sort_n(v, iters: int):
     """``iters`` chained whole-container sorts (a timing aid: after the
     first round the data is sorted; the result is the sorted input)."""
+    _rt.require_single_process("sort_n", _rt.SORT)
     _plan_barrier("sort_n")
     chain = _whole(v)
     _n_tap("sort_n", chain, None, iters)
@@ -445,6 +449,7 @@ def sort_n(v, iters: int):
 
 def sort_by_key_n(keys, values, iters: int):
     """``iters`` chained key-value sorts of two whole containers."""
+    _rt.require_single_process("sort_by_key_n", _rt.SORT)
     _plan_barrier("sort_by_key_n")
     kc, vc = _whole_pair(keys, values)
     _n_tap("sortkv_n", kc, vc, iters)
@@ -459,6 +464,7 @@ def sort_phases_n(v, stop_after, iters: int):
     :data:`SORT_PHASES` (a profiling aid: the container then holds a
     phase-dependent mix of values, not a sorted range; use scratch
     data)."""
+    _rt.require_single_process("sort_phases_n", _rt.SORT)
     _plan_barrier("sort_phases_n")
     chain = _whole(v)
     _n_tap("sortph_n", chain, None, iters, stop_after)
@@ -472,6 +478,7 @@ def sort_by_key_phases_n(keys, values, stop_after, iters: int):
     """Key-value twin of :func:`sort_phases_n` over
     :data:`SORTKV_PHASES`; truncations before ``"payload"`` leave the
     payload container untouched."""
+    _rt.require_single_process("sort_by_key_phases_n", _rt.SORT)
     _plan_barrier("sort_by_key_phases_n")
     kc, vc = _whole_pair(keys, values)
     _n_tap("sortkvph_n", kc, vc, iters, stop_after)
@@ -486,6 +493,7 @@ def argsort(r, *, descending: bool = False):
     ``distributed_vector``: element i holds the original position of the
     i-th element of the sorted order.  ``r`` is read only (transform
     views are accepted: the copy applies them)."""
+    _rt.require_single_process("argsort", _rt.SORT)
     _plan_barrier("argsort")
     from ..containers.distributed_vector import distributed_vector
     res = _resolve(r)
@@ -507,6 +515,7 @@ def is_sorted(r) -> bool:
     views run in place: each rank checks its cells, and each nonempty
     rank's first key against the largest last key of the nonempty ranks
     before it.  One host read at the end."""
+    _rt.require_single_process("is_sorted", _rt.SORT)
     _plan_barrier("is_sorted")
     res = _resolve(r)
     if res is None:

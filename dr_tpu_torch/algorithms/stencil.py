@@ -15,6 +15,10 @@ The op is a weight vector ``w[-prev..+next]`` or a callable over the
 ``prev+next+1`` shifted neighbourhood tensors.  Preconditions are the
 JAX package's asserts, so both packages accept and refuse the same calls.
 
+In a multi-process runtime each process steps its own ranks' rows (K1
+/ K2 on its row); the ring exchanges between steps and passes cross the
+process boundary through ``collectives.ring_shift``.
+
 Inside ``dt.deferred()``, ``stencil_transform`` records one fused
 exchange + step (``Plan.record_stencil``, :func:`_step_rows` at the
 flush), and the iterated, blocked (K2) and matmul (K1) stencils record
@@ -59,12 +63,15 @@ def _step_rows(layout, devices, in_rows, out_rows, op, prev, nxt,
     were, as in the JAX program."""
     nshards, seg, hprev, hnxt, n = layout
     assert hprev >= prev and hnxt >= nxt, "halo narrower than stencil radius"
-    rows = [r.clone() for r in in_rows]
+    rows = [None if r is None else r.clone() for r in in_rows]
     if (hprev or hnxt) and (nshards > 1 or periodic):
         exchange_rows(rows, devices, layout, periodic)
     lo_g, hi_g = (0, n) if periodic else (prev, n - nxt)
     new = []
     for idx, (row, out) in enumerate(zip(rows, out_rows)):
+        if row is None:  # another process steps this rank
+            new.append(None)
+            continue
         shifted = [row[0, hprev + d: hprev + d + seg]
                    for d in range(-prev, nxt + 1)]
         vals = op(*shifted)
@@ -170,12 +177,18 @@ def stencil_iterate(a_dv, b_dv, op: Union[Callable, Sequence[float]],
 def _ring_exchange_full(rows, devices, seg: int, halo_w: int) -> None:
     """Periodic full-width ghost refresh for the blocked paths, in place:
     both edge slices of every owned block move one hop around the ring."""
-    sends = [r[:, seg: halo_w + seg].clone() for r in rows]
-    for r, g in zip(rows, collectives.ring_shift(sends, devices, +1, True)):
-        r[:, :halo_w] = g
-    sends = [r[:, halo_w: 2 * halo_w].clone() for r in rows]
-    for r, g in zip(rows, collectives.ring_shift(sends, devices, -1, True)):
-        r[:, r.shape[-1] - halo_w:] = g
+    # both slices are owned cells and every write a ghost cell, so the
+    # two shifts travel together
+    fwd, bwd = collectives.ring_shifts(
+        [([None if r is None else r[:, seg: halo_w + seg].clone()
+           for r in rows], +1),
+         ([None if r is None else r[:, halo_w: 2 * halo_w].clone()
+           for r in rows], -1)], devices, True,
+        like=((1, halo_w), collectives._present(rows).dtype))
+    for r, g, h in zip(rows, fwd, bwd):
+        if r is not None:
+            r[:, :halo_w] = g
+            r[:, r.shape[-1] - halo_w:] = h
 
 
 def _blocked_drive(cont, key, steps, block, apply):
@@ -192,7 +205,8 @@ def _blocked_drive(cont, key, steps, block, apply):
             spmd_guard.note_compile(key + (nst,))
     for nst in [block] * nfull + ([rest] if rest else []):
         _ring_exchange_full(cont._rows, cont.runtime.devices, seg, prev)
-        cont._rows = [apply(row, nst) for row in cont._rows]
+        cont._rows = [None if row is None else apply(row, nst)
+                      for row in cont._rows]
     return cont
 
 

@@ -37,6 +37,7 @@ from .elementwise import _prog_cache
 from ..core.pinning import pinned_id
 from ..utils import spmd_guard
 from ..utils.spmd_guard import dtype_name
+from ..parallel import runtime as _rt
 
 __all__ = ["stencil2d_transform", "stencil2d_iterate",
            "stencil2d_iterate_blocked", "stencil2d_n",
@@ -148,6 +149,7 @@ def stencil2d_transform(in_mat: dense_matrix, out_mat: dense_matrix,
 
     Edges (positions without a full neighbourhood) keep out_mat's values,
     matching the 1-D interior contract."""
+    _rt.require_single_process("stencil2d_transform", _rt.TWO_D)
     assert in_mat.shape == out_mat.shape and in_mat.layout == out_mat.layout
     _prog_cache.tap(("st2", pinned_id(in_mat.runtime), in_mat.layout,
                      _wkey(weights), dtype_name(in_mat.dtype)))
@@ -162,6 +164,7 @@ def stencil2d_iterate(a: dense_matrix, b: dense_matrix,
     """``steps`` stencil steps, double-buffered: each step writes the
     interior of the other buffer from this one.  Returns ``a`` holding
     the final state (``b`` holds the other buffer)."""
+    _rt.require_single_process("stencil2d_iterate", _rt.TWO_D)
     assert a.shape == b.shape and a.layout == b.layout
     _prog_cache.tap(("st2it", pinned_id(a.runtime), a.layout, _wkey(weights),
                      steps, dtype_name(a.dtype)))
@@ -195,6 +198,7 @@ def stencil2d_iterate_blocked(a: dense_matrix, weights, steps: int, *,
     ``stencil2d_iterate`` when both its buffers share edge values (the
     usual both-from-src setup).  Requires a single-tile matrix; multi-tile
     grids use ``stencil2d_iterate``."""
+    _rt.require_single_process("stencil2d_iterate_blocked", _rt.TWO_D)
     from ..ops import stencil2d_pallas
     m = _single_tile(a, weights)
     pad = time_block  # covers the remainder pass too (rest < time_block)
@@ -224,6 +228,7 @@ def stencil2d_n(a: dense_matrix, weights, iters: int, *,
     launch per block with no host sync in between, unpad.  Applies
     exactly ``iters * time_block`` steps with the frozen-edge contract of
     :func:`stencil2d_iterate_blocked`."""
+    _rt.require_single_process("stencil2d_n", _rt.TWO_D)
     from ..ops import stencil2d_pallas
     m = _single_tile(a, weights)
     pad = time_block

@@ -148,6 +148,7 @@ class dense_matrix:
     def __init__(self, shape: Tuple[int, int], dtype=None,
                  partition: Optional[matrix_partition] = None, *,
                  runtime=None):
+        _rt.require_single_process("dense_matrix", _rt.TWO_D)
         self._rt = runtime or _rt.runtime()
         m, n = shape
         self._m, self._n = int(m), int(n)

@@ -21,6 +21,13 @@ plan first when its queue touches the vector (``plan.flush_reads``).
 (``utils/sanitize.watch_containers``) sees every read and rebind; with
 no watcher armed it costs one module-global check.
 
+In a multi-process runtime (``collectives.init_distributed``) a process
+holds rows only for its own ranks (``runtime.local_ranks``): the other
+entries of ``_rows`` are None and nothing allocates them.  Writes touch
+the local rows only; ``to_array``, ``get``, ``materialize`` and
+iteration gather the other ranks' cells through the collectives, so
+every process reads the same values.
+
 Allocating the rows, :meth:`~distributed_vector.to_array` and
 :meth:`~distributed_vector.assign_array` look up ``_jit_cache`` (the
 dispatch tap of ``utils/spmd_guard``) with the JAX package's keys for
@@ -39,6 +46,7 @@ from ..core.pinning import pinned_id
 from ..core.segment import Segment
 from ..utils import sanitize as _sanitize
 from ..utils.spmd_guard import TappedCache, dtype_name
+from ..parallel import collectives
 from ..parallel import runtime as _rt
 from ..parallel.halo import halo_bounds, span_halo
 from .distribution import block_distribution
@@ -165,7 +173,8 @@ class distributed_vector:
                                 self.block_width, dtype_name(self._dtype)))
                 _rows = [torch.zeros((1, self.block_width),
                                      dtype=self._dtype, device=d)
-                         for d in runtime.devices]
+                         if runtime.is_local(r) else None
+                         for r, d in enumerate(runtime.devices)]
             self._rows = _rows
             self._halo = span_halo(self) if self._hb.width else None
         except BaseException:
@@ -232,7 +241,8 @@ class distributed_vector:
 
     @property
     def rows(self):
-        """The per-rank padded row tensors (ghosts included)."""
+        """The per-rank padded row tensors (ghosts included); None for a
+        rank another process owns."""
         return list(self._rows)
 
     def _rank_window(self, r: int):
@@ -277,20 +287,29 @@ class distributed_vector:
                             self._seg, self._hb.prev, self._hb.next,
                             self._n, dt))
 
-    def to_array(self) -> torch.Tensor:
-        """Current logical value as a 1-D tensor on rank 0's device."""
-        _plan_flush("to_array", self)
-        self._tap("extract")
+    def _owned_parts(self):
+        """Each rank's owned cells (None for a rank another process
+        owns), and the ranks that own any."""
         prev = self._hb.prev
-        dev = self._rt.devices[0]
-        parts = []
+        parts, live = [], []
         for r, row in enumerate(self._rows):
             b, e = self._rank_window(r)
             if b < e:
-                parts.append(row[0, prev:prev + e - b].to(dev))
-        if not parts:
+                live.append(r)
+            parts.append(None if row is None
+                         else row[0, prev:prev + e - b])
+        return parts, live
+
+    def to_array(self) -> torch.Tensor:
+        """Current logical value as a 1-D tensor on the runtime's home
+        device (rank 0's; a process's own in a multi-process runtime)."""
+        _plan_flush("to_array", self)
+        self._tap("extract")
+        dev = self._rt.home
+        parts, live = self._owned_parts()
+        if not live:
             return torch.zeros((0,), dtype=self._dtype, device=dev)
-        return torch.cat(parts)
+        return torch.cat(collectives.gather_ranks(parts, dev, live))
 
     def assign_array(self, values) -> None:
         """Rebind the whole logical value (ghost and pad cells reset to
@@ -302,6 +321,9 @@ class distributed_vector:
         prev = self._hb.prev
         rows = []
         for r, d in enumerate(self._rt.devices):
+            if not self._rt.is_local(r):
+                rows.append(None)
+                continue
             b, e = self._rank_window(r)
             row = torch.zeros((1, self.block_width), dtype=self._dtype,
                               device=d)
@@ -321,6 +343,9 @@ class distributed_vector:
 
     def _local_values(self, rank: int, begin: int, end: int):
         _plan_flush("local segment read", self)
+        if not self._rt.is_local(rank):
+            raise ValueError(f"rank {rank}'s segment lives in process "
+                             f"{self._rt.owners[rank]}, not this one")
         lo = self._rank_window(rank)[0]
         prev = self._hb.prev
         return self._rows[rank][0, prev + (begin - lo): prev + (end - lo)]
@@ -345,17 +370,23 @@ class distributed_vector:
         return idx.astype(np.int64)
 
     def get(self, indices) -> torch.Tensor:
-        """Batched read, gathered onto rank 0's device."""
+        """Batched read, gathered onto the home device (valid on every
+        process)."""
         _plan_flush("get", self)
         idx = self._check_indices(indices)
         r, c = self._locate(idx)
-        dev = self._rt.devices[0]
+        dev = self._rt.home
         out = torch.empty((len(idx),), dtype=self._dtype, device=dev)
-        for rr in np.unique(r):
-            sel = np.nonzero(r == rr)[0]
-            cols = torch.as_tensor(c[sel], device=self._rows[rr].device)
-            out[torch.as_tensor(sel, device=dev)] = \
-                self._rows[rr][0, cols].to(dev)
+        owners = [int(rr) for rr in np.unique(r)]
+        picks = [None] * self._nshards
+        for rr in owners:
+            row = self._rows[rr]
+            if row is not None:
+                picks[rr] = row[0, torch.as_tensor(c[r == rr],
+                                                   device=row.device)]
+        for rr, vals in zip(owners, collectives.gather_ranks(picks, dev,
+                                                             owners)):
+            out[torch.as_tensor(np.nonzero(r == rr)[0], device=dev)] = vals
         return out
 
     def put(self, indices, values) -> None:
@@ -369,6 +400,8 @@ class distributed_vector:
         for rr in np.unique(r):
             sel = np.nonzero(r == rr)[0]
             row = self._rows[rr]
+            if row is None:  # another process owns it and writes it
+                continue
             row[0, torch.as_tensor(c[sel], device=row.device)] = \
                 vals[torch.as_tensor(sel, device=vals.device)].to(
                     row.device, self._dtype)
@@ -405,8 +438,10 @@ class distributed_vector:
         return iter(self.materialize())
 
     def materialize(self) -> np.ndarray:
-        _plan_flush("materialize", self)
-        return _host_numpy(self.to_array())
+        """The logical value on the host, on every process
+        (``utils/host.to_host``)."""
+        from ..utils.host import to_host
+        return to_host(self)
 
     def block_until_ready(self) -> "distributed_vector":
         _plan_flush("block_until_ready")
@@ -442,6 +477,7 @@ def from_reference_state(layout, hb: halo_bounds, rows: np.ndarray, *,
     assert rows.shape == (nshards, dv.block_width), rows.shape
     t = _as_tensor(rows)
     dv._rows = [t[r:r + 1].to(d, dv.dtype).clone()
+                if dv.runtime.is_local(r) else None
                 for r, d in enumerate(dv.runtime.devices)]
     return dv
 

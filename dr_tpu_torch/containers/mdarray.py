@@ -88,6 +88,7 @@ class distributed_mdarray:
 
     def __init__(self, shape: Sequence[int], dtype=None, *,
                  grid: Optional[Tuple[int, ...]] = None, runtime=None):
+        _rt.require_single_process("distributed_mdarray", _rt.TWO_D)
         self._rt = runtime or _rt.runtime()
         self._shape = tuple(int(s) for s in shape)
         assert len(self._shape) >= 1
@@ -303,6 +304,7 @@ def transpose(out: distributed_mdarray, inp: distributed_mdarray,
     Each destination block is rebuilt from the source blocks its box
     overlaps: every overlapping piece is permuted and copied to the
     destination rank's device.  Nothing is gathered onto one rank."""
+    _rt.require_single_process("transpose", _rt.TWO_D)
     nd = len(inp.shape)
     if axes is None:
         axes = tuple(range(nd - 1, -1, -1))

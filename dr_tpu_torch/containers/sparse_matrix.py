@@ -140,6 +140,7 @@ class sparse_matrix:
 
     def __init__(self, shape: Tuple[int, int], dtype=None, *,
                  partition=None, runtime=None):
+        _rt.require_single_process("sparse_matrix", _rt.SPARSE)
         self._rt = runtime or _rt.runtime()
         self._m, self._n = int(shape[0]), int(shape[1])
         self._dtype = torch_dtype(dtype)

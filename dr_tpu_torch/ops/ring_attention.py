@@ -206,6 +206,7 @@ def ring_attention(q, k, v, *, causal: bool = False, runtime=None,
     output on the runtime's first device.  ``q_chunk`` bounds the
     per-round logits to (batch, heads, q_chunk, block) on the blockwise
     route (and selects it); ``schedule`` is the ring's issue order."""
+    _rt.require_single_process("ring_attention", _rt.RING)
     rt = runtime or _rt.runtime()
     q, k, v = (_as_tensor(x) for x in (q, k, v))
     B, S, h, d = q.shape
@@ -236,6 +237,7 @@ def ring_attention_n(q, k, v, iters: int, *, causal: bool = False,
     """``iters`` chained ring-attention steps (v := attn(q, k, v) each
     round, the output staying split over the ranks) — the measurement
     analog of ``span_halo.exchange_n``.  Returns the final output."""
+    _rt.require_single_process("ring_attention_n", _rt.RING)
     rt = runtime or _rt.runtime()
     q, k, v = (_as_tensor(x) for x in (q, k, v))
     B, S, h, d = q.shape
@@ -263,6 +265,7 @@ def ring_self_attention(x, wq, wk, wv, *, causal: bool = False,
     """Convenience: project + ring-attend.  x: ``(B, S, h*d)``; the
     projections ``(e, h, d)`` run as one einsum each on the runtime's
     first device."""
+    _rt.require_single_process("ring_self_attention", _rt.RING)
     rt = runtime or _rt.runtime()
     x = _as_tensor(x).to(rt.devices[0])
 

@@ -12,7 +12,10 @@ Counterpart of ``dr_tpu/parallel/halo.py`` (reference
 with ring wraparound iff ``periodic``; non-periodic edge ghosts keep
 their old values.  Edge slices move between ranks with
 ``collectives.ring_shift``; every copy is a plain slice assignment, so
-the results are bit-identical to the JAX package's.
+the results are bit-identical to the JAX package's.  In a multi-process
+runtime a process sends and writes only its own ranks' rows (the None
+entries are another process's), and the ring shift carries the edge
+slices across the process boundary.
 
 ``span_halo``'s exchange and reduce fire the ``halo.exchange`` /
 ``halo.reduce`` fault sites and then look up ``_program_cache`` (the
@@ -80,6 +83,25 @@ def _valid(nshards, seg, n, r) -> int:
     return n - (nshards - 1) * seg if r == nshards - 1 else seg
 
 
+def _shift_both(rows, devices, ring, a, b):
+    """The ring shifts of the ``a`` and ``b`` edge slices (each
+    ``(slice_of_rank, step, width)``, or falsy to skip) in one exchange
+    across processes; returns each one's receives (None where skipped).
+    Every rank's slice is ``(1, width)`` of the rows' dtype, so no
+    header travels."""
+    specs = [x for x in (a, b) if x]
+    if not specs:
+        return None, None
+    dtype = collectives._present(rows).dtype
+    widths = {w for _, _, w in specs}
+    got = collectives.ring_shifts(
+        [([None if rows[r] is None else fn(r) for r in range(len(rows))],
+          step) for fn, step, _ in specs], devices, ring,
+        like=((1, widths.pop()), dtype) if len(widths) == 1 else None)
+    got = iter(got)
+    return (next(got) if a else None), (next(got) if b else None)
+
+
 def exchange_rows(rows, devices, layout, periodic):
     """One ghost exchange over the rank rows, in place.  ``layout`` is
     the uniform container layout (nshards, seg, prev, nxt, n)."""
@@ -88,18 +110,18 @@ def exchange_rows(rows, devices, layout, periodic):
     ring = periodic or nshards == 1
     use = periodic or not ring
     valid = [_valid(nshards, seg, n, r) for r in range(nshards)]
-    if prev:
-        # last `prev` valid owned cells -> next rank's ghost_prev
-        sends = [rows[r][:, prev + valid[r] - prev: prev + valid[r]]
-                 for r in range(nshards)]
-        got_p = collectives.ring_shift(sends, devices, +1, ring)
-    if nxt:
-        # first `nxt` owned cells -> prev rank's ghost_next
-        sends = [rows[r][:, prev: prev + nxt] for r in range(nshards)]
-        got_n = collectives.ring_shift(sends, devices, -1, ring)
+    # last `prev` valid owned cells -> next rank's ghost_prev; first
+    # `nxt` owned cells -> prev rank's ghost_next
+    got_p, got_n = _shift_both(
+        rows, devices, ring,
+        prev and (lambda r: rows[r][:, prev + valid[r] - prev:
+                                    prev + valid[r]], +1, prev),
+        nxt and (lambda r: rows[r][:, prev: prev + nxt], -1, nxt))
     # the sends are owned cells and the writes ghost cells, so views
     # taken above stay valid while the ghosts are written
     for r in range(nshards):
+        if rows[r] is None:
+            continue
         if prev and use and got_p[r] is not None:
             rows[r][:, :prev] = got_p[r]
         if nxt and use and got_n[r] is not None:
@@ -112,16 +134,16 @@ def reduce_rows(rows, devices, layout, periodic, op):
     ring = periodic or nshards == 1
     use = periodic or not ring
     valid = [_valid(nshards, seg, n, r) for r in range(nshards)]
-    if prev:
-        # my ghost_prev mirrors rank r-1's last `prev` valid cells
-        sends = [rows[r][:, :prev].clone() for r in range(nshards)]
-        got_p = collectives.ring_shift(sends, devices, -1, ring)
-    if nxt:
-        # my ghost_next mirrors rank r+1's first `nxt` owned cells
-        sends = [rows[r][:, prev + valid[r]: prev + valid[r] + nxt].clone()
-                 for r in range(nshards)]
-        got_n = collectives.ring_shift(sends, devices, +1, ring)
+    # my ghost_prev mirrors rank r-1's last `prev` valid cells, my
+    # ghost_next rank r+1's first `nxt` owned cells
+    got_p, got_n = _shift_both(
+        rows, devices, ring,
+        prev and (lambda r: rows[r][:, :prev].clone(), -1, prev),
+        nxt and (lambda r: rows[r][:, prev + valid[r]:
+                                   prev + valid[r] + nxt].clone(), +1, nxt))
     for r in range(nshards):
+        if rows[r] is None:
+            continue
         if prev and use and got_p[r] is not None:
             s = prev + valid[r] - prev
             owned = rows[r][:, s: s + prev]

@@ -27,6 +27,18 @@ every CUDA device of the list once under ``with_deadline``
 (:data:`INIT_DEADLINE_S`): a failed or hung first touch raises
 classified under the site ``runtime.init``, and nothing switches to the
 CPU instead.
+
+Two execution modes.  Single controller (``init()``): one process drives
+every rank.  Multi-process (``collectives.init_distributed``, the
+counterpart of the JAX package's ``jax.distributed`` runtime): every
+process runs the same program and owns the ranks whose ``owners`` entry
+is its ``process_index`` (one rank a process).  ``devices[r]`` is then
+the device this process holds rank r's values on: its own device for a
+rank it owns, and the device a value received from a rank it does not
+own lands on.  A container holds rows only for :attr:`Runtime.local_ranks`,
+and the collectives move values across the process boundary through
+``torch.distributed``.  :func:`require_single_process` is the entry
+check of every path that has no multi-process form yet.
 """
 
 from __future__ import annotations
@@ -41,7 +53,8 @@ from ..utils import resilience as _res
 
 __all__ = ["Runtime", "init", "final", "finalize", "runtime",
            "is_initialized", "nprocs", "devices", "barrier", "fence",
-           "get_duplicated_devices", "probe_recovered"]
+           "get_duplicated_devices", "probe_recovered",
+           "mp_runtime", "require_single_process"]
 
 
 def _as_device(d) -> torch.device:
@@ -56,11 +69,38 @@ class Runtime:
     and ``dropped`` are the elastic layer's rank-slot bookkeeping (see
     the module docstring)."""
 
-    def __init__(self, devices: Sequence[torch.device]):
+    def __init__(self, devices: Sequence[torch.device], *,
+                 process_index: int = 0, process_count: int = 1,
+                 owners: Optional[Sequence[int]] = None):
         self.devices = [_as_device(d) for d in devices]
         self.slots = list(range(len(self.devices)))
         self.dropped: list = []
         self._live = weakref.WeakSet()
+        #: the process that owns each rank (all 0 for one controller)
+        self.owners = list(owners) if owners is not None \
+            else [0] * len(self.devices)
+        if len(self.owners) != len(self.devices):
+            raise ValueError("one owner a rank")
+        self.process_index = process_index
+        self.process_count = process_count
+        #: the ranks this process holds rows for, in rank order
+        self.local_ranks = [r for r, o in enumerate(self.owners)
+                            if o == process_index]
+
+    @property
+    def multi_process(self) -> bool:
+        return self.process_count > 1
+
+    def is_local(self, r: int) -> bool:
+        return self.owners[r] == self.process_index
+
+    @property
+    def home(self) -> torch.device:
+        """Where a value every rank contributes to (a reduction, a
+        gathered array) lands in this process: rank 0's device for one
+        controller, the first local rank's device for a process of a
+        multi-process runtime."""
+        return self.devices[self.local_ranks[0]]
 
     def register(self, container) -> None:
         """Track ``container`` (weakly) as living on this runtime."""
@@ -86,12 +126,54 @@ class Runtime:
                 torch.cuda.synchronize(d)
 
     def barrier(self) -> None:
-        # one process drives every rank: program order plus a fence is
-        # the rendezvous
+        """A fence; in a multi-process runtime also a rendezvous of the
+        processes (``torch.distributed.barrier``), so host effects (a
+        checkpoint write, a log line) are ordered across them.  With one
+        controller, program order plus the fence is the rendezvous."""
         self.fence()
+        if self.multi_process:
+            import torch.distributed as dist
+            dist.barrier()
 
     def __repr__(self):
+        if self.multi_process:
+            return (f"Runtime(nprocs={self.nprocs}, process "
+                    f"{self.process_index} of {self.process_count}, "
+                    f"local_ranks={self.local_ranks}, "
+                    f"devices={self.devices})")
         return f"Runtime(nprocs={self.nprocs}, devices={self.devices})"
+
+
+#: the multi-process slices still to come, in order (ROADMAP.md): the
+#: ``slice_`` a :func:`require_single_process` call names
+SORT = "the sort and its family (K6/K7)"
+SPARSE = "the sparse gemv / spmm"
+TWO_D = "dense_matrix, mdarray, transpose and stencil2d (K5)"
+RING = "ring attention (K9)"
+RELAYOUT = "redistribute and the unstructured halo"
+RELATIONAL = "the relational ops"
+HOST_LAYERS = "deferred plans, elastic, tuning and serve"
+
+
+def mp_runtime() -> Optional[Runtime]:
+    """The initialised runtime when it spans several processes, else
+    None."""
+    rt = _runtime
+    return rt if rt is not None and rt.multi_process else None
+
+
+def require_single_process(what: str, slice_: str) -> None:
+    """The entry check of a path that has no multi-process form yet: in
+    a multi-process runtime it raises a classified ``ProgramError``
+    naming the slice that brings it, before any row is read, so the path
+    never runs on a partial set of rows."""
+    rt = mp_runtime()
+    if rt is not None:
+        raise _res.ProgramError(
+            f"{what} does not run in a multi-process runtime yet "
+            f"(process {rt.process_index} of {rt.process_count}); it "
+            f"comes with the multi-process slice of {slice_}",
+            site="runtime.multi_process")
 
 
 _runtime: Optional[Runtime] = None
@@ -164,6 +246,22 @@ def init(devices: Optional[Sequence] = None, *,
     return _runtime
 
 
+def _init_processes(device: torch.device, process_index: int,
+                    process_count: int) -> Runtime:
+    """The multi-process runtime of ``collectives.init_distributed``:
+    ``process_count`` ranks, rank r owned by process r, every rank's
+    values held on ``device`` in this process."""
+    global _runtime
+    _faults.fire("runtime.init")
+    dev = _as_device(device)
+    _first_touch([dev])
+    _runtime = Runtime([dev] * process_count,
+                       process_index=process_index,
+                       process_count=process_count,
+                       owners=range(process_count))
+    return _runtime
+
+
 def probe_recovered(timeout_s: float = 30.0):
     """The devices of the rank slots a shrink dropped that answer now:
     the grow-back candidates (``utils/elastic.grow_session``), in slot
@@ -207,10 +305,17 @@ def is_initialized() -> bool:
 
 
 def final() -> None:
+    """Drop the runtime; a multi-process runtime also leaves its process
+    group (``torch.distributed.destroy_process_group``)."""
     global _runtime
-    if _runtime is not None:
-        _runtime.fence()
+    rt = _runtime
+    if rt is not None:
+        rt.fence()
     _runtime = None
+    if rt is not None and rt.multi_process:
+        import torch.distributed as dist
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 finalize = final

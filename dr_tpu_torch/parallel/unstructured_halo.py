@@ -30,6 +30,7 @@ from typing import Dict, Sequence
 
 import numpy as np
 import torch
+from . import runtime as _rt
 
 __all__ = ["unstructured_halo"]
 
@@ -74,6 +75,7 @@ class unstructured_halo:
     """
 
     def __init__(self, dv, ghost_indices: Dict[int, Sequence[int]]):
+        _rt.require_single_process("unstructured_halo", _rt.RELAYOUT)
         self._dv = dv
         devs = dv.runtime.devices
         by_rank = {int(r): np.asarray(ix, np.int64)

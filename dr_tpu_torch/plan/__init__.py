@@ -104,6 +104,7 @@ from .. import obs as _obs
 from ..algorithms import elementwise as _ew
 from ..core.pinning import pinned_id
 from ..ops import kernels as _kernels
+from ..parallel import runtime as _rt
 from ..utils import faults as _faults
 from ..utils import resilience as _resilience
 from ..utils import sanitize as _sanitize
@@ -178,7 +179,8 @@ class PlanScalar:
 
     def with_post(self, post) -> "PlanScalar":
         """Attach the host-side fold :meth:`item` applies
-        (``reduce(r, init=...)``)."""
+        (``reduce(r, init=...)``): ``post`` takes the raw device scalar
+        and returns the host value."""
         self._post = post
         return self
 
@@ -201,8 +203,8 @@ class PlanScalar:
         return self._val
 
     def item(self):
-        v = self._raw().item()
-        return self._post(v) if self._post is not None else v
+        v = self._raw()
+        return self._post(v) if self._post is not None else v.item()
 
     def __float__(self):
         return float(self.item())
@@ -1125,7 +1127,10 @@ class Plan:
 def deferred():
     """Deferred-execution region: aligned algorithm calls record into a
     :class:`Plan` and run at region exit or at a flush point.  Nesting
-    re-enters the active plan (per thread).  Yields the plan."""
+    re-enters the active plan (per thread).  Yields the plan.  Plans
+    have no multi-process form yet: a multi-process runtime refuses the
+    region at its entry."""
+    _rt.require_single_process("deferred", _rt.HOST_LAYERS)
     p = _get_active()
     if p is not None:
         yield p

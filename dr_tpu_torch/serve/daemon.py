@@ -105,6 +105,7 @@ from . import journal as _journal
 from . import protocol
 from .queue import AdmissionQueue, Request
 from .resident import ResidentCache, ResidentStub
+from ..parallel import runtime as _rt_mod
 
 #: always-live per-request latency split (the obs metrics registry):
 #: queue-wait (submit -> dispatch pop), service (dispatch pop -> reply
@@ -651,6 +652,7 @@ class Server:
         # before the claim closes the window where a second daemon sees
         # no socket and races the claim; daemon_alive treats
         # bound-but-claiming as alive, so the newcomer still refuses
+        _rt_mod.require_single_process("Server.start", _rt_mod.HOST_LAYERS)
         self._refuse_or_takeover()
         # the shared-memory arena is pure host state: created before the
         # claim, destroyed at stop.  A host without usable shared memory

@@ -64,6 +64,7 @@ from ..utils import resilience
 from ..utils.env import env_float, env_int
 from ..utils.logging import drlog
 from .client import Client, shared_retry_budget
+from ..parallel import runtime as _rt_mod
 
 __all__ = ["HashRing", "Router", "RouterClient", "CircuitBreaker"]
 
@@ -249,6 +250,7 @@ class Router:
         self.restarts = 0
 
     def start(self) -> "Router":
+        _rt_mod.require_single_process("Router.start", _rt_mod.HOST_LAYERS)
         from .daemon import Server
         if not self.spawn:
             self._check_runtime()

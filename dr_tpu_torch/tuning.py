@@ -46,6 +46,7 @@ import time
 import warnings
 from typing import Optional
 
+from .parallel import runtime as _rt_mod
 from .utils.env import env_str
 
 __all__ = ["lookup", "record", "note", "context", "context_key",
@@ -168,6 +169,7 @@ def lookup(domain: str, param: str, default=None,
     """The measured value of ``domain.param`` under the current (or
     given) context, or ``default``: the session overlay first, then the
     persisted store."""
+    _rt_mod.require_single_process("tuning.lookup", _rt_mod.HOST_LAYERS)
     key = context_key(domain, param, ctx)
     if key in _session:
         return _session[key]
@@ -180,6 +182,7 @@ def lookup(domain: str, param: str, default=None,
 def note(domain: str, param: str, value, ctx: Optional[dict] = None) -> str:
     """Record an in-process observation (session overlay only).
     Returns the key."""
+    _rt_mod.require_single_process("tuning.note", _rt_mod.HOST_LAYERS)
     key = context_key(domain, param, ctx)
     _session[key] = value
     return key
@@ -191,6 +194,7 @@ def record(domain: str, param: str, value, ctx: Optional[dict] = None,
     wins per key, the context baked into the key.  With no store armed
     the value still lands in the session overlay.  Returns the key
     written (None: overlay only)."""
+    _rt_mod.require_single_process("tuning.record", _rt_mod.HOST_LAYERS)
     global _cache
     c = context() if ctx is None else ctx
     key = context_key(domain, param, c)

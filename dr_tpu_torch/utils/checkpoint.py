@@ -24,10 +24,15 @@ in the other.
   kill leaves a non-atomic writer in), ``checkpoint.read`` at the start
   of :func:`read` / :func:`load`.
 
-One process drives every rank, so ``save`` writes from it alone.  A
-successful ``save`` registers the file as the container's restore
-source with the elastic layer (``elastic.note_checkpoint``): a shrink
-restores from it the segments that died with a rank.
+With one controller, ``save`` writes from the one process.  In a
+multi-process runtime ``save`` is collective: every process gathers the
+value (``utils/host``), process 0 writes, and one gather of a write
+flag makes a failed write raise on every process; when ``save``
+returns, the file is there for a ``load`` on any process, which
+re-shards it onto that process's ranks.  A successful ``save``
+registers the file as the container's restore source with the elastic
+layer (``elastic.note_checkpoint``): a shrink restores from it the
+segments that died with a rank.
 """
 
 from __future__ import annotations
@@ -170,10 +175,34 @@ def snapshot(container):
 
 def save(path: str, container) -> None:
     """Write ``container`` to ``path`` (``.npz`` appended if missing),
-    atomically."""
+    atomically; collective in a multi-process runtime (see the module
+    docstring)."""
     meta, arrays = snapshot(container)
     final = _final_path(path)
-    _write_atomic(final, meta, arrays)
+    from ..parallel import runtime as _rt
+    rt = _rt.mp_runtime()
+    if rt is None:
+        _write_atomic(final, meta, arrays)
+    else:
+        err = None
+        if rt.process_index == 0:
+            try:
+                _write_atomic(final, meta, arrays)
+            except Exception as e:  # must still reach the gather below
+                err = e
+        # one gather does double duty: save() returns once the file is
+        # in place for every process, and process 0's failure raises on
+        # every process instead of leaving them in a later collective
+        from ..parallel import collectives
+        ok = torch.tensor([err is None])
+        flags = collectives.gather_ranks(
+            [ok if rt.is_local(r) else None for r in range(rt.nprocs)],
+            torch.device("cpu"))
+        if err is None and not bool(flags[rt.owners.index(0)]):
+            raise RuntimeError(
+                "checkpoint save failed on process 0; see its log")
+        if err is not None:
+            raise err
     from . import elastic
     elastic.note_checkpoint(container, final)
 

@@ -88,6 +88,7 @@ from ..core import pinning as _pinning
 from . import faults as _faults
 from . import resilience as _resilience
 from .env import env_flag, env_float, env_int
+from ..parallel import runtime as _rt_mod
 
 __all__ = ["enabled", "redistribute", "rescue_session", "try_rescue",
            "attribute", "ShrinkReport", "note_checkpoint",
@@ -270,6 +271,7 @@ def redistribute(container, new_dist=None, *, runtime=None):
     with their default partition on the target runtime, through a
     checkpoint snapshot and rebuild.  In place on purpose: every
     reference to the container (views, halos) stays valid."""
+    _rt_mod.require_single_process("redistribute", _rt_mod.HOST_LAYERS)
     from ..containers.distributed_vector import distributed_vector
     from ..parallel import runtime as _rt
 
@@ -494,6 +496,7 @@ def rescue_session(err=None, *, lost_ranks: Optional[Sequence[int]] = None,
     ``DR_GPU_ELASTIC_MIN_DEVICES`` floor, a loss during a rescue, a fault
     at ``mesh.shrink``); on success the global runtime is the shrunken
     one and the report says what happened to every container."""
+    _rt_mod.require_single_process("rescue_session", _rt_mod.HOST_LAYERS)
     global _shrinks, _rescued, _restored, _lost, _wall_s, _rescuing
     global _last_report
     from .. import obs as _obs
@@ -685,6 +688,7 @@ def grow_session(devices=None, *, reason: str = "",
     runtime, value intact; a container a shrink poisoned stays poisoned.
     On success the global runtime is the grown one and the
     ``_DR_GPU_ELASTIC_GROW_*`` markers are published."""
+    _rt_mod.require_single_process("grow_session", _rt_mod.HOST_LAYERS)
     global _grows, _moved, _kept, _grow_wall_s, _rescuing, _last_grow
     from .. import obs as _obs
     from ..parallel import runtime as _rt
@@ -858,6 +862,7 @@ def maybe_grow() -> Optional[GrowReport]:
     """The between-flushes poll: with ``DR_GPU_ELASTIC_GROW=1`` and a
     shrunken session, poll the supervisor and grow back when a dropped
     slot answers.  One environment check when disarmed; never raises."""
+    _rt_mod.require_single_process("maybe_grow", _rt_mod.HOST_LAYERS)
     global _grow_sup, _grow_sup_epoch
     if not grow_enabled() or _rescuing or _shrinks == 0:
         return None

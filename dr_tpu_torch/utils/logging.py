@@ -3,7 +3,9 @@
 ``include/dr/details/logger.hpp:7-49``).
 
 One global logger with a file sink (the reference writes ``dr.{rank}.log``
-per MPI rank; one process drives every rank here, so it writes one file),
+per MPI rank: with one controller the process writes one file, and in a
+multi-process runtime ``set_file`` puts the process index before the
+extension, so each process writes its own),
 ``debug(fmt, ...)`` with a call-site prefix, and a disabled mode that
 costs one flag test.  Set ``DR_GPU_LOG`` to a non-empty value to log to
 standard error, or call ``set_file(path)``.  While tracing is armed
@@ -29,7 +31,13 @@ class Logger:
         self._enabled = bool(env_str("DR_GPU_LOG"))
 
     def set_file(self, path: str) -> None:
-        """Append to ``path`` from now on (README.rst:101-107)."""
+        """Append to ``path`` from now on (README.rst:101-107); in a
+        multi-process runtime to ``<root>.<process index><ext>``."""
+        from ..parallel import runtime as _rt
+        rt = _rt.mp_runtime()
+        if rt is not None:
+            root, ext = os.path.splitext(path)
+            path = f"{root}.{rt.process_index}{ext}"
         self.close()
         self._sink = open(path, "a")
         self._enabled = True

@@ -466,6 +466,12 @@ def aligned(*ranges) -> bool:
 
 
 def local_segments(r):
-    """Device-local values of each segment (mhp/views.hpp:9-21)."""
-    return [local(s) for s in segments(r)]
+    """Device-local values of each segment (mhp/views.hpp:9-21); in a
+    multi-process runtime, of each segment this process owns."""
+    from ..parallel import runtime as _rt
+    rt = _rt.mp_runtime()
+    segs = segments(r)
+    if rt is not None:
+        segs = [s for s in segs if rt.is_local(rank(s))]
+    return [local(s) for s in segs]
 

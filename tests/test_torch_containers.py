@@ -228,3 +228,110 @@ def test_elementwise_match_reference(mesh_size):
     host = np.zeros(n, np.float32)
     dt.copy(to, host)
     np.testing.assert_array_equal(host, dr_tpu.to_numpy(jo))
+
+
+# ------------------------------------------ float-to-integer writes, fill
+
+SAT = np.array([-1.5, -0.2, 255.5, 256.0, 1e10, np.nan, -1e10, 3.7, -3.7],
+               np.float32)
+
+
+@pytest.mark.parametrize("P", [1, 4])
+@pytest.mark.parametrize("into", ["uint8", "int8", "int32"])
+@pytest.mark.parametrize("src", ["float32", "float16"])
+def test_float_to_integer_writes_saturate_as_reference(P, into, src):
+    """A float copied or transformed into an integer container converts
+    as XLA's convert does (NaN to 0, clamped to the range), not by
+    wrapping: bit for bit with dr_tpu."""
+    _init_both(P)
+    with np.errstate(over="ignore"):  # 1e10 is inf in float16
+        vals = SAT.astype(src)
+    ja = dr_tpu.distributed_vector.from_array(vals)
+    ta = dt.distributed_vector.from_array(vals)
+    jb = dr_tpu.distributed_vector(len(vals), dtype=into)
+    tb = dt.distributed_vector(len(vals), dtype=into)
+    dr_tpu.copy(ja, jb)
+    dt.copy(ta, tb)
+    want = dr_tpu.to_numpy(jb)
+    assert np.array_equal(dt.to_numpy(tb), want), (dt.to_numpy(tb), want)
+    dr_tpu.transform(ja, jb, lambda x: x * 2)
+    dt.transform(ta, tb, lambda x: x * 2)
+    assert np.array_equal(dt.to_numpy(tb), dr_tpu.to_numpy(jb))
+    # the unaligned route: a shifted window goes through the gather
+    dr_tpu.copy(ja[1:len(vals)], jb[0:len(vals) - 1])
+    dt.copy(ta[1:len(vals)], tb[0:len(vals) - 1])
+    assert np.array_equal(dt.to_numpy(tb), dr_tpu.to_numpy(jb))
+
+
+def test_float_to_integer_write_table():
+    """ROADMAP's cases: [-1.5, -0.2, 255.5, 256.0, 1e10, nan]."""
+    dt.init(["cpu"] * 2)
+    vals = SAT[:6]
+    for into, want in (("uint8", [0, 0, 255, 255, 255, 0]),
+                       ("int8", [-1, 0, 127, 127, 127, 0]),
+                       ("int32", [-1, 0, 255, 256, 2147483647, 0])):
+        b = dt.distributed_vector(6, dtype=into)
+        dt.copy(dt.distributed_vector.from_array(vals), b)
+        assert dt.to_numpy(b).tolist() == want, into
+
+
+@pytest.mark.parametrize("P", [1, 3])
+@pytest.mark.parametrize("into,start", [("uint8", 1000.0), ("uint8", -3.0),
+                                        ("int8", 1000.0), ("int8", -200.5),
+                                        ("int32", 3e9), ("uint8", 7)])
+def test_iota_into_integer_rows_saturates(P, into, start):
+    _init_both(P)
+    jv = dr_tpu.distributed_vector(6, dtype=into)
+    tv = dt.distributed_vector(6, dtype=into)
+    dr_tpu.iota(jv, start)
+    dt.iota(tv, start)
+    assert np.array_equal(dt.to_numpy(tv), dr_tpu.to_numpy(jv)), \
+        (dt.to_numpy(tv), dr_tpu.to_numpy(jv))
+
+
+def test_iota_saturation_values():
+    dt.init(["cpu"] * 2)
+    v = dt.distributed_vector(6, dtype="uint8")
+    dt.iota(v, -3.0)
+    assert dt.to_numpy(v).tolist() == [0, 0, 0, 0, 1, 2]
+    dt.iota(v, 1000.0)
+    assert dt.to_numpy(v).tolist() == [255] * 6
+
+
+FILL_CASES = [(d, v) for d in ("uint8", "int8", "int32")
+              for v in (-0.5, -1.5, 300.0, 255.5, 1e10, float("nan"),
+                        float("inf"), -2, 300, 2 ** 31, 7, 7.9)]
+
+
+@pytest.mark.parametrize("dtype,value", FILL_CASES)
+def test_fill_refusals_and_values_match_reference(dtype, value):
+    """A Python scalar ``fill`` into an integer container: refused where
+    dr_tpu refuses (with its exception type, even on an empty window),
+    else the same bits."""
+    _init_both(4)
+    jv = dr_tpu.distributed_vector(9, dtype=dtype)
+    tv = dt.distributed_vector(9, dtype=dtype)
+    for jr, tr in ((jv, tv), (jv[2:2], tv[2:2])):
+        try:
+            dr_tpu.fill(jr, value)
+        except Exception as e:
+            with pytest.raises(type(e)):
+                dt.fill(tr, value)
+            continue
+        dt.fill(tr, value)
+    assert np.array_equal(dt.to_numpy(tv), dr_tpu.to_numpy(jv))
+
+
+def test_fill_fault_cases():
+    dt.init(["cpu"] * 2)
+    v = dt.distributed_vector(4, dtype="uint8")
+    with pytest.raises(OverflowError):
+        dt.fill(v, -2)
+    with pytest.raises(OverflowError):
+        dt.fill(v[1:1], -2)
+    dt.fill(v, -0.5)
+    assert dt.to_numpy(v).tolist() == [0, 0, 0, 0]
+    from dr_tpu_torch.utils import resilience
+    with pytest.raises(ValueError) as e:
+        dt.fill(v, float("nan"))
+    assert resilience.classify(e.value) is resilience.ProgramError

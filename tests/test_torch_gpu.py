@@ -1747,3 +1747,44 @@ def test_bridge_demo_on_the_card_launches_k3_k4_k6_k7(cuda):
     counts = json.loads(line[0][len("launches "):])
     for k in ("chunked_dot", "chunked_cumsum", "bitonic_sort", "segred"):
         assert counts[k] > 0, (k, counts)
+
+
+def test_float_to_integer_writes_same_bits_on_cpu_and_cuda_ranks(cuda):
+    """A float written into an integer container converts as XLA's
+    convert does on both kinds of rank: the CPU's and the card's
+    conversions give the same bits (copy, transform and iota)."""
+    import dr_tpu_torch as dt
+    vals = np.array([-1.5, -0.2, 255.5, 256.0, 1e10, np.nan, -1e10, 3.7,
+                     -3.7, 2.0 ** 31, -(2.0 ** 31) - 512], np.float32)
+    try:
+        for into in ("uint8", "int8", "int32", "int16"):
+            got = {}
+            for dev in ("cpu", "cuda:0"):
+                dt.init([dev] * 2)
+                src = dt.distributed_vector.from_array(vals)
+                b = dt.distributed_vector(len(vals), dtype=into)
+                dt.copy(src, b)
+                c = dt.distributed_vector(len(vals), dtype=into)
+                dt.transform(src, c, lambda x: x * 3)
+                d = dt.distributed_vector(len(vals), dtype=into)
+                dt.iota(d, -1e4 + 0.5)
+                got[dev] = [dt.to_numpy(v) for v in (b, c, d)]
+            for cpu, card in zip(got["cpu"], got["cuda:0"]):
+                assert np.array_equal(cpu, card), (into, cpu, card)
+    finally:
+        dt.final()
+
+
+def test_two_processes_on_one_card_over_gloo(cuda, tmp_path):
+    """Two processes, each owning one rank on cuda:0 (gloo between
+    them), run the multi-process main path at a small size: every
+    result of each has the bits of one controller on two ranks of the
+    card, and every path outside the slice refuses."""
+    import test_torch_multiprocess as mp
+    got = mp._spawn(2, str(tmp_path / "res"), device="cuda:0",
+                    deadline_s=300.0)
+    single = mp._single_controller(2, str(tmp_path), device="cuda:0")
+    for pid, res in enumerate(got):
+        for key, want in single.items():
+            assert mp._same_bits(res[key], want), (pid, key, res[key], want)
+        assert len(res["refused"]) == 10, res["refused"]

@@ -31,9 +31,20 @@ def _forbidden(module: str) -> bool:
     return top in ("jax", "jaxlib", "dr_tpu", "pandas")
 
 
-def _imports(path):
+def _walk(node, skip=()):
+    """``ast.walk`` that does not enter the functions named in ``skip``
+    (by prefix)."""
+    yield node
+    for child in ast.iter_child_nodes(node):
+        if isinstance(child, ast.FunctionDef) and \
+                child.name.startswith(tuple(skip)):
+            continue
+        yield from _walk(child, skip)
+
+
+def _imports(path, skip=()):
     tree = ast.parse(path.read_text(), filename=str(path))
-    for node in ast.walk(tree):
+    for node in _walk(tree, skip):
         if isinstance(node, ast.Import):
             for alias in node.names:
                 yield node.lineno, alias.name
@@ -58,7 +69,7 @@ def test_port_files_exist():
             "logging.py", "debug.py", "env.py", "recorder.py", "metrics.py",
             "export.py", "profiling.py", "faults.py", "spmd_guard.py",
             "sanitize.py", "pinning.py", "chip_smoke.py", "opt.py",
-            "plansan.py", "interference.py", "tuning.py"} <= names
+            "plansan.py", "interference.py", "tuning.py", "host.py"} <= names
     for rel in ("__init__.py", "__main__.py", "protocol.py", "queue.py",
                 "arena.py", "resident.py", "journal.py", "client.py",
                 "daemon.py", "router.py"):
@@ -73,10 +84,11 @@ def test_port_files_exist():
         "bridge_demo.cpp", "bridge_parity.cpp"}
 
 
-#: the names of ``dr_tpu.__all__`` the port does not have: the multi-host
-#: ``init_distributed`` (ROADMAP.md, "Left to port") and ``mesh`` ("Not
-#: carried over").
-REMAINDER = {"init_distributed", "mesh"}
+#: the names of ``dr_tpu.__all__`` the port does not have: ``mesh``, the
+#: XLA mesh ("Not carried over" in ROADMAP.md).  ``init_distributed``,
+#: the multi-process runtime, is the port's own (over
+#: ``torch.distributed``).
+REMAINDER = {"mesh"}
 
 
 def test_public_surface_remainder():
@@ -91,6 +103,21 @@ def test_public_surface_remainder():
 def test_no_jax_or_dr_tpu_import(path):
     bad = [(line, mod) for line, mod in _imports(path) if _forbidden(mod)]
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+#: test files that are their own worker processes: only the functions
+#: named ``_jax*`` (the parent's oracle) may import the JAX package
+WORKER_FILES = [REPO / "tests" / "test_torch_multiprocess.py"]
+
+
+@pytest.mark.parametrize("path", WORKER_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_worker_files_import_no_jax(path):
+    bad = [(line, mod) for line, mod in _imports(path, skip=("_jax",))
+           if _forbidden(mod)]
+    assert not bad, f"{path.relative_to(REPO)}'s worker imports {bad}"
+    # and the rule sees the oracle's imports where they are
+    assert any(_forbidden(mod) for _, mod in _imports(path))
 
 
 @pytest.mark.parametrize("path", NATIVE_FILES,
@@ -156,6 +183,13 @@ def test_no_degrade_route_in_the_port():
         assert not hasattr(resilience, name), name
     for name in ("use_kernel", "NO_KERNEL", "Decision"):
         assert not hasattr(kernels, name), name
+    # init_distributed joins the backend it is given (or torch's mapping
+    # for its device) and nothing else: no second backend after a failure
+    import inspect
+    from dr_tpu_torch.parallel import collectives
+    src = inspect.getsource(collectives.init_distributed)
+    assert src.count("init_process_group(") == 1
+    assert "except" not in src
     assert not (REPO / "dr_tpu_torch" / "utils" / "fallback.py").exists()
     # the serving daemon never leaves its requested route: no CPU-route
     # degrade, no re-promotion, no platform switch, no fallback warnings

@@ -386,3 +386,43 @@ def test_reduce_non_callable_op_raises_type_error(n, op):
         dr_tpu.reduce(j, op=op)
     with pytest.raises(TypeError):
         dt.reduce(t, op=op)
+
+
+# ----------------------------------------- reduce with a tensor op + init
+
+@pytest.mark.parametrize("P", [1, 4])
+@pytest.mark.parametrize("deferred", [False, True])
+def test_reduce_tensor_op_with_init(P, deferred):
+    """``init`` folds into a torch op's result as a 0-d tensor of the
+    result's dtype (dr_tpu folds it with jnp's op), eagerly and under
+    ``dt.deferred()``; an empty window gives the init; ``operator.add``
+    keeps its host-scalar fold."""
+    _init_both(P)
+    ji, ti = _pair(np.arange(5, dtype=np.int32))
+    jf, tf = _pair(np.array([1.0, -2.0, 4.0, 0.5, 3.0], np.float32))
+    cases = [
+        (lambda m, v, w, op: m.reduce(v, 7, op), "int"),
+        (lambda m, v, w, op: m.reduce(w, 7.5, op), "f32"),
+        (lambda m, v, w, op: m.reduce(w[2:2], 7.5, op), "empty"),
+        (lambda m, v, w, op: m.reduce(v, -3, op), "int low"),
+        (lambda m, v, w, op: m.transform_reduce(
+            w, 2.0, op, lambda x: x * 2), "transform_reduce"),
+    ]
+    for call, tag in cases:
+        want = float(call(dr_tpu, ji, jf, jnp.maximum))
+        if deferred:
+            with dt.deferred():
+                got = call(dt, ti, tf, torch.maximum)
+            got = float(got)
+        else:
+            got = float(call(dt, ti, tf, torch.maximum))
+        assert got == want, (tag, got, want)
+    assert float(dt.reduce(ti, 7, torch.maximum)) == 7.0
+    assert float(dt.transform_reduce(tf, 2.0, torch.maximum,
+                                     lambda x: x * 2)) == 8.0
+    # operator.add: today's host fold, as dr_tpu's
+    for m, v, w in ((dr_tpu, ji, jf), (dt, ti, tf)):
+        assert m.reduce(v, 3) == 13
+        assert m.reduce(w, 0.1, operator.add) == 0.1 + 6.5
+    assert dt.reduce(tf, 0.1) == dr_tpu.reduce(jf, 0.1)
+    assert dt.reduce(tf[1:1], 0.25) == 0.25
