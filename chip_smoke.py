@@ -251,6 +251,27 @@ checks the kernels at small shapes only).  Phases:
     ``exchange_n(64)``, host clock) and ``to_host``'s GB/s.  A child
     that fails, hangs past its deadline or disagrees fails the phase.
     ``--phase28`` runs phases 1-3 and this one.
+29. multi-process execution of the other kernel paths, first with one
+    controller on two ranks of cuda:0 (29.1), then in two processes
+    over gloo, each owning one rank on cuda:0 (29.2): ``sort``,
+    ``is_sorted``, ``sort_by_key`` and ``argsort`` at 2^26 f32 (phase
+    10's size) and the exchange's seconds (the ``exchange`` cut minus
+    the ``splitter`` cut), K6's geometry (2 x 16384 int32 keys: a sort,
+    a key-value sort and a window of 2^14 keys), ``reduce`` min and max
+    at 2^28 f32 (K7), ``stencil2d_n`` on a one-tile 16384^2 matrix (4
+    K5 passes of T = 16, run by process 0, which owns the tile), the
+    tiled ``stencil2d_iterate`` on a 2 x 1 grid at 8192^2 (8 steps), a
+    ``transpose`` of an 8192^2 mdarray, config 5's pattern at 2^20 rows
+    (cut from 2^22: every process draws and builds the whole COO) on
+    the csr route (``gemv_n`` 8 rounds, ``spmm_n`` with 8 vectors), and
+    ring attention at Llama-3-8B's shape and S = 32768 (one causal
+    call; ``ring_attention_n`` with 2 iterations at 8 q heads, since it
+    chains v through the output).  Each child's int64 digests of its
+    rank's cells equal 29.1's bit for bit; it launches K5, K6, K7 and
+    K9 as often as its rank's share of 29.1 (K5 all or none by the
+    tile's owner, K6 one batch a sort, K7 and K9 half); each process's
+    step seconds against 29.1's, its start and ``spmd_guard.verify()``
+    over the path.  ``--phase29`` runs phases 1-3 and this one.
 
 ``--halo-ab DIR`` times phase 17's halo p50 with the ``dr_tpu_torch`` of
 another checkout at ``DIR`` and this one's, in turns, and stops.
@@ -6836,8 +6857,9 @@ def free_port():
         return sk.getsockname()[1]
 
 
-def mp_spawn(nproc, seed, out, args):
-    """Start phase 28's children; wait for all, under MP_DEADLINE; a
+def mp_spawn(nproc, seed, out, args, child="--mp-child", tag="phase 28"):
+    """Start the children of a multi-process phase (``child`` names the
+    entry, phase 28's by default); wait for all, under MP_DEADLINE; a
     child that exits non-zero gets its peers killed (they would wait in
     a collective), and so does the deadline.  Raises unless every child
     exits 0; returns their JSON records and their start times."""
@@ -6847,7 +6869,7 @@ def mp_spawn(nproc, seed, out, args):
     env["PYTHONPATH"] = HERE + os.pathsep + env.get("PYTHONPATH", "")
     t_spawn = time.time()
     procs = [subprocess.Popen(
-        [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--mp-child",
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"), child,
          str(pid), str(nproc), str(port), out, str(seed)] + args,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         env=env, cwd=HERE) for pid in range(nproc)]
@@ -6870,7 +6892,7 @@ def mp_spawn(nproc, seed, out, args):
         if p.returncode != 0:
             why = ("failed" if failed is not None else
                    f"missed the {MP_DEADLINE} s deadline")
-            raise AssertionError(f"phase 28: process {pid} {why} (exit "
+            raise AssertionError(f"{tag}: process {pid} {why} (exit "
                                  f"{p.returncode}): {o[-3000:]}")
     recs = []
     for pid in range(nproc):
@@ -6944,9 +6966,344 @@ def mp_phase(dt, kernels, seed, card, log2=MP_LOG2, nproc=2,
     return out
 
 
+# phase 29: multi-process execution of the other kernel paths (sizes at
+# the phase's full width; names the cuts PERF.md lists)
+MP29_SORT_LOG2 = 26        # phase 10's 4-rank sort size, f32
+MP29_K6 = 16384            # K6's geometry: int32 keys a rank
+MP29_WIN = 1 << 14         # the windowed sort
+MP29_RED_LOG2 = 28         # K7's reduce min / max, f32
+MP29_K5 = (16384, 16, 4)   # K5: one-tile m x m, time block, passes
+MP29_TILED = (8192, 8)     # the tiled stencil on a 2 x 1 grid, steps
+MP29_MD = 8192             # the transposed mdarray, m x m f32
+MP29_SP_LOG2 = 20          # config 5's pattern, cut from 2^22 rows
+MP29_SP_ROUNDS, MP29_SP_NV, MP29_SP_ITERS = 8, 8, 2
+# ring attention: Llama-3-8B's attention at 32k tokens; ring_attention_n
+# chains v through the output, so it runs the 8 K/V heads as q heads
+MP29_RA = (RA_S, RA_H, RA_HKV, RA_D)
+MP29_RAN = (RA_S, RA_HKV, 2)
+MP29_KERNELS = ("stencil2d_blocked", "bitonic_sort", "segred",
+                "flash_update")
+
+
+def mp29_sizes(small=False):
+    """Phase 29's sizes; ``small`` gives a CPU rehearsal's."""
+    if small:
+        return {"sort": 12, "k6": 256, "win": 128, "red": 12,
+                "k5": (256, 4, 2), "tiled": (64, 3), "md": 64, "sp": 10,
+                "ra": (1024, 4, 2, 128), "ran": (1024, 2, 2)}
+    return {"sort": MP29_SORT_LOG2, "k6": MP29_K6, "win": MP29_WIN,
+            "red": MP29_RED_LOG2, "k5": MP29_K5, "tiled": MP29_TILED,
+            "md": MP29_MD, "sp": MP29_SP_LOG2, "ra": MP29_RA,
+            "ran": MP29_RAN}
+
+
+def mp29_path(dt, seed, sz, times=None):
+    """Phase 29's path on the current runtime (one controller or one
+    process of several): the sort family, K7's reduce, the 2-D paths
+    (K5 on one tile, the tiled stencil, a transpose), the sparse csr
+    gemv / spmm and ring attention (K9).  Returns ``{"<result>/<rank>":
+    digest}`` for the cells of each rank this process holds
+    (``bridge_digest``), and ``{"<result>": digest}`` for the scalars,
+    which every process holds; ``times`` gets each step's seconds."""
+    import torch
+    from dr_tpu_torch.algorithms import gemv as tg
+    from dr_tpu_torch.algorithms import sort as dt_sort
+    times = {} if times is None else times
+    step = stepper(dt, times)
+    rt = dt.runtime()
+    dev = rt.home
+    P = rt.nprocs
+    gen = torch.Generator(device=dev).manual_seed(seed + 29)
+    dig = {}
+
+    def keep(name, v):
+        prev = v.halo_bounds.prev
+        for r in rt.local_ranks:
+            b, e = v._rank_window(r)
+            dig[f"{name}/{r}"] = bridge_digest(v.rows[r][0, prev:prev + e - b])
+
+    def keep_blocks(name, blocks):
+        for r in rt.local_ranks:
+            if r < len(blocks):
+                dig[f"{name}/{r}"] = bridge_digest(blocks[r])
+
+    def keep_rows(name, t, dim=0):
+        s = t.shape[dim] // P
+        for r in rt.local_ranks:
+            dig[f"{name}/{r}"] = bridge_digest(t.narrow(dim, r * s, s))
+
+    # ---- the sort family (K6 at its geometry; torch.sort above the cap)
+    n = 1 << sz["sort"]
+    with step("data"):
+        src = torch.randn(n, generator=gen, device=dev)
+    with step("sort"):
+        v = dt.distributed_vector.from_array(src)
+        dt.sort(v)
+    keep("sort", v)
+    with step("is_sorted"):
+        dig["is_sorted"] = bridge_digest(torch.tensor(
+            [dt.is_sorted(v), dt.is_sorted(dt.distributed_vector.from_array(
+                src))]))
+    del v
+    with step("sort_by_key"):
+        kd = dt.distributed_vector.from_array(src)
+        pd = dt.distributed_vector(n, np.int32)
+        dt.iota(pd, 0)
+        dt.sort_by_key(kd, pd)
+    keep("sbk_keys", kd)
+    keep("sbk_vals", pd)
+    del kd, pd
+    with step("argsort"):
+        idx = dt.argsort(dt.distributed_vector.from_array(src))
+    keep("argsort", idx)
+    del idx
+    ph = {}
+    for cut in ("splitter", "exchange"):
+        w = dt.distributed_vector.from_array(src)
+        dt.barrier()
+        t0 = time.perf_counter()
+        dt_sort.sort_phases_n(w, cut, 1)
+        dt.fence()
+        ph[cut] = time.perf_counter() - t0
+        del w
+    times["sort exchange (prefix difference)"] = ph["exchange"] - \
+        ph["splitter"]
+    del src
+    k6n = P * sz["k6"]
+    with step("data"):
+        keys = torch.randint(-(1 << 30), 1 << 30, (k6n,), generator=gen,
+                             device=dev, dtype=torch.int32)
+    with step("k6 sort"):
+        v = dt.distributed_vector.from_array(keys)
+        dt.sort(v)
+    keep("k6_sort", v)
+    with step("k6 sort, a second call"):  # a process's first K6 call warms
+        dt.sort(dt.distributed_vector.from_array(keys))
+    with step("k6 sort_by_key"):
+        kd = dt.distributed_vector.from_array(keys % 1000)
+        pd = dt.distributed_vector(k6n, np.int32)
+        dt.iota(pd, 0)
+        dt.sort_by_key(kd, pd)
+    keep("k6_sbk_keys", kd)
+    keep("k6_sbk_vals", pd)
+    with step("k6 window sort"):
+        w = dt.distributed_vector.from_array(keys)
+        b = (k6n - sz["win"]) // 2
+        dt.sort(w[b:b + sz["win"]])
+    keep("k6_window", w)
+    del v, kd, pd, w, keys
+    # ---- K7: reduce min / max
+    with step("data"):
+        x = dt.distributed_vector.from_array(
+            torch.randn(1 << sz["red"], generator=gen, device=dev))
+    with step("reduce min max"):
+        mm = [dt.reduce(x, None, torch.minimum),
+              dt.reduce(x, None, torch.maximum)]
+    dig["reduce_minmax"] = bridge_digest(torch.stack(
+        [torch.as_tensor(a).reshape(()).float().cpu() for a in mm]))
+    with step("reduce min max, a second call"):  # K7's first call warms
+        dt.reduce(x, None, torch.minimum)
+        dt.reduce(x, None, torch.maximum)
+    del x
+    # ---- 2-D: K5 on one tile, the tiled stencil, a transpose
+    w9 = dt.heat_step_weights(0.2)
+    m, tb, passes = sz["k5"]
+    with step("data"):
+        u = torch.randn((m, m), generator=gen, device=dev)
+        one = dt.dense_matrix.from_array(u, dt.block_cyclic(grid=(1, 1)))
+    del u
+    with step("stencil2d_n (K5)"):
+        dt.stencil2d_n(one, w9, passes, time_block=tb)
+    keep_blocks("k5", one.shards)
+    del one
+    mt, steps = sz["tiled"]
+    with step("data"):
+        u = torch.randn((mt, mt), generator=gen, device=dev)
+        part = dt.block_cyclic(grid=(P, 1))
+        A = dt.dense_matrix.from_array(u, part)
+        B = dt.dense_matrix.from_array(u, part)
+    del u
+    with step("stencil2d_iterate (tiled)"):
+        dt.stencil2d_iterate(A, B, w9, steps)
+    keep_blocks("tiled", A.shards)
+    del A, B
+    md = sz["md"]
+    with step("data"):
+        M = dt.distributed_mdarray.from_array(
+            torch.randn((md, md), generator=gen, device=dev))
+        T = dt.distributed_mdarray((md, md))
+    with step("transpose"):
+        dt.transpose(T, M)
+    keep_blocks("transpose", T.blocks)
+    del M, T
+    # ---- sparse: config 5's pattern on the csr route
+    ms = 1 << sz["sp"]
+    with step("data"):
+        rows, cols, vals, _ = config5_coo(ms, seed=seed)
+        A = dt.sparse_matrix.from_coo((ms, ms), rows, cols, vals)
+        del rows, cols, vals
+        bvec = torch.randn(ms, generator=gen, device=dev)
+        Bm = torch.randn((ms, MP29_SP_NV), generator=gen, device=dev)
+    if tg.resolved_format(A) != "csr" or tg.resolved_spmm_format(A) != "csr":
+        raise AssertionError(f"phase 29: the sparse path took "
+                             f"{tg.resolved_format(A)} / "
+                             f"{tg.resolved_spmm_format(A)}, not csr")
+    with step("gemv_n"):
+        c = dt.distributed_vector(ms)
+        tg.gemv_n(c, A, bvec, MP29_SP_ROUNDS)
+    keep("gemv_n", c)
+    with step("spmm_n"):
+        Y = tg.spmm_n(A, Bm, MP29_SP_ITERS)
+    keep_rows("spmm_n", Y)
+    del A, c, Y, bvec, Bm
+    # ---- ring attention (K9: the flash ring)
+    S, h, hkv, d = sz["ra"]
+    with step("data"):
+        q = torch.randn((1, S, h, d), generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        k = torch.randn((1, S, hkv, d), generator=gen, device=dev
+                        ).to(torch.bfloat16)
+        vv = torch.randn((1, S, hkv, d), generator=gen, device=dev
+                         ).to(torch.bfloat16)
+    with step("ring_attention"):
+        o = dt.ring_attention(q, k, vv, causal=True)
+    keep_rows("ring", o, 1)
+    del q, k, vv, o
+    S, h, iters = sz["ran"]
+    with step("data"):
+        q, k, vv = (torch.randn((1, S, h, d), generator=gen, device=dev
+                                ).to(torch.bfloat16) for _ in range(3))
+    with step("ring_attention_n"):
+        o = dt.ring_attention_n(q, k, vv, iters, causal=True)
+    keep_rows("ring_n", o, 1)
+    del q, k, vv, o
+    return dig
+
+
+def mp29_share(single, pid):
+    """The launches process ``pid`` must make, from the single
+    controller's on two ranks of one device: K5 runs on rank 0's tile
+    alone; K6 sorts each device's ranks in one batch, one launch a sort
+    on one controller and in each process alike (a process's batch is
+    its own rank's block); K7 and K9 launch once a rank a call, so each
+    process makes its rank's half."""
+    return {"stencil2d_blocked": single["stencil2d_blocked"] if pid == 0
+            else 0,
+            "bitonic_sort": single["bitonic_sort"],
+            "segred": single["segred"] // 2,
+            "flash_update": single["flash_update"] // 2}
+
+
+def mp29_child(argv):
+    """One process of phase 29: ``--mp29-child PID NPROC PORT OUT SEED
+    DEVICE SMALL``.  Joins the group (gloo, one rank on DEVICE), runs
+    :func:`mp29_path` under an ``spmd_guard`` (``verify()`` after it)
+    and writes its numbers to ``OUT/child<PID>.json``."""
+    pid, nproc, port, out, seed, device = (
+        int(argv[0]), int(argv[1]), argv[2], argv[3], int(argv[4]), argv[5])
+    small = argv[6] == "1"
+    import torch
+    sys.path.insert(0, HERE)
+    import dr_tpu_torch as dt
+    from dr_tpu_torch.ops import kernels
+    from dr_tpu_torch.utils import spmd_guard
+    global LOG_FILE
+    LOG_FILE = open(os.path.join(out, f"child{pid}.log"), "w",
+                    encoding="utf-8")
+    rt = dt.init_distributed(f"localhost:{port}", nproc, pid,
+                             backend="gloo", device=device,
+                             timeout_s=MP_DEADLINE)
+    ready = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent
+    assert rt.local_ranks == [pid], rt
+    kernels.reset_counts()
+    steps = {}
+    t0 = time.perf_counter()
+    with spmd_guard.guard() as g:
+        dig = mp29_path(dt, seed, mp29_sizes(small), steps)
+        g.verify()
+    path_s = time.perf_counter() - t0
+    counts = {k: kernels.launches[k] for k in MP29_KERNELS}
+    with open(os.path.join(out, f"child{pid}.json"), "w") as fh:
+        json.dump({"pid": pid, "ready": ready, "digests": dig,
+                   "launches": counts, "steps": steps, "path_s": path_s,
+                   "guarded": len(g.trace)}, fh)
+    dt.barrier()
+    dt.final()
+    return 0
+
+
+def mp29_phase(dt, kernels, seed, card, nproc=2, device="cuda:0",
+               small=False, out_dir=None):
+    """Phase 29 (see the module docstring); returns its numbers.  On the
+    CPU (``device="cpu"``, ``small=True``) it rehearses the phase; its
+    launch checks then compare 0 with 0.  The children write into
+    ``out_dir`` (default ``chiprun_out/phase29``)."""
+    import torch
+    sz = mp29_sizes(small)
+    out = {"card": card, "processes": nproc, "sizes": sz}
+    log(f"phase 29.1: the kernel paths with one controller on {nproc} "
+        f"ranks of {device}: " + json.dumps(sz))
+    dt.init(dt.get_duplicated_devices(nproc, [device]))
+    kernels.reset_counts()
+    steps = {}
+    t0 = time.perf_counter()
+    with env_set(DR_GPU_SPMV_FORMAT="csr"):  # the one layout across processes
+        want = mp29_path(dt, seed, sz, steps)
+    out["single_s"] = time.perf_counter() - t0
+    counts = {k: kernels.launches[k] for k in MP29_KERNELS}
+    out["single_steps"] = steps
+    out["single_launches"] = counts
+    log(f"  29.1 {out['single_s']:.2f} s, launches {counts}")
+    if device != "cpu" and min(counts.values()) <= 0:
+        raise AssertionError(f"phase 29.1: a kernel of the path never "
+                             f"launched: {counts}")
+    dt.final()
+    release(torch)
+    log(f"phase 29.2: {nproc} processes (gloo), one rank each on {device}")
+    t0 = time.perf_counter()
+    recs, starts = mp_spawn(
+        nproc, seed, out_dir or os.path.join(HERE, "chiprun_out", "phase29"),
+        [device, "1" if small else "0"], child="--mp29-child",
+        tag="phase 29")
+    out["spawn_s"] = time.perf_counter() - t0
+    out["starts_s"] = starts
+    for rec in recs:
+        pid = rec["pid"]
+        mine = {k: v for k, v in want.items()
+                if "/" not in k or k.endswith(f"/{pid}")}
+        if rec["digests"] != mine:
+            bad = sorted(k for k in mine if rec["digests"].get(k) != mine[k])
+            raise AssertionError(f"phase 29: process {pid}'s digests differ "
+                                 f"from the single controller's: {bad}")
+        log(f"  process {pid}: {len(mine)} digests equal bit for bit")
+        share = mp29_share(counts, pid)
+        if rec["launches"] != share:
+            raise AssertionError(f"phase 29: process {pid} launched "
+                                 f"{rec['launches']}, its rank's share "
+                                 f"{share} of one controller's {counts}")
+        log(f"  process {pid} launches {rec['launches']} == its rank's "
+            f"share")
+        out[f"p{pid}_steps"] = rec["steps"]
+        out[f"p{pid}_path_s"] = rec["path_s"]
+        out[f"p{pid}_launches"] = rec["launches"]
+        log(f"  process {pid}: start {starts[pid]!r} s, path "
+            f"{rec['path_s']!r} s (one controller {out['single_s']!r} s), "
+            f"{rec['guarded']} guarded dispatches verified, sort exchange "
+            f"{rec['steps']['sort exchange (prefix difference)']!r} s "
+            f"(one controller "
+            f"{steps['sort exchange (prefix difference)']!r} s)")
+        for k, t in rec["steps"].items():
+            log(f"    {k}: {t!r} s, one controller {steps.get(k)!r} s")
+    log(f"  phase 29 {out['spawn_s']:.1f} s for the processes")
+    return out
+
+
 def main(argv):
     if argv[:1] == ["--mp-child"]:  # one process of phase 28
         return mp_child(argv[1:])
+    if argv[:1] == ["--mp29-child"]:  # one process of phase 29
+        return mp29_child(argv[1:])
     try:
         import torch
     except ImportError:
@@ -7022,8 +7379,9 @@ def main(argv):
     only26 = "--phase26" in argv
     only27 = "--phase27" in argv
     only28 = "--phase28" in argv
+    only29 = "--phase29" in argv
     short = (quick or only22 or only23 or only24 or only25 or only26
-             or only27 or only28)
+             or only27 or only28 or only29)
     n = 1 << (20 if short else 30)
     m2d = 2048 if short else M2D
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -7064,6 +7422,10 @@ def main(argv):
     if only28:  # a short run: the checks above, small, then phase 28
         log("  phase 28 numbers: " + json.dumps(
             mp_phase(dt, kernels, seed, card)))
+        return 0
+    if only29:  # a short run: the checks above, small, then phase 29
+        log("  phase 29 numbers: " + json.dumps(
+            mp29_phase(dt, kernels, seed, card)))
         return 0
 
     log(f"phase 4: main path, 1 rank on cuda:0, n={n}")
@@ -7308,6 +7670,11 @@ def main(argv):
     g28 = mp_phase(dt, kernels, seed, card)
     log(f"  phase 28 {time.perf_counter() - t0:.1f} s")
     log("  phase 28 numbers: " + json.dumps(g28))
+
+    t0 = time.perf_counter()
+    g29 = mp29_phase(dt, kernels, seed, card)
+    log(f"  phase 29 {time.perf_counter() - t0:.1f} s")
+    log("  phase 29 numbers: " + json.dumps(g29))
 
     log(f"peak device memory (1-D main path): {peak} bytes "
         f"({peak / 2 ** 30:.2f} GiB)")

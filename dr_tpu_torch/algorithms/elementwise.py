@@ -185,7 +185,7 @@ def _window_values(rows, layout, off, n, dtype) -> torch.Tensor:
     """The logical window ``[off, off + n)`` of rank rows as one tensor on
     the home device (what ``to_array`` of a window gives): the first
     present row's device, every process's cells gathered."""
-    dev = collectives._present(rows).device
+    dev = collectives.present(rows).device
     parts, live = [], []
     for r, row in enumerate(rows):
         c0, c1 = window_cols(layout, off, n, r)

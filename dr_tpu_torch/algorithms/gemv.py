@@ -41,7 +41,16 @@ The layout a call asks for is :func:`_pick_format`'s: the
 ``DR_GPU_SPMV_FORMAT`` pin (csr / ell / bcsr / ring), else a
 ``spmv.format`` winner in the tuning DB (``dr_tpu_torch/tuning.py``),
 else the matrix's build-time choice; a pinned or recorded layout whose
-gate refuses the matrix falls down the same chain.  Not carried over:
+gate refuses the matrix falls down the same chain.  A csr pin holds for
+``spmm_n`` too (the JAX package runs its grouped program there).
+
+In a multi-process runtime (``collectives.init_distributed``) the
+matrix refuses every layout but csr (``sparse_matrix``), so every
+dispatch takes the csr route without consulting the tuning DB (which
+refuses there).  Each process contracts its own ranks' tiles; the 2-D
+grids, ``flat_gemv``, ``spmm`` and ``spmm_n`` gather every tile's
+partial onto the home device and sum them in column order, so their
+results are the single controller's bits on every process.  Not carried over:
 the TPU gather knobs (``DR_TPU_GATHER_MODE`` / ``_W``,
 ``DR_TPU_SPMM_W``, ``DR_TPU_SPMV_COMBINE``: the 2-D grids sum their
 partials as the JAX default ``psum`` does, with no ring).  Inside
@@ -67,9 +76,9 @@ from ..parallel import collectives
 from ..parallel import pipeline as _pl
 from ..core.pinning import pinned_id
 from ..utils.env import env_str
+from ..utils.resilience import ProgramError
 from ..utils.spmd_guard import dtype_name
 from .elementwise import _prog_cache
-from ..parallel import runtime as _rt
 
 __all__ = ["gemv", "gemv_n", "gemv_phases_n", "flat_gemv", "gemm", "spmm",
            "spmm_n", "viable_formats", "resolved_format",
@@ -99,7 +108,10 @@ def _pick_format(a) -> str:
     ``spmv.format`` entry of the tuning DB (matched on this runtime's
     context; a value that is not one of the four names is ignored),
     which beats ``a.format``.  Read per call; :func:`_resolve` then
-    takes it down the fallback chain."""
+    takes it down the fallback chain.  csr in a multi-process runtime,
+    the one layout the matrix builds there."""
+    if a.runtime.multi_process:
+        return "csr"
     env = env_str("DR_GPU_SPMV_FORMAT").lower()
     if env in _FORMATS:
         return env
@@ -129,8 +141,13 @@ def resolved_format(a) -> str:
 
 
 def resolved_spmm_format(a) -> str:
-    """The layout ``spmm_n`` runs: only the grouped ones exist there,
-    so csr and ring resolve to ELL."""
+    """The layout ``spmm_n`` runs: csr in a multi-process runtime or
+    under a ``DR_GPU_SPMV_FORMAT=csr`` pin; else bcsr where it is asked
+    for and built, and ELL otherwise (a csr or ring choice of the
+    matrix or the tuning DB resolves to ELL, as in the JAX package)."""
+    if a.runtime.multi_process or \
+            env_str("DR_GPU_SPMV_FORMAT").lower() == "csr":
+        return "csr"
     return "bcsr" if _pick_format(a) == "bcsr" and a.ensure_bcsr() \
         else "ell"
 
@@ -209,17 +226,25 @@ def _rhs(b, n, ndim):
 def _grid_product(a, fmt, x):
     """A·x over any tile grid: each tile's partial against its column
     window, summed over each tile row's columns in column order; the
-    ``(m,) + x.shape[1:]`` result on rank 0's device."""
+    ``(m,) + x.shape[1:]`` result on the home device (every tile's
+    partial gathered there, so it is valid on every process)."""
     gp, gq = a.grid_shape
     th, tw = a.tile_rows, a.tile_cols
     pad = gq * tw - x.shape[0]
     xp = F.pad(x, (0, 0) * (x.dim() - 1) + (0, pad)) if pad else x
-    devs = a.runtime.devices
+    rt = a.runtime
     parts = [_local(a, t, fmt, xp[(t % gq) * tw:(t % gq + 1) * tw]
-                    .to(devs[t]))
+                    .to(rt.devices[t])) if rt.is_local(t) else None
              for t in range(a.nshards)]
-    rows = [collectives.psum(parts[i * gq:(i + 1) * gq], devs[0])
-            for i in range(gp)]
+    got = collectives.gather_ranks(
+        parts, rt.home, like=((th,) + tuple(x.shape[1:]),
+                              _acc_dtype(a, x)))
+    rows = []
+    for i in range(gp):
+        acc = got[i * gq]
+        for v in got[i * gq + 1:(i + 1) * gq]:
+            acc = acc + v
+        rows.append(acc)
     return torch.cat(rows)[:a.shape[0]]
 
 
@@ -244,9 +269,10 @@ def _add_rows(c, r, local):
 
 
 def _tile_gemv(c, a, fmt, b, salted=False):
-    """c += A·b on the aligned row-tile path, one partial a rank."""
-    for r, d in enumerate(a.runtime.devices):
-        x = b.to(d)
+    """c += A·b on the aligned row-tile path, one partial a rank (this
+    process's ranks)."""
+    for r in a.runtime.local_ranks:
+        x = b.to(a.runtime.devices[r])
         _add_rows(c, r, _local(a, r, fmt, _salted(x, c, r) if salted
                                else x))
 
@@ -343,7 +369,6 @@ def _gemv_as(c, a, b, fmt: str):
 def gemv(c: distributed_vector, a: sparse_matrix, b) -> distributed_vector:
     """c += A·b (reference gemv semantics: accumulate into ``c``) in the
     matrix's autoselected layout; returns ``c``."""
-    _rt.require_single_process("gemv", _rt.SPARSE)
     from ..plan import active
     p = active()
     if p is not None:
@@ -375,7 +400,6 @@ def gemv_n(c: distributed_vector, a: sparse_matrix, b, iters: int):
     the tiles): each round adds ``1e-38`` times the rank's first owned
     cell of ``c`` to ``b``, so every round re-reads ``b`` and waits for
     the last; like ``iters`` gemv calls up to that salt."""
-    _rt.require_single_process("gemv_n", _rt.SPARSE)
     from ..plan import flush_reads
     flush_reads("gemv_n")
     b = _fast_args(c, a, b)
@@ -398,8 +422,13 @@ def gemv_phases_n(c: distributed_vector, a: sparse_matrix, b,
                   stop_after: str, iters: int):
     """``iters`` rounds of the ring SpMV truncated after ``stop_after``
     (:data:`SPMV_PHASES`); one round is exactly the ring ``gemv``.
-    Needs the ring layout (``a.ensure_ring()``)."""
-    _rt.require_single_process("gemv_phases_n", _rt.SPARSE)
+    Needs the ring layout (``a.ensure_ring()``), which is single-process
+    only: a classified ``ProgramError`` in a multi-process runtime."""
+    if a.runtime.multi_process:
+        raise ProgramError(
+            "gemv_phases_n profiles the ring layout, which a matrix of a "
+            "multi-process runtime does not build (as in the JAX package)",
+            site="gemv.ring_layout")
     from ..plan import flush_reads
     flush_reads("gemv_phases_n")
     assert stop_after in SPMV_PHASES, (stop_after, SPMV_PHASES)
@@ -415,24 +444,22 @@ def gemv_phases_n(c: distributed_vector, a: sparse_matrix, b,
 
 
 def flat_gemv(a: sparse_matrix, b) -> torch.Tensor:
-    """A·b as an ``(m,)`` tensor on rank 0's device (no output
+    """A·b as an ``(m,)`` tensor on the home device (no output
     container): each tile's csr partial, summed over the tile rows'
     columns.  Any tile grid."""
-    _rt.require_single_process("flat_gemv", _rt.SPARSE)
     b = _rhs(b, a.shape[1], 1)
     if a._vals is None:
         return torch.zeros(a.shape[0], dtype=a.dtype,
-                           device=a.runtime.devices[0])
+                           device=a.runtime.home)
     return _grid_product(a, "csr", b).to(a.dtype)
 
 
 def spmm(a: sparse_matrix, b) -> torch.Tensor:
     """A·B for a dense ``(n, nv)`` right-hand side; returns the
-    ``(m, nv)`` product on rank 0's device.  The grouped layouts (ELL,
-    BCSR) contract all ``nv`` columns at once, on row tiles and 2-D
-    grids; csr and the layouts their gates refuse take one
-    :func:`flat_gemv` a column."""
-    _rt.require_single_process("spmm", _rt.SPARSE)
+    ``(m, nv)`` product on the home device (valid on every process).
+    The grouped layouts (ELL, BCSR) contract all ``nv`` columns at once,
+    on row tiles and 2-D grids; csr and the layouts their gates refuse
+    take one :func:`flat_gemv` a column."""
     assert isinstance(a, sparse_matrix)
     m, n = a.shape
     B = _as_tensor(b.to_array() if hasattr(b, "to_array") else b)
@@ -440,7 +467,7 @@ def spmm(a: sparse_matrix, b) -> torch.Tensor:
         f"spmm needs a ({n}, nv) dense right-hand side, got {tuple(B.shape)}"
     if a._vals is None:
         return torch.zeros((m, B.shape[1]), dtype=a.dtype,
-                           device=a.runtime.devices[0])
+                           device=a.runtime.home)
     fmt = _pick_format(a)  # "ring" has no spmm form: the grouped path
     if fmt != "csr":
         bcsr = fmt == "bcsr" and a.ensure_bcsr()
@@ -455,30 +482,37 @@ def spmm(a: sparse_matrix, b) -> torch.Tensor:
 
 
 def spmm_n(a: sparse_matrix, b, iters: int) -> torch.Tensor:
-    """``iters`` chained SpMMs (row tiles, a grouped layout): each round
-    adds ``1e-38`` times the rank's first output value of the last
-    round to ``B``.  Returns the last product, ``(m, nv)`` on rank 0's
-    device."""
-    _rt.require_single_process("spmm_n", _rt.SPARSE)
+    """``iters`` chained SpMMs (row tiles): each round adds ``1e-38``
+    times the rank's first output value of the last round to ``B``.
+    Returns the last product, ``(m, nv)`` on the home device (valid on
+    every process).  The layout is :func:`resolved_spmm_format`'s; a
+    grouped one the matrix cannot build is refused, as in the JAX
+    package."""
     assert isinstance(a, sparse_matrix) and a.grid_shape[1] == 1
     m, n = a.shape
     B = _as_tensor(b.to_array() if hasattr(b, "to_array") else b)
     assert B.dim() == 2 and B.shape[0] == n
     fmt = resolved_spmm_format(a)
-    have = a.ensure_bcsr() if fmt == "bcsr" else a.ensure_ell()
-    assert have, "spmm_n needs a grouped (BCSR/ELL) fast path"
-    kdim = a._bcsr_kb if fmt == "bcsr" else a._ell_width
+    if fmt != "csr":
+        have = a.ensure_bcsr() if fmt == "bcsr" else a.ensure_ell()
+        assert have, "spmm_n needs a grouped (BCSR/ELL) fast path"
+    kdim = {"bcsr": a._bcsr_kb, "ell": a._ell_width, "csr": a._K}[fmt]
     _prog_cache.tap(("spmm_n", pinned_id(a.runtime), a.nshards,
                      a.tile_rows, kdim, fmt == "bcsr", B.shape[1], m,
-                     int(iters)))
-    devs = a.runtime.devices
-    Bs = [B.to(d) for d in devs]
-    ys = [torch.zeros((a.tile_rows, B.shape[1]), dtype=_acc_dtype(a, B),
-                      device=d) for d in devs]
-    for _ in range(iters):
-        ys = [_local(a, r, fmt, Bs[r] + ys[r][0, 0] * _SALT).to(ys[r].dtype)
-              for r in range(a.nshards)]
-    return torch.cat([y.to(devs[0]) for y in ys])[:m]
+                     int(iters)) + (("csr",) if fmt == "csr" else ()))
+    rt = a.runtime
+    acc = _acc_dtype(a, B)
+    ys = [None] * a.nshards
+    for r in rt.local_ranks:
+        Br = B.to(rt.devices[r])
+        y = torch.zeros((a.tile_rows, B.shape[1]), dtype=acc,
+                        device=rt.devices[r])
+        for _ in range(iters):
+            y = _local(a, r, fmt, Br + y[0, 0] * _SALT).to(acc)
+        ys[r] = y
+    got = collectives.gather_ranks(ys, rt.home,
+                                   like=((a.tile_rows, B.shape[1]), acc))
+    return torch.cat(got)[:m]
 
 
 def gemm(a: dense_matrix, b: dense_matrix,

@@ -175,7 +175,7 @@ def _reduce_rows(rows_list, ops_list, layout, off, n, kind, zip_op, k7,
                 None, 1, ((v, _KIND_TO_SEGRED[kind]),))[0][0]
         else:
             parts[r] = _vec_reduce(kind, v)
-    dev = collectives._present(rows_list[0]).device
+    dev = collectives.present(rows_list[0]).device
     parts = collectives.gather_ranks(parts, dev)
     acc = parts[0]
     for p in parts[1:]:
@@ -194,7 +194,7 @@ def _k3_dot(rows_list, ops_list, kind, zip_op) -> bool:
     dtype before the sum, and K3 widens first, a different value."""
     return (zip_op is _multiply2 and kind == "add" and len(rows_list) == 2
             and not any(ops_list)
-            and all(collectives._present(rows).dtype == torch.float32
+            and all(collectives.present(rows).dtype == torch.float32
                     for rows in rows_list))
 
 

@@ -105,7 +105,7 @@ def _scan_rows(cont, rows, kind, exclusive, dtype, ops=(), window=None,
     exact = (bool((sizes == S).all()) and nshards * S == n
              and window is None)
     off, wn = window if window is not None else (0, n)
-    ident = identity_for(kind, collectives._present(rows).dtype)
+    ident = identity_for(kind, collectives.present(rows).dtype)
     xs = [None] * nshards  # None: a rank another process scans
     for r, row in enumerate(rows):
         if row is None:
@@ -117,7 +117,7 @@ def _scan_rows(cont, rows, kind, exclusive, dtype, ops=(), window=None,
             x[:a - prev] = ident
             x[b - prev:] = ident
         xs[r] = x
-    if _takes_k4(kind, collectives._present(xs).dtype):
+    if _takes_k4(kind, collectives.present(xs).dtype):
         if nshards == 1:
             scanned = [scan_pallas.chunked_cumsum(xs[0])]
         else:
@@ -133,7 +133,7 @@ def _scan_rows(cont, rows, kind, exclusive, dtype, ops=(), window=None,
         if exclusive:
             lasts = collectives.ring_shift(
                 [None if s is None else s[-1:] for s in scanned], devs, +1,
-                False, like=((1,), collectives._present(scanned).dtype))
+                False, like=((1,), collectives.present(scanned).dtype))
             scanned = [None if s is None else
                        torch.cat([_fill(s, kind, s.dtype) if r == 0
                                   else lasts[r], s[:-1]])
@@ -193,7 +193,7 @@ def _window_scan(c, kind, op, exclusive, dtype):
         if row is not None:
             xs[r] = _apply_ops(row[0, a:b], c.ops).contiguous()
     out = [None if x is None else x.to(dtype) for x in xs]
-    if kind is not None and _takes_k4(kind, collectives._present(xs).dtype):
+    if kind is not None and _takes_k4(kind, collectives.present(xs).dtype):
         totals = collectives.gather_ranks(
             [None if x is None else x.sum(dtype=torch.float32) for x in xs],
             home, live)

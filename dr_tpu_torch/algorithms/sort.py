@@ -61,7 +61,6 @@ from ..parallel import collectives
 from .elementwise import _prog_cache, _traced_op_key
 from ..core.pinning import pinned_id
 from ..utils.spmd_guard import dtype_name
-from ..parallel import runtime as _rt
 
 __all__ = ["sort", "sort_by_key", "argsort", "is_sorted", "sort_n",
            "sort_by_key_n", "sort_phases_n", "sort_by_key_phases_n",
@@ -122,10 +121,12 @@ def _local_sort(geo, with_gid: bool, distinct_zeros: bool):
     global indices), padded to the widest rank ``S`` with the pad key (and
     GMAX), the ranks of one device written into one ``(b, S)`` batch and
     sorted by one call: K6 where eligible.  Returns the per-rank rows of
-    keys and gids (None without ``with_gid``), and the pad key."""
-    p, S, devs = geo.p, geo.S, geo.cont.runtime.devices
+    keys and gids (None without ``with_gid``, and for a rank another
+    process owns), and the pad key."""
+    p, S, rt = geo.p, geo.S, geo.cont.runtime
+    devs = rt.devices
     groups = {}
-    for r in range(p):
+    for r in rt.local_ranks:
         groups.setdefault(devs[r], []).append(r)
     xs, gs, big = [None] * p, [None] * p, None
     for dev, ranks in groups.items():
@@ -193,11 +194,12 @@ def _padded(t, width, fill):
 
 def _rebalance(ms, geo_src, dgeo, descending, offs, cnts):
     """Phase 5: every rank's merged run ``ms[r]`` into the destination
-    windows of ``dgeo`` by masked-sum assembly."""
+    windows of ``dgeo`` by masked-sum assembly (None where another
+    process owns the rank)."""
     p, devs = geo_src.p, geo_src.cont.runtime.devices
     Sd = dgeo.S
-    sends = []
-    for r in range(p):
+    sends = [None] * p
+    for r in geo_src.cont.runtime.local_ranks:
         dev = devs[r]
         ar = torch.arange(Sd, device=dev)
         gpos = _const(dgeo.starts, dev)[:, None] + ar
@@ -206,40 +208,46 @@ def _rebalance(ms, geo_src, dgeo, descending, offs, cnts):
         idx = want - offs[r]
         ok = dest_ok & (idx >= 0) & (idx < cnts[r])
         m = ms[r]
-        sends.append(torch.where(ok, m[idx.clamp(0, m.numel() - 1)],
-                                 torch.zeros((), dtype=m.dtype, device=dev)))
-    return [blk.sum(0, dtype=blk.dtype)
-            for blk in collectives.all_to_all(sends, devs)]
+        sends[r] = torch.where(ok, m[idx.clamp(0, m.numel() - 1)],
+                               torch.zeros((), dtype=m.dtype, device=dev))
+    dtype = collectives.present(sends).dtype
+    return [None if blk is None else blk.sum(0, dtype=blk.dtype)
+            for blk in collectives.all_to_all(sends, devs,
+                                               like=((Sd,), dtype))]
 
 
 def _pay_gather(pgeo, perms):
     """Phase 6: rank r's payload window slot i takes the payload cell at
     window position ``perms[r][i]``, moved as raw bits."""
-    p, devs = pgeo.p, pgeo.cont.runtime.devices
+    p, rt = pgeo.p, pgeo.cont.runtime
+    devs = rt.devices
     Sp = pgeo.S
     ity = _BITS[pgeo.cont.dtype.itemsize]
-    bits = [_padded(pgeo.cells(r).view(ity), Sp, 0) for r in range(p)]
+    bits = [_padded(pgeo.cells(r).view(ity), Sp, 0) if rt.is_local(r)
+            else None for r in range(p)]
     if p == 1:
         ok = torch.arange(Sp, device=devs[0]) < int(pgeo.nvalid[0])
         return [torch.where(ok, bits[0][perms[0].long().clamp(0, Sp - 1)],
                             0)]
-    sends = []
-    for r in range(p):
+    Gs = collectives.all_gather_each(perms, devs)           # (p, Sp) each
+    sends = [None] * p
+    for r in rt.local_ranks:
         dev = devs[r]
-        G = collectives.all_gather(perms, dev).to(torch.int64)  # (p, Sp)
-        idxl = G - int(pgeo.starts[r])
+        idxl = Gs[r].to(torch.int64) - int(pgeo.starts[r])
         dest_ok = torch.arange(Sp, device=dev) < \
             _const(pgeo.nvalid, dev)[:, None]
         own = dest_ok & (idxl >= 0) & (idxl < int(pgeo.nvalid[r]))
-        sends.append(torch.where(own, bits[r][idxl.clamp(0, Sp - 1)], 0))
-    return [blk.sum(0, dtype=blk.dtype)
-            for blk in collectives.all_to_all(sends, devs)]
+        sends[r] = torch.where(own, bits[r][idxl.clamp(0, Sp - 1)], 0)
+    return [None if blk is None else blk.sum(0, dtype=blk.dtype)
+            for blk in collectives.all_to_all(sends, devs,
+                                              like=((Sp,), ity))]
 
 
 def _write(geo, r, vals):
-    """Rank r's window cells from the first ``nvalid[r]`` of ``vals``."""
+    """Rank r's window cells from the first ``nvalid[r]`` of ``vals``
+    (nothing where another process owns rank r)."""
     nv = int(geo.nvalid[r])
-    if nv:
+    if nv and vals is not None:
         c0 = int(geo.col0[r])
         row = geo.cont._rows[r]
         row[0, c0:c0 + nv] = vals[:nv]
@@ -256,7 +264,8 @@ def _sort_chains(kc, vc, descending, stop_after=None):
         stop_after = None
     geo = _Geo(kc)
     pgeo = _Geo(vc) if vc is not None else None
-    p, S, devs = geo.p, geo.S, geo.cont.runtime.devices
+    p, S, rt = geo.p, geo.S, geo.cont.runtime
+    devs, local = rt.devices, rt.local_ranks
     dtype = geo.cont.dtype
 
     def finish(keys, perms=None):
@@ -264,11 +273,11 @@ def _sort_chains(kc, vc, descending, stop_after=None):
         # cells, then the payload cells: on windows of one container the
         # payload is written last and wins where they overlap
         pay = _pay_gather(pgeo, perms) if perms is not None else None
-        for r in range(p):
+        for r in local:
             _write(geo, r, _decode(keys[r][:int(geo.nvalid[r])], dtype))
         if pay is not None:
             pdt = pgeo.cont.dtype
-            for r in range(p):
+            for r in local:
                 _write(pgeo, r, pay[r].view(pdt))
 
     # --- phase 1: local sort of the order keys (+ the gid channel).  A
@@ -289,17 +298,20 @@ def _sort_chains(kc, vc, descending, stop_after=None):
         return finish(xs, gs)
 
     # --- phase 2: regular samples -> the p-1 global splitters
-    samps = [xs[r][_const(np.arange(1, p) * geo.nvalid[r] // p, devs[r])]
-             for r in range(p)]
+    samps = [None] * p
+    for r in local:
+        samps[r] = xs[r][_const(np.arange(1, p) * geo.nvalid[r] // p,
+                                devs[r])]
     pick = np.arange(1, p) * (p - 1) - 1
-    spls = [torch.sort(collectives.all_gather(samps, devs[r]).reshape(-1))
-            .values[_const(pick, devs[r])] for r in range(p)]
+    spls = [None if g is None else
+            torch.sort(g.reshape(-1)).values[_const(pick, devs[r])]
+            for r, g in enumerate(collectives.all_gather_each(samps, devs))]
     if stop_after == "splitter":
         return finish(xs)
 
     # --- phase 3: contiguous-run bucket exchange
-    sends, gsends, cnts = [], [], []
-    for r in range(p):
+    sends, gsends, cnts = [None] * p, [None] * p, [None] * p
+    for r in local:
         dev, x, nv = devs[r], xs[r], int(geo.nvalid[r])
         bucket = torch.searchsorted(spls[r], x, right=True)     # (S,)
         dd = torch.arange(p, device=dev)
@@ -309,30 +321,33 @@ def _sort_chains(kc, vc, descending, stop_after=None):
         ar = torch.arange(S, device=dev)
         sidx = (lo[:, None] + ar).clamp(0, S - 1)
         in_run = ar < cnt[:, None]
-        sends.append(torch.where(in_run, x[sidx], big))
+        sends[r] = torch.where(in_run, x[sidx], big)
         if vc is not None:
-            gsends.append(torch.where(in_run, gs[r][sidx], GMAX))
-        cnts.append(cnt)
-    recv = collectives.all_to_all(sends, devs)                   # (p, S)
-    grecv = collectives.all_to_all(gsends, devs) if vc is not None else None
-    Cs = [collectives.all_gather(cnts, devs[r]) for r in range(p)]  # (p, p)
-    mine = [Cs[r][:, r].sum() for r in range(p)]
+            gsends[r] = torch.where(in_run, gs[r][sidx], GMAX)
+        cnts[r] = cnt
+    kty = collectives.present(sends).dtype
+    recv = collectives.all_to_all(sends, devs, like=((S,), kty))  # (p, S)
+    grecv = collectives.all_to_all(gsends, devs, like=((S,), torch.int32)) \
+        if vc is not None else None
+    Cs = collectives.all_gather_each(cnts, devs)                  # (p, p)
+    mine = [None if c is None else c[:, r].sum() for r, c in enumerate(Cs)]
     if stop_after == "exchange":
         return finish(xs)
 
     # --- phase 4: merge of the received runs
-    if vc is None:
-        merged = [torch.sort(m.reshape(-1)).values for m in recv]
-        gm = None
-    else:
-        pairs = [sort_pallas.plain_sort_kv(m.reshape(-1), g.reshape(-1))
-                 for m, g in zip(recv, grecv)]
-        merged, gm = [a for a, _ in pairs], [b for _, b in pairs]
+    merged, gm = [None] * p, [None] * p
+    for r in local:
+        if vc is None:
+            merged[r] = torch.sort(recv[r].reshape(-1)).values
+        else:
+            merged[r], gm[r] = sort_pallas.plain_sort_kv(
+                recv[r].reshape(-1), grecv[r].reshape(-1))
     if stop_after == "merge":
-        return finish([m[::p] for m in merged])
+        return finish([None if m is None else m[::p] for m in merged])
 
     # --- phase 5: rebalance into the destination windows
-    offs = [Cs[r].sum(0)[:r].sum() for r in range(p)]
+    offs = [None if c is None else c.sum(0)[:r].sum()
+            for r, c in enumerate(Cs)]
     kreb = _rebalance(merged, geo, geo, descending, offs, mine)
     if vc is None:
         return finish(kreb)
@@ -379,7 +394,6 @@ def sort(r, *, descending: bool = False):
     """Sort a ``distributed_vector`` or a subrange window over one in
     place, ascending by default.  Keys-only: the result is a bit-exact
     permutation of the input (-0.0 before +0.0, NaNs last)."""
-    _rt.require_single_process("sort", _rt.SORT)
     _plan_barrier("sort")
     chain = _out_chain(r)
     if chain.n:
@@ -395,7 +409,6 @@ def sort_by_key(keys, values, *, descending: bool = False):
     distributions and dtypes; two windows of one container may overlap,
     and then the payload's value wins.  A payload on another rank list
     is copied onto the keys' ranks, sorted there and copied back."""
-    _rt.require_single_process("sort_by_key", _rt.SORT)
     _plan_barrier("sort_by_key")
     kc, vc = _out_chain(keys), _out_chain(values)
     if kc.n != vc.n:
@@ -437,7 +450,6 @@ def _whole_pair(keys, values):
 def sort_n(v, iters: int):
     """``iters`` chained whole-container sorts (a timing aid: after the
     first round the data is sorted; the result is the sorted input)."""
-    _rt.require_single_process("sort_n", _rt.SORT)
     _plan_barrier("sort_n")
     chain = _whole(v)
     _n_tap("sort_n", chain, None, iters)
@@ -449,7 +461,6 @@ def sort_n(v, iters: int):
 
 def sort_by_key_n(keys, values, iters: int):
     """``iters`` chained key-value sorts of two whole containers."""
-    _rt.require_single_process("sort_by_key_n", _rt.SORT)
     _plan_barrier("sort_by_key_n")
     kc, vc = _whole_pair(keys, values)
     _n_tap("sortkv_n", kc, vc, iters)
@@ -464,7 +475,6 @@ def sort_phases_n(v, stop_after, iters: int):
     :data:`SORT_PHASES` (a profiling aid: the container then holds a
     phase-dependent mix of values, not a sorted range; use scratch
     data)."""
-    _rt.require_single_process("sort_phases_n", _rt.SORT)
     _plan_barrier("sort_phases_n")
     chain = _whole(v)
     _n_tap("sortph_n", chain, None, iters, stop_after)
@@ -478,7 +488,6 @@ def sort_by_key_phases_n(keys, values, stop_after, iters: int):
     """Key-value twin of :func:`sort_phases_n` over
     :data:`SORTKV_PHASES`; truncations before ``"payload"`` leave the
     payload container untouched."""
-    _rt.require_single_process("sort_by_key_phases_n", _rt.SORT)
     _plan_barrier("sort_by_key_phases_n")
     kc, vc = _whole_pair(keys, values)
     _n_tap("sortkvph_n", kc, vc, iters, stop_after)
@@ -493,7 +502,6 @@ def argsort(r, *, descending: bool = False):
     ``distributed_vector``: element i holds the original position of the
     i-th element of the sorted order.  ``r`` is read only (transform
     views are accepted: the copy applies them)."""
-    _rt.require_single_process("argsort", _rt.SORT)
     _plan_barrier("argsort")
     from ..containers.distributed_vector import distributed_vector
     res = _resolve(r)
@@ -512,10 +520,12 @@ def argsort(r, *, descending: bool = False):
 def is_sorted(r) -> bool:
     """True when the range is ascending (NaNs count as largest, numpy's
     order; -0.0 and +0.0 are equal).  Read only; windows and transform
-    views run in place: each rank checks its cells, and each nonempty
-    rank's first key against the largest last key of the nonempty ranks
-    before it.  One host read at the end."""
-    _rt.require_single_process("is_sorted", _rt.SORT)
+    views run in place: each rank checks its cells into (nonempty, first
+    key, last key, violation), the ranks' four-tuples are gathered in
+    rank order onto the home device (across processes too), and each
+    nonempty rank's first key is held against the largest last key of
+    the nonempty ranks before it.  One host read at the end, the same
+    answer on every process."""
     _plan_barrier("is_sorted")
     res = _resolve(r)
     if res is None:
@@ -530,18 +540,22 @@ def is_sorted(r) -> bool:
                      _window(chain),
                      tuple(_traced_op_key(f) for f in chain.ops)))
     geo = _Geo(chain)
-    dev0 = geo.cont.runtime.devices[0]
-    bad = torch.zeros((), dtype=torch.bool, device=dev0)
-    prevmax = None
-    for rk in range(geo.p):
-        if not geo.nvalid[rk]:
-            continue  # an empty rank constrains nothing
+    rt = geo.cont.runtime
+    stats = [None] * geo.p
+    for rk in rt.local_ranks:
+        dev = rt.devices[rk]
+        if not geo.nvalid[rk]:  # an empty rank constrains nothing
+            stats[rk] = torch.zeros(4, dtype=torch.int64, device=dev)
+            continue
         k, _ = _encode(_apply_ops(geo.cells(rk), chain.ops))
-        viol = (k[:-1] > k[1:]).any()
-        if prevmax is not None:
-            viol = viol | (prevmax.to(k.device) > k[0])
-            prevmax = torch.maximum(prevmax, k[-1].to(dev0))
-        else:
-            prevmax = k[-1].to(dev0)
-        bad = bad | viol.to(dev0)
+        ends = k[[0, -1]].to(torch.int64)
+        stats[rk] = torch.cat([torch.ones_like(ends[:1]), ends,
+                               (k[:-1] > k[1:]).any().to(torch.int64)
+                               .reshape(1)])
+    st = collectives.all_gather(stats, rt.home)                  # (p, 4)
+    ne = st[:, 0] > 0
+    low = torch.iinfo(torch.int64).min
+    prevmax = torch.cummax(torch.where(ne, st[:, 2], low), 0).values
+    bad = (ne & (st[:, 3] > 0)).any() | \
+        (ne[1:] & (prevmax[:-1] > st[1:, 1])).any()
     return not bool(bad)

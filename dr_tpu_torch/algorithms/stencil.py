@@ -184,7 +184,7 @@ def _ring_exchange_full(rows, devices, seg: int, halo_w: int) -> None:
            for r in rows], +1),
          ([None if r is None else r[:, halo_w: 2 * halo_w].clone()
            for r in rows], -1)], devices, True,
-        like=((1, halo_w), collectives._present(rows).dtype))
+        like=((1, halo_w), collectives.present(rows).dtype))
     for r, g, h in zip(rows, fwd, bwd):
         if r is not None:
             r[:, :halo_w] = g

@@ -21,6 +21,13 @@ config-4 workload ("2D mdspan heat-equation stencil, tiled segments on a
 The frozen edge is the LOGICAL last row and column (m-1, n-1), which may
 lie inside the last tile: only cells with a full neighbourhood inside
 [0, m) x [0, n) are written, so pad cells never feed an owned cell.
+
+In a multi-process runtime (``collectives.init_distributed``) each
+process steps the tiles of its own ranks; the edge strips move between
+tiles as ``collectives.route`` moves (every process lists the same
+moves, and a strip's shape is known on both sides, so no header is
+sent).  The blocked route's single tile lives on rank 0: its owner runs
+K5, every other process only taps the same dispatch keys.
 """
 
 from __future__ import annotations
@@ -37,7 +44,6 @@ from .elementwise import _prog_cache
 from ..core.pinning import pinned_id
 from ..utils import spmd_guard
 from ..utils.spmd_guard import dtype_name
-from ..parallel import runtime as _rt
 
 __all__ = ["stencil2d_transform", "stencil2d_iterate",
            "stencil2d_iterate_blocked", "stencil2d_n",
@@ -53,7 +59,7 @@ def heat_step_weights(alpha: float = 0.25):
 
 class _Tiles:
     """The logical tiles of a matrix with the geometry of one stencil:
-    tile k = (i, j) in row-major order, its rank's device, and the
+    tile k = (i, j) in row-major order, its rank, and the
     interior rectangle of its own (th, tw) block."""
 
     def __init__(self, mat: dense_matrix, weights):
@@ -69,8 +75,9 @@ class _Tiles:
             "tiles narrower than the stencil radius"
         self.nti, self.ntj = mat.grid_tiles
         self.ij = [(i, j) for i in range(self.nti) for j in range(self.ntj)]
-        self.devices = [mat.runtime.devices[mat.partition.tile_rank(i, j)]
-                        for i, j in self.ij]
+        self.ranks = [mat.partition.tile_rank(i, j) for i, j in self.ij]
+        self.devices = mat.runtime.devices
+        self.dtype = mat.dtype
         # interior cells (a full neighbourhood inside the logical matrix)
         # of each tile, in its own block's coordinates
         self.box = [(max(self.rh - i * self.th, 0),
@@ -80,12 +87,17 @@ class _Tiles:
                     for i, j in self.ij]
 
     def views(self, mat: dense_matrix):
+        """Each tile's block view; None where another process owns it."""
         return [mat._tile_block(i, j)[1] for i, j in self.ij]
 
     def extended(self, mat: dense_matrix):
-        """Per tile a (th + 2rh, tw + 2rw) copy with a zero ghost ring."""
+        """Per tile a (th + 2rh, tw + 2rw) copy with a zero ghost ring
+        (None for another process's tile)."""
         out = []
         for v in self.views(mat):
+            if v is None:
+                out.append(None)
+                continue
             e = v.new_zeros((self.th + 2 * self.rh, self.tw + 2 * self.rw))
             self.centre(e).copy_(v)
             out.append(e)
@@ -104,33 +116,43 @@ class _Tiles:
         def k(i, j):
             return i * ntj + j
 
-        def move(src, dst, pairs):
-            recv = collectives.ppermute([src(e) for e in ext], pairs,
-                                        self.devices)
-            for e, r in zip(ext, recv):
+        def move(dirs, shape):
+            """Each ``(src, dst, pairs)`` of ``dirs`` in one route: tile
+            a's ``src`` strip into tile b's ``dst`` strip, for every
+            ``(a, b)`` of its pairs."""
+            moves, lands = [], []
+            for src, dst, pairs in dirs:
+                for a, b in pairs:
+                    moves.append((self.ranks[a], self.ranks[b],
+                                  lambda a=a, src=src: src(ext[a])))
+                    lands.append((b, dst))
+            got = collectives.route(moves, self.devices,
+                                    (shape, self.dtype))
+            for (b, dst), r in zip(lands, got):
                 if r is not None:
-                    dst(e).copy_(r)
+                    dst(ext[b]).copy_(r)
 
         if rw:
             east = [(k(i, j), k(i, j + 1)) for i in range(self.nti)
                     for j in range(ntj - 1)]
-            move(lambda e: e[rh:rh + th, tw:tw + rw],
-                 lambda e: e[rh:rh + th, :rw], east)
-            move(lambda e: e[rh:rh + th, rw:2 * rw],
-                 lambda e: e[rh:rh + th, rw + tw:], [(b, a) for a, b in east])
+            move([(lambda e: e[rh:rh + th, tw:tw + rw],
+                   lambda e: e[rh:rh + th, :rw], east),
+                  (lambda e: e[rh:rh + th, rw:2 * rw],
+                   lambda e: e[rh:rh + th, rw + tw:],
+                   [(b, a) for a, b in east])], (th, rw))
         if rh:
             south = [(k(i, j), k(i + 1, j)) for i in range(self.nti - 1)
                      for j in range(ntj)]
-            move(lambda e: e[th:th + rh, :], lambda e: e[:rh, :], south)
-            move(lambda e: e[rh:2 * rh, :], lambda e: e[rh + th:, :],
-                 [(b, a) for a, b in south])
+            move([(lambda e: e[th:th + rh, :], lambda e: e[:rh, :], south),
+                  (lambda e: e[rh:2 * rh, :], lambda e: e[rh + th:, :],
+                   [(b, a) for a, b in south])], (rh, tw + 2 * rw))
 
     def step(self, ext, dst) -> None:
         """dst[t] interior = weighted sum over ext[t]; the rest of dst
         keeps its values.  ``acc = w*u`` then ``acc = acc + w*u`` in
         (di, dj) order, as the JAX step sums."""
         for e, d, (ra, rb, ca, cb) in zip(ext, dst, self.box):
-            if ra >= rb or ca >= cb:
+            if e is None or ra >= rb or ca >= cb:
                 continue
             acc = None
             for di, dj, wij in self.taps:
@@ -149,7 +171,6 @@ def stencil2d_transform(in_mat: dense_matrix, out_mat: dense_matrix,
 
     Edges (positions without a full neighbourhood) keep out_mat's values,
     matching the 1-D interior contract."""
-    _rt.require_single_process("stencil2d_transform", _rt.TWO_D)
     assert in_mat.shape == out_mat.shape and in_mat.layout == out_mat.layout
     _prog_cache.tap(("st2", pinned_id(in_mat.runtime), in_mat.layout,
                      _wkey(weights), dtype_name(in_mat.dtype)))
@@ -164,7 +185,6 @@ def stencil2d_iterate(a: dense_matrix, b: dense_matrix,
     """``steps`` stencil steps, double-buffered: each step writes the
     interior of the other buffer from this one.  Returns ``a`` holding
     the final state (``b`` holds the other buffer)."""
-    _rt.require_single_process("stencil2d_iterate", _rt.TWO_D)
     assert a.shape == b.shape and a.layout == b.layout
     _prog_cache.tap(("st2it", pinned_id(a.runtime), a.layout, _wkey(weights),
                      steps, dtype_name(a.dtype)))
@@ -172,11 +192,12 @@ def stencil2d_iterate(a: dense_matrix, b: dense_matrix,
     x, y = tiles.extended(a), tiles.extended(b)
     for _ in range(steps):
         tiles.exchange(x)
-        tiles.step(x, [tiles.centre(e) for e in y])
+        tiles.step(x, [None if e is None else tiles.centre(e) for e in y])
         x, y = y, x
     for mat, ext in ((a, x), (b, y)):
         for v, e in zip(tiles.views(mat), ext):
-            v.copy_(tiles.centre(e))
+            if v is not None:
+                v.copy_(tiles.centre(e))
     return a
 
 
@@ -197,8 +218,8 @@ def stencil2d_iterate_blocked(a: dense_matrix, weights, steps: int, *,
     Contract: 3x3 weights, frozen (Dirichlet) edges — equivalent to
     ``stencil2d_iterate`` when both its buffers share edge values (the
     usual both-from-src setup).  Requires a single-tile matrix; multi-tile
-    grids use ``stencil2d_iterate``."""
-    _rt.require_single_process("stencil2d_iterate_blocked", _rt.TWO_D)
+    grids use ``stencil2d_iterate``.  In a multi-process runtime the
+    process owning rank 0 (the tile's) runs the passes."""
     from ..ops import stencil2d_pallas
     m = _single_tile(a, weights)
     pad = time_block  # covers the remainder pass too (rest < time_block)
@@ -212,6 +233,8 @@ def stencil2d_iterate_blocked(a: dense_matrix, weights, steps: int, *,
         if part not in seen:
             seen.add(part)
             spmd_guard.note_compile(key + (part,))
+    if a._shards[0] is None:
+        return a  # another process owns the tile and steps it
     # pad ONCE and keep the padded layout across passes: pad-row contents
     # are irrelevant (frozen edges stop the dependency cone)
     xp = F.pad(a._shards[0], (0, 0, pad, pad))
@@ -227,14 +250,16 @@ def stencil2d_n(a: dense_matrix, weights, iters: int, *,
     """``iters`` full time blocks of the blocked 2-D stencil: pad, one K5
     launch per block with no host sync in between, unpad.  Applies
     exactly ``iters * time_block`` steps with the frozen-edge contract of
-    :func:`stencil2d_iterate_blocked`."""
-    _rt.require_single_process("stencil2d_n", _rt.TWO_D)
+    :func:`stencil2d_iterate_blocked` (run by the tile's owner process
+    in a multi-process runtime)."""
     from ..ops import stencil2d_pallas
     m = _single_tile(a, weights)
     pad = time_block
     _prog_cache.tap(("st2n", pinned_id(a.runtime), a.layout, m, a.shape[1],
                      _wkey(weights), time_block, dtype_name(a.dtype),
                      int(iters)))
+    if a._shards[0] is None:
+        return a  # another process owns the tile and steps it
     xp = F.pad(a._shards[0], (0, 0, pad, pad))
     for _ in range(iters):
         xp = stencil2d_pallas.blocked_stencil2d_padded(

@@ -11,6 +11,13 @@ lives on rank ``tile_rank(i, j)`` at slot ``(i // gp, j // gq)``.  The
 logical shape (m, n) is metadata; the pad cells past it are zero after
 ``assign_array`` and no algorithm writes them.  Ranks of the runtime
 past ``gp*gq`` hold nothing.
+
+In a multi-process runtime (``collectives.init_distributed``) a process
+holds the blocks of its own ranks only (None for the others).  Writes
+(``assign_array``, ``put``, an element set) touch the local blocks;
+``to_array``, ``materialize``, ``get`` and an element read gather the
+other ranks' cells through the collectives, so every process reads the
+same values.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 
 from .distributed_vector import _as_tensor, _host_numpy, torch_dtype
 from .partition import block_cyclic, matrix_partition
+from ..parallel import collectives
 from ..parallel import runtime as _rt
 from ..core.pinning import pinned_id
 from ..utils.spmd_guard import TappedCache, dtype_name
@@ -148,7 +156,6 @@ class dense_matrix:
     def __init__(self, shape: Tuple[int, int], dtype=None,
                  partition: Optional[matrix_partition] = None, *,
                  runtime=None):
-        _rt.require_single_process("dense_matrix", _rt.TWO_D)
         self._rt = runtime or _rt.runtime()
         m, n = shape
         self._m, self._n = int(m), int(n)
@@ -175,8 +182,9 @@ class dense_matrix:
         _cache.tap(("z2", pinned_id(self._rt), gp * si * th, gq * sj * tw,
                     dtype_name(self._dtype)))
         self._shards = [torch.zeros(self._shape_local, dtype=self._dtype,
-                                    device=d)
-                        for d in self._rt.devices[:gp * gq]]
+                                    device=d) if self._rt.is_local(r)
+                        else None
+                        for r, d in enumerate(self._rt.devices[:gp * gq])]
         self._rt.register(self)
 
     # ------------------------------------------------------------------ meta
@@ -224,7 +232,8 @@ class dense_matrix:
 
     @property
     def shards(self):
-        """The per-rank stored blocks, rank order (grid row-major)."""
+        """The per-rank stored blocks, rank order (grid row-major); None
+        for a rank another process owns."""
         return list(self._shards)
 
     # ----------------------------------------------------------- vocabulary
@@ -259,11 +268,13 @@ class dense_matrix:
 
     # ----------------------------------------------------------- value APIs
     def _stored(self) -> torch.Tensor:
-        """The whole stored (folded) array on rank 0's device."""
+        """The whole stored (folded) array on the home device (rank 0's;
+        a process's own, gathered, in a multi-process runtime)."""
         gp, gq = self._grid
-        dev = self._rt.devices[0]
-        return torch.cat([torch.cat([self._shards[i * gq + j].to(dev)
-                                     for j in range(gq)], dim=1)
+        blocks = collectives.gather_ranks(
+            self._shards, self._rt.home, range(gp * gq),
+            like=(self._shape_local, self._dtype))
+        return torch.cat([torch.cat(blocks[i * gq:(i + 1) * gq], dim=1)
                           for i in range(gp)], dim=0)
 
     def _tap(self, tag: str) -> None:
@@ -271,9 +282,10 @@ class dense_matrix:
                     self._tshape, self._m, self._n, dtype_name(self._dtype)))
 
     def to_array(self) -> torch.Tensor:
-        """The logical (m, n) value on rank 0's device."""
+        """The logical (m, n) value on the home device (valid on every
+        process)."""
         self._tap("u2")
-        if self._grid == (1, 1):
+        if self._grid == (1, 1) and not self._rt.multi_process:
             return self._shards[0][:self._m, :self._n].clone()
         unfold, _ = fold_ops(self._grid, self._slots, self._tshape,
                              self._m, self._n)
@@ -285,6 +297,7 @@ class dense_matrix:
         self._shards = [
             stored[i * hs:(i + 1) * hs, j * ws:(j + 1) * ws]
             .to(self._rt.devices[i * gq + j], self._dtype).contiguous()
+            if self._rt.is_local(i * gq + j) else None
             for i in range(gp) for j in range(gq)]
 
     def assign_array(self, values) -> None:
@@ -346,16 +359,21 @@ class dense_matrix:
 
     def _tile_block(self, i: int, j: int):
         """(rank, full (th, tw) view) of grid tile (i, j) in its rank's
-        block, pad cells included."""
+        block, pad cells included; the view is None where another
+        process owns the rank."""
         th, tw = self._tshape
         rank = self._part.tile_rank(i, j)
         lr = (i // self._grid[0]) * th
         lc = (j // self._grid[1]) * tw
-        return rank, self._shards[rank][lr:lr + th, lc:lc + tw]
+        blk = self._shards[rank]
+        return rank, None if blk is None else blk[lr:lr + th, lc:lc + tw]
 
     def _local_tile(self, rank, rb, re, cb, ce):
         th, tw = self._tshape
         _, view = self._tile_block(rb // th, cb // tw)
+        if view is None:
+            raise ValueError(f"rank {rank}'s tile lives in process "
+                             f"{self._rt.owners[rank]}, not this one")
         return view[:re - rb, :ce - cb]
 
     # ------------------------------------------------ element/batched access
@@ -376,15 +394,15 @@ class dense_matrix:
             j += self._n
         if not (0 <= i < self._m and 0 <= j < self._n):
             raise IndexError((i, j))
-        rank, lr, lc = self._locate(i, j)
-        return self._shards[rank][lr, lc].item()
+        return self.get([i], [j])[0].item()
 
     def __setitem__(self, ij, value) -> None:
         i, j = int(ij[0]), int(ij[1])
         if not (0 <= i < self._m and 0 <= j < self._n):
             raise IndexError((i, j))
         rank, lr, lc = self._locate(i, j)
-        self._shards[rank][lr, lc] = value
+        if self._shards[rank] is not None:  # else its owner writes it
+            self._shards[rank][lr, lc] = value
 
     def _check_rc(self, rows, cols):
         """Numpy-convention negatives + strict bounds (same contract as
@@ -402,17 +420,27 @@ class dense_matrix:
             cols.reshape(-1).astype(np.int64)
 
     def get(self, rows, cols) -> torch.Tensor:
-        """Batched element gather onto rank 0's device."""
+        """Batched element gather onto the home device (valid on every
+        process: each owner's picks are gathered, their lengths known on
+        both sides)."""
         rows, cols = self._check_rc(rows, cols)
         rank, lr, lc = self._locate(rows, cols)
-        dev = self._rt.devices[0]
+        dev = self._rt.home
         out = torch.empty((len(rows),), dtype=self._dtype, device=dev)
-        for rr in np.unique(rank):
-            sel = np.nonzero(rank == rr)[0]
+        owners = [int(rr) for rr in np.unique(rank)]
+        picks = [None] * len(self._shards)
+        sels = {rr: np.nonzero(rank == rr)[0] for rr in owners}
+        for rr in owners:
             sh = self._shards[rr]
-            out[torch.as_tensor(sel, device=dev)] = sh[
-                torch.as_tensor(lr[sel], device=sh.device),
-                torch.as_tensor(lc[sel], device=sh.device)].to(dev)
+            if sh is not None:
+                sel = sels[rr]
+                picks[rr] = sh[torch.as_tensor(lr[sel], device=sh.device),
+                               torch.as_tensor(lc[sel], device=sh.device)]
+        got = collectives.gather_ranks(
+            picks, dev, owners,
+            like=[((len(sels[rr]),), self._dtype) for rr in owners])
+        for rr, vals in zip(owners, got):
+            out[torch.as_tensor(sels[rr], device=dev)] = vals
         return out
 
     def put(self, rows, cols, values) -> None:
@@ -425,6 +453,8 @@ class dense_matrix:
         for rr in np.unique(rank):
             sel = np.nonzero(rank == rr)[0]
             sh = self._shards[rr]
+            if sh is None:  # another process owns it and writes it
+                continue
             sh[torch.as_tensor(lr[sel], device=sh.device),
                torch.as_tensor(lc[sel], device=sh.device)] = vals[
                 torch.as_tensor(sel, device=vals.device)].to(sh.device,

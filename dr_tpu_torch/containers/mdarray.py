@@ -15,8 +15,14 @@ Counterpart of ``dr_tpu/containers/mdarray.py`` (reference spec pages
 
 ``transpose(out, in)`` permutes axes.  Where the JAX package leaves it
 to an all-to-all under jit, here every destination block is filled from
-the source blocks it overlaps: a permute of each piece and a copy to the
-destination rank's device.
+the source blocks it overlaps: a permute of each piece and a move to the
+destination rank's device (``collectives.route``, one list of moves on
+every process, each piece's shape known on both sides).
+
+In a multi-process runtime (``collectives.init_distributed``) a process
+holds the blocks of its own ranks only (None for the others); writes
+touch those, and ``to_array`` / ``materialize`` / an element read gather
+the other ranks' blocks, so every process reads the same values.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ import torch
 from .distributed_vector import _as_tensor, _host_numpy, torch_dtype
 from .partition import factor
 from ..core.vocabulary import rank as _rank
+from ..parallel import collectives
 from ..parallel import runtime as _rt
 from ..core.pinning import pinned_id
 from ..utils.spmd_guard import TappedCache, dtype_name
@@ -88,7 +95,6 @@ class distributed_mdarray:
 
     def __init__(self, shape: Sequence[int], dtype=None, *,
                  grid: Optional[Tuple[int, ...]] = None, runtime=None):
-        _rt.require_single_process("distributed_mdarray", _rt.TWO_D)
         self._rt = runtime or _rt.runtime()
         self._shape = tuple(int(s) for s in shape)
         assert len(self._shape) >= 1
@@ -110,7 +116,9 @@ class distributed_mdarray:
         _md_cache.tap(("mdz", pinned_id(self._rt), self._padded,
                        dtype_name(self._dtype)))
         self._blocks = [torch.zeros(self._block, dtype=self._dtype, device=d)
-                        for d in self._rt.devices[:math.prod(self._grid)]]
+                        if self._rt.is_local(r) else None
+                        for r, d in enumerate(
+                            self._rt.devices[:math.prod(self._grid)])]
         self._rt.register(self)
 
     # ------------------------------------------------------------------ meta
@@ -139,7 +147,8 @@ class distributed_mdarray:
 
     @property
     def blocks(self):
-        """The per-rank padded blocks, rank order (grid row-major)."""
+        """The per-rank padded blocks, rank order (grid row-major); None
+        for a rank another process owns."""
         return list(self._blocks)
 
     def __len__(self):
@@ -163,14 +172,19 @@ class distributed_mdarray:
 
     def _local_box(self, rank, box):
         org = self._origin(rank)
+        if self._blocks[rank] is None:
+            raise ValueError(f"rank {rank}'s block lives in process "
+                             f"{self._rt.owners[rank]}, not this one")
         return self._blocks[rank][tuple(slice(b - o, e - o)
                                         for (b, e), o in zip(box, org))]
 
     # ----------------------------------------------------------- value APIs
     def to_array(self) -> torch.Tensor:
-        """The logical value on rank 0's device."""
-        dev = self._rt.devices[0]
-        blocks = [b.to(dev) for b in self._blocks]
+        """The logical value on the home device (valid on every
+        process)."""
+        blocks = collectives.gather_ranks(
+            self._blocks, self._rt.home,
+            like=(self._block, self._dtype))
         if len(self._grid) == 1:
             padded = torch.cat(blocks, dim=0)
         else:
@@ -186,6 +200,9 @@ class distributed_mdarray:
                        self._shape, dtype_name(self._dtype)))
         blocks = []
         for r, d in enumerate(self._rt.devices[:len(self._blocks)]):
+            if not self._rt.is_local(r):
+                blocks.append(None)
+                continue
             blk = torch.zeros(self._block, dtype=self._dtype, device=d)
             box = tuple((o, min(o + b, s)) for o, b, s in
                         zip(self._origin(r), self._block, self._shape))
@@ -233,11 +250,16 @@ class distributed_mdarray:
         if isinstance(key, tuple) and any(isinstance(k, slice) for k in key):
             return self.submdspan(*key)
         rank, loc = self._element(key)
-        return self._blocks[rank][loc].item()
+        blk = self._blocks[rank]
+        return collectives.gather_ranks(
+            [blk[loc] if blk is not None and r == rank else None
+             for r in range(len(self._blocks))], self._rt.home, [rank],
+            like=((), self._dtype))[0].item()
 
     def __setitem__(self, key, value) -> None:
         rank, loc = self._element(key)
-        self._blocks[rank][loc] = value
+        if self._blocks[rank] is not None:  # else its owner writes it
+            self._blocks[rank][loc] = value
 
     def block_until_ready(self):
         self._rt.fence()
@@ -302,9 +324,11 @@ def transpose(out: distributed_mdarray, inp: distributed_mdarray,
     to N-D (examples/mhp/transpose-cpu.cpp:27-54 is the 2-D case).
 
     Each destination block is rebuilt from the source blocks its box
-    overlaps: every overlapping piece is permuted and copied to the
-    destination rank's device.  Nothing is gathered onto one rank."""
-    _rt.require_single_process("transpose", _rt.TWO_D)
+    overlaps: every overlapping piece is permuted and moved to the
+    destination rank's device, all pieces in one ``collectives.route``
+    (the same moves on every process; across processes each piece's
+    shape is known on both sides, so no header is sent).  Nothing is
+    gathered onto one rank."""
     nd = len(inp.shape)
     if axes is None:
         axes = tuple(range(nd - 1, -1, -1))
@@ -321,9 +345,8 @@ def transpose(out: distributed_mdarray, inp: distributed_mdarray,
     _md_cache.tap(("mdT", pinned_id(inp._rt), inp.shape, axes,
                    dtype_name(inp.dtype)))
     src = inp.__dr_segments__()
-    blocks = []
-    for r, blk in enumerate(out._blocks):
-        blk = torch.zeros_like(blk)
+    moves, likes, places = [], [], []
+    for r in range(len(out._blocks)):
         org = out._origin(r)
         obox = tuple((o, min(o + b, s)) for o, b, s in
                      zip(org, out._block, out.shape))
@@ -335,9 +358,18 @@ def transpose(out: distributed_mdarray, inp: distributed_mdarray,
             inter = _clip(seg.box, ibox)
             if inter is None:
                 continue
-            piece = inp._local_box(_rank(seg), inter).permute(axes)
-            blk[tuple(slice(inter[axes[k]][0] - org[k],
-                            inter[axes[k]][1] - org[k])
-                      for k in range(nd))] = piece.to(blk.device)
-        blocks.append(blk)
+            moves.append((_rank(seg), r,
+                          lambda s=_rank(seg), i=inter:
+                          inp._local_box(s, i).permute(axes)))
+            likes.append((tuple(inter[axes[k]][1] - inter[axes[k]][0]
+                                for k in range(nd)), inp.dtype))
+            places.append((r, tuple(slice(inter[axes[k]][0] - org[k],
+                                          inter[axes[k]][1] - org[k])
+                                    for k in range(nd))))
+    got = collectives.route(moves, out._rt.devices, likes)
+    blocks = [None if blk is None else torch.zeros_like(blk)
+              for blk in out._blocks]
+    for (r, where), piece in zip(places, got):
+        if piece is not None:
+            blocks[r][where] = piece.to(blocks[r].dtype)
     out._blocks = blocks

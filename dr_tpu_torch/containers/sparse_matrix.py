@@ -21,6 +21,16 @@ Every layout is built on the rank's device with torch ops: stable sorts,
 layout built on the card equals the one built on the CPU bit for bit,
 and both equal the JAX package's host build.  Duplicate entries that
 fall in one BCSR cell add in entry order, as ``np.add.at`` does.
+
+In a multi-process runtime (``collectives.init_distributed``) every
+process builds the tiles from the same global triples on its home
+device, decides the format over all of them (so ``format`` is the
+single controller's), then keeps only its own ranks' tiles (None for
+the others).  As in the JAX package, which refuses the host regroup of
+shards it cannot address, :meth:`ensure_ell`, :meth:`ensure_bcsr` and
+:meth:`ensure_ring` return False there: ``gemv`` / ``spmm`` take the
+csr route.  ``to_dense`` gathers every tile, so it is valid on every
+process.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..parallel import collectives
 from ..parallel import runtime as _rt
 from .distributed_vector import _as_tensor, _host_numpy, torch_dtype
 
@@ -89,12 +100,13 @@ class CsrTileSegment:
         return self.base._tile_nnz[self._rank]
 
     def triples(self):
-        """(rows, cols, values) with GLOBAL ids, host numpy."""
+        """(rows, cols, values) with GLOBAL ids, host numpy (gathered
+        from the tile's owner in a multi-process runtime)."""
         k = int(self.base._tile_nnz[self._rank])
-        b = self.base
-        rows = _host_numpy(b._rows[self._rank][:k]).astype(np.int64) + self.rb
-        cols = _host_numpy(b._cols[self._rank][:k]).astype(np.int64) + self.cb
-        vals = _host_numpy(b._vals[self._rank][:k])
+        v, r, c = self.base._tile_triple(self._rank)
+        rows = _host_numpy(r[:k]).astype(np.int64) + self.rb
+        cols = _host_numpy(c[:k]).astype(np.int64) + self.cb
+        vals = _host_numpy(v[:k])
         return rows, cols, vals
 
     def csr(self):
@@ -140,7 +152,6 @@ class sparse_matrix:
 
     def __init__(self, shape: Tuple[int, int], dtype=None, *,
                  partition=None, runtime=None):
-        _rt.require_single_process("sparse_matrix", _rt.SPARSE)
         self._rt = runtime or _rt.runtime()
         self._m, self._n = int(shape[0]), int(shape[1])
         self._dtype = torch_dtype(dtype)
@@ -188,7 +199,7 @@ class sparse_matrix:
         values = _as_tensor(values)
         self = cls(shape, values.dtype, partition=partition,
                    runtime=runtime)
-        dev = self._rt.devices[0]
+        dev = self._rt.home
         rows = torch.as_tensor(rows).to(dev, torch.int64)
         cols = torch.as_tensor(cols).to(dev, torch.int64)
         values = values.to(dev)
@@ -217,7 +228,8 @@ class sparse_matrix:
 
     def _set_coo(self, counts, tiles) -> None:
         """Pad each tile's (values, local rows, local cols) to the common
-        ``K``, move it to its rank's device and decide the format."""
+        ``K``, move it to its rank's device and decide the format; in a
+        multi-process runtime then drop the other processes' tiles."""
         K = max(int(counts.max()), 1) if counts.sum() else 1
 
         def padded(x, dtype, dev):
@@ -239,6 +251,12 @@ class sparse_matrix:
         self._tile_nnz = np.asarray(counts, dtype=np.int64)
         self._nnz = int(self._tile_nnz.sum())
         self._decide_format(self._tile_nnz)
+        if self._rt.multi_process:
+            self._bcsr_scan_cached = None
+            for lst in (self._vals, self._rows, self._cols):
+                for t in range(self._nshards):
+                    if not self._rt.is_local(t):
+                        lst[t] = None
         self._rt.register(self)
 
     @classmethod
@@ -347,7 +365,8 @@ class sparse_matrix:
         times the COO footprint."""
         if self._ell_vals is not None:
             return True
-        if self._ell_width < 0 or self._vals is None:
+        if self._ell_width < 0 or self._vals is None or \
+                self._rt.multi_process:
             return False
         th = self._th
         kmax = max(1, self._row_kmax)
@@ -381,7 +400,8 @@ class sparse_matrix:
         block-row would balloon the width (:meth:`_bcsr_scan`)."""
         if self._bcsr_vals is not None:
             return True
-        if self._bcsr_state == "no" or self._vals is None:
+        if self._bcsr_state == "no" or self._vals is None or \
+                self._rt.multi_process:
             return False
         bh, bw = self._BCSR_BH, self._BCSR_BW
         scan = self._bcsr_scan_cached
@@ -432,7 +452,8 @@ class sparse_matrix:
         if self._ring_vals is not None:
             return True
         if (self._ring_state == "no" or self._vals is None
-                or self._nshards < 2 or self._grid[1] != 1):
+                or self._nshards < 2 or self._grid[1] != 1
+                or self._rt.multi_process):
             return False
         P, th = self._nshards, self._th
         bw = max(1, -(-self._n // P))
@@ -477,10 +498,14 @@ class sparse_matrix:
     def _ensure_csr_order(self):
         """The csr route's fixed summation order, built once: per rank,
         the stable permutation that sorts the tile's entries by row
-        (int32) and each row's length."""
+        (int32) and each row's length (None for another process's
+        tile)."""
         if self._csr_order is None:
             order = []
             for t in range(self._nshards):
+                if self._vals[t] is None:
+                    order.append(None)
+                    continue
                 c = int(self._tile_nnz[t])
                 r = self._rows[t][:c].to(torch.int64)
                 order.append((torch.sort(r, stable=True).indices
@@ -569,6 +594,17 @@ class sparse_matrix:
                               cb, min(self._n, cb + self._tw))
 
     # ----------------------------------------------------------- value APIs
+    def _tile_triple(self, t):
+        """Tile t's padded ``(values, rows, cols)`` on the home device,
+        gathered from its owner in a multi-process runtime (every process
+        must ask for the same tiles in the same order)."""
+        home = self._rt.home
+        return tuple(collectives.gather_ranks(
+            lst, home, [t], like=((self._K,), dt))[0]
+            for lst, dt in ((self._vals, self._dtype),
+                            (self._rows, torch.int32),
+                            (self._cols, torch.int32)))
+
     def to_dense(self) -> np.ndarray:
         out = np.zeros((self._m, self._n), dtype=_host_numpy(
             torch.zeros(0, dtype=self._dtype)).dtype)

@@ -9,7 +9,16 @@ max and denominator) keeps memory at O(block) whatever the total length,
 and the causal mask uses GLOBAL positions (at ring step t rank ``my``
 holds the block of rank ``(my - t) % P``, whose first position is
 ``src * s``), so the result matches single-device attention.  The output
-is one ``(B, S, h, d)`` tensor on the runtime's first device.
+is one ``(B, S, h, d)`` tensor on the runtime's home device.
+
+In a multi-process runtime (``collectives.init_distributed``) every
+process is given the same q/k/v, keeps its own ranks' blocks, runs the
+ring steps of those ranks (K/V rotate across processes on the ring's
+``ppermute``, one shape a block, so no header) and gathers every rank's
+output block in rank order (``collectives.gather_ranks``): the whole
+output on every process, as with one controller.  The JAX package
+returns a global array there, whose local shard is this output's block
+of the process's rank.
 
 Two routes, as in the JAX package (``_flash_viable``):
 
@@ -50,6 +59,7 @@ import numpy as np
 import torch
 
 from ..core.pinning import pinned_id
+from ..parallel import collectives
 from ..parallel import pipeline as _pl
 from ..parallel import runtime as _rt
 from ..utils.spmd_guard import TappedCache, dtype_name
@@ -68,9 +78,11 @@ def _as_tensor(x) -> torch.Tensor:
         np.asarray(x))
 
 
-def _shard(x, devices, s):
-    """The contiguous sequence block of every rank, on its device."""
+def _shard(x, devices, s, rt=None):
+    """The contiguous sequence block of every rank, on its device; with
+    ``rt``, None for a rank another process owns."""
     return [x[:, r * s:(r + 1) * s].to(dev, non_blocking=True)
+            if rt is None or rt.is_local(r) else None
             for r, dev in enumerate(devices)]
 
 
@@ -94,12 +106,14 @@ def _flash_ring(qs, ks, vs, devices, shape, causal, dtype, hkv=None,
         return x.permute(0, 2, 1, 3).reshape(B * heads, s, d).to(
             torch.bfloat16).contiguous()
 
-    qh = [head_major(x, h) for x in qs]
-    blocks = [(head_major(k, hkv), head_major(v, hkv))
+    qh = [None if q is None else head_major(q, h) for q in qs]
+    blocks = [None if k is None else (head_major(k, hkv), head_major(v, hkv))
               for k, v in zip(ks, vs)]
-    carry = [(torch.full((BH, s, 1), _NEG_INF, device=dev),
+    carry = [None if q is None else
+             (torch.full((BH, s, 1), _NEG_INF, device=dev),
               torch.zeros((BH, s, 1), device=dev),
-              torch.zeros((BH, s, d), device=dev)) for dev in devices]
+              torch.zeros((BH, s, d), device=dev))
+             for q, dev in zip(qs, devices)]
 
     def step(t, r, state, blk):
         src = (r - t) % nshards
@@ -108,11 +122,13 @@ def _flash_ring(qs, ks, vs, devices, shape, causal, dtype, hkv=None,
 
     carry = _pl.ring_pipeline(devices, carry, blocks, step,
                               schedule=schedule)
-    outs = []
-    for m, l, acc in carry:
+
+    def finish(state):
+        m, l, acc = state
         out = (acc / torch.where(l > 0, l, 1.0)).to(dtype)
-        outs.append(out.reshape(B, h, s, d).permute(0, 2, 1, 3))
-    return outs
+        return out.reshape(B, h, s, d).permute(0, 2, 1, 3)
+
+    return [None if c is None else finish(c) for c in carry]
 
 
 def _pick_q_chunk(B, s, h, budget_bytes=512 * 2 ** 20):
@@ -140,16 +156,18 @@ def _blockwise_ring(qs, ks, vs, devices, shape, causal, dtype, q_chunk=None,
     nqc = s // qc
     nshards = len(devices)
     # q chunked along seq, head-major: (nqc, B, h, qc, d)
-    q_ch = [x.float().reshape(B, nqc, qc, h, d).permute(1, 0, 3, 2, 4)
-            for x in qs]
+    q_ch = [None if q is None else q.float().reshape(B, nqc, qc, h, d)
+            .permute(1, 0, 3, 2, 4) for q in qs]
     q_pos = [(r * s + torch.arange(s, device=dev)).reshape(nqc, qc)
              for r, dev in enumerate(devices)]
-    carry = [(torch.full((nqc, B, h, qc), _NEG_INF, device=dev),
+    carry = [None if q is None else
+             (torch.full((nqc, B, h, qc), _NEG_INF, device=dev),
               torch.zeros((nqc, B, h, qc), device=dev),
               torch.zeros((nqc, B, h, qc, d), device=dev))
-             for dev in devices]
+             for q, dev in zip(qs, devices)]
     # head-major ONCE; the ring carries the (B, hkv, s, d) blocks
-    blocks = [(k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3))
+    blocks = [None if k is None else
+              (k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3))
               for k, v in zip(ks, vs)]
 
     def one_chunk(q_c, qp, m_c, l_c, acc_c, kT, vT, k_pos):
@@ -184,16 +202,21 @@ def _blockwise_ring(qs, ks, vs, devices, shape, causal, dtype, q_chunk=None,
 
     carry = _pl.ring_pipeline(devices, carry, blocks, step,
                               schedule=schedule)
-    outs = []
-    for m, l, acc in carry:
+
+    def finish(state):
+        m, l, acc = state
         out = (acc / torch.where(l > 0, l, 1.0)[..., None]).to(dtype)
         out = out.permute(1, 2, 0, 3, 4).reshape(B, h, s, d)
-        outs.append(out.permute(0, 2, 1, 3))
-    return outs
+        return out.permute(0, 2, 1, 3)
+
+    return [None if c is None else finish(c) for c in carry]
 
 
-def _gather(outs, device):
-    return torch.cat([o.to(device, non_blocking=True) for o in outs], dim=1)
+def _gather(outs, rt, shape, dtype):
+    """Every rank's ``shape`` output block, in rank order, concatenated
+    along the sequence on the home device (on every process)."""
+    return torch.cat(collectives.gather_ranks(outs, rt.home,
+                                              like=(shape, dtype)), dim=1)
 
 
 def ring_attention(q, k, v, *, causal: bool = False, runtime=None,
@@ -203,10 +226,10 @@ def ring_attention(q, k, v, *, causal: bool = False, runtime=None,
     q/k/v: ``(batch, seq, heads, head_dim)`` tensors (or arrays); ``seq``
     is split over the runtime's ranks.  K/V may have fewer heads than q
     (grouped-query).  Returns the ``(batch, seq, heads, head_dim)``
-    output on the runtime's first device.  ``q_chunk`` bounds the
-    per-round logits to (batch, heads, q_chunk, block) on the blockwise
-    route (and selects it); ``schedule`` is the ring's issue order."""
-    _rt.require_single_process("ring_attention", _rt.RING)
+    output on the runtime's home device (on every process).
+    ``q_chunk`` bounds the per-round logits to (batch, heads, q_chunk,
+    block) on the blockwise route (and selects it); ``schedule`` is the
+    ring's issue order."""
     rt = runtime or _rt.runtime()
     q, k, v = (_as_tensor(x) for x in (q, k, v))
     B, S, h, d = q.shape
@@ -222,14 +245,14 @@ def ring_attention(q, k, v, *, causal: bool = False, runtime=None,
     _pl.fire_ppermute(op="ring_attention")
     _cache.tap(("ringattn", pinned_id(rt), shape, hkv, causal,
                 dtype_name(q.dtype), q_chunk, flash, sched))
-    qs, ks, vs = (_shard(x, devs, shape[1]) for x in (q, k, v))
+    qs, ks, vs = (_shard(x, devs, shape[1], rt) for x in (q, k, v))
     if flash:
         outs = _flash_ring(qs, ks, vs, devs, shape, causal, q.dtype,
                            hkv=hkv, schedule=schedule)
     else:
         outs = _blockwise_ring(qs, ks, vs, devs, shape, causal, q.dtype,
                                q_chunk, hkv=hkv, schedule=schedule)
-    return _gather(outs, devs[0])
+    return _gather(outs, rt, shape, q.dtype)
 
 
 def ring_attention_n(q, k, v, iters: int, *, causal: bool = False,
@@ -237,7 +260,6 @@ def ring_attention_n(q, k, v, iters: int, *, causal: bool = False,
     """``iters`` chained ring-attention steps (v := attn(q, k, v) each
     round, the output staying split over the ranks) — the measurement
     analog of ``span_halo.exchange_n``.  Returns the final output."""
-    _rt.require_single_process("ring_attention_n", _rt.RING)
     rt = runtime or _rt.runtime()
     q, k, v = (_as_tensor(x) for x in (q, k, v))
     B, S, h, d = q.shape
@@ -253,24 +275,23 @@ def ring_attention_n(q, k, v, iters: int, *, causal: bool = False,
     _pl.fire_ppermute(op="ring_attention_n")
     _cache.tap(("ringattn_n", pinned_id(rt), shape, causal,
                 dtype_name(q.dtype), flash, int(iters), sched))
-    qs, ks, vs = (_shard(x, devs, shape[1]) for x in (q, k, v))
+    qs, ks, vs = (_shard(x, devs, shape[1], rt) for x in (q, k, v))
     for _ in range(iters):
         vs = ring(qs, ks, vs, devs, shape, causal, q.dtype,
                   schedule=schedule)
-    return _gather(vs, devs[0])
+    return _gather(vs, rt, shape, collectives.present(vs).dtype)
 
 
 def ring_self_attention(x, wq, wk, wv, *, causal: bool = False,
                         runtime=None):
     """Convenience: project + ring-attend.  x: ``(B, S, h*d)``; the
     projections ``(e, h, d)`` run as one einsum each on the runtime's
-    first device."""
-    _rt.require_single_process("ring_self_attention", _rt.RING)
+    home device (every process projects the whole sequence)."""
     rt = runtime or _rt.runtime()
-    x = _as_tensor(x).to(rt.devices[0])
+    x = _as_tensor(x).to(rt.home)
 
     def proj(w):
-        w = _as_tensor(w).to(rt.devices[0])
+        w = _as_tensor(w).to(rt.home)
         dt = torch.promote_types(x.dtype, w.dtype)
         return torch.einsum("bse,ehd->bshd", x.to(dt), w.to(dt))
 

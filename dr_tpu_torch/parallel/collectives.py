@@ -49,12 +49,12 @@ from ..utils import faults as _faults
 from ..utils.spmd_guard import TappedCache, dtype_name
 
 __all__ = ["ring_shift", "ring_shifts", "ppermute", "all_gather",
-           "all_to_all", "psum", "gather_ranks", "route",
-           "ordered_minimum", "ordered_maximum", "communicator",
+           "all_gather_each", "all_to_all", "psum", "gather_ranks", "route",
+           "present", "ordered_minimum", "ordered_maximum", "communicator",
            "default_comm", "rma_window", "init_distributed"]
 
 
-def _present(values):
+def present(values):
     """The first value of a per-rank list that this process holds."""
     return next(v for v in values if v is not None)
 
@@ -84,8 +84,10 @@ def _transfer(moves, rt, like=None) -> list:
     processes exchanges a header (dtype and shape) and the value's bytes
     (the k-th move between two processes uses tags 2k and 2k+1).  With
     ``like = (shape, dtype)``, which every moved value must have (the
-    sends of a symmetric exchange), no header is sent, and each value
-    is one message whose receive is posted at once."""
+    sends of a symmetric exchange), or a list of such pairs, one a move
+    (values whose shapes both sides compute from static geometry), no
+    header is sent, and each value is one message whose receive is
+    posted at once."""
     import torch.distributed as dist
     me = rt.process_index
     wire = _wire_device(rt)
@@ -94,8 +96,10 @@ def _transfer(moves, rt, like=None) -> list:
     pending = []
     nsent: dict = {}
     nrecv: dict = {}
+    likes = like if isinstance(like, list) else [like] * len(moves)
     for i, (src, dst, value, device) in enumerate(moves):
         sp = rt.owners[src]
+        like = likes[i]
         if sp == me and dst == me:
             out[i] = _to(value(), device)
         elif sp == me:
@@ -131,7 +135,7 @@ def _transfer(moves, rt, like=None) -> list:
     for i, sp, k, device, buf, work in pending:
         if work is not None:
             work.wait()
-        if like is None:
+        if likes[i] is None:
             h = buf.cpu().tolist()
             buf = torch.empty(tuple(h[2:2 + h[1]]),
                               dtype=_WIRE_DTYPES[h[0]], device=wire)
@@ -156,17 +160,34 @@ def gather_ranks(values: Sequence[Optional[torch.Tensor]], device,
     """The value of each rank of ``ranks`` (default: every rank), in
     that order, on ``device`` of every process: the building block of
     the gathers (:func:`all_gather`, :func:`psum`, ``utils/host``).
-    ``values`` is indexed by rank; ``like`` as in :func:`_transfer`."""
+    ``values`` is indexed by rank; ``like`` as in :func:`_transfer`, a
+    list of it one entry per rank of ``ranks``."""
     ranks = range(len(values)) if ranks is None else ranks
     rt = _rt.mp_runtime()
     if rt is None:
         return [_to(values[r], device) for r in ranks]
     me = rt.process_index
-    moves = [(r, q, lambda r=r: values[r], device)
-             for r in ranks for q in range(rt.process_count)
-             if q == me or rt.owners[r] == me]
-    return [g for g, (_, q, _, _) in zip(_transfer(moves, rt, like), moves)
+    moves, likes = [], []
+    for i, r in enumerate(ranks):
+        for q in range(rt.process_count):
+            if q == me or rt.owners[r] == me:
+                moves.append((r, q, lambda r=r: values[r], device))
+                likes.append(like[i] if isinstance(like, list) else like)
+    return [g for g, (_, q, _, _) in zip(_transfer(moves, rt, likes), moves)
             if q == me]
+
+
+def all_gather_each(values: Sequence[Optional[torch.Tensor]], devices
+                    ) -> List[Optional[torch.Tensor]]:
+    """:func:`all_gather` of equal-shape per-rank values onto every
+    rank's device: one gather onto the home device, copied to this
+    process's ranks' devices (None for the others; ranks that share the
+    home device share the result, which the callers only read), so every
+    process issues the same single collective."""
+    rt = _rt.runtime()
+    g = all_gather(values, rt.home)
+    return [g.to(d) if rt.is_local(r) else None
+            for r, d in enumerate(devices)]
 
 
 def ring_shifts(shifts, devices, periodic: bool, like=None
@@ -218,13 +239,14 @@ def route(moves, devices, like=None) -> List[Optional[torch.Tensor]]:
 
 def ppermute(sends: Sequence[Optional[torch.Tensor]],
              pairs: Sequence[Tuple[int, int]],
-             devices) -> List[Optional[torch.Tensor]]:
+             devices, like=None) -> List[Optional[torch.Tensor]]:
     """``recv[dst] = sends[src]`` moved to ``devices[dst]`` for every
     ``(src, dst)`` pair (``lax.ppermute``); an entry no pair reaches is
-    None, and so is every rank another process owns."""
+    None, and so is every rank another process owns.  ``like``: the
+    ``(shape, dtype)`` every send has, when the caller knows it."""
     out: List[Optional[torch.Tensor]] = [None] * len(devices)
     got = route([(src, dst, lambda src=src: sends[src])
-                 for src, dst in pairs], devices)
+                 for src, dst in pairs], devices, like)
     for (_, dst), g in zip(pairs, got):
         if g is not None:
             out[dst] = g
@@ -234,20 +256,21 @@ def ppermute(sends: Sequence[Optional[torch.Tensor]],
 def all_gather(values: Sequence[Optional[torch.Tensor]],
                device) -> torch.Tensor:
     """Stack one scalar (or equal-shape tensor) per rank on ``device``."""
-    v = _present(values)
+    v = present(values)
     return torch.stack(gather_ranks(values, device,
                                     like=(tuple(v.shape), v.dtype)))
 
 
 def all_to_all(sends: Sequence[Optional[torch.Tensor]],
-               devices) -> List[Optional[torch.Tensor]]:
+               devices, like=None) -> List[Optional[torch.Tensor]]:
     """``lax.all_to_all`` over the leading axis: every rank sends a
     ``(p, ...)`` tensor, and rank d receives row d of every sender,
     stacked in sender order, on ``devices[d]`` (None for a rank another
-    process owns)."""
+    process owns).  ``like``: the ``(shape, dtype)`` of one row, when
+    the caller knows it (no header then)."""
     p = len(devices)
     got = route([(s, d, lambda s=s, d=d: sends[s][d])
-                 for d in range(p) for s in range(p)], devices)
+                 for d in range(p) for s in range(p)], devices, like)
     return [None if got[d * p] is None else torch.stack(got[d * p:d * p + p])
             for d in range(p)]
 
@@ -256,7 +279,7 @@ def psum(values: Sequence[Optional[torch.Tensor]], device) -> torch.Tensor:
     """Sum of the per-rank values (of one shape and dtype), in rank
     order, on ``device`` (on every process: the partials are gathered,
     then added in rank order)."""
-    one = _present(values)
+    one = present(values)
     parts = gather_ranks(values, device, like=(tuple(one.shape), one.dtype))
     acc = parts[0]
     for v in parts[1:]:
@@ -412,7 +435,7 @@ class communicator:
 
     def _shift(self, arr, step: int, periodic: bool):
         _faults.fire("collectives.shift")
-        a0 = _present(arr)
+        a0 = present(arr)
         _shift_cache.tap(("shift", pinned_id(self._rt), step, periodic,
                           tuple(a0.shape[1:]), dtype_name(a0.dtype)))
         out = ring_shift(arr, self._rt.devices, step, periodic)
@@ -424,7 +447,7 @@ class communicator:
         ``[:, j]`` of rank i moves to rank j, which stacks the blocks in
         sender order into a ``(nshards, k, ...)`` shard."""
         _faults.fire("collectives.alltoall")
-        a0 = _present(arr)
+        a0 = present(arr)
         _shift_cache.tap(("a2a", pinned_id(self._rt),
                           tuple(a0.shape[1:]), dtype_name(a0.dtype)))
         return all_to_all([None if a is None else a.transpose(0, 1)

@@ -92,7 +92,7 @@ def _shift_both(rows, devices, ring, a, b):
     specs = [x for x in (a, b) if x]
     if not specs:
         return None, None
-    dtype = collectives._present(rows).dtype
+    dtype = collectives.present(rows).dtype
     widths = {w for _, _, w in specs}
     got = collectives.ring_shifts(
         [([None if rows[r] is None else fn(r) for r in range(len(rows))],

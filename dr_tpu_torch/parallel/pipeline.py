@@ -29,6 +29,15 @@ A block is a tensor or a tuple/list of tensors (one level of nesting, the
 pytrees the ring programs use).  Ranks that share a device exchange by
 reference: a rotation on one card copies nothing.
 
+In a multi-process runtime (``collectives.init_distributed``) the
+per-rank lists hold None for the ranks another process owns: the loops
+compute, make buckets and consume only for this process's ranks, and
+the rotations move blocks across processes through
+``collectives.ppermute`` (every process issues the same rotations).
+A rotation takes every rank's block to be shaped as this process's
+first one, so no header is sent: the rings that run across processes
+(ring attention's) rotate blocks of one shape.
+
 :func:`fire_ppermute` is the ``collectives.ppermute`` fault site: every
 ring dispatcher (the sparse ring gemv, ring attention, the join's
 partition ring, the re-layout's ring exchange) calls it before its
@@ -87,14 +96,30 @@ def _resolve(schedule: Optional[str]) -> str:
 
 
 def _permute(blocks: Sequence[Any], pairs, devices) -> List[Any]:
-    """``blocks[src]`` to ``devices[dst]`` for every pair, leaf by leaf."""
-    first = blocks[0]
+    """``blocks[src]`` to ``devices[dst]`` for every pair, leaf by leaf
+    (None stays None: a rank another process owns), each leaf shaped
+    as this process's first one."""
+    first = collectives.present(blocks)
+
+    def move(leaf):
+        t = collectives.present(leaf)
+        return collectives.ppermute(leaf, pairs, devices,
+                                    (tuple(t.shape), t.dtype))
+
     if isinstance(first, (tuple, list)):
-        leaves = [collectives.ppermute([b[i] for b in blocks], pairs, devices)
+        leaves = [move([None if b is None else b[i] for b in blocks])
                   for i in range(len(first))]
-        return [type(first)(leaf[r] for leaf in leaves)
+        return [None if leaves[0][r] is None
+                else type(first)(leaf[r] for leaf in leaves)
                 for r in range(len(devices))]
-    return collectives.ppermute(blocks, pairs, devices)
+    return move(blocks)
+
+
+def _each(f, carry, blocks):
+    """``f(r, carry[r], blocks[r])`` for every rank whose block this
+    process holds; None for the others."""
+    return [None if b is None else f(r, c, b)
+            for r, (c, b) in enumerate(zip(carry, blocks))]
 
 
 def ring_pipeline(devices, carry: Sequence[Any], blocks: Sequence[Any],
@@ -120,14 +145,16 @@ def ring_pipeline(devices, carry: Sequence[Any], blocks: Sequence[Any],
     carry, blocks = list(carry), list(blocks)
     for t in range(nshards):
         rotate_after = (t + 1 < nshards) or restore_blocks
+
+        def step(r, c, b, t=t):
+            return compute(t, r, c, b)
+
         if sched == "pipelined" and rotate_after:
-            nxt = _permute(blocks, p, devices)      # in flight during t
-            carry = [compute(t, r, carry[r], blocks[r])
-                     for r in range(nshards)]
+            nxt = _permute(blocks, p, devices)  # in flight
+            carry = _each(step, carry, blocks)
             blocks = nxt
         else:
-            carry = [compute(t, r, carry[r], blocks[r])
-                     for r in range(nshards)]
+            carry = _each(step, carry, blocks)
             if rotate_after:
                 blocks = _permute(blocks, p, devices)
     return (carry, blocks) if restore_blocks else carry
@@ -154,13 +181,16 @@ def ring_exchange(devices, carry: Sequence[Any],
     nshards = len(devices)
     hops = list(range(1, nshards)) if steps is None else list(steps)
     carry = list(carry)
+    local = [c is not None for c in carry]
 
     def send(t):
-        return _permute([make_bucket(t, r) for r in range(nshards)],
+        return _permute([make_bucket(t, r) if local[r] else None
+                         for r in range(nshards)],
                         shift_perm(nshards, t), devices)
 
     def fold(t, arrived):
-        return [consume(t, r, carry[r], arrived[r]) for r in range(nshards)]
+        return [consume(t, r, carry[r], arrived[r]) if local[r] else None
+                for r in range(nshards)]
 
     if sched == "pipelined" and hops:
         inflight = send(hops[0])
@@ -182,8 +212,8 @@ def ring_allgather(devices, blocks: Sequence[torch.Tensor], *,
     rank, so a fold over axis 0 runs in the same canonical order
     everywhere (what :func:`ring_combine` needs)."""
     nshards = len(devices)
-    bufs = [blocks[r].new_zeros((nshards,) + tuple(blocks[r].shape))
-            for r in range(nshards)]
+    bufs = [None if b is None else b.new_zeros((nshards,) + tuple(b.shape))
+            for b in blocks]
 
     def place(t, r, buf, blk):
         buf[(r - t) % nshards] = blk
@@ -202,6 +232,9 @@ def ring_combine(devices, xs: Sequence[torch.Tensor], *,
         return list(xs)
     out = []
     for g in ring_allgather(devices, xs, schedule=schedule):
+        if g is None:  # a rank another process owns
+            out.append(None)
+            continue
         acc = g[0]
         for s in range(1, g.shape[0]):
             acc = acc + g[s]

@@ -146,10 +146,6 @@ class Runtime:
 
 #: the multi-process slices still to come, in order (ROADMAP.md): the
 #: ``slice_`` a :func:`require_single_process` call names
-SORT = "the sort and its family (K6/K7)"
-SPARSE = "the sparse gemv / spmm"
-TWO_D = "dense_matrix, mdarray, transpose and stencil2d (K5)"
-RING = "ring attention (K9)"
 RELAYOUT = "redistribute and the unstructured halo"
 RELATIONAL = "the relational ops"
 HOST_LAYERS = "deferred plans, elastic, tuning and serve"

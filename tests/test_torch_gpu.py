@@ -1786,5 +1786,32 @@ def test_two_processes_on_one_card_over_gloo(cuda, tmp_path):
     single = mp._single_controller(2, str(tmp_path), device="cuda:0")
     for pid, res in enumerate(got):
         for key, want in single.items():
-            assert mp._same_bits(res[key], want), (pid, key, res[key], want)
-        assert len(res["refused"]) == 10, res["refused"]
+            assert mp.same_bits(res[key], want), (pid, key, res[key], want)
+        assert len(res["refused"]) == 5, res["refused"]
+
+
+def test_two_processes_on_one_card_launch_k5_k6_k7_k9(cuda, tmp_path):
+    """Two processes, each owning one rank on cuda:0 (gloo between
+    them), run ``chip_smoke.py``'s phase 29 at its CPU-rehearsal sizes:
+    the K6-geometry sort and sort_by_key, K7's min and max, a one-tile
+    K5 pass and the flash ring, among the rest of the slice.  Every
+    digest of each process equals one controller's on two ranks of the
+    card, and each process launches K5, K6, K7 and K9 as often as its
+    rank's share (``mp29_phase`` raises otherwise)."""
+    import importlib.util
+    import dr_tpu_torch as dt
+    from pathlib import Path
+    script = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", script)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    try:
+        got = cs.mp29_phase(dt, kernels, 5, "test", device="cuda:0",
+                            small=True, out_dir=str(tmp_path))
+    finally:
+        dt.final()
+    single = got["single_launches"]
+    assert all(single[k] > 0 for k in cs.MP29_KERNELS), single
+    assert got["p0_launches"]["stencil2d_blocked"] == \
+        single["stencil2d_blocked"]
+    assert got["p1_launches"]["stencil2d_blocked"] == 0

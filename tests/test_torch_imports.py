@@ -107,7 +107,8 @@ def test_no_jax_or_dr_tpu_import(path):
 
 #: test files that are their own worker processes: only the functions
 #: named ``_jax*`` (the parent's oracle) may import the JAX package
-WORKER_FILES = [REPO / "tests" / "test_torch_multiprocess.py"]
+WORKER_FILES = [REPO / "tests" / "test_torch_multiprocess.py",
+                REPO / "tests" / "test_torch_multiprocess_paths.py"]
 
 
 @pytest.mark.parametrize("path", WORKER_FILES,

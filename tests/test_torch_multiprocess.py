@@ -22,18 +22,15 @@ own deadline and process-group timeout, and kills stragglers, as
 """
 
 import os
-import socket
-import subprocess
 import sys
-import threading
-import time
 from pathlib import Path
 
 import numpy as np
 import pytest
 
+from torch_mp_spawn import same_bits, spawn
+
 HERE = Path(__file__).resolve()
-REPO = HERE.parent.parent
 #: seconds a spawn may take before its processes are killed
 DEADLINE_S = 120.0
 #: the process group's own timeout inside a worker
@@ -194,19 +191,11 @@ def _torch_shards(v):
 def _out_of_slice(dt):
     """Every path outside the slice refuses, classified, at its entry;
     returns the names that did."""
-    import torch
     from dr_tpu_torch.utils import resilience
     n, _ = _sizes(dt.nprocs())
     v = dt.distributed_vector(n)
     dt.iota(v, 0)
     calls = {
-        "sort": lambda: dt.sort(v),
-        "is_sorted": lambda: dt.is_sorted(v),
-        "dense_matrix": lambda: dt.dense_matrix((4, 4)),
-        "sparse_matrix": lambda: dt.sparse_matrix.from_dense(
-            np.eye(4, dtype=np.float32)),
-        "ring_attention": lambda: dt.ring_attention(
-            *[torch.zeros(1, 4, 1, 8)] * 3),
         "redistribute": lambda: dt.redistribute(v, None),
         "unstructured_halo": lambda: dt.unstructured_halo(v, {0: [1]}),
         "histogram": lambda: dt.histogram(v, dt.distributed_vector(4),
@@ -219,7 +208,7 @@ def _out_of_slice(dt):
         try:
             call()
         except resilience.ProgramError as e:
-            assert "multi-process" in str(e), (name, e)
+            assert "multi-process slice of" in str(e), (name, e)
             assert resilience.classify(e) is resilience.ProgramError
             refused.append(name)
     return refused
@@ -254,51 +243,10 @@ def _worker(pid, nproc, port, out, device="cpu"):
 
 # ----------------------------------------------------------------- parent
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _spawn(nproc, out, device="cpu", deadline_s=DEADLINE_S):
-    """Run ``nproc`` workers with their ranks on ``device``; they have
-    ``deadline_s`` together, and a failed or hung one gets its peers
-    killed so every worker's output is reported."""
-    port = _free_port()
-    env = dict(os.environ)
-    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
-    procs = [subprocess.Popen(
-        [sys.executable, str(HERE), str(pid), str(nproc), str(port), out,
-         device],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        env=env, cwd=REPO) for pid in range(nproc)]
-    outs = [None] * nproc
-
-    def drain(i, p):
-        outs[i], _ = p.communicate()
-
-    threads = [threading.Thread(target=drain, args=(i, p))
-               for i, p in enumerate(procs)]
-    for t in threads:
-        t.start()
-    deadline = time.monotonic() + deadline_s
-    while time.monotonic() < deadline:
-        if all(p.poll() is not None for p in procs):
-            break
-        if any(p.poll() not in (None, 0) for p in procs):
-            time.sleep(1)  # let the peers fail and flush on their own
-            break
-        time.sleep(0.1)
-    for p in procs:
-        if p.poll() is None:
-            p.kill()
-    for t in threads:
-        t.join(timeout=30)
-    for pid, (p, o) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0 and "MP-OK" in (o or ""), \
-            f"process {pid} of {nproc} failed ({p.returncode}):\n" \
-            f"{(o or '')[-3000:]}"
-    return [dict(np.load(f"{out}.{pid}.npz")) for pid in range(nproc)]
+    """Run ``nproc`` workers of this file with their ranks on ``device``
+    (``torch_mp_spawn.spawn``)."""
+    return spawn(HERE, nproc, out, device, deadline_s)
 
 
 def _single_controller(P, ckpt_dir, device="cpu"):
@@ -321,12 +269,6 @@ def _jax_reference(P, ckpt_dir):
                      lambda v: np.asarray(v._data), lambda v: v._data)
 
 
-def _same_bits(a, b) -> bool:
-    a, b = np.asarray(a), np.asarray(b)
-    return a.dtype == b.dtype and a.shape == b.shape and \
-        a.tobytes() == b.tobytes()
-
-
 @pytest.fixture
 def _reset_port():
     yield
@@ -345,16 +287,15 @@ def test_multi_process_main_path(nproc, tmp_path, _reset_port):
     for pid, res in enumerate(got):
         assert sorted(res) == sorted(list(single) + ["log", "refused"])
         for key, want in single.items():
-            assert _same_bits(res[key], want), (pid, key, res[key], want)
+            assert same_bits(res[key], want), (pid, key, res[key], want)
         assert bool(res["log"]), pid
         assert set(res["refused"]) == {
-            "sort", "is_sorted", "dense_matrix", "sparse_matrix",
-            "ring_attention", "redistribute", "unstructured_halo",
-            "histogram", "deferred", "tuning"}, res["refused"]
+            "redistribute", "unstructured_halo", "histogram", "deferred",
+            "tuning"}, res["refused"]
     for key, want in ref.items():
         mine = single[key]
         if key in EXACT:
-            assert _same_bits(mine.astype(want.dtype), want), \
+            assert same_bits(mine.astype(want.dtype), want), \
                 (key, mine, want)
         else:
             scale = float(np.abs(want).max()) + 1.0

@@ -380,7 +380,8 @@ def test_bcsr_gates_and_gemv(case, bcsr):
 # ------------------------------------------------------------------- spmm
 
 @pytest.mark.parametrize("case", ["random", "banded", "single_column",
-                                  "grid", "grid_skewed", "bcsr_skewed"])
+                                  "grid", "grid_skewed", "row_skewed",
+                                  "bcsr_skewed"])
 def test_spmm_matches_reference(case, monkeypatch):
     _init_both(8)
     grid = None
@@ -397,14 +398,15 @@ def test_spmm_matches_reference(case, monkeypatch):
         m = n = 64
         rows, cols, vals = _rand_coo(m, n, 2, seed=11)
         grid = _grid()
-    elif case == "grid_skewed":
+    elif case in ("grid_skewed", "row_skewed"):
         # one long row defeats the ELL pad budget: one flat_gemv a column
+        # (on row tiles the build-time layout is csr)
         m = n = 64
         rows = np.concatenate([np.zeros(n, np.int64), np.arange(m)])
         cols = np.concatenate([np.arange(n), np.zeros(m, np.int64)])
         vals = np.random.default_rng(3).standard_normal(
             len(rows)).astype(np.float32)
-        grid = _grid()
+        grid = _grid() if case == "grid_skewed" else None
     else:
         # one dense row a tile over n = 512: ELL-skewed, BCSR-viable
         m, n = 8 * 8, 512
@@ -431,6 +433,13 @@ def test_spmm_matches_reference(case, monkeypatch):
         _close_rows(got.numpy()[:, 0], dt.to_numpy(tc), d, B[:, 0])
     if grid is None:
         assert tg.resolved_spmm_format(T) == jg.resolved_spmm_format(J)
+        if case == "row_skewed":
+            # no grouped layout and no csr arm: both refuse
+            assert T.format == J.format == "csr"
+            for mod, M in ((tg, T), (jg, J)):
+                with pytest.raises(AssertionError, match="grouped"):
+                    mod.spmm_n(M, B, 2)
+            return
         _close_rows(tg.spmm_n(T, B, 2).numpy(),
                     np.asarray(jg.spmm_n(J, B, 2)), d, B)
 
