@@ -272,6 +272,28 @@ checks the kernels at small shapes only).  Phases:
     tile's owner, K6 one batch a sort, K7 and K9 half); each process's
     step seconds against 29.1's, its start and ``spmd_guard.verify()``
     over the path.  ``--phase29`` runs phases 1-3 and this one.
+30. multi-process execution of the relational ops and re-layout, first
+    with one controller on two ranks of cuda:0 (30.1, held to oracles
+    independent of the port), then in two processes over gloo, each
+    owning one rank on cuda:0 (30.2): phase 14's pipeline (join on the
+    partition route, groupby sum, top_k 8, a 16-bin histogram) at 2^26
+    f32 fact rows over 2^22 keys; phase 15's inner and outer joins on
+    both routes at 2^24 over 2^20; the kernel geometry (2 x 8192 int32
+    keys: a groupby sum on K6 and K7, a 256-bin histogram on K8), 2^30
+    f32 values into 1024 bins (K8), ``unique`` and the three auto ops
+    at the geometry; the redistribute ping-pong at 2^28 f32 (even <->
+    a cut a quarter in) on the collective and the host-staged route,
+    an 8192^2 matrix re-block from 1024^2 cyclic tiles, and an
+    unstructured halo over 2^26 cells with 2^20 indices a rank
+    (``exchange()`` and ``reduce("plus")``).  Each child's int64
+    digests of its rank's cells (and of the rows every process
+    gathers) equal 30.1's bit for bit; it launches K6 as often as 30.1
+    (one batch a sort) and K7 and K8 half as often (once a rank);
+    ``spmd_guard.verify()`` agrees over the path; each process's step
+    seconds against 30.1's, its start and the ping-pong's GB/s across
+    processes.  A child that fails, hangs past its deadline or
+    disagrees fails the phase.  ``--phase30`` runs phases 1-3 and this
+    one.
 
 ``--halo-ab DIR`` times phase 17's halo p50 with the ``dr_tpu_torch`` of
 another checkout at ``DIR`` and this one's, in turns, and stops.
@@ -2000,7 +2022,24 @@ def relational_data(n_fact, ncard, seed, dev, shift=0):
 def relational_path(dt, data, times):
     """join -> groupby sum over the joined rows -> top_k 8 of the groups,
     then a 16-bin histogram of the joined values over [-3, 3]
-    (bench.py:933-961, 1012-1014) on the current runtime."""
+    (bench.py:933-961, 1012-1014) on the current runtime; returns the
+    counts and the outputs' values."""
+    return relational_values(relational_run(dt, data, times))
+
+
+def relational_values(out):
+    """:func:`relational_run`'s counts and its outputs' values (gathered
+    on every process)."""
+    m, ng = out["m"], out["ng"]
+    return {"m": m, "ng": ng,
+            **{k: out[k].to_array()[:m] for k in ("jk", "jl", "jr")},
+            **{k: out[k].to_array()[:ng] for k in ("gk", "gv")},
+            **{k: out[k].to_array() for k in ("tv", "ti", "hb")}}
+
+
+def relational_run(dt, data, times):
+    """:func:`relational_path`'s calls; returns the counts and the
+    output containers (nothing gathered)."""
     step = stepper(dt, times)
     fk, fv, dk, dv = data
     n_fact = fk.numel()
@@ -2019,10 +2058,8 @@ def relational_path(dt, data, times):
         dt.top_k(gv[0:ng], tv, ti)
     with step("histogram"):
         dt.histogram(jl[0:m], hb, -3.0, 3.0)
-    return {"m": m, "ng": ng, "jk": jk.to_array()[:m],
-            "jl": jl.to_array()[:m], "jr": jr.to_array()[:m],
-            "gk": gk.to_array()[:ng], "gv": gv.to_array()[:ng],
-            "tv": tv.to_array(), "ti": ti.to_array(), "hb": hb.to_array()}
+    return {"m": m, "ng": ng, "jk": jk, "jl": jl, "jr": jr, "gk": gk,
+            "gv": gv, "tv": tv, "ti": ti, "hb": hb}
 
 
 def hist_oracle(x, bins, lo, hi):
@@ -7194,14 +7231,15 @@ def mp29_share(single, pid):
             "flash_update": single["flash_update"] // 2}
 
 
-def mp29_child(argv):
-    """One process of phase 29: ``--mp29-child PID NPROC PORT OUT SEED
-    DEVICE SMALL``.  Joins the group (gloo, one rank on DEVICE), runs
-    :func:`mp29_path` under an ``spmd_guard`` (``verify()`` after it)
-    and writes its numbers to ``OUT/child<PID>.json``."""
+def guarded_child(argv, names, run):
+    """The body of a phase 29 or 30 process: ``argv`` starts with PID
+    NPROC PORT OUT SEED DEVICE.  Joins the group (gloo, one rank on
+    DEVICE), runs ``run(dt, seed, steps)`` (the path, returning its
+    digests) under an ``spmd_guard`` (``verify()`` after it) and writes
+    its digests, the launches of the kernels ``names`` and its step
+    seconds to ``OUT/child<PID>.json``."""
     pid, nproc, port, out, seed, device = (
         int(argv[0]), int(argv[1]), argv[2], argv[3], int(argv[4]), argv[5])
-    small = argv[6] == "1"
     import torch
     sys.path.insert(0, HERE)
     import dr_tpu_torch as dt
@@ -7220,10 +7258,10 @@ def mp29_child(argv):
     steps = {}
     t0 = time.perf_counter()
     with spmd_guard.guard() as g:
-        dig = mp29_path(dt, seed, mp29_sizes(small), steps)
+        dig = run(dt, seed, steps)
         g.verify()
     path_s = time.perf_counter() - t0
-    counts = {k: kernels.launches[k] for k in MP29_KERNELS}
+    counts = {k: kernels.launches[k] for k in names}
     with open(os.path.join(out, f"child{pid}.json"), "w") as fh:
         json.dump({"pid": pid, "ready": ready, "digests": dig,
                    "launches": counts, "steps": steps, "path_s": path_s,
@@ -7231,6 +7269,14 @@ def mp29_child(argv):
     dt.barrier()
     dt.final()
     return 0
+
+
+def mp29_child(argv):
+    """One process of phase 29: ``--mp29-child PID NPROC PORT OUT SEED
+    DEVICE SMALL``: :func:`mp29_path` in :func:`guarded_child`."""
+    sz = mp29_sizes(argv[6] == "1")
+    return guarded_child(argv, MP29_KERNELS, lambda dt, seed, steps:
+                         mp29_path(dt, seed, sz, steps))
 
 
 def mp29_phase(dt, kernels, seed, card, nproc=2, device="cuda:0",
@@ -7299,11 +7345,382 @@ def mp29_phase(dt, kernels, seed, card, nproc=2, device="cuda:0",
     return out
 
 
+# phase 30: multi-process execution of the relational ops and re-layout
+# (sizes at the phase's full width; names the cuts PERF.md lists)
+MP30_KERNELS = ("bitonic_sort", "segred", "hist")
+MP30_PARTS = ("pipeline", "routes", "geometry", "histogram", "auto",
+              "relayout")
+MP30_GEO = 8192            # the kernel geometry: int32 keys a rank
+MP30_MD = (CK_M, CK_TILE)  # the re-blocked matrix: m x m f32, cyclic tile
+
+
+def mp30_sizes(small=False):
+    """Phase 30's sizes; ``small`` gives a CPU rehearsal's (the routes
+    at 2^16 fact rows under a 2^14 route threshold, so the unforced
+    join still takes the partition route)."""
+    if small:
+        return {"rel": (14, 10), "routes": 16, "route_max": 1 << 14,
+                "geo": MP30_GEO, "hist": 16, "rdx": 16, "md": (256, 32),
+                "uh": (14, 10)}
+    return {"rel": (REL_FACT_LOG2, REL_CARD_LOG2), "routes": REL4_FACT_LOG2,
+            "route_max": None, "geo": MP30_GEO, "hist": 30,
+            "rdx": RDX_LOG2, "md": MP30_MD, "uh": (UH_LOG2, UH_GHOSTS_LOG2)}
+
+
+def mp30_path(dt, seed, sz, parts=MP30_PARTS, times=None, check=False):
+    """Phase 30's path on the current runtime (one controller or one
+    process of several): phase 14's relational pipeline, phase 15's
+    joins on both routes, the kernel geometry (K6, K7, K8), a 1024-bin
+    histogram (K8), ``unique`` and the auto tier, the redistribute
+    ping-pong on both routes, a matrix re-block and an unstructured
+    halo.  Returns ``{"<result>/<rank>": digest}`` for the cells of each
+    rank this process holds and ``{"<result>": value}`` for what every
+    process holds (counts, gathered rows); ``times`` gets each step's
+    seconds.  ``check`` holds the results against oracles independent
+    of the port (one controller does; the processes are held to its
+    digests)."""
+    import torch
+    from dr_tpu_torch.parallel import redistribute as rdx
+    times = {} if times is None else times
+    step = stepper(dt, times)
+    rt = dt.runtime()
+    dev = rt.home
+    P = rt.nprocs
+    dig = {}
+
+    def keep(name, v):
+        prev = v.halo_bounds.prev
+        for r in rt.local_ranks:
+            b, e = v._rank_window(r)
+            dig[f"{name}/{r}"] = bridge_digest(v.rows[r][0, prev:prev + e - b])
+
+    def keep_all(name, t):
+        dig[name] = bridge_digest(t)
+
+    if "pipeline" in parts:  # phase 14's configuration
+        fl, cl = sz["rel"]
+        data = relational_data(1 << fl, 1 << cl, seed + 14, dev)
+        out = relational_run(dt, data, times)
+        dig["pipeline m"], dig["pipeline ng"] = out["m"], out["ng"]
+        for k in ("jk", "jl", "jr", "gk", "gv", "tv", "ti", "hb"):
+            keep(f"pipeline {k}", out[k])
+        if check:
+            check_relational("30.1", data, relational_values(out))
+        del out, data
+    if "routes" in parts:  # phase 15's joins on both routes
+        fl = sz["routes"]
+        limit = contextlib.nullcontext() if sz["route_max"] is None \
+            else broadcast_max(sz["route_max"])
+        data = relational_data(1 << fl, 1 << (fl - 4), seed + 16, dev)
+        with limit, step("join both routes, inner"):
+            m, rows = join_both_routes(dt, data, "inner", 0, "phase 30")
+        dig["routes inner m"] = m
+        keep_all("routes inner", torch.cat(rows))
+        del data, rows
+        odata = relational_data(1 << fl, 1 << (fl - 4), seed + 17, dev,
+                                shift=1 << (fl - 5))
+        limit = contextlib.nullcontext() if sz["route_max"] is None \
+            else broadcast_max(sz["route_max"])
+        with limit, step("join both routes, outer"):
+            m, rows = join_both_routes(dt, odata, "outer", -1.0, "phase 30")
+        dig["routes outer m"] = m
+        keep_all("routes outer", torch.cat(rows))
+        if check:
+            want = join_oracle(odata, fill=-1.0)
+            check_true("30.1 outer join count", m == want[0].numel())
+            for name, got, w in zip(("keys", "left", "right"), rows, want):
+                check_true(f"30.1 outer join {name} vs oracle (bits)",
+                           torch.equal(got, w.view(torch.int32)))
+            del want
+        del odata, rows
+    rng = np.random.default_rng(seed + 30)
+    nk = sz["geo"] * P
+    keys = rng.integers(0, 512, nk).astype(np.int32)
+    vals = rng.integers(0, 99, nk).astype(np.int32)
+    if "geometry" in parts:  # the bench's kernel geometry
+        hv = rng.standard_normal(nk).astype(np.float32)
+        gk, gv, hvv = (dt.distributed_vector.from_array(a)
+                       for a in (keys, vals, hv))
+        ok = dt.distributed_vector(1024, np.int32)
+        ov = dt.distributed_vector(1024, np.int32)
+        hb = dt.distributed_vector(256, np.int32)
+        with step("geometry groupby sum (K6, K7)"):
+            ng = dt.groupby_aggregate(gk, gv, ok, ov, agg="sum")
+        with step("geometry histogram 256 bins (K8)"):
+            dt.histogram(hvv, hb, -4.0, 4.0)
+        dig["geometry ng"] = ng
+        for name, v in (("ok", ok), ("ov", ov), ("hb", hb)):
+            keep(f"geometry {name}", v)
+        if check:
+            uk, inv = np.unique(keys, return_inverse=True)
+            sums = np.bincount(inv, weights=vals).astype(np.int32)
+            check_true("30.1 geometry groupby vs numpy", ng == len(uk)
+                       and np.array_equal(dt.to_numpy(ok)[:ng], uk)
+                       and np.array_equal(dt.to_numpy(ov)[:ng], sums))
+            x = hv[(hv >= -4.0) & (hv <= 4.0)]
+            b = np.minimum(np.floor((x - np.float32(-4.0)) * np.float32(256)
+                                    / np.float32(8.0)).astype(np.int64), 255)
+            check_true("30.1 geometry histogram vs numpy", np.array_equal(
+                dt.to_numpy(hb), np.bincount(b, minlength=256)))
+        del gk, gv, hvv, ok, ov, hb
+    if "histogram" in parts:  # K8's timed shape
+        with step("data"):
+            x = torch.randn(1 << sz["hist"], generator=torch.Generator(
+                device=dev).manual_seed(seed + 15), device=dev)
+            hx = dt.distributed_vector.from_array(x)
+            hb = dt.distributed_vector(K8_BINS, np.int32)
+        with step(f"histogram 2^{sz['hist']}, {K8_BINS} bins (K8)"):
+            dt.histogram(hx, hb, -4.0, 4.0)
+        keep("histogram", hb)
+        if check:
+            check_true(f"30.1 histogram 2^{sz['hist']} (bits)", torch.equal(
+                hb.to_array(), hist_oracle(x, K8_BINS, -4.0, 4.0)))
+        del x, hx, hb
+    if "auto" in parts:  # unique and the auto tier at the geometry
+        gk, gv = (dt.distributed_vector.from_array(a) for a in (keys, vals))
+        u = dt.distributed_vector(1024, np.int32)
+        with step("unique (K6, K7)"):
+            nu = dt.unique(gk, u)
+        dig["unique n"] = nu
+        keep("unique", u)
+        dk = dt.distributed_vector.from_array(np.arange(0, 512, 3,
+                                                        dtype=np.int32))
+        with step("join_auto (K6)"):
+            ja = dt.join_auto(gk, gv, dk, dk)
+            dig["join_auto n"] = ja.count
+        with step("groupby_auto (K6, K7)"):
+            ga = dt.groupby_auto(gk, gv, "sum")
+            dig["groupby_auto n"] = ga.count
+        with step("unique_auto (K6, K7)"):
+            ua = dt.unique_auto(gk)
+            dig["unique_auto n"] = ua.count
+        for tag, res in (("join_auto", ja), ("groupby_auto", ga),
+                         ("unique_auto", ua)):
+            for i, c in enumerate(res.containers):
+                keep(f"{tag} {i}", c)
+        if check:
+            uk, inv = np.unique(keys, return_inverse=True)
+            check_true("30.1 unique vs numpy", nu == len(uk) and
+                       np.array_equal(dt.to_numpy(u)[:nu], uk))
+            sums = np.bincount(inv, weights=vals).astype(np.int32)
+            gk_a, gv_a = ga.arrays()
+            check_true("30.1 groupby_auto vs numpy", np.array_equal(gk_a, uk)
+                       and np.array_equal(gv_a, sums))
+            check_true("30.1 unique_auto vs numpy",
+                       np.array_equal(ua.arrays()[0], uk))
+            hit = keys % 3 == 0
+            order = np.argsort(keys[hit], kind="stable")
+            jk_a, jl_a, jr_a = ja.arrays()
+            check_true("30.1 join_auto vs numpy", ja.count == int(hit.sum())
+                       and np.array_equal(jk_a, keys[hit][order])
+                       and np.array_equal(jl_a, vals[hit][order])
+                       and np.array_equal(jr_a, keys[hit][order]))
+        del gk, gv, u, dk, ja, ga, ua
+    if "relayout" in parts:
+        n = 1 << sz["rdx"]
+        with step("data"):
+            src = torch.randn(n, generator=torch.Generator(
+                device=dev).manual_seed(seed + 20), device=dev)
+            va = dt.distributed_vector.from_array(src)
+            vb = dt.distributed_vector.from_array(src)
+        # even <-> a cut a quarter in: a quarter of the vector changes rank
+        cut = [n // 4] + [(n - n // 4) // (P - 1)] * (P - 1)
+        cut[-1] += n - sum(cut)
+        moved = rdx.plan_moves(va.layout, (
+            P, dt.block_distribution(cut).layout_entry(), 0, 0, n))[1]
+        for tag, d in (("uneven", cut), ("even", None)):
+            dt.barrier()
+            with step(f"redistribute collective to {tag}"):
+                rdx._collective(va, d, rt)
+            dt.barrier()
+            with step(f"redistribute host-staged to {tag}"):
+                rdx._host_staged(vb, d, rt)
+            keep(f"redistribute {tag}", va)
+            keep(f"redistribute host {tag}", vb)
+            if check:
+                check_true(f"30.1 redistribute to {tag}: collective rows == "
+                           "host-staged rows (bits)", rows_equal(va, vb))
+                check_true(f"30.1 redistribute to {tag}: values == source "
+                           "(bits)", torch_equal(va.to_array(), src))
+        del vb
+        dt.barrier()
+        with step("redistribute ping-pong, collective, 2 iterations"):
+            for _ in range(2):
+                dt.redistribute(va, cut)
+                dt.redistribute(va, None)
+        keep("redistribute ping-pong", va)
+        dig["redistribute moved"] = moved
+        del va, src
+        m, tile = sz["md"]
+        with step("data"):
+            u = torch.randn((m, m), generator=torch.Generator(
+                device=dev).manual_seed(seed + 31), device=dev)
+            D = dt.dense_matrix.from_array(u, dt.block_cyclic(
+                tile=(tile, tile)))
+        with step("redistribute matrix re-block"):
+            dt.redistribute(D)
+        keep_all("matrix re-block", D.to_array())
+        if check:
+            check_true("30.1 matrix re-block == source (bits)",
+                       torch_equal(D.to_array(), u))
+        del D, u
+        n, k = 1 << sz["uh"][0], 1 << sz["uh"][1]
+        rng = np.random.default_rng(seed + 21)
+        base = rng.standard_normal(n).astype(np.float32)
+        gmap = ghost_map(n, P, k, rng)
+        contrib = {r: rng.standard_normal(k).astype(np.float32)
+                   for r in range(P)}
+        v = dt.distributed_vector.from_array(torch.from_numpy(base).to(dev))
+        with step("unstructured halo build"):
+            uh = dt.unstructured_halo(v, gmap)
+        dt.barrier()
+        with step("unstructured halo exchange"):
+            uh.exchange()
+        for r in rt.local_ranks:
+            dig[f"uhalo ghosts/{r}"] = bridge_digest(uh.ghost_values(r))
+        if check:
+            check_true("30.1 unstructured exchange == numpy gather (bits)",
+                       all(np.array_equal(
+                           uh.ghost_values(r).cpu().numpy().view(np.int32),
+                           base[gmap[r]].view(np.int32)) for r in range(P)))
+        for r in rt.local_ranks:
+            uh.set_ghost_values(r, contrib[r])
+        dt.barrier()
+        with step("unstructured halo reduce plus"):
+            uh.reduce("plus")
+        keep("uhalo reduce plus", v)
+        if check:
+            flat = np.concatenate([gmap[r] for r in range(P)])
+            ghosts = np.concatenate([contrib[r] for r in range(P)])
+            check_true("30.1 unstructured reduce plus == numpy (bits)",
+                       np.array_equal(
+                           v.to_array().cpu().numpy().view(np.int32),
+                           numpy_fold(base, flat, ghosts, "plus")
+                           .view(np.int32)))
+        del v, uh
+    return dig
+
+
+def mp30_share(single, pid):
+    """The launches process ``pid`` must make, from the single
+    controller's on two ranks of one device: K6 sorts each device's
+    ranks in one batch, one launch a sort on one controller and in each
+    process alike; K7 and K8 launch once a rank a call, so each process
+    makes its rank's half."""
+    return {"bitonic_sort": single["bitonic_sort"],
+            "segred": single["segred"] // 2,
+            "hist": single["hist"] // 2}
+
+
+def mp30_child(argv):
+    """One process of phase 30: ``--mp30-child PID NPROC PORT OUT SEED
+    DEVICE SMALL PARTS``: :func:`mp30_path` over the comma-separated
+    PARTS in :func:`guarded_child`."""
+    sz, parts = mp30_sizes(argv[6] == "1"), tuple(argv[7].split(","))
+    return guarded_child(argv, MP30_KERNELS, lambda dt, seed, steps:
+                         mp30_path(dt, seed, sz, parts, steps))
+
+
+def rdx_gbps(n, steps, route):
+    """The ping-pong's GB/s by bench.py's count (the whole vector twice
+    an iteration) from one iteration's two moves."""
+    t = (steps[f"redistribute {route} to uneven"]
+         + steps[f"redistribute {route} to even"])
+    return 2 * n * 4 / t / 1e9
+
+
+def mp30_phase(dt, kernels, seed, card, nproc=2, device="cuda:0",
+               small=False, parts=MP30_PARTS, out_dir=None):
+    """Phase 30 (see the module docstring); returns its numbers.  On the
+    CPU (``device="cpu"``, ``small=True``) it rehearses the phase; its
+    launch checks then compare 0 with 0.  ``parts`` picks sections of
+    the path (:data:`MP30_PARTS`); the children write into ``out_dir``
+    (default ``chiprun_out/phase30``)."""
+    import torch
+    from dr_tpu_torch import tuning
+    sz = mp30_sizes(small)
+    out = {"card": card, "processes": nproc, "sizes": sz,
+           "parts": list(parts)}
+    log(f"phase 30.1: the relational ops and re-layout with one controller "
+        f"on {nproc} ranks of {device}: {json.dumps(sz)}, parts "
+        f"{','.join(parts)}")
+    dt.init(dt.get_duplicated_devices(nproc, [device]))
+    tuning.clear_session()  # the join route from the code default alone
+    kernels.reset_counts()
+    steps = {}
+    t0 = time.perf_counter()
+    want = mp30_path(dt, seed, sz, parts, steps, check=True)
+    out["single_s"] = time.perf_counter() - t0
+    counts = {k: kernels.launches[k] for k in MP30_KERNELS}
+    out["single_steps"] = steps
+    out["single_launches"] = counts
+    log(f"  30.1 {out['single_s']:.2f} s, launches {counts}")
+    if device != "cpu" and min(counts.values()) <= 0:
+        raise AssertionError(f"phase 30.1: a kernel of the path never "
+                             f"launched: {counts}")
+    for k in ("segred", "hist"):
+        if counts[k] % nproc:
+            raise AssertionError(f"phase 30.1: {k} launched {counts[k]} "
+                                 f"times on {nproc} ranks")
+    dt.final()
+    release(torch)
+    log(f"phase 30.2: {nproc} processes (gloo), one rank each on {device}")
+    t0 = time.perf_counter()
+    recs, starts = mp_spawn(
+        nproc, seed, out_dir or os.path.join(HERE, "chiprun_out", "phase30"),
+        [device, "1" if small else "0", ",".join(parts)],
+        child="--mp30-child", tag="phase 30")
+    out["spawn_s"] = time.perf_counter() - t0
+    out["starts_s"] = starts
+    n = 1 << sz["rdx"]
+    if "relayout" in parts:
+        out["single_gbps"] = {r: rdx_gbps(n, steps, r)
+                              for r in ("collective", "host-staged")}
+        log(f"  30.1 redistribute ping-pong at 2^{sz['rdx']} f32: "
+            f"{json.dumps(out['single_gbps'])} GB/s (bench.py's count)")
+    for rec in recs:
+        pid = rec["pid"]
+        mine = {k: v for k, v in want.items()
+                if "/" not in k or k.endswith(f"/{pid}")}
+        if rec["digests"] != mine:
+            bad = sorted(k for k in mine if rec["digests"].get(k) != mine[k])
+            raise AssertionError(f"phase 30: process {pid}'s digests differ "
+                                 f"from the single controller's: {bad}")
+        log(f"  process {pid}: {len(mine)} digests equal bit for bit")
+        share = mp30_share(counts, pid)
+        if rec["launches"] != share:
+            raise AssertionError(f"phase 30: process {pid} launched "
+                                 f"{rec['launches']}, its rank's share "
+                                 f"{share} of one controller's {counts}")
+        log(f"  process {pid} launches {rec['launches']} == its rank's "
+            f"share")
+        out[f"p{pid}_steps"] = rec["steps"]
+        out[f"p{pid}_path_s"] = rec["path_s"]
+        out[f"p{pid}_launches"] = rec["launches"]
+        log(f"  process {pid}: start {starts[pid]!r} s, path "
+            f"{rec['path_s']!r} s (one controller {out['single_s']!r} s), "
+            f"{rec['guarded']} guarded dispatches verified")
+        if "relayout" in parts:
+            gb = {r: rdx_gbps(n, rec["steps"], r)
+                  for r in ("collective", "host-staged")}
+            out[f"p{pid}_gbps"] = gb
+            log(f"  process {pid} redistribute ping-pong across processes: "
+                f"{json.dumps(gb)} GB/s (bench.py's count; "
+                f"{want['redistribute moved'] * 4} bytes change process a "
+                f"move)")
+        for k, t in rec["steps"].items():
+            log(f"    {k}: {t!r} s, one controller {steps.get(k)!r} s")
+    log(f"  phase 30 {out['spawn_s']:.1f} s for the processes")
+    return out
+
+
 def main(argv):
     if argv[:1] == ["--mp-child"]:  # one process of phase 28
         return mp_child(argv[1:])
     if argv[:1] == ["--mp29-child"]:  # one process of phase 29
         return mp29_child(argv[1:])
+    if argv[:1] == ["--mp30-child"]:  # one process of phase 30
+        return mp30_child(argv[1:])
     try:
         import torch
     except ImportError:
@@ -7380,8 +7797,9 @@ def main(argv):
     only27 = "--phase27" in argv
     only28 = "--phase28" in argv
     only29 = "--phase29" in argv
+    only30 = "--phase30" in argv
     short = (quick or only22 or only23 or only24 or only25 or only26
-             or only27 or only28 or only29)
+             or only27 or only28 or only29 or only30)
     n = 1 << (20 if short else 30)
     m2d = 2048 if short else M2D
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -7426,6 +7844,10 @@ def main(argv):
     if only29:  # a short run: the checks above, small, then phase 29
         log("  phase 29 numbers: " + json.dumps(
             mp29_phase(dt, kernels, seed, card)))
+        return 0
+    if only30:  # a short run: the checks above, small, then phase 30
+        log("  phase 30 numbers: " + json.dumps(
+            mp30_phase(dt, kernels, seed, card)))
         return 0
 
     log(f"phase 4: main path, 1 rank on cuda:0, n={n}")
@@ -7675,6 +8097,11 @@ def main(argv):
     g29 = mp29_phase(dt, kernels, seed, card)
     log(f"  phase 29 {time.perf_counter() - t0:.1f} s")
     log("  phase 29 numbers: " + json.dumps(g29))
+
+    t0 = time.perf_counter()
+    g30 = mp30_phase(dt, kernels, seed, card)
+    log(f"  phase 30 {time.perf_counter() - t0:.1f} s")
+    log("  phase 30 numbers: " + json.dumps(g30))
 
     log(f"peak device memory (1-D main path): {peak} bytes "
         f"({peak / 2 ** 30:.2f} GiB)")

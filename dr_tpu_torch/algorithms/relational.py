@@ -60,6 +60,21 @@ as the JAX package names them: ``sort`` / ``sort_left`` /
 ``sort_right`` (the scratch sorts), ``aggregate``, ``partition_plan``,
 ``merge`` (with its ``route``), ``cap_probe`` and ``empty``.
 
+In a multi-process runtime (``collectives.init_distributed``) every
+process runs the same op on its own ranks' rows and gets the single
+controller's bits: the scratch rides the multi-process sort, a rank
+reads its predecessor's last key through a one-element
+``collectives.ring_shift``, the run counts, the partition bounds, the
+per-rank row counts, the top_k candidates and the histogram counts are
+gathered (or summed in rank order by ``psum``) once a process, the
+``all_to_all`` sends and the kernels (K6 in the sorts, K7 in the
+groupby, K8 in the histogram) run for local ranks only, and the
+broadcast merge gathers both sorted sides onto every process.  Every
+host read (row and group counts, the partition probe, the route) is
+the same on every process.  The tuning layer does not run across
+processes yet: there the pickers ask it only when a store is armed,
+and then its lookup refuses, classified (:func:`_tuned`).
+
 Each op looks up the algorithm layer's dispatch cache (the
 ``spmd_guard`` tap) with the JAX package's tag (``relgb``, ``reljoin``,
 ``reljoinpart``, ``reljoincnt``, ``relgbcnt``, ``relhist``,
@@ -330,8 +345,21 @@ def _nvalid(n, r, S) -> int:
 
 
 def _rows_of(cont):
-    """Rank rows of a halo-free scratch container, as 1-D tensors."""
-    return [row[0] for row in cont._rows]
+    """Rank rows of a halo-free scratch container, as 1-D tensors (None
+    for a rank another process owns)."""
+    return [None if row is None else row[0] for row in cont._rows]
+
+
+def _local(values):
+    """``(rank, value)`` for each value this process holds."""
+    return [(r, v) for r, v in enumerate(values) if v is not None]
+
+
+def _home_each(t, rt):
+    """``t`` (a value every process holds alike, on the home device) on
+    each of this process's ranks' devices; None for the others."""
+    return [t.to(d) if rt.is_local(r) else None
+            for r, d in enumerate(rt.devices)]
 
 
 # ---------------------------------------------------------------------------
@@ -362,21 +390,25 @@ def _runs(sk, n):
     p, S, cap, prev, nxt, *_ = working_geometry(sk.layout)
     assert prev == 0 and nxt == 0 and cap == S, \
         "the relational scratch is a fresh halo-free uniform container"
-    keys, valids = [], []
-    for r, x in enumerate(_rows_of(sk)):
-        k, big = _masked_keys(x, _nvalid(n, r, S))
-        keys.append(k)
-        valids.append(torch.arange(S, device=x.device)
-                      < _nvalid(n, r, S))
-    out = []
-    for r, (k, valid) in enumerate(zip(keys, valids)):
+    keys, valids = [None] * p, [None] * p
+    for r, x in _local(_rows_of(sk)):
+        keys[r], big = _masked_keys(x, _nvalid(n, r, S))
+        valids[r] = torch.arange(S, device=x.device) < _nvalid(n, r, S)
+    # each rank's predecessor's last key: a one-element shift, across
+    # processes too
+    prevs = collectives.ring_shift(
+        [None if k is None else k[S - 1:] for k in keys],
+        sk.runtime.devices, +1, periodic=False,
+        like=((1,), collectives.present(keys).dtype))
+    out = [None] * p
+    for r, k in _local(keys):
+        valid = valids[r]
         first = valid[:1]
         if r:
-            prevk = keys[r - 1][S - 1:].to(k.device, non_blocking=True)
-            first = first & (k[:1] != prevk)
+            first = first & (k[:1] != prevs[r])
         flags = torch.cat([first, valid[1:] & (k[1:] != k[:-1])])
         segid = torch.cumsum(flags, 0, dtype=torch.int32)
-        out.append((k, valid, segid, segid[S - 1]))
+        out[r] = (k, valid, segid, segid[S - 1])
     return out, big
 
 
@@ -438,7 +470,8 @@ def _groupby_sorted(sid, sk, sv, n, ok_cont, ov_cont, agg) -> int:
     caller."""
     t0 = _obs.now()
     p, S, *_ = working_geometry(sk.layout)
-    devs = sk.runtime.devices
+    rt = sk.runtime
+    devs = rt.devices
     kdtype = sk.dtype
     acc = _acc_dtype(sv.dtype) if sv is not None else torch.int32
     nseg = S + 1
@@ -453,43 +486,47 @@ def _groupby_sorted(sid, sk, sv, n, ok_cont, ov_cont, agg) -> int:
         dt in segred_pallas.KERNEL_DTYPES for dt, _ in cols_dt)
 
     runs, big = _runs(sk, n)
-    ms = [m for *_, m in runs]
+    ms = [None if run is None else run[3] for run in runs]
     svals = _rows_of(sv) if sv is not None else None
-    pkey, pcnt, pval, gid_off, ngs = [], [], [], [], []
-    for r, (k, valid, segid, _m) in enumerate(runs):
-        counts = collectives.all_gather(ms, devs[r])        # (p,)
-        gid_off.append(counts[:r].sum())
-        ngs.append(counts.sum())
+    # every rank's run count: one gather a process
+    counts = collectives.all_gather_each(ms, devs)             # (p,)
+    pkey, pcnt, pval = [None] * p, [None] * p, [None] * p
+    gid_off, ngs = [None] * p, [None] * p
+    for r, (k, valid, segid, _m) in _local(runs):
+        gid_off[r] = counts[r][:r].sum()
+        ngs[r] = counts[r].sum()
         cols = [(k, "min"), (valid.to(torch.int32), "sum")]
         if vop is not None:
             ident = 0 if vop == "sum" else segred_pallas.identity(vop, acc)
             cols.append((torch.where(valid, svals[r].to(acc), ident), vop))
         res = _segment(segid, nseg, cols, kernel)
-        pkey.append(res[0])
-        pcnt.append(res[1])
-        pval.append(res[2] if vop is not None else None)
+        pkey[r], pcnt[r] = res[0], res[1]
+        pval[r] = res[2] if vop is not None else None
+    local = rt.local_ranks
 
     def assemble(layout, partials, ident, kind):
         """Re-home per-run partials into ``layout``'s windows: rank r's
         segment j holds global group gid_off[r] - 1 + j."""
-        sends = []
-        for r in range(p):
+        So = working_geometry(layout)[1]
+        sends = [None] * p
+        for r in local:
             dev = devs[r]
             idx = _all_slots(layout, dev) - (gid_off[r] - 1)
             have = _slot_ok(layout, dev) & (idx >= 0) & (idx <= ms[r])
-            sends.append(torch.where(
-                have, partials[r][idx.clamp(0, nseg - 1)], ident))
-        return [_combine(kind, x)
-                for x in collectives.all_to_all(sends, devs)]
+            sends[r] = torch.where(
+                have, partials[r][idx.clamp(0, nseg - 1)], ident)
+        like = ((So,), collectives.present(sends).dtype)
+        return [None if x is None else _combine(kind, x)
+                for x in collectives.all_to_all(sends, devs, like)]
 
     def live(layout, r):
         return _slots(layout, r, devs[r]) < ngs[r]
 
     akey = assemble(ok_cont.layout, pkey, big, "min")
     # decode through the KEY dtype, then cast to the out dtype
-    krows = [_pack_out_row(_decode(akey[r], kdtype).to(ok_cont.dtype),
-                           live(ok_cont.layout, r), ok_cont.layout, r)
-             for r in range(p)]
+    krows = {r: _pack_out_row(_decode(akey[r], kdtype).to(ok_cont.dtype),
+                              live(ok_cont.layout, r), ok_cont.layout, r)
+             for r in local}
     vrows = None
     if ov_cont is not None:
         ol = ov_cont.layout
@@ -501,15 +538,16 @@ def _groupby_sorted(sid, sk, sv, n, ok_cont, ov_cont, agg) -> int:
         else:
             av = assemble(ol, pval, 0, "sum")
             if agg == "mean":
-                av = [a / c.clamp(min=1).to(a.dtype)
+                av = [None if a is None else a / c.clamp(min=1).to(a.dtype)
                       for a, c in zip(av, acnt)]
-        vrows = [_pack_out_row(av[r].to(ov_cont.dtype), live(ol, r), ol, r)
-                 for r in range(p)]
-    for r in range(p):
+        vrows = {r: _pack_out_row(av[r].to(ov_cont.dtype), live(ol, r), ol,
+                                  r) for r in local}
+    for r in local:
         ok_cont._rows[r] = krows[r]
         if vrows is not None:
             ov_cont._rows[r] = vrows[r]
-    ng = int(ngs[0])
+    # the gathered counts are the same on every process
+    ng = int(ngs[local[0]])
     _obs.complete("relational.phase", t0, cat="relational", parent=sid,
                   phase="aggregate", groups=ng)
     return ng
@@ -519,8 +557,8 @@ def _group_count(sk, n) -> int:
     """The distinct-key count of the sorted scratch (the auto tier's
     probe): the boundary flags' run counts, summed."""
     runs, _ = _runs(sk, n)
-    return int(collectives.psum([m for *_, m in runs],
-                                sk.runtime.devices[0]))
+    return int(collectives.psum([None if run is None else run[3]
+                                 for run in runs], sk.runtime.home))
 
 
 def _check_groupby(keys, values, out_keys, out_values):
@@ -602,7 +640,6 @@ def groupby_aggregate(keys, values, out_keys, out_values,
     ``count`` / ``mean`` (``count`` accepts ``values=None``).  A result
     larger than the capacity raises ``ProgramError`` after the op ran
     (the first ``len(out_keys)`` groups are valid)."""
-    _rt.require_single_process("groupby_aggregate", _rt.RELATIONAL)
     _check_agg(values, agg)
     _kc, _vc, okc, ovc = _check_groupby(keys, values, out_keys,
                                         out_values)
@@ -630,7 +667,6 @@ def unique(r, out) -> int:
     """Sorted distinct values of ``r`` into ``out[0:count]`` (a whole
     distributed_vector; positions ``>= count`` are zero); returns the
     distinct count.  The keys-only groupby."""
-    _rt.require_single_process("unique", _rt.RELATIONAL)
     _in_chain(r, "unique")
     okc = _whole_out(out, "unique")
     p = _plan_active()
@@ -730,14 +766,15 @@ def _channels(outs, lkeys, lvals, rkeys, rvals, fillv):
 
 
 def _gather_side(cont, dev):
-    """One sorted scratch side, all ranks' rows concatenated on ``dev``."""
+    """One sorted scratch side, all ranks' rows concatenated on ``dev``
+    (on every process)."""
     return collectives.all_gather(_rows_of(cont), dev).reshape(-1)
 
 
-def _broadcast_plan(slk, srk, nl, nr, left_outer, right_outer, dev):
-    """The broadcast merge's row arithmetic on ``dev``: both sorted key
-    sides gathered, match counts, emitters."""
-    LK, RK = _gather_side(slk, dev), _gather_side(srk, dev)
+def _broadcast_plan(LK, RK, nl, nr, left_outer, right_outer):
+    """The broadcast merge's row arithmetic on the gathered sorted key
+    sides' device: match counts, emitters."""
+    dev = LK.device
     kl, _ = _masked_keys(LK, nl)
     kr, _ = _masked_keys(RK, nr)
     lo, cnt, rows = _counts(kl, kr, nl, nr, left_outer)
@@ -747,22 +784,27 @@ def _broadcast_plan(slk, srk, nl, nr, left_outer, right_outer, dev):
                        torch.cat([kl, kr]))
     else:
         em = _Emitters(rows)
-    return LK, RK, lo, cnt, em
+    return lo, cnt, em
 
 
 def _merge_broadcast(slk, slv, nl, srk, srv, nr, outs, left_outer,
                      right_outer, fillv):
-    """Every rank gathers both sorted sides (computed once per device)
-    and builds its own window of the expanded rows."""
-    devs = slk.runtime.devices
+    """Both sorted sides are gathered once a process (onto its home
+    device), the row arithmetic runs once a device, and every rank
+    builds its own window of the expanded rows."""
+    rt = slk.runtime
+    home = rt.home
+    LK0, LV0 = _gather_side(slk, home), _gather_side(slv, home)
+    RK0, RV0 = _gather_side(srk, home), _gather_side(srv, home)
     plans = {}
-    for r, dev in enumerate(devs):
+    for r in rt.local_ranks:
+        dev = rt.devices[r]
         if dev not in plans:
-            LK, RK, lo, cnt, em = _broadcast_plan(
-                slk, srk, nl, nr, left_outer, right_outer, dev)
+            LK, LV, RK, RV = (t.to(dev) for t in (LK0, LV0, RK0, RV0))
+            lo, cnt, em = _broadcast_plan(LK, RK, nl, nr, left_outer,
+                                          right_outer)
             plans[dev] = (em, lo, cnt, LK.numel(), RK.numel(), _channels(
-                outs, LK, _gather_side(slv, dev), RK,
-                _gather_side(srv, dev), fillv.to(dev)))
+                outs, LK, LV, RK, RV, fillv.to(dev)))
         em, lo, cnt, NL, NR, chans = plans[dev]
         for cont, left, right in chans:
             j = _slots(cont.layout, r, dev)
@@ -770,7 +812,20 @@ def _merge_broadcast(slk, slv, nl, srk, srv, nr, outs, left_outer,
                               cont.dtype)
             cont._rows[r] = _pack_out_row(vals, j < em.total, cont.layout,
                                           r)
-    return int(plans[devs[0]][0].total)
+    return int(plans[home][0].total)
+
+
+def _tuned(domain: str, param: str):
+    """``tuning.lookup(domain, param)`` for the relational pickers.  In a
+    multi-process runtime the tuning layer waits for its own slice:
+    with no store armed the answer is None without a lookup (the
+    session overlay is not noted there either), and with a store armed
+    the lookup raises its classified refusal, so every process takes
+    the same route."""
+    from .. import tuning as _tuning
+    if _rt.mp_runtime() is not None and not _tuning.enabled():
+        return None
+    return _tuning.lookup(domain, param)
 
 
 def _broadcast_max() -> int:
@@ -783,12 +838,12 @@ def _broadcast_max() -> int:
     With the variable unset and the plan optimizer's ``joinroute`` pass
     armed, a ``join.broadcast_max`` entry of the tuning DB
     (``dr_tpu_torch/tuning.py``, matched on this runtime's context)
-    replaces the default; a value that is not an integer is ignored."""
+    replaces the default; a value that is not an integer is ignored
+    (across processes, :func:`_tuned`)."""
     if env_raw("DR_GPU_JOIN_BROADCAST_MAX") is None:
         from ..plan import opt as _opt
         if _opt.enabled("joinroute"):
-            from .. import tuning as _tuning
-            v = _tuning.lookup("join", "broadcast_max")
+            v = _tuned("join", "broadcast_max")
             if v is not None and not isinstance(v, bool):
                 try:
                     return max(0, int(v))
@@ -815,7 +870,7 @@ def _set_join_route(**kw) -> None:
     _LAST_JOIN_ROUTE.update(kw)
 
 
-def _partition_bounds(kl, krows, nvr, p, devs, outer, nl, Sl):
+def _partition_bounds(kl, krows, nvr, p, rt, outer, nl, Sl):
     """Per rank, the contiguous global slice ``[starts[d], ends[d])`` of
     the sorted right side that rank d's partition holds, from each rank's
     left key range ``[firsts[d], lasts[d]]`` (its block's first and last
@@ -824,15 +879,19 @@ def _partition_bounds(kl, krows, nvr, p, devs, outer, nl, Sl):
     exactly one owning rank: the gap below rank d's range belongs to d
     (above ``lasts[d-1]``), everything above the last real left key to
     the last nonempty left rank; empty left ranks (trailing) own nothing.
-    Returns per-device ``(firsts, lasts, starts, ends)`` lists and, for
-    ``outer``, ``(last_ne, ne)``."""
-    firsts = [collectives.all_gather([k[0] for k in kl], d) for d in devs]
-    lasts = [collectives.all_gather([k[-1] for k in kl], d) for d in devs]
+    Returns per-rank ``(firsts, lasts, starts, ends)`` lists (None for a
+    rank another process owns: each gather and sum runs once a process)
+    and ``(last_ne, ne)``."""
+    devs = rt.devices
+    firsts = collectives.all_gather_each(
+        [None if k is None else k[0] for k in kl], devs)
+    lasts = collectives.all_gather_each(
+        [None if k is None else k[-1] for k in kl], devs)
     nvls = np.minimum(np.maximum(nl - np.arange(p) * Sl, 0), Sl)
     last_ne = int(np.nonzero(nvls)[0].max())
     ne = nvls > 0
-    below, thru = [], []
-    for r, kr in enumerate(krows):
+    below, thru = [None] * p, [None] * p
+    for r, kr in _local(krows):
         f, la = firsts[r], lasts[r]
         lo = torch.clamp(torch.searchsorted(kr, f), max=nvr[r])
         hi = torch.clamp(torch.searchsorted(kr, la, right=True), max=nvr[r])
@@ -844,10 +903,9 @@ def _partition_bounds(kl, krows, nvr, p, devs, outer, nl, Sl):
             hi[last_ne] = nvr[r]
             nev = torch.as_tensor(ne, device=kr.device)
             lo, hi = torch.where(nev, lo, 0), torch.where(nev, hi, 0)
-        below.append(lo)
-        thru.append(hi)
-    starts = [collectives.psum(below, d) for d in devs]
-    ends = [collectives.psum(thru, d) for d in devs]
+        below[r], thru[r] = lo, hi
+    starts = _home_each(collectives.psum(below, rt.home), rt)
+    ends = _home_each(collectives.psum(thru, rt.home), rt)
     return firsts, lasts, starts, ends, last_ne, ne
 
 
@@ -868,24 +926,26 @@ def _merge_partition(sid, slk, slv, nl, srk, srv, nr, outs, left_outer,
     t0 = _obs.now()
     p, Sl, *_ = working_geometry(slk.layout)
     _, Sr, *_ = working_geometry(srk.layout)
-    devs = slk.runtime.devices
+    rt = slk.runtime
+    devs, local = rt.devices, rt.local_ranks
     lraw, rraw = _rows_of(slk), _rows_of(srk)
     nvl = [_nvalid(nl, r, Sl) for r in range(p)]
     nvr = [_nvalid(nr, r, Sr) for r in range(p)]
-    klq, kl, krows = [], [], []
-    for r in range(p):
+    klq, kl, krows = [None] * p, [None] * p, [None] * p
+    for r in local:
         kq, _ = _masked_keys(lraw[r], nvl[r])
-        klq.append(kq)
+        klq[r] = kq
         # the range row ends at the last REAL key, not the pad key
         k = kq.clone()
         k[Sl - 1] = kq[max(nvl[r] - 1, 0)]
-        kl.append(k)
-        kr, bigr = _masked_keys(rraw[r], nvr[r])
-        krows.append(kr)
+        kl[r] = k
+        krows[r], bigr = _masked_keys(rraw[r], nvr[r])
     firsts, lasts, starts, ends, last_ne, ne = _partition_bounds(
-        kl, krows, nvr, p, devs, right_outer, nl, Sl)
-    # the planner's one host read: the widest partition
-    mx = max(int((ends[0] - starts[0]).max()), 1)
+        kl, krows, nvr, p, rt, right_outer, nl, Sl)
+    # the planner's one host read: the widest partition (the summed
+    # bounds are the same on every process)
+    h = local[0]
+    mx = max(int((ends[h] - starts[h]).max()), 1)
     rcap = min(1 << (mx - 1).bit_length(), p * Sr)
     _obs.complete("relational.phase", t0, cat="relational", parent=sid,
                   phase="partition_plan", rcap=rcap)
@@ -908,19 +968,19 @@ def _merge_partition(sid, slk, slv, nl, srk, srv, nr, outs, left_outer,
             buf.scatter_(0, idx, blk)
         return carry
 
-    carry, blocks = [], []
-    rvals = _rows_of(srv)
-    for r in range(p):
+    carry, blocks = [None] * p, [None] * p
+    rvals, lvals = _rows_of(srv), _rows_of(slv)
+    for r in local:
         dev = devs[r]
-        carry.append((torch.full((rcap + 1,), bigr, dtype=krows[r].dtype,
-                                 device=dev),
-                      torch.zeros(rcap + 1, dtype=srv.dtype, device=dev),
-                      torch.zeros(rcap + 1, dtype=srk.dtype, device=dev)))
-        blocks.append((krows[r], rvals[r], rraw[r]))
+        carry[r] = (torch.full((rcap + 1,), bigr, dtype=krows[r].dtype,
+                               device=dev),
+                    torch.zeros(rcap + 1, dtype=srv.dtype, device=dev),
+                    torch.zeros(rcap + 1, dtype=srk.dtype, device=dev))
+        blocks[r] = (krows[r], rvals[r], rraw[r])
     parts = ring_pipeline(devs, carry, blocks, scatter)
 
-    ems, los, cnts, chans, ctots, bases = [], [], [], [], [], []
-    for r in range(p):
+    ems, los, cnts, chans = [None] * p, [None] * p, [None] * p, [None] * p
+    for r in local:
         dev = devs[r]
         rbk, rbv, rbraw = (b[:rcap] for b in parts[r])
         size_me = ends[r][r] - starts[r][r]
@@ -939,34 +999,35 @@ def _merge_partition(sid, slk, slv, nl, srk, srv, nr, outs, left_outer,
                            torch.cat([klq[r], rbk]))
         else:
             em = _Emitters(rows)
-        ems.append(em)
-        los.append(lo)
-        cnts.append(cnt)
-        chans.append(_channels(outs, lraw[r], _rows_of(slv)[r], rbraw, rbv,
-                               fillv.to(dev)))
-    for r in range(p):
-        ctots.append(torch.cumsum(collectives.all_gather(
-            [em.total for em in ems], devs[r]), 0))
-        bases.append(ctots[r][r] - ems[r].total)
+        ems[r], los[r], cnts[r] = em, lo, cnt
+        chans[r] = _channels(outs, lraw[r], lvals[r], rbraw, rbv,
+                             fillv.to(dev))
+    # every rank's row count: one gather a process
+    ctots = [None if g is None else torch.cumsum(g, 0)
+             for g in collectives.all_gather_each(
+                 [None if em is None else em.total for em in ems], devs)]
+    bases = {r: ctots[r][r] - ems[r].total for r in local}
 
     for c in range(3):
         cont = outs[c]
-        sends = []
-        for r in range(p):
+        So = working_geometry(cont.layout)[1]
+        sends = [None] * p
+        for r in local:
             _, left, right = chans[r][c]
             jl = _all_slots(cont.layout, devs[r]) - bases[r]
             mine = (jl >= 0) & (jl < ems[r].total)
             vals = _emit_rows(ems[r], jl, los[r], cnts[r], Sl, rcap, left,
                               right, cont.dtype)
-            sends.append(torch.where(mine, vals, 0))
-        for r, recv in enumerate(collectives.all_to_all(sends, devs)):
+            sends[r] = torch.where(mine, vals, 0)
+        for r, recv in _local(collectives.all_to_all(
+                sends, devs, ((So,), cont.dtype))):
             jt = _slots(cont.layout, r, devs[r])
             ps = torch.searchsorted(ctots[r], jt, right=True) \
                 .clamp(0, p - 1)
             got = recv.gather(0, ps[None])[0]
             cont._rows[r] = _pack_out_row(got, jt < ctots[r][-1],
                                           cont.layout, r)
-    m = int(ctots[0][-1])
+    m = int(ctots[h][-1])
     _obs.complete("relational.phase", t0, cat="relational", parent=sid,
                   phase="merge", rows=m, route="partition")
     return m, rcap
@@ -1095,7 +1156,6 @@ def join(left_keys, left_values, right_keys, right_values, out_keys,
     outputs share one capacity, positions ``>= count`` are zero.  Returns
     the row count; a result beyond the capacity raises ``ProgramError``
     after the op ran (the first ``capacity`` rows are valid)."""
-    _rt.require_single_process("join", _rt.RELATIONAL)
     _check_how(how)
     *_sides, okc, olc, orc = _check_join(left_keys, left_values, right_keys,
                                          right_values, out_keys, out_left,
@@ -1206,8 +1266,7 @@ def _cap_hint(kind: str, base: int):
     number): the caller probes the exact count."""
     if base <= 0:
         return None
-    from .. import tuning as _tuning
-    r = _tuning.lookup("relational", "cap_ratio_" + kind)
+    r = _tuned("relational", "cap_ratio_" + kind)
     if isinstance(r, bool):
         return None
     try:
@@ -1221,8 +1280,9 @@ def _cap_hint(kind: str, base: int):
 
 def _note_ratio(kind: str, base: int, m: int) -> None:
     """Note the observed rows/input ratio in the session overlay, so the
-    next auto op of this kind skips its probe."""
-    if base > 0:
+    next auto op of this kind skips its probe (not in a multi-process
+    runtime, where the overlay is not read: :func:`_tuned`)."""
+    if base > 0 and _rt.mp_runtime() is None:
         from .. import tuning as _tuning
         _tuning.note("relational", "cap_ratio_" + kind, max(m, 1) / base)
 
@@ -1254,10 +1314,9 @@ def _join_auto_eager(lk, lv, rk, rv, how, fill):
             # the exact count: the broadcast merge's row arithmetic on
             # one device
             t0 = _obs.now()
-            cap = int(_broadcast_plan(slk, srk, nl, nr,
-                                      how in ("left", "outer"),
-                                      how == "outer",
-                                      rt.devices[0])[-1].total)
+            cap = int(_broadcast_plan(
+                _gather_side(slk, rt.home), _gather_side(srk, rt.home), nl,
+                nr, how in ("left", "outer"), how == "outer")[-1].total)
             _obs.complete("relational.phase", t0, cat="relational",
                           parent=sid, phase="cap_probe", rows=cap)
         cap = _pow2_cap(cap)
@@ -1323,7 +1382,6 @@ def join_auto(left_keys, left_values, right_keys, right_values, *,
     sorted, a count-only probe gives the exact row count and the outputs
     are allocated at its pow2 ceiling.  Returns an :class:`AutoResult`
     over ``(out_keys, out_left, out_right)``."""
-    _rt.require_single_process("join_auto", _rt.RELATIONAL)
     _check_how(how)
     _check_join_sides(left_keys, left_values, right_keys, right_values)
     meta = _opaque_meta("join", {"lk": left_keys, "lv": left_values,
@@ -1336,7 +1394,6 @@ def groupby_auto(keys, values, agg: str = "sum") -> AutoResult:
     """:func:`groupby_aggregate` with inferred output capacity (the
     distinct-key count probe).  Returns an :class:`AutoResult` over
     ``(out_keys, out_values)``."""
-    _rt.require_single_process("groupby_auto", _rt.RELATIONAL)
     _check_agg(values, agg)
     kc = _in_chain(keys, "groupby_aggregate")
     inputs = {"keys": keys}
@@ -1355,7 +1412,6 @@ def groupby_auto(keys, values, agg: str = "sum") -> AutoResult:
 def unique_auto(r) -> AutoResult:
     """:func:`unique` with inferred output capacity.  Returns an
     :class:`AutoResult` over ``(out,)``."""
-    _rt.require_single_process("unique_auto", _rt.RELATIONAL)
     _in_chain(r, "unique")
     meta = _opaque_meta("unique", {"r": r}, ())
     return _auto("unique(auto)", meta, lambda i: _groupby_auto_eager(
@@ -1383,7 +1439,6 @@ def histogram(r, out, lo, hi):
     ``promote_types(dtype, float32)``, ``lo``/``hi`` rounded to f32 and
     cast to it, then ``floor((x - lo) * bins / (hi - lo))`` as separate
     operations in that order, to int32."""
-    _rt.require_single_process("histogram", _rt.RELATIONAL)
     if isinstance(lo, (int, float, np.number)) \
             and isinstance(hi, (int, float, np.number)) \
             and not (float(hi) > float(lo)):
@@ -1413,9 +1468,11 @@ def histogram(r, out, lo, hi):
 def _histogram_rows(in_rows, in_layout, off, n, ops, chain_sc, out_layout,
                     out_dtype, bins, lo, hi) -> list:
     """Bucket each rank's window cells, count them (K8 or
-    ``index_add_``), sum the counts: the out container's new rows."""
-    local = []
-    for rk, row in enumerate(in_rows):
+    ``index_add_``), sum the counts in rank order (``psum``, once a
+    process): the out container's new rows (None for a rank another
+    process owns)."""
+    local = [None] * len(in_rows)
+    for rk, row in _local(in_rows):
         dev = row.device
         c0, c1 = window_cols(in_layout, off, n, rk)
         x = _apply_chain_ops(row[0, c0:c1], ops, iter(chain_sc))
@@ -1427,17 +1484,17 @@ def _histogram_rows(in_rows, in_layout, off, n, ops, chain_sc, out_layout,
         bc = torch.where(inr, b, 0).clamp(0, bins - 1)
         cnt = inr.to(torch.int32)
         if hist_pallas.eligible(bc.numel(), bins):
-            local.append(hist_pallas.bincount(bc, cnt, bins))
+            local[rk] = hist_pallas.bincount(bc, cnt, bins)
         else:
-            local.append(torch.zeros(bins, dtype=torch.int32, device=dev)
-                         .index_add_(0, bc, cnt))
-    new = []
-    for rk, row in enumerate(in_rows):
+            local[rk] = torch.zeros(bins, dtype=torch.int32,
+                                    device=dev).index_add_(0, bc, cnt)
+    total = collectives.psum(local, collectives.present(in_rows).device)
+    new = [None] * len(in_rows)
+    for rk, row in _local(in_rows):
         dev = row.device
-        total = collectives.psum(local, dev)
         t = _slots(out_layout, rk, dev)
-        vals = total[t.clamp(0, bins - 1)].to(out_dtype)
-        new.append(_pack_out_row(vals, t < bins, out_layout, rk))
+        vals = total.to(dev)[t.clamp(0, bins - 1)].to(out_dtype)
+        new[rk] = _pack_out_row(vals, t < bins, out_layout, rk)
     return new
 
 
@@ -1492,7 +1549,6 @@ def top_k(r, out_vals, out_idx=None, *, largest: bool = True,
     ``merge=True`` folds the current ``out_vals``/``out_idx`` contents
     into the candidate pool, so chained calls over successive windows
     stream a running top-k.  Returns ``out_vals``."""
-    _rt.require_single_process("top_k", _rt.RELATIONAL)
     chain, ovc, oic = _top_k_chains(r, out_vals, out_idx)
     if merge and oic is not None \
             and oic.cont.layout != ovc.cont.layout:
@@ -1527,14 +1583,15 @@ def top_k(r, out_vals, out_idx=None, *, largest: bool = True,
 def _top_k_rows(in_rows, in_layout, off, n, ops, chain_sc, ov_rows,
                 ov_layout, ov_dtype, oi_rows, oi_layout, k, largest,
                 merge):
-    """Each rank's k best (order key, index) pairs, gathered and sorted
-    once more: the new rows of the value (and index) container."""
+    """Each rank's k best (order key, index) pairs, gathered once a
+    process and sorted once more: the new rows of the value (and index)
+    container (None for a rank another process owns)."""
     p = len(in_rows)
     sentinel = _worst(ov_dtype, largest)
-    cands = []
-    for rk in range(p):
-        dev = in_rows[rk].device
-        x = _apply_chain_ops(in_rows[rk][0], ops, iter(chain_sc))
+    cands = [None] * p
+    for rk, row in _local(in_rows):
+        dev = row.device
+        x = _apply_chain_ops(row[0], ops, iter(chain_sc))
         mask, gid = owned_window_mask(in_layout, off, n, rk, dev)
         xv = torch.where(mask, x.to(ov_dtype), sentinel)
         gv = torch.where(mask, (gid - off).to(torch.int32), _GMAX)
@@ -1548,32 +1605,31 @@ def _top_k_rows(in_rows, in_layout, off, n, ops, chain_sc, ov_rows,
         order = _order_of(xv, largest)
         kk = min(k, xv.numel())
         best = _sort_perm2(order, gv)[:kk]
-        cands.append((order[best], gv[best], xv[best]))
-    results = {}
-    new_v, new_i = [], []
-    for rk in range(p):
-        dev = in_rows[rk].device
-        if dev not in results:
-            Go, Gg, Gv = (collectives.all_gather([c[i] for c in cands], dev)
-                          .reshape(-1) for i in range(3))
-            if Go.numel() < k:
-                pad = k - Go.numel()
-                Go = torch.cat([Go, Go.new_full(
-                    (pad,), torch.iinfo(Go.dtype).max)])
-                Gg = torch.cat([Gg, Gg.new_full((pad,), _GMAX)])
-                Gv = torch.cat([Gv, Gv.new_full((pad,), sentinel)])
-            best = _sort_perm2(Go, Gg)[:k]
-            results[dev] = (Gv[best], Gg[best])
-        res_v, res_g = results[dev]
+        cands[rk] = (order[best], gv[best], xv[best])
+    home = collectives.present(in_rows).device
+    Go, Gg, Gv = (collectives.all_gather(
+        [None if c is None else c[i] for c in cands], home).reshape(-1)
+        for i in range(3))
+    if Go.numel() < k:
+        pad = k - Go.numel()
+        Go = torch.cat([Go, Go.new_full((pad,), torch.iinfo(Go.dtype).max)])
+        Gg = torch.cat([Gg, Gg.new_full((pad,), _GMAX)])
+        Gv = torch.cat([Gv, Gv.new_full((pad,), sentinel)])
+    best = _sort_perm2(Go, Gg)[:k]
+    res_v0, res_g0 = Gv[best], Gg[best]
+    new_v, new_i = [None] * p, [None] * p
+    for rk, row in _local(in_rows):
+        dev = row.device
+        res_v, res_g = res_v0.to(dev), res_g0.to(dev)
         t = _slots(ov_layout, rk, dev)
         live = t < k
-        new_v.append(_pack_out_row(
+        new_v[rk] = _pack_out_row(
             torch.where(live, res_v[t.clamp(0, k - 1)], sentinel), live,
-            ov_layout, rk))
+            ov_layout, rk)
         if oi_rows is not None:
             ti = _slots(oi_layout, rk, dev)
             ilive = ti < k
-            new_i.append(_pack_out_row(
+            new_i[rk] = _pack_out_row(
                 torch.where(ilive, res_g[ti.clamp(0, k - 1)], _GMAX),
-                ilive, oi_layout, rk))
+                ilive, oi_layout, rk)
     return new_v, (new_i if oi_rows is not None else None)

@@ -36,7 +36,9 @@ the rotations move blocks across processes through
 ``collectives.ppermute`` (every process issues the same rotations).
 A rotation takes every rank's block to be shaped as this process's
 first one, so no header is sent: the rings that run across processes
-(ring attention's) rotate blocks of one shape.
+(ring attention's, the join's partition ring) rotate blocks of one
+shape, and the re-layout's buckets of unequal lengths name each
+bucket's shape (``ring_exchange``'s ``bucket_like``).
 
 :func:`fire_ppermute` is the ``collectives.ppermute`` fault site: every
 ring dispatcher (the sparse ring gemv, ring attention, the join's
@@ -95,16 +97,19 @@ def _resolve(schedule: Optional[str]) -> str:
     return sched
 
 
-def _permute(blocks: Sequence[Any], pairs, devices) -> List[Any]:
+def _permute(blocks: Sequence[Any], pairs, devices,
+             like=None) -> List[Any]:
     """``blocks[src]`` to ``devices[dst]`` for every pair, leaf by leaf
     (None stays None: a rank another process owns), each leaf shaped
-    as this process's first one."""
+    as this process's first one, or, for a tensor block, as ``like``
+    gives it: one ``(shape, dtype)`` a pair."""
     first = collectives.present(blocks)
 
     def move(leaf):
         t = collectives.present(leaf)
         return collectives.ppermute(leaf, pairs, devices,
-                                    (tuple(t.shape), t.dtype))
+                                    (tuple(t.shape), t.dtype)
+                                    if like is None else like)
 
     if isinstance(first, (tuple, list)):
         leaves = [move([None if b is None else b[i] for b in blocks])
@@ -164,7 +169,8 @@ def ring_exchange(devices, carry: Sequence[Any],
                   make_bucket: Callable[[int, int], Any],
                   consume: Callable[[int, int, Any, Any], Any], *,
                   steps: Optional[Sequence[int]] = None,
-                  schedule: Optional[str] = None):
+                  schedule: Optional[str] = None,
+                  bucket_like: Optional[Callable[[int, int], Any]] = None):
     """Offset-permute exchange (the collective decomposition of
     arXiv:2112.01075 on the ring): for each hop distance ``t`` in
     ``steps`` (default ``1..nshards-1``) every rank r sends ONE bucket,
@@ -176,7 +182,11 @@ def ring_exchange(devices, carry: Sequence[Any],
 
     ``pipelined`` issues hop t+1's copies before consuming hop t's
     arrivals, ``serial`` after; each consume reads only its own arrival
-    and the threaded carry, so the two are bit-identical."""
+    and the threaded carry, so the two are bit-identical.
+
+    ``bucket_like(t, r)``: the ``(shape, dtype)`` of rank r's tensor
+    bucket at hop t, which both ends compute from static geometry, so
+    buckets of unequal lengths cross processes with no header."""
     sched = _resolve(schedule)
     nshards = len(devices)
     hops = list(range(1, nshards)) if steps is None else list(steps)
@@ -184,9 +194,11 @@ def ring_exchange(devices, carry: Sequence[Any],
     local = [c is not None for c in carry]
 
     def send(t):
+        pairs = shift_perm(nshards, t)
+        like = None if bucket_like is None else \
+            [bucket_like(t, src) for src, _ in pairs]
         return _permute([make_bucket(t, r) if local[r] else None
-                         for r in range(nshards)],
-                        shift_perm(nshards, t), devices)
+                         for r in range(nshards)], pairs, devices, like)
 
     def fold(t, arrived):
         return [consume(t, r, carry[r], arrived[r]) if local[r] else None

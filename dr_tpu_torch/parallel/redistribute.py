@@ -21,6 +21,15 @@ communication", arXiv:2112.01075).
   host-staged route (the logical value through the host, then
   ``_rebind``, then ``assign_array``).  A failed collective exchange
   rolls the vector back to its old layout and rows.
+* In a multi-process runtime (``collectives.init_distributed``) each
+  process builds the target rows of its own ranks only; a hop's buckets
+  cross processes through ``collectives.route`` with no header, and a
+  rollback restores each process's own rows (the exchange never writes
+  the source rows).  The host-staged route gathers the value onto every
+  process (``to_array``) and writes back the local rows.  A target
+  runtime that does not span the source's processes cannot exist in
+  one process group: it is refused, classified, before anything
+  moves.
 * While tracing is armed (``dr_tpu_torch.obs``), a re-layout is a
   ``redistribute`` span with its route as ``impl`` (``collective`` or
   ``host``) and ``redistribute.phase`` children: ``plan``, ``exchange``
@@ -53,6 +62,7 @@ from .. import obs as _obs
 from ..algorithms._common import layout_geometry
 from ..core.pinning import pinned_id
 from ..utils import faults as _faults
+from ..utils.resilience import ProgramError
 from ..utils.spmd_guard import TappedCache, dtype_name
 from .pipeline import fire_ppermute, ring_exchange, schedule_mode
 
@@ -98,13 +108,18 @@ def exchange_rows(src_rows, devices, src_layout, dst_layout, dtype,
                   plan=None):
     """The target layout's rows, each on its rank's device, holding the
     source rows' logical values; every other cell is zero.  ``plan`` is
-    :func:`plan_moves`'s result, computed here when None."""
+    :func:`plan_moves`'s result, computed here when None.  In a
+    multi-process runtime only this process's ranks get a row (None for
+    the others, the ``_rows`` convention), and a hop's buckets cross
+    processes with no header: both ends know each one's length from the
+    plan."""
     p, _, s_prev, _, n, s_starts, s_sizes = layout_geometry(src_layout)
     _, d_cap, d_prev, d_nxt, _, d_starts, d_sizes = \
         layout_geometry(dst_layout)
     d_ends = np.minimum(d_starts + d_sizes, n)  # the owned cells only
-    rows = [torch.zeros((1, d_prev + d_cap + d_nxt), dtype=dtype, device=d)
-            for d in devices]
+    rows = [None if row is None else
+            torch.zeros((1, d_prev + d_cap + d_nxt), dtype=dtype, device=d)
+            for row, d in zip(src_rows, devices)]
 
     def src_window(r, lo, ln):
         c = s_prev + lo - int(s_starts[r])
@@ -120,6 +135,8 @@ def exchange_rows(src_rows, devices, src_layout, dst_layout, dtype,
         return lo, max(0, hi - lo)
 
     for r in range(p):  # hop 0: each rank's own overlap, no transfer
+        if rows[r] is None:
+            continue
         a = max(int(s_starts[r]), int(d_starts[r]))
         b = min(int(s_starts[r]) + int(s_sizes[r]), int(d_ends[r]))
         if b > a:
@@ -135,6 +152,10 @@ def exchange_rows(src_rows, devices, src_layout, dst_layout, dtype,
         a, k = clipped(int(lo[r]), int(ln[r]), (r + t) % p)
         return src_window(r, a, k)
 
+    def bucket_like(t, r):
+        lo, ln = windows[t]
+        return (clipped(int(lo[r]), int(ln[r]), (r + t) % p)[1],), dtype
+
     def consume(t, r, row, bucket):
         lo, ln = windows[t]
         s = (r - t) % p
@@ -144,7 +165,8 @@ def exchange_rows(src_rows, devices, src_layout, dst_layout, dtype,
         return row
 
     return ring_exchange(devices, rows, make_bucket, consume,
-                         steps=[t for t, _, _, _ in steps])
+                         steps=[t for t, _, _, _ in steps],
+                         bucket_like=bucket_like)
 
 
 def _host_staged(cont, new_dist, rt):
@@ -198,14 +220,36 @@ def _collective(cont, new_dist, rt):
         raise
 
 
+def _same_processes(src, dst) -> bool:
+    """``dst`` spans the processes ``src`` does, as this same process,
+    and every one of them owns a rank of it: the one process group a
+    multi-process re-layout can run in."""
+    return (dst.process_count == src.process_count
+            and dst.process_index == src.process_index
+            and set(dst.owners) == set(range(dst.process_count)))
+
+
 def redistribute_vector(cont, new_dist, rt):
     """Re-lay one ``distributed_vector`` out under ``new_dist`` on
     ``rt``: the collective exchange when the source and target share the
-    device list, the host-staged route otherwise.  Inside
-    ``dt.deferred()`` a collective move records into the plan
+    device list (and, across processes, the owners), the host-staged
+    route otherwise.  Across processes a target runtime that does not
+    span the source's processes (every one of them owning a rank) is
+    refused with a classified ``ProgramError`` before anything moves.
+    Inside ``dt.deferred()`` a collective move records into the plan
     (``Plan.record_redistribute``); the host-staged route flushes it
     first."""
-    collective = cont.runtime.devices == rt.devices
+    src_rt = cont.runtime
+    if not _same_processes(src_rt, rt):
+        raise ProgramError(
+            f"redistribute: the target runtime spans "
+            f"{rt.process_count} process(es) owning ranks "
+            f"{sorted(set(rt.owners))}, the source's process "
+            f"{src_rt.process_index} of {src_rt.process_count}; a "
+            "re-layout runs within one process group",
+            site="redistribute.processes")
+    collective = src_rt.devices == rt.devices and \
+        src_rt.owners == rt.owners
     from ..plan import active
     p = active()
     if p is not None:

@@ -144,10 +144,8 @@ class Runtime:
         return f"Runtime(nprocs={self.nprocs}, devices={self.devices})"
 
 
-#: the multi-process slices still to come, in order (ROADMAP.md): the
-#: ``slice_`` a :func:`require_single_process` call names
-RELAYOUT = "redistribute and the unstructured halo"
-RELATIONAL = "the relational ops"
+#: the multi-process slice still to come (ROADMAP.md): the ``slice_`` a
+#: :func:`require_single_process` call names
 HOST_LAYERS = "deferred plans, elastic, tuning and serve"
 
 

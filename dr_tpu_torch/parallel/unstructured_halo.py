@@ -22,6 +22,16 @@ its device, and each ghost rank keeps its buffer on its own device.
   last-in-entry-order-wins as numpy's fancy assignment is, ``max`` and
   ``min`` as ``np.maximum.at`` / ``np.minimum.at``; every op gives the
   same bits on every call, and no sum uses atomics.
+
+In a multi-process runtime every process is given the same
+``ghost_indices`` and builds the same plan of pieces (one a ghost rank
+and owner pair), keeping the columns and fold rounds of its own owners
+and the buffers of its own ghost ranks.  ``exchange()`` and ``reduce()``
+move every piece in one ``collectives.route``, in the same order on
+every process and with no header (both ends know a piece's length from
+the index lists); a piece within a process stays a device copy.
+``ghost_values`` and ``set_ghost_values`` of another process's rank
+raise.
 """
 
 from __future__ import annotations
@@ -30,7 +40,7 @@ from typing import Dict, Sequence
 
 import numpy as np
 import torch
-from . import runtime as _rt
+from . import collectives
 
 __all__ = ["unstructured_halo"]
 
@@ -75,9 +85,9 @@ class unstructured_halo:
     """
 
     def __init__(self, dv, ghost_indices: Dict[int, Sequence[int]]):
-        _rt.require_single_process("unstructured_halo", _rt.RELAYOUT)
         self._dv = dv
-        devs = dv.runtime.devices
+        rt = dv.runtime
+        devs = rt.devices
         by_rank = {int(r): np.asarray(ix, np.int64)
                    for r, ix in ghost_indices.items() if len(ix)}
         # one flat index list, carved per ghost rank (halo.hpp:27-51)
@@ -91,58 +101,82 @@ class unstructured_halo:
         flat = np.concatenate(flat) if flat else np.zeros(0, np.int64)
         own, col = dv._locate(dv._check_indices(flat)) if len(flat) \
             else (np.zeros(0, np.int64), np.zeros(0, np.int64))
-        # per owner o: its entries (flat positions, ascending) and their
-        # columns on o's device, and the fold rounds over those columns
+        # per owner o: its entries (flat positions, ascending) and, for
+        # this process's owners, their columns on o's device and the
+        # fold rounds over those columns
         sels = {}
         self._cols = {}
         self._rounds = {}
         for o in np.unique(own):
             o = int(o)
             sels[o] = sel = np.nonzero(own == o)[0]
-            self._cols[o] = torch.as_tensor(col[sel], device=devs[o])
-            self._rounds[o] = _rounds(self._cols[o])
-        # per (ghost rank g, owner o): the slice of o's entries in g's
-        # range and their positions in g's buffer, on g's device; per g
+            if rt.is_local(o):
+                self._cols[o] = torch.as_tensor(col[sel], device=devs[o])
+                self._rounds[o] = _rounds(self._cols[o])
+        # the pieces, (ghost rank g, owner o, lo, hi): the slice [lo, hi)
+        # of o's entries in g's range, g-major (so an owner's pieces are
+        # in entry order), the same list on every process; for this
+        # process's ghost ranks, each piece's positions in g's buffer and
         # the gather that puts the owners' pieces back in index order
-        self._pieces = {}
+        self._plan = []
+        self._at = {}
         self._order = {}
         for g, (a, b) in self._offsets.items():
-            pieces, local = [], []
+            local = []
             for o, sel in sels.items():
                 lo, hi = np.searchsorted(sel, (a, b))
                 if lo < hi:
-                    at = sel[lo:hi] - a
-                    pieces.append((o, int(lo), int(hi),
-                                   torch.as_tensor(at, device=devs[g])))
-                    local.append(at)
-            self._pieces[g] = pieces
-            self._order[g] = torch.as_tensor(
-                np.argsort(np.concatenate(local), kind="stable"),
-                device=devs[g])
+                    self._plan.append((g, o, int(lo), int(hi)))
+                    local.append(sel[lo:hi] - a)
+                    if rt.is_local(g):
+                        self._at[len(self._plan) - 1] = torch.as_tensor(
+                            local[-1], device=devs[g])
+            if rt.is_local(g):
+                self._order[g] = torch.as_tensor(
+                    np.argsort(np.concatenate(local), kind="stable"),
+                    device=devs[g])
         self._ghost = {g: torch.zeros(b - a, dtype=dv.dtype, device=devs[g])
-                       for g, (a, b) in self._offsets.items()}
+                       for g, (a, b) in self._offsets.items()
+                       if rt.is_local(g)}
+        # each piece's (shape, dtype): both ends know it, so no header
+        self._likes = [((hi - lo,), dv.dtype) for _, _, lo, hi in self._plan]
 
     # -- owner -> ghost (exchange, halo.hpp:55-70) -------------------------
     def exchange(self) -> None:
-        """Refresh every ghost from its owner."""
+        """Refresh every ghost from its owner: every piece in one
+        ``collectives.route``, the same moves in the same order on every
+        process."""
         dv = self._dv
-        devs = dv.runtime.devices
         served = {o: dv._rows[o][0].index_select(0, cols)
                   for o, cols in self._cols.items()}
-        for g, pieces in self._pieces.items():
-            parts = [served[o][lo:hi].to(devs[g], non_blocking=True)
-                     for o, lo, hi, _ in pieces]
-            self._ghost[g] = torch.cat(parts).index_select(0, self._order[g])
+        got = collectives.route(
+            [(o, g, lambda o=o, lo=lo, hi=hi: served[o][lo:hi])
+             for g, o, lo, hi in self._plan], dv.runtime.devices,
+            self._likes)
+        parts = {g: [] for g in self._ghost}
+        for (g, *_), piece in zip(self._plan, got):
+            if g in parts:
+                parts[g].append(piece)
+        for g, pieces in parts.items():
+            self._ghost[g] = torch.cat(pieces).index_select(0,
+                                                            self._order[g])
 
     exchange_begin = exchange
 
     def exchange_finalize(self) -> None:
         self._dv.runtime.fence()
 
+    def _check_local(self, rank: int) -> None:
+        rt = self._dv.runtime
+        if not rt.is_local(rank):
+            raise ValueError(f"rank {rank}'s ghosts live in process "
+                             f"{rt.owners[rank]}, not this one")
+
     def ghost_values(self, rank: int) -> torch.Tensor:
         """Rank ``rank``'s ghost buffer, on its device (empty when it
-        mirrors nothing)."""
+        mirrors nothing); a rank another process owns raises."""
         rank = int(rank)
+        self._check_local(rank)
         if rank not in self._ghost:
             return torch.zeros(0, dtype=self._dv.dtype,
                                device=self._dv.runtime.devices[rank])
@@ -150,9 +184,10 @@ class unstructured_halo:
 
     def set_ghost_values(self, rank: int, values) -> None:
         """Write rank ``rank``'s local contributions into its ghosts
-        (before a reduce)."""
+        (before a reduce); a rank another process owns raises."""
         from ..containers.distributed_vector import _as_tensor
         rank = int(rank)
+        self._check_local(rank)
         a, b = self._offsets[rank]
         vals = _as_tensor(values).reshape(-1)
         if vals.numel() != b - a:
@@ -170,13 +205,16 @@ class unstructured_halo:
         if fold is None:
             raise ValueError(f"unknown reduction op: {op}")
         dv = self._dv
-        devs = dv.runtime.devices
         # every owner's contributions, in entry order, on its device
+        got = collectives.route(
+            [(g, o, lambda g=g, i=i: self._ghost[g].index_select(
+                0, self._at[i]))
+             for i, (g, o, _, _) in enumerate(self._plan)],
+            dv.runtime.devices, self._likes)
         contrib = {o: [] for o in self._cols}
-        for g, pieces in self._pieces.items():
-            for o, _, _, at in pieces:
-                contrib[o].append(self._ghost[g].index_select(0, at)
-                                  .to(devs[o], non_blocking=True))
+        for (_, o, _, _), piece in zip(self._plan, got):
+            if o in contrib:
+                contrib[o].append(piece)
         for o, rounds in self._rounds.items():
             vals = torch.cat(contrib[o])
             row = dv._rows[o][0]

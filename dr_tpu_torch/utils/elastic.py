@@ -270,20 +270,29 @@ def redistribute(container, new_dist=None, *, runtime=None):
     the even layout) is a vector contract: matrices and mdarrays re-block
     with their default partition on the target runtime, through a
     checkpoint snapshot and rebuild.  In place on purpose: every
-    reference to the container (views, halos) stays valid."""
-    _rt_mod.require_single_process("redistribute", _rt_mod.HOST_LAYERS)
+    reference to the container (views, halos) stays valid.
+
+    In a multi-process runtime every process makes the same call: a
+    vector moves as ``parallel/redistribute`` says, and a matrix's
+    snapshot gathers its value onto every process, whose rebuild keeps
+    the process's own blocks."""
     from ..containers.distributed_vector import distributed_vector
+    from ..parallel import redistribute as _rdx
     from ..parallel import runtime as _rt
 
     rt = runtime or _rt.runtime()
     if isinstance(container, distributed_vector):
-        from ..parallel import redistribute as _rdx
         return _rdx.redistribute_vector(container, new_dist, rt)
     if new_dist is not None:
         raise ValueError(
             "explicit block distributions are a distributed_vector "
             "contract; matrices re-block with their default partition "
             "on the target runtime")
+    if not _rdx._same_processes(container.runtime, rt):
+        raise _resilience.ProgramError(
+            "redistribute: the target runtime does not span the "
+            "matrix's processes; a re-block runs within one process "
+            "group", site="redistribute.processes")
     from . import checkpoint as _ck
     meta, arrays = _ck.snapshot(container)
     fresh = _ck.rebuild(meta, arrays, runtime=rt, reblock=True)
