@@ -294,6 +294,33 @@ checks the kernels at small shapes only).  Phases:
     processes.  A child that fails, hangs past its deadline or
     disagrees fails the phase.  ``--phase30`` runs phases 1-3 and this
     one.
+31. the host layers across processes.  31.1: one controller on two
+    ranks of cuda:0 records a deferred region of the main path at
+    n = 2^30 f32 (iota, fill, for_each, a halo exchange with halo 512,
+    transform, reduce, dot on K3, a 1024-bin histogram on K8 and top_k
+    8 of its bins fused into one run; ``inclusive_scan`` on K4, one K2 pass of
+    T = 64 with halo 1024 and one K1 pass of k_block 256 opaque), then
+    ``dot_n`` (K3) after the flush.  31.2: two processes over gloo,
+    each owning one rank on cuda:0, run the same region: each child's
+    int64 digests equal 31.1's bit for bit, it launches K1-K4, K7 and
+    K8 half as often (once a rank), its ``Plan.stats()`` equals its
+    peer's, and ``spmd_guard.verify()`` agrees.  31.3: with
+    ``DR_GPU_TUNING_DB`` in a temp directory and the ``joinroute`` /
+    ``capinfer`` passes armed, process 0 records a join route threshold
+    of 2^26 rows (the broadcast merge, where the default would take the
+    partition route) and two ratio hints; ``join`` and ``join_auto`` of
+    2^24 fact rows over 2^20 keys route alike on both children, and
+    ``groupby_auto`` at the kernel geometry (2 x 8192 int32 keys: K6
+    and K7) sizes its output from the hint; every digest equals one
+    controller's under the same records, and each child launches K6 as
+    often as one controller and K7 half as often.  31.4: a 2^28 f32 vector checkpointed and doubled; child 1
+    exits with code 17 after a barrier, child 0 meets the dead peer in a
+    ``reduce`` under ``with_deadline``, attributes it to rank 1, shrinks
+    onto rank 0 (the vector restored) and runs ``dot_n`` (K3) and
+    ``inclusive_scan`` (K4): their digests equal one controller's on
+    the same values; the seconds from the failed call to the finished
+    rescue, the restore's GB/s and how the dead peer's receive ended.
+    ``--phase31`` runs phases 1-3 and this one.
 
 ``--halo-ab DIR`` times phase 17's halo p50 with the ``dr_tpu_torch`` of
 another checkout at ``DIR`` and this one's, in turns, and stops.
@@ -6737,10 +6764,7 @@ def mp_path(dt, n, seed, times=None):
     dig = {}
 
     def keep(name, v):
-        prev = v.halo_bounds.prev
-        for r in rt.local_ranks:
-            b, e = v._rank_window(r)
-            dig[f"{name}/{r}"] = bridge_digest(v.rows[r][0, prev:prev + e - b])
+        rank_digests(dig, rt, name, v)
 
     with step("data"):
         src = torch.randn(n, generator=gen, device=dev)
@@ -6894,12 +6918,17 @@ def free_port():
         return sk.getsockname()[1]
 
 
-def mp_spawn(nproc, seed, out, args, child="--mp-child", tag="phase 28"):
+def mp_spawn(nproc, seed, out, args, child="--mp-child", tag="phase 28",
+             exits=None):
     """Start the children of a multi-process phase (``child`` names the
     entry, phase 28's by default); wait for all, under MP_DEADLINE; a
     child that exits non-zero gets its peers killed (they would wait in
-    a collective), and so does the deadline.  Raises unless every child
-    exits 0; returns their JSON records and their start times."""
+    a collective), and so does the deadline.  ``exits`` maps a child to
+    the exit code it must end with instead (a child that kills itself,
+    which writes no record).  Raises unless every child exits as
+    expected; returns their JSON records and their start times (None
+    for a child of ``exits``)."""
+    exits = exits or {}
     port = free_port()
     os.makedirs(out, exist_ok=True)
     env = dict(os.environ)
@@ -6915,7 +6944,8 @@ def mp_spawn(nproc, seed, out, args, child="--mp-child", tag="phase 28"):
     while time.monotonic() < deadline:
         if all(p.poll() is not None for p in procs):
             break
-        bad = [i for i, p in enumerate(procs) if p.poll() not in (None, 0)]
+        bad = [i for i, p in enumerate(procs)
+               if p.poll() not in (None, exits.get(i, 0))]
         if bad:
             failed = bad[0]
             time.sleep(2)  # let the peers fail and flush on their own
@@ -6926,16 +6956,20 @@ def mp_spawn(nproc, seed, out, args, child="--mp-child", tag="phase 28"):
             p.kill()
     outs = [p.communicate()[0] for p in procs]
     for pid, (p, o) in enumerate(zip(procs, outs)):
-        if p.returncode != 0:
+        if p.returncode != exits.get(pid, 0):
             why = ("failed" if failed is not None else
                    f"missed the {MP_DEADLINE} s deadline")
             raise AssertionError(f"{tag}: process {pid} {why} (exit "
                                  f"{p.returncode}): {o[-3000:]}")
     recs = []
     for pid in range(nproc):
+        if pid in exits:
+            recs.append(None)
+            continue
         with open(os.path.join(out, f"child{pid}.json")) as fh:
             recs.append(json.load(fh))
-    return recs, [r["ready"] - t_spawn for r in recs]
+    return recs, [None if r is None else r["ready"] - t_spawn
+                  for r in recs]
 
 
 def mp_phase(dt, kernels, seed, card, log2=MP_LOG2, nproc=2,
@@ -7054,10 +7088,7 @@ def mp29_path(dt, seed, sz, times=None):
     dig = {}
 
     def keep(name, v):
-        prev = v.halo_bounds.prev
-        for r in rt.local_ranks:
-            b, e = v._rank_window(r)
-            dig[f"{name}/{r}"] = bridge_digest(v.rows[r][0, prev:prev + e - b])
+        rank_digests(dig, rt, name, v)
 
     def keep_blocks(name, blocks):
         for r in rt.local_ranks:
@@ -7389,10 +7420,7 @@ def mp30_path(dt, seed, sz, parts=MP30_PARTS, times=None, check=False):
     dig = {}
 
     def keep(name, v):
-        prev = v.halo_bounds.prev
-        for r in rt.local_ranks:
-            b, e = v._rank_window(r)
-            dig[f"{name}/{r}"] = bridge_digest(v.rows[r][0, prev:prev + e - b])
+        rank_digests(dig, rt, name, v)
 
     def keep_all(name, t):
         dig[name] = bridge_digest(t)
@@ -7714,6 +7742,456 @@ def mp30_phase(dt, kernels, seed, card, nproc=2, device="cuda:0",
     return out
 
 
+# phase 31: the host layers across processes (deferred plans, tuning,
+# the elastic shrink with the killed-worker leg)
+MP31_LOG2 = 30             # 31.1 / 31.2: the region at phase 28's width
+MP31_JOIN_LOG2 = 24        # 31.3: join / join_auto fact rows (K6, K7)
+MP31_KILL_LOG2 = 28        # 31.4: the checkpointed vector
+MP31_BINS, MP31_TOPK = 1024, 8
+MP31_KERNELS = ("stencil_matmul", "stencil_blocked", "chunked_dot",
+                "chunked_cumsum", "segred", "hist")
+#: the tuning records of 31.3: a join route threshold above the sides'
+#: rows (the broadcast merge, where the code default takes the
+#: partition route) and the inner join's rows/input ratio hint
+MP31_RECORDS = (("join", "broadcast_max", 1 << 26),
+                ("relational", "cap_ratio_join_inner", 1.0),
+                ("relational", "cap_ratio_groupby", 0.05))
+KILLED = 17
+
+
+def mp31_sizes(small=False):
+    """Phase 31's sizes; ``small`` gives a CPU rehearsal's.  ``region``:
+    (log2 n, K1's k_block and halo, K2's time block and halo)."""
+    if small:
+        return {"region": (14, 16, 128, 8, 1024), "join": 12, "kill": 12}
+    return {"region": (MP31_LOG2, K_BLOCK, MM_HALO, T_BLOCK, BLK_HALO),
+            "join": MP31_JOIN_LOG2, "kill": MP31_KILL_LOG2}
+
+
+def rank_digests(dig, rt, name, v):
+    """``bridge_digest`` of each local rank's owned cells of ``v`` into
+    ``dig`` under ``<name>/<rank>``."""
+    prev = v.halo_bounds.prev
+    for r in rt.local_ranks:
+        b, e = v._rank_window(r)
+        dig[f"{name}/{r}"] = bridge_digest(v.rows[r][0, prev:prev + e - b])
+
+
+def mp31_region(dt, seed, sz, times):
+    """Phase 31.1's deferred region of the main path on the current
+    runtime (one controller or one process of several): fill, for_each,
+    a halo exchange, transform, reduce, dot (K3), histogram (K8) and
+    top_k of the bins (the fullest 8; a top_k of the 2^30 values sorts
+    each rank whole, ~30 GiB a process, more than two processes' share
+    of the card) fused into one run; ``inclusive_scan`` (K4),
+    ``stencil_iterate_blocked`` (K2) and ``stencil_iterate_matmul``
+    (K1) recorded opaque; ``dot_n`` (K3) after the flush.  Returns
+    ``(digests, the plan's stats)``: each local rank's cells and every
+    scalar's bits."""
+    import torch
+    log2, k_block, mm_halo, t_block, blk_halo = sz["region"]
+    n = 1 << log2
+    step = stepper(dt, times)
+    rt = dt.runtime()
+    dev = rt.home
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+    dig = {}
+    with step("data"):
+        hb = dt.halo_bounds(mm_halo, mm_halo, periodic=True)
+        a = dt.distributed_vector(n, np.float32, halo=hb)
+        b = dt.distributed_vector(n, np.float32, halo=hb)
+        x = dt.distributed_vector.from_array(
+            torch.rand(n, generator=gen, device=dev))
+        bv = dt.distributed_vector.from_array(
+            torch.randn(n, generator=gen, device=dev),
+            halo=dt.halo_bounds(blk_halo, blk_halo, periodic=True))
+        s = dt.distributed_vector(n, np.float32)
+        h = dt.distributed_vector(MP31_BINS, np.int32)
+        tv = dt.distributed_vector(MP31_TOPK, np.int32)
+        ti = dt.distributed_vector(MP31_TOPK, np.int32)
+    plan = dt.plan.Plan()
+    with step("region"):
+        with plan.record():
+            dt.iota(a, 0)
+            dt.fill(a[n // 3:n // 2], 0.5)
+            dt.for_each(a, _pl_scale, 2.0 ** -20)
+            dt.halo(a).exchange()
+            dt.transform(a, b, _pl_shift, -0.5)
+            tot = dt.reduce(b)
+            d = dt.dot(a, b)
+            dt.histogram(x, h, 0.0, 1.0)
+            dt.top_k(h, tv, ti)
+            dt.inclusive_scan(x, s)
+            dt.stencil_iterate_blocked(bv, W5, t_block, time_block=t_block)
+            dt.stencil_iterate_matmul(a, W5, k_block, k_block=k_block)
+    with step("dot_n"):
+        dn = dt.dot_n(x, x, DOT_ROUNDS)
+    for name, sc in (("reduce", tot.device()), ("dot", d.device()),
+                     ("dot_n", dn)):
+        dig[name] = bridge_digest(torch.as_tensor(sc).reshape(1))
+    for name, v in (("a", a), ("b", b), ("scan", s), ("blocked", bv)):
+        rank_digests(dig, rt, name, v)
+    for name, v in (("hist", h), ("top_v", tv), ("top_i", ti)):
+        dig[name] = bridge_digest(v.to_array())
+    return dig, plan.stats()
+
+
+def mp31_joins(dt, seed, sz, db, times):
+    """Phase 31.3: the tuning DB at ``db`` armed (``DR_GPU_PLAN_OPT=all``
+    for the ``capinfer`` and ``joinroute`` passes); every process
+    records :data:`MP31_RECORDS` (process 0 writes them), then ``join``
+    and ``join_auto`` of 2^k fact rows over 2^(k-4) keys, and
+    ``groupby_auto`` (sum) at the kernel geometry (:data:`MP30_GEO`
+    int32 keys a rank over 512 keys: K6 sorts them, K7 sums the
+    groups), its capacity from the ``cap_ratio_groupby`` hint.  Returns
+    the digests of the joined and grouped rows and counts, the routes
+    taken and the answers of the lookups."""
+    import torch
+    from dr_tpu_torch import tuning
+    from dr_tpu_torch.algorithms import relational as rel
+    step = stepper(dt, times)
+    rt = dt.runtime()
+    fl = sz["join"]
+    env = {"DR_GPU_TUNING_DB": db, "DR_GPU_PLAN_OPT": "all"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    tuning.clear_session()
+    tuning.reload()
+    dig = {}
+    try:
+        for dom, par, val in MP31_RECORDS:
+            tuning.record(dom, par, val, source="chip_smoke phase 31")
+        dig["lookups"] = [tuning.lookup(dom, par)
+                          for dom, par, _ in MP31_RECORDS]
+        data = relational_data(1 << fl, 1 << (fl - 4), seed + 31,
+                               rt.home)
+        F, FV, D, DV = (dt.distributed_vector.from_array(t) for t in data)
+        cap = 2 * (data[0].numel() + data[2].numel())
+        outs = [dt.distributed_vector(cap) for _ in range(3)]
+        with step("join (joinroute)"):
+            m = dt.join(F, FV, D, DV, *outs)
+        dig["join m"] = m
+        dig["join route"] = rel.last_join_route()["impl"]
+        for name, o in zip(("keys", "left", "right"), outs):
+            rank_digests(dig, rt, f"join {name}", o)
+        del outs
+        with step("join_auto (capinfer)"):
+            res = dt.join_auto(F, FV, D, DV)
+            am = int(res.count)
+        dig["auto m"] = am
+        dig["auto route"] = rel.last_join_route()["impl"]
+        for name, o in zip(("keys", "left", "right"), res.containers):
+            rank_digests(dig, rt, f"auto {name}", o)
+        dig["auto noted"] = tuning.lookup("relational",
+                                          "cap_ratio_join_inner")
+        del res, F, FV, D, DV, data
+        rng = np.random.default_rng(seed + 31)
+        nk = MP30_GEO * rt.nprocs
+        gk = dt.distributed_vector.from_array(
+            rng.integers(0, 512, nk).astype(np.int32))
+        gv = dt.distributed_vector.from_array(
+            rng.integers(0, 99, nk).astype(np.int32))
+        with step("groupby_auto (capinfer; K6, K7)"):
+            res = dt.groupby_auto(gk, gv, agg="sum")
+            dig["groupby ng"] = int(res.count)
+        for name, o in zip(("keys", "sums"), res.containers):
+            rank_digests(dig, rt, f"groupby {name}", o)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        tuning.clear_session()
+        tuning.reload()
+    release(torch)
+    return dig
+
+
+def mp31_kill_values(dt, seed, n):
+    """31.4's source: 2^k f32 on the home device, from the seed."""
+    import torch
+    gen = torch.Generator(device=dt.runtime().home).manual_seed(seed + 314)
+    return torch.randn(n, generator=gen, device=dt.runtime().home)
+
+
+def mp31_after(dt, kernels, v, dig):
+    """``dot_n`` (K3) and ``inclusive_scan`` (K4) on the restored vector
+    ``v`` (one rank), their digests and ``v``'s into ``dig``; returns
+    their launches."""
+    import torch
+    kernels.reset_counts()
+    dn = dt.dot_n(v, v, DOT_ROUNDS)
+    s = dt.distributed_vector(len(v), np.float32)
+    dt.inclusive_scan(v, s)
+    dt.fence()
+    dig["restored"] = bridge_digest(v.to_array())
+    dig["dot_n"] = bridge_digest(torch.as_tensor(dn).reshape(1))
+    dig["scan"] = bridge_digest(s.to_array())
+    return {k: kernels.launches[k] for k in ("chunked_dot",
+                                             "chunked_cumsum")}
+
+
+def mp31_kill(dt, kernels, pid, seed, sz, ckpt):
+    """Phase 31.4 in one process of two: checkpoint a 2^k f32 vector,
+    double it, barrier; process 1 exits with :data:`KILLED`.  Process 0
+    meets the dead peer in a ``reduce`` under ``with_deadline``,
+    attributes the failure to rank 1, shrinks onto rank 0 (the
+    vector's rank-1 half restored from the checkpoint) and runs
+    :func:`mp31_after`.  Returns process 0's numbers."""
+    import torch.distributed as dist
+    from dr_tpu_torch.utils import elastic, resilience
+    n = 1 << sz["kill"]
+    v = dt.distributed_vector.from_array(mp31_kill_values(dt, seed, n))
+    t0 = time.perf_counter()
+    dt.checkpoint.save(ckpt, v)
+    save_s = time.perf_counter() - t0
+    dt.for_each(v, _pl_scale, 2.0)
+    dt.barrier()
+    if pid != 0:
+        os._exit(KILLED)
+    gc.collect()
+    t0 = time.perf_counter()
+    try:
+        resilience.with_deadline(lambda: float(dt.reduce(v)), 60.0,
+                                 site="elastic.multihost", dump=False)
+        raise AssertionError("phase 31.4: the dead peer went unnoticed")
+    except resilience.DeadlineExpired as e:
+        how, err = "deadline", e
+    except Exception as e:  # noqa: BLE001 - whatever the backend raised
+        how, err = "raised", e
+    fail_s = time.perf_counter() - t0
+    rep = elastic.rescue_session(elastic.attribute(err, 1))
+    rescue_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    dist.destroy_process_group()
+    destroy_s = time.perf_counter() - t1
+    dig = {}
+    launches = mp31_after(dt, kernels, v, dig)
+    return {"digests": dig, "launches": launches, "how": how,
+            "error": f"{type(err).__name__}: {str(err)[:160]}",
+            "fail_s": fail_s, "rescue_s": rescue_s, "save_s": save_s,
+            "destroy_s": destroy_s, "fates": [rep.rescued, rep.restored,
+                                              rep.lost],
+            "restore_s": rep.seconds, "restore_gbps": n * 4 /
+            sum(rep.seconds) / 1e9, "nprocs": dt.nprocs()}
+
+
+def mp31_child(argv):
+    """One process of phase 31: ``--mp31-child PID NPROC PORT OUT SEED
+    DEVICE SMALL LEG TMP``.  LEG ``region``: :func:`mp31_region`, then
+    :func:`mp31_joins` with the DB in TMP, each under an
+    ``spmd_guard`` (``verify()`` after it), its launches counted apart;
+    LEG ``kill``: :func:`mp31_kill` with the checkpoint in TMP (process
+    1 exits with :data:`KILLED` and writes nothing).  Writes its
+    numbers to ``OUT/child<PID>.json``."""
+    pid, nproc, port, out, seed, device = (
+        int(argv[0]), int(argv[1]), argv[2], argv[3], int(argv[4]), argv[5])
+    sz, leg, tmp = mp31_sizes(argv[6] == "1"), argv[7], argv[8]
+    import warnings
+    import torch
+    sys.path.insert(0, HERE)
+    import dr_tpu_torch as dt
+    from dr_tpu_torch.ops import kernels
+    from dr_tpu_torch.utils import elastic, spmd_guard
+    warnings.simplefilter("ignore", elastic.ElasticWarning)
+    global LOG_FILE
+    LOG_FILE = open(os.path.join(out, f"child{pid}.log"), "w",
+                    encoding="utf-8")
+    rt = dt.init_distributed(f"localhost:{port}", nproc, pid,
+                             backend="gloo", device=device,
+                             timeout_s=MP_DEADLINE)
+    ready = time.time()
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the parent
+    assert rt.local_ranks == [pid], rt
+    rec = {"pid": pid, "ready": ready}
+    if leg == "kill":
+        rec.update(mp31_kill(dt, kernels, pid, seed, sz,
+                             os.path.join(tmp, "phase31_kill.npz")))
+    else:
+        steps = {}
+        kernels.reset_counts()
+        with spmd_guard.guard() as g:
+            t0 = time.perf_counter()
+            dig, stats = mp31_region(dt, seed, sz, steps)
+            rec["region_s"] = time.perf_counter() - t0
+            g.verify()
+        rec["launches"] = {k: kernels.launches[k] for k in MP31_KERNELS}
+        rec.update(digests=dig, stats=stats, guarded=len(g.trace))
+        kernels.reset_counts()
+        with spmd_guard.guard() as g:
+            t0 = time.perf_counter()
+            rec["joins"] = mp31_joins(dt, seed, sz,
+                                      os.path.join(tmp, "tuning_db.json"),
+                                      steps)
+            rec["joins_s"] = time.perf_counter() - t0
+            g.verify()
+        rec["join_launches"] = {k: kernels.launches[k]
+                                for k in MP30_KERNELS}
+        rec["steps"] = steps
+        dt.barrier()
+    with open(os.path.join(out, f"child{pid}.json"), "w") as fh:
+        json.dump(rec, fh)
+    dt.final()
+    return 0
+
+
+def mp31_phase(dt, kernels, seed, card, nproc=2, device="cuda:0",
+               small=False, out_dir=None):
+    """Phase 31 (see the module docstring); returns its numbers.  On the
+    CPU (``device="cpu"``, ``small=True``) it rehearses the phase; its
+    launch checks then compare 0 with 0.  The children write into
+    ``out_dir`` (default ``chiprun_out/phase31``); the tuning DB and the
+    checkpoint go to a temp directory removed at the end."""
+    import shutil
+    import tempfile
+    import torch
+    from dr_tpu_torch import tuning
+    sz = mp31_sizes(small)
+    out = {"card": card, "processes": nproc, "sizes": sz}
+    out_dir = out_dir or os.path.join(HERE, "chiprun_out", "phase31")
+    tmp = tempfile.mkdtemp(prefix="dr_gpu_phase31_")
+    try:
+        log(f"phase 31.1: the deferred region with one controller on "
+            f"{nproc} ranks of {device}: {json.dumps(sz)}")
+        dt.init(dt.get_duplicated_devices(nproc, [device]))
+        tuning.clear_session()
+        kernels.reset_counts()
+        steps = {}
+        t0 = time.perf_counter()
+        want, stats = mp31_region(dt, seed, sz, steps)
+        out["single_region_s"] = time.perf_counter() - t0
+        counts = {k: kernels.launches[k] for k in MP31_KERNELS}
+        out.update(single_steps=steps, single_launches=counts,
+                   single_stats=stats)
+        log(f"  31.1 {out['single_region_s']:.2f} s, launches {counts}, "
+            f"stats {json.dumps(stats)}, steps {json.dumps(steps)}")
+        for k, c in counts.items():
+            if c % nproc or (device != "cpu" and k != "segred"
+                             and c <= 0):
+                raise AssertionError(f"phase 31.1: {k} launched {c} times "
+                                     f"on {nproc} ranks")
+        share = {k: c // nproc for k, c in counts.items()}
+        log("phase 31.3 (one controller): join, join_auto and "
+            "groupby_auto under the tuning DB")
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        want_j = mp31_joins(dt, seed, sz, os.path.join(tmp, "one_db.json"),
+                            steps)
+        out["single_joins_s"] = time.perf_counter() - t0
+        jcounts = {k: kernels.launches[k] for k in MP30_KERNELS}
+        out["single_join_launches"] = jcounts
+        log(f"  31.3 one controller {out['single_joins_s']:.2f} s, routes "
+            f"{want_j['join route']} / {want_j['auto route']}, lookups "
+            f"{want_j['lookups']}, launches {jcounts}")
+        dt.final()
+        release(torch)
+        log(f"phase 31.2-31.3: {nproc} processes (gloo), one rank each on "
+            f"{device}")
+        t0 = time.perf_counter()
+        recs, starts = mp_spawn(nproc, seed, out_dir,
+                                [device, "1" if small else "0", "region",
+                                 tmp], child="--mp31-child",
+                                tag="phase 31")
+        out["spawn_s"] = time.perf_counter() - t0
+        out["starts_s"] = starts
+        for rec in recs:
+            pid = rec["pid"]
+            mine = {k: v for k, v in want.items()
+                    if "/" not in k or k.endswith(f"/{pid}")}
+            if rec["digests"] != mine:
+                bad = sorted(k for k in mine
+                             if rec["digests"].get(k) != mine[k])
+                raise AssertionError(f"phase 31.2: process {pid}'s digests "
+                                     f"differ from one controller's: {bad}")
+            log(f"  process {pid}: {len(mine)} region digests equal bit "
+                f"for bit")
+            if rec["launches"] != share:
+                raise AssertionError(f"phase 31.2: process {pid} launched "
+                                     f"{rec['launches']}, its rank's share "
+                                     f"{share} of {counts}")
+            log(f"  process {pid} launches {rec['launches']} == its rank's")
+            jmine = {k: v for k, v in want_j.items()
+                     if "/" not in k or k.endswith(f"/{pid}")}
+            if rec["joins"] != jmine:
+                bad = sorted(k for k in jmine
+                             if rec["joins"].get(k) != jmine[k])
+                raise AssertionError(f"phase 31.3: process {pid}'s joins "
+                                     f"differ from one controller's: {bad}")
+            if device != "cpu" and min(jcounts[k] for k in
+                                       ("bitonic_sort", "segred")) <= 0:
+                raise AssertionError(f"phase 31.3: K6 / K7 never launched: "
+                                     f"{jcounts}")
+            jshare = mp30_share(jcounts, pid)
+            if rec["join_launches"] != jshare:
+                raise AssertionError(f"phase 31.3: process {pid} launched "
+                                     f"{rec['join_launches']}, its rank's "
+                                     f"share {jshare} of {jcounts}")
+            log(f"  process {pid}: joins routed {rec['joins']['join route']}"
+                f" / {rec['joins']['auto route']} (one controller's), "
+                f"{len(jmine)} digests equal, launches "
+                f"{rec['join_launches']}")
+            for k in ("region_s", "joins_s", "steps", "stats", "guarded"):
+                out[f"p{pid}_{k}"] = rec[k]
+            log(f"  process {pid}: start {starts[pid]!r} s, region "
+                f"{rec['region_s']!r} s (one controller "
+                f"{out['single_region_s']!r} s), joins {rec['joins_s']!r} s "
+                f"(one controller {out['single_joins_s']!r} s), "
+                f"{rec['guarded']} guarded dispatches verified, stats "
+                f"{json.dumps(rec['stats'])}")
+        if any(r["stats"] != recs[0]["stats"] for r in recs):
+            raise AssertionError("phase 31.2: the processes' Plan.stats() "
+                                 f"differ: {[r['stats'] for r in recs]}")
+        if any(r["joins"]["join route"] != recs[0]["joins"]["join route"]
+               for r in recs):
+            raise AssertionError("phase 31.3: the processes' routes differ")
+        release(torch)
+
+        log(f"phase 31.4: the killed-worker leg, 2^{sz['kill']} f32")
+        t0 = time.perf_counter()
+        recs, starts = mp_spawn(nproc, seed, out_dir,
+                                [device, "1" if small else "0", "kill",
+                                 tmp], child="--mp31-child",
+                                tag="phase 31.4", exits={1: KILLED})
+        out["kill_spawn_s"] = time.perf_counter() - t0
+        rec = recs[0]
+        dt.init([device])
+        n = 1 << sz["kill"]
+        src = mp31_kill_values(dt, seed, n)
+        half = n // nproc
+        ref = dt.distributed_vector.from_array(
+            torch.cat([src[:half] * 2.0, src[half:]]))
+        del src
+        want_k = {}
+        ref_launches = mp31_after(dt, kernels, ref, want_k)
+        del ref
+        dt.final()
+        release(torch)
+        if rec["digests"] != want_k or rec["fates"] != [0, 1, 0] or \
+                rec["nprocs"] != 1:
+            raise AssertionError(f"phase 31.4: the survivor's {rec} against "
+                                 f"one controller's {want_k}")
+        if rec["launches"] != ref_launches or (
+                device != "cpu" and min(ref_launches.values()) <= 0):
+            raise AssertionError(f"phase 31.4: the survivor launched "
+                                 f"{rec['launches']}, one controller "
+                                 f"{ref_launches}")
+        for k in ("how", "error", "fail_s", "rescue_s", "save_s",
+                  "destroy_s", "restore_gbps", "launches"):
+            out[f"kill_{k}"] = rec[k]
+        log(f"  31.4 survivor: the dead peer's reduce {rec['how']} after "
+            f"{rec['fail_s']!r} s ({rec['error']}); failed call to "
+            f"finished rescue {rec['rescue_s']!r} s, restore "
+            f"{rec['restore_gbps']!r} GB/s ({rec['restore_s']} s), "
+            f"checkpoint save {rec['save_s']!r} s, destroy_process_group "
+            f"{rec['destroy_s']!r} s; digests of the restored vector, "
+            f"dot_n and inclusive_scan equal one controller's, launches "
+            f"{rec['launches']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main(argv):
     if argv[:1] == ["--mp-child"]:  # one process of phase 28
         return mp_child(argv[1:])
@@ -7721,6 +8199,8 @@ def main(argv):
         return mp29_child(argv[1:])
     if argv[:1] == ["--mp30-child"]:  # one process of phase 30
         return mp30_child(argv[1:])
+    if argv[:1] == ["--mp31-child"]:  # one process of phase 31
+        return mp31_child(argv[1:])
     try:
         import torch
     except ImportError:
@@ -7798,8 +8278,9 @@ def main(argv):
     only28 = "--phase28" in argv
     only29 = "--phase29" in argv
     only30 = "--phase30" in argv
+    only31 = "--phase31" in argv
     short = (quick or only22 or only23 or only24 or only25 or only26
-             or only27 or only28 or only29 or only30)
+             or only27 or only28 or only29 or only30 or only31)
     n = 1 << (20 if short else 30)
     m2d = 2048 if short else M2D
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -7848,6 +8329,10 @@ def main(argv):
     if only30:  # a short run: the checks above, small, then phase 30
         log("  phase 30 numbers: " + json.dumps(
             mp30_phase(dt, kernels, seed, card)))
+        return 0
+    if only31:  # a short run: the checks above, small, then phase 31
+        log("  phase 31 numbers: " + json.dumps(
+            mp31_phase(dt, kernels, seed, card)))
         return 0
 
     log(f"phase 4: main path, 1 rank on cuda:0, n={n}")
@@ -8102,6 +8587,11 @@ def main(argv):
     g30 = mp30_phase(dt, kernels, seed, card)
     log(f"  phase 30 {time.perf_counter() - t0:.1f} s")
     log("  phase 30 numbers: " + json.dumps(g30))
+
+    t0 = time.perf_counter()
+    g31 = mp31_phase(dt, kernels, seed, card)
+    log(f"  phase 31 {time.perf_counter() - t0:.1f} s")
+    log("  phase 31 numbers: " + json.dumps(g31))
 
     log(f"peak device memory (1-D main path): {peak} bytes "
         f"({peak / 2 ** 30:.2f} GiB)")

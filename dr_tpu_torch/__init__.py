@@ -20,10 +20,11 @@ without one; the CPU runs only when named (``init(["cpu"] * 8)``).
 multi-process mode instead (the reference's MPI ranks in separate
 processes): one rank a process, collectives across processes through
 ``torch.distributed`` (gloo, or nccl between distinct cards), and every
-host read valid on every process.  The 1-D main path (elementwise,
-halo, stencils with K1 / K2, reduce and dot with K3, scans with K4,
-checkpoint) runs there; every other path raises a classified
-``ProgramError`` at its entry until its multi-process slice lands.
+host read valid on every process.  Every kernel path, the relational
+ops, re-layout, deferred plans, the tuning layer and the elastic shrink
+run there (a survivor of a dead peer shrinks onto its own ranks); the
+serving daemon, the router and an elastic grow run in one process by
+design and raise a classified ``ProgramError`` at their entry.
 
 Public surface of this slice:
 

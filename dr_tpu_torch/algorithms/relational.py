@@ -71,9 +71,8 @@ gathered (or summed in rank order by ``psum``) once a process, the
 groupby, K8 in the histogram) run for local ranks only, and the
 broadcast merge gathers both sorted sides onto every process.  Every
 host read (row and group counts, the partition probe, the route) is
-the same on every process.  The tuning layer does not run across
-processes yet: there the pickers ask it only when a store is armed,
-and then its lookup refuses, classified (:func:`_tuned`).
+the same on every process, and so is every tuning answer the pickers
+read (``tuning.lookup`` hands every process process 0's).
 
 Each op looks up the algorithm layer's dispatch cache (the
 ``spmd_guard`` tap) with the JAX package's tag (``relgb``, ``reljoin``,
@@ -126,7 +125,6 @@ from ..utils.spmd_guard import dtype_name
 from ..utils.env import env_int, env_raw
 from ..utils.resilience import ProgramError
 from ..views import views as _v
-from ..parallel import runtime as _rt
 
 __all__ = ["join", "groupby_aggregate", "unique", "histogram", "top_k",
            "join_auto", "groupby_auto", "unique_auto", "AutoResult",
@@ -816,15 +814,10 @@ def _merge_broadcast(slk, slv, nl, srk, srv, nr, outs, left_outer,
 
 
 def _tuned(domain: str, param: str):
-    """``tuning.lookup(domain, param)`` for the relational pickers.  In a
-    multi-process runtime the tuning layer waits for its own slice:
-    with no store armed the answer is None without a lookup (the
-    session overlay is not noted there either), and with a store armed
-    the lookup raises its classified refusal, so every process takes
-    the same route."""
+    """``tuning.lookup(domain, param)`` for the relational pickers (in a
+    multi-process runtime process 0's answer on every process, so every
+    process takes the same route)."""
     from .. import tuning as _tuning
-    if _rt.mp_runtime() is not None and not _tuning.enabled():
-        return None
     return _tuning.lookup(domain, param)
 
 
@@ -838,8 +831,7 @@ def _broadcast_max() -> int:
     With the variable unset and the plan optimizer's ``joinroute`` pass
     armed, a ``join.broadcast_max`` entry of the tuning DB
     (``dr_tpu_torch/tuning.py``, matched on this runtime's context)
-    replaces the default; a value that is not an integer is ignored
-    (across processes, :func:`_tuned`)."""
+    replaces the default; a value that is not an integer is ignored."""
     if env_raw("DR_GPU_JOIN_BROADCAST_MAX") is None:
         from ..plan import opt as _opt
         if _opt.enabled("joinroute"):
@@ -1280,9 +1272,9 @@ def _cap_hint(kind: str, base: int):
 
 def _note_ratio(kind: str, base: int, m: int) -> None:
     """Note the observed rows/input ratio in the session overlay, so the
-    next auto op of this kind skips its probe (not in a multi-process
-    runtime, where the overlay is not read: :func:`_tuned`)."""
-    if base > 0 and _rt.mp_runtime() is None:
+    next auto op of this kind skips its probe (``base`` and ``m`` are
+    global counts: every process notes the same ratio)."""
+    if base > 0:
         from .. import tuning as _tuning
         _tuning.note("relational", "cap_ratio_" + kind, max(m, 1) / base)
 

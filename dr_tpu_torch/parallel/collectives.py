@@ -320,6 +320,16 @@ def init_distributed(coordinator_address: str, num_processes: int,
     if device.type == "cuda":
         torch.cuda.set_device(device)
     if dist.is_initialized():
+        if _rt.left_group() is not None:
+            from ..utils import resilience as _res
+            raise _res.ProgramError(
+                "init_distributed(): this process still holds the "
+                f"process group it shrank out of ({_rt.left_group()}); "
+                "a survivor does not re-join its group. "
+                "torch.distributed.destroy_process_group() releases it "
+                "(under gloo it returns at once, dead peers or not), "
+                "and a new group can then be joined",
+                site="runtime.multi_process")
         raise RuntimeError("init_distributed(): torch.distributed is "
                            "initialised already")
     dist.init_process_group(

@@ -38,12 +38,19 @@ rank it owns, and the device a value received from a rank it does not
 own lands on.  A container holds rows only for :attr:`Runtime.local_ranks`,
 and the collectives move values across the process boundary through
 ``torch.distributed``.  :func:`require_single_process` is the entry
-check of every path that has no multi-process form yet.
+check of the paths that run in one process by design: a serving daemon
+or a router (:data:`ONE_SERVER`) and an elastic grow
+(:data:`NO_READMISSION`).  An elastic shrink of a multi-process runtime
+(``utils/elastic.rescue_session``) leaves a single-process runtime on
+this process's ranks and the process group as it was
+(:func:`left_group`).
 """
 
 from __future__ import annotations
 
+import threading
 import weakref
+from contextlib import contextmanager
 from typing import Optional, Sequence
 
 import torch
@@ -54,7 +61,8 @@ from ..utils import resilience as _res
 __all__ = ["Runtime", "init", "final", "finalize", "runtime",
            "is_initialized", "nprocs", "devices", "barrier", "fence",
            "get_duplicated_devices", "probe_recovered",
-           "mp_runtime", "require_single_process"]
+           "mp_runtime", "require_single_process", "left_group",
+           "single_controller_view", "ONE_SERVER", "NO_READMISSION"]
 
 
 def _as_device(d) -> torch.device:
@@ -86,6 +94,8 @@ class Runtime:
         #: the ranks this process holds rows for, in rank order
         self.local_ranks = [r for r, o in enumerate(self.owners)
                             if o == process_index]
+        #: the single-controller stand-in of :func:`single_controller_view`
+        self._single_view: Optional["Runtime"] = None
 
     @property
     def multi_process(self) -> bool:
@@ -144,30 +154,83 @@ class Runtime:
         return f"Runtime(nprocs={self.nprocs}, devices={self.devices})"
 
 
-#: the multi-process slice still to come (ROADMAP.md): the ``slice_`` a
-#: :func:`require_single_process` call names
-HOST_LAYERS = "deferred plans, elastic, tuning and serve"
+#: the rule a serving daemon's or a router's refusal names: one process
+#: owns the claim (as the JAX package's ``serve/daemon.py`` says)
+ONE_SERVER = ("one long-lived process serves: a server in every process "
+              "of a multi-process runtime would batch requests its peers "
+              "never see, so serving runs in a single-process runtime")
+
+#: the rule a grow's refusal names: no process re-admits another
+NO_READMISSION = ("a process cannot re-admit the ranks of another "
+                  "process: a grow runs in a single-process runtime, such "
+                  "as the one a shrink of a multi-process runtime leaves")
 
 
 def mp_runtime() -> Optional[Runtime]:
     """The initialised runtime when it spans several processes, else
-    None."""
+    None (also under :func:`single_controller_view`)."""
     rt = _runtime
-    return rt if rt is not None and rt.multi_process else None
+    if rt is None or not rt.multi_process or \
+            getattr(_view, "rt", None) is not None:
+        return None
+    return rt
 
 
-def require_single_process(what: str, slice_: str) -> None:
-    """The entry check of a path that has no multi-process form yet: in
+#: this thread's single-controller stand-in, while a view is open
+_view = threading.local()
+
+
+@contextmanager
+def single_controller_view():
+    """Within the block, on this thread, a multi-process runtime reads as
+    one controller over the same device list: :func:`mp_runtime` is None
+    and :func:`runtime` a single-process stand-in, so the collectives
+    make plain copies and message no other process.  The abstract replay
+    of ``plan/plansan`` runs the emits under it over shape-only rows of
+    every rank: the same replay, and the same verdict, on every
+    process."""
+    rt = _runtime
+    if rt is None or not rt.multi_process:
+        yield
+        return
+    if rt._single_view is None:  # one stand-in a runtime: stable keys
+        rt._single_view = Runtime(rt.devices)
+    _view.rt = rt._single_view
+    try:
+        yield
+    finally:
+        _view.rt = None
+
+
+def require_single_process(what: str, rule: str) -> None:
+    """The entry check of a path that runs in one process by design: in
     a multi-process runtime it raises a classified ``ProgramError``
-    naming the slice that brings it, before any row is read, so the path
-    never runs on a partial set of rows."""
+    naming ``rule`` (:data:`ONE_SERVER`, :data:`NO_READMISSION`) before
+    anything runs."""
     rt = mp_runtime()
     if rt is not None:
         raise _res.ProgramError(
-            f"{what} does not run in a multi-process runtime yet "
-            f"(process {rt.process_index} of {rt.process_count}); it "
-            f"comes with the multi-process slice of {slice_}",
+            f"{what} does not run in a multi-process runtime (process "
+            f"{rt.process_index} of {rt.process_count}): {rule}",
             site="runtime.multi_process")
+
+
+#: why this process still holds a process group its runtime left (an
+#: elastic shrink onto its own ranks), else None
+_left_group: Optional[str] = None
+
+
+def left_group() -> Optional[str]:
+    """Why the process group outlives the runtime: set by a shrink of a
+    multi-process runtime onto this process's ranks, which leaves the
+    group untouched (no barrier, no ``destroy_process_group``: its
+    peers may be dead).  None otherwise."""
+    return _left_group
+
+
+def _leave_group(why: str) -> None:
+    global _left_group
+    _left_group = why
 
 
 _runtime: Optional[Runtime] = None
@@ -245,8 +308,9 @@ def _init_processes(device: torch.device, process_index: int,
     """The multi-process runtime of ``collectives.init_distributed``:
     ``process_count`` ranks, rank r owned by process r, every rank's
     values held on ``device`` in this process."""
-    global _runtime
+    global _runtime, _left_group
     _faults.fire("runtime.init")
+    _left_group = None
     dev = _as_device(device)
     _first_touch([dev])
     _runtime = Runtime([dev] * process_count,
@@ -291,7 +355,7 @@ def probe_recovered(timeout_s: float = 30.0):
 def runtime() -> Runtime:
     if _runtime is None:
         init()
-    return _runtime  # type: ignore[return-value]
+    return getattr(_view, "rt", None) or _runtime
 
 
 def is_initialized() -> bool:

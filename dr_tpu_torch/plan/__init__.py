@@ -83,6 +83,23 @@ the loss drops the queue as any other fault does.  The outermost
 :func:`deferred` region's clean exit polls ``elastic.maybe_grow()``
 (one environment check unless ``DR_GPU_ELASTIC_GROW=1``).
 
+Across processes (``init_distributed``): every process records the same
+calls in the same order, so its queue, its runs and its flush points
+are the single controller's, and each run executes its ops in order on
+the process's own rows (the row functions skip another process's
+ranks and message it where the eager op does: a halo, a reduce, a
+stencil step, a redistribute, a histogram, a top_k, a for_each over a
+zip).  Opaque items take their eager multi-process paths.  A
+:class:`PlanScalar` resolves to the same value on every process (the
+reduce folds the gathered partials in rank order).  The route of a run
+follows from its recorded ops and the runtime alone: a run holding an
+op that messages another process (``_FusedOp.messages``) runs in order
+on every process, since a capture on one process and an in-order run on
+its peer would wait on each other's messages; a run of rank-local ops
+may capture as with one controller.  The optimizer and ``plansan``
+decide from the recorded ops, so every process rewrites and checks its
+queue alike, and ``stats()`` / ``explain()`` are the same everywhere.
+
 Optimizer: ``plan/opt.py`` rewrites the recorded queue at each flush
 (merge, dce, pushdown; ``DR_GPU_PLAN_OPT`` / ``DR_GPU_PLAN_OPT_DISABLE``).
 Under ``DR_GPU_SANITIZE=1``, ``plan/plansan.py`` verifies each run's
@@ -104,7 +121,6 @@ from .. import obs as _obs
 from ..algorithms import elementwise as _ew
 from ..core.pinning import pinned_id
 from ..ops import kernels as _kernels
-from ..parallel import runtime as _rt
 from ..utils import faults as _faults
 from ..utils import resilience as _resilience
 from ..utils import sanitize as _sanitize
@@ -251,14 +267,15 @@ class _FusedOp:
     full)`` windows (``full``: the whole padded row is rebuilt); ``pure``
     ops may be eliminated by the dce pass; ``push`` carries what the
     pushdown pass needs; ``src`` is the recorded op a merged wrapper
-    runs."""
+    runs.  ``messages``: across processes the op exchanges values with
+    another process (its run then runs in order everywhere)."""
 
     __slots__ = ("name", "key", "emit", "spec", "vals", "pre", "reads",
-                 "writes", "pure", "push", "src", "graph_safe")
+                 "writes", "pure", "push", "src", "graph_safe", "messages")
 
     def __init__(self, name, key, emit, spec=(), vals=(), pre=None,
                  reads=(), writes=(), pure=False, push=None,
-                 graph_safe=True):
+                 graph_safe=True, messages=False):
         self.name = name
         self.key = key
         self.emit = emit
@@ -270,6 +287,7 @@ class _FusedOp:
         self.pure = pure
         self.push = push
         self.src = None
+        self.messages = messages
         self.graph_safe = graph_safe and all(_host_scalar(v)
                                              for v in self.vals)
 
@@ -323,11 +341,21 @@ def _body(ops, state, tail) -> list:
     return souts
 
 
+def _row_devices(rows, rt) -> list:
+    """The device of each rank of ``rows``: the row's own, and for a
+    rank another process owns (a None row) the runtime's entry, where
+    values received from that rank land (what the eager ops pass)."""
+    return [d if r is None else r.device for r, d in zip(rows, rt.devices)]
+
+
 def _graph_device(run) -> Optional[torch.device]:
-    """The one CUDA device every row of the run lies on, else None."""
+    """The one CUDA device every row this process holds of the run lies
+    on, else None."""
     dev = None
     for c in run.conts:
         for row in c._rows:
+            if row is None:
+                continue
             d = row.device
             if d.type != "cuda" or (dev is not None and d != dev):
                 return None
@@ -358,7 +386,8 @@ class _GraphEntry:
         """The route of this flush: ``replay`` when the held graph was
         made over these rows and values, ``capture`` when the last run
         in order was, else ``eager`` (this signature is remembered)."""
-        sig = (tuple(r.data_ptr() for c in run.conts for r in c._rows),
+        sig = (tuple(r.data_ptr() for c in run.conts for r in c._rows
+                     if r is not None),
                tuple(_value_key(v) for v in tail))
         if self.graph is not None and self.sig == sig:
             return "replay"
@@ -585,7 +614,7 @@ class Plan:
         run.ops.append(_FusedOp(
             "for_each(zip)", key, emit, spec, vals, reads=in_slots,
             writes=tuple((s, off, n, False) for s in out_slots),
-            pure=True))
+            pure=True, messages=True))
         self._note_replay(lambda i=ins, o=outs, f=fn, sc=tuple(scalars):
                           self.record_zip_foreach(i, o, f, sc))
         return True
@@ -621,7 +650,7 @@ class Plan:
         handle = PlanScalar(self, run, len(run.handles))
         run.handles.append(handle)
         run.ops.append(_FusedOp("reduce", key, emit, spec, vals,
-                                reads=slots))
+                                reads=slots, messages=True))
         self._note_replay(lambda ch=chains, k=kind, z=zip_op:
                           self.record_reduce(ch, k, z), handle)
         return handle
@@ -668,7 +697,7 @@ class Plan:
 
         def emit(state, svals, souts):
             rows = state[slot]
-            devs = [r.device for r in rows]
+            devs = _row_devices(rows, dv.runtime)
             if kind == "reduce":
                 _halo.reduce_rows(rows, devs, layout, periodic, op)
             else:
@@ -676,7 +705,8 @@ class Plan:
                     _halo.exchange_rows(rows, devs, layout, periodic)
 
         run.ops.append(_FusedOp(f"halo.{kind}", key, emit, reads=(slot,),
-                                writes=((slot, 0, len(dv), False),)))
+                                writes=((slot, 0, len(dv), False),),
+                                messages=True))
         self._note_replay(lambda d=dv, k=kind, o=op, it=iters:
                           self.record_halo(d, k, o, it))
         return True
@@ -693,12 +723,13 @@ class Plan:
 
         def emit(state, svals, souts):
             rows = state[si]
-            state[so] = _st._step_rows(layout, [r.device for r in rows],
-                                       rows, state[so], body_op, prev, nxt,
-                                       periodic)
+            state[so] = _st._step_rows(
+                layout, _row_devices(rows, in_cont.runtime), rows,
+                state[so], body_op, prev, nxt, periodic)
 
         run.ops.append(_FusedOp("stencil", key, emit, reads=(si, so),
-                                writes=((so, 0, len(out_cont), False),)))
+                                writes=((so, 0, len(out_cont), False),),
+                                messages=True))
         self._note_replay(lambda ic=in_cont, oc=out_cont, per=periodic,
                           pv=prev, nx=nxt, ko=key_op, bo=body_op:
                           self.record_stencil(ic, oc, per, pv, nx, ko, bo))
@@ -725,7 +756,7 @@ class Plan:
         def emit(state, svals, souts):
             rows = state[slot]
             state[slot] = _rdx.exchange_rows(
-                rows, [r.device for r in rows], src_layout, dst_layout,
+                rows, _row_devices(rows, src_rt), src_layout, dst_layout,
                 dtype, moves)
 
         def pre():
@@ -737,7 +768,8 @@ class Plan:
 
         run.ops.append(_FusedOp(
             "redistribute", key, emit, pre=pre, reads=(slot,),
-            writes=((slot, 0, len(cont), False),), graph_safe=False))
+            writes=((slot, 0, len(cont), False),), graph_safe=False,
+            messages=True))
         self._note_undo(lambda c=cont, r=src_rt, d=src_dist:
                         c._rebind(r, d, _rows=c._rows))
         # a replay records against the runtime current then
@@ -773,7 +805,7 @@ class Plan:
         run.ops.append(_FusedOp(
             "histogram", key, emit, spec, vals, reads=(si,),
             writes=((so, 0, bins, True),), pure=True,
-            graph_safe=all(s == "t" for s in spec)))
+            graph_safe=all(s == "t" for s in spec), messages=True))
         self._note_replay(lambda ic=in_chain, oc=out_chain, a=lo, b=hi:
                           self.record_histogram(ic, oc, a, b))
         return True
@@ -818,7 +850,8 @@ class Plan:
             reads += (sov,) + ((soi,) if soi is not None else ())
         run.ops.append(_FusedOp("top_k", key, emit, spec, vals,
                                 reads=reads, writes=writes, pure=True,
-                                graph_safe=all(s == "t" for s in spec)))
+                                graph_safe=all(s == "t" for s in spec),
+                                messages=True))
         self._note_replay(lambda ic=in_chain, vc=ov_chain, xc=oi_chain,
                           lg=largest, mg=merge:
                           self.record_top_k(ic, vc, xc, lg, mg))
@@ -928,7 +961,7 @@ class Plan:
         armed = _sanitize.installed()
         # a run whose inputs are already non-finite has nothing to blame
         pre_ok = armed and all(_sanitize.is_finite(r) for c in item.conts
-                               for r in c._rows)
+                               for r in c._rows if r is not None)
         if _plansan is not None:
             _plansan.verify_run(item)
         hit, route, captured = self._exec_run(item)
@@ -943,8 +976,9 @@ class Plan:
             ops = "+".join(o.name for o in item.ops)
             for c in item.conts:
                 for r in c._rows:
-                    _sanitize.check_finite(
-                        r, f"container state (fused run {ops})")
+                    if r is not None:
+                        _sanitize.check_finite(
+                            r, f"container state (fused run {ops})")
             for h in item.handles:
                 if h._val is not None:
                     _sanitize.check_finite(
@@ -1011,8 +1045,12 @@ class Plan:
                     # applies (its producer run has executed)
                     v = v.item() if v._post is not None else v._raw()
                 tail.append(v)
+        # decided by the recorded ops and the runtime alone: across
+        # processes a run that messages another process never captures
         dev = (_graph_device(run)
-               if all(o.graph_safe for o in run.ops) else None)
+               if all(o.graph_safe for o in run.ops)
+               and not (run.runtime.multi_process
+                        and any(o.messages for o in run.ops)) else None)
         route = "eager" if dev is None else ent.route(run, tail, dev)
         captured = route == "capture"
         if route == "eager":
@@ -1127,10 +1165,9 @@ class Plan:
 def deferred():
     """Deferred-execution region: aligned algorithm calls record into a
     :class:`Plan` and run at region exit or at a flush point.  Nesting
-    re-enters the active plan (per thread).  Yields the plan.  Plans
-    have no multi-process form yet: a multi-process runtime refuses the
-    region at its entry."""
-    _rt.require_single_process("deferred", _rt.HOST_LAYERS)
+    re-enters the active plan (per thread).  Yields the plan.  In a
+    multi-process runtime every process enters the same region and
+    records the same calls (see the module docstring)."""
     p = _get_active()
     if p is not None:
         yield p

@@ -7,7 +7,9 @@ silent miscompile.  Armed under ``DR_GPU_SANITIZE=1``:
 
 * **Shadow verifier.**  Each fused run about to execute is replayed
   abstractly: the same emit closures run over rows on ``device="meta"``
-  (shapes and dtypes, no data) through a slot-tracking state proxy, and
+  (shapes and dtypes, no data; in a multi-process runtime every rank's,
+  under ``runtime.single_controller_view``, so the replay messages no
+  other process) through a slot-tracking state proxy, and
   every slot an op reads (a state lookup) or writes (a replaced row list
   or an in-place write, seen on the tensors' version counters) is held
   against its declared footprint.  (The JAX package replays through
@@ -33,6 +35,8 @@ import torch
 from . import PlanScalar, _Run
 from . import interference as _interf
 from ..core.pinning import pinned_id
+from ..parallel import runtime as _rt
+from ..parallel.collectives import present
 from ..utils import sanitize as _sanitize
 from ..utils.resilience import _obs_tail
 from ..utils.spmd_guard import dtype_name
@@ -137,10 +141,18 @@ def _replay(run) -> List[tuple]:
                 f"plansan: run {'+'.join(x.name for x in ops)} lost its "
                 "operand values before it was verified")
         tail.extend(_abstract(v) for v in o.vals)
-    st = _Tracker([[_meta(r) for r in c._rows] for c in run.conts],
-                  observed)
+    # a rank another process owns (a None row) gets the shape of a row
+    # this process holds: a container's rows all have one shape
+    st = _Tracker([[_meta(r if r is not None else present(c._rows))
+                    for r in c._rows] for c in run.conts], observed)
     tail = iter(tail)
     souts: list = []
+    with _rt.single_controller_view():
+        _replay_ops(ops, st, tail, souts, observed)
+    return observed
+
+
+def _replay_ops(ops, st, tail, souts, observed) -> None:
     for k, o in enumerate(ops):
         st.cur = k
         svals = [souts[s[1]] if isinstance(s, tuple) else next(tail)
@@ -156,7 +168,6 @@ def _replay(run) -> List[tuple]:
         for i, (rows, vers) in enumerate(zip(rows0, vers0)):
             if any(r._version != v for r, v in zip(rows, vers)):
                 observed[k][1].add(i)
-    return observed
 
 
 #: program+footprint keys that already verified clean; successes only,

@@ -652,7 +652,7 @@ class Server:
         # before the claim closes the window where a second daemon sees
         # no socket and races the claim; daemon_alive treats
         # bound-but-claiming as alive, so the newcomer still refuses
-        _rt_mod.require_single_process("Server.start", _rt_mod.HOST_LAYERS)
+        _rt_mod.require_single_process("Server.start", _rt_mod.ONE_SERVER)
         self._refuse_or_takeover()
         # the shared-memory arena is pure host state: created before the
         # claim, destroyed at stop.  A host without usable shared memory

@@ -250,7 +250,7 @@ class Router:
         self.restarts = 0
 
     def start(self) -> "Router":
-        _rt_mod.require_single_process("Router.start", _rt_mod.HOST_LAYERS)
+        _rt_mod.require_single_process("Router.start", _rt_mod.ONE_SERVER)
         from .daemon import Server
         if not self.spawn:
             self._check_runtime()

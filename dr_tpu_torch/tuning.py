@@ -35,6 +35,19 @@ Two layers answer a lookup, freshest first:
 
 At every picker an explicit ``DR_GPU_*`` pin beats the DB, and the DB
 beats the code default; a value of the wrong type in the DB is ignored.
+
+In a multi-process runtime (``init_distributed``) every process holds
+the single controller's answer.  A :func:`lookup` is collective: every
+process reads its own overlay and store, and one small gather through
+``parallel/collectives`` hands every process process 0's answer, so a
+route picked from the DB is the same on every process.  A :func:`note`
+updates every process's overlay (the noted values are computed from
+global counts, equal everywhere).  A :func:`record` writes the file
+from process 0 alone, as ``checkpoint.save`` does, and one gather of
+its outcome gives every process the same return value; every process
+updates its overlay.  The context key names the device model and the
+rank count, not a device index, so it is the same on every process of a
+host.
 """
 
 from __future__ import annotations
@@ -164,25 +177,46 @@ def clear_session() -> None:
     _session.clear()
 
 
+def _agreed(local_hit: bool, value, default):
+    """Process 0's ``(hit, value)`` on every process of a multi-process
+    runtime (one gather of its JSON form through ``collectives``); the
+    local answer with one controller.  A miss takes each process's own
+    ``default`` (the same argument on every process)."""
+    rt = _rt_mod.mp_runtime()
+    if rt is None:
+        return value if local_hit else default
+    import torch
+    from .parallel import collectives
+    mine = None
+    if rt.process_index == 0:
+        blob = json.dumps([bool(local_hit), value if local_hit else None])
+        mine = torch.frombuffer(bytearray(blob.encode()), dtype=torch.uint8)
+    [got] = collectives.gather_ranks(
+        [mine if rt.owners[r] == rt.process_index else None
+         for r in range(rt.nprocs)], torch.device("cpu"), ranks=[0])
+    hit, v = json.loads(bytes(got.cpu().numpy()).decode())
+    return v if hit else default
+
+
 def lookup(domain: str, param: str, default=None,
            ctx: Optional[dict] = None):
     """The measured value of ``domain.param`` under the current (or
     given) context, or ``default``: the session overlay first, then the
-    persisted store."""
-    _rt_mod.require_single_process("tuning.lookup", _rt_mod.HOST_LAYERS)
+    persisted store.  Collective in a multi-process runtime: every
+    process takes process 0's answer."""
     key = context_key(domain, param, ctx)
     if key in _session:
-        return _session[key]
+        return _agreed(True, _session[key], default)
     ent = _load().get(key)
     if isinstance(ent, dict):
-        return ent.get("value", default)
-    return default if ent is None else ent
+        return _agreed(True, ent.get("value", default), default)
+    return _agreed(ent is not None, ent, default)
 
 
 def note(domain: str, param: str, value, ctx: Optional[dict] = None) -> str:
-    """Record an in-process observation (session overlay only).
+    """Record an in-process observation (session overlay only; every
+    process of a multi-process runtime notes its own, the same value).
     Returns the key."""
-    _rt_mod.require_single_process("tuning.note", _rt_mod.HOST_LAYERS)
     key = context_key(domain, param, ctx)
     _session[key] = value
     return key
@@ -193,15 +227,25 @@ def record(domain: str, param: str, value, ctx: Optional[dict] = None,
     """Persist a measured winner: atomic read-modify-write, last writer
     wins per key, the context baked into the key.  With no store armed
     the value still lands in the session overlay.  Returns the key
-    written (None: overlay only)."""
-    _rt_mod.require_single_process("tuning.record", _rt_mod.HOST_LAYERS)
-    global _cache
+    written (None: overlay only).  Collective in a multi-process
+    runtime: process 0 writes, every process notes the value and
+    returns process 0's outcome."""
     c = context() if ctx is None else ctx
     key = context_key(domain, param, c)
     _session[key] = value
     path = db_path()
     if not path:
         return None
+    rt = _rt_mod.mp_runtime()
+    wrote = _write(path, key, domain, param, value, c, source) \
+        if rt is None or rt.process_index == 0 else False
+    return key if _agreed(True, wrote, False) else None
+
+
+def _write(path, key, domain, param, value, c, source) -> bool:
+    """The atomic read-modify-write of one entry; False (warned) when
+    the store cannot be written."""
+    global _cache
     with _lock:
         try:
             raw = {}
@@ -230,6 +274,6 @@ def record(domain: str, param: str, value, ctx: Optional[dict] = None,
         except OSError as e:
             warnings.warn(f"tuning DB write to {path!r} failed ({e!r}); "
                           "the winner is kept in-process only",
-                          TuningDBWarning, stacklevel=2)
-            return None
-    return key
+                          TuningDBWarning, stacklevel=3)
+            return False
+    return True

@@ -67,8 +67,30 @@ once as an :class:`ElasticWarning`.  Grow pacing:
 The serving daemon (``serve/daemon.py``) rides these hooks: a batch's
 retry shrinks on a lost rank, and it counts shrinks and grows through
 :func:`shrink_count` / :func:`grow_count` and polls :func:`maybe_grow`
-between batches.  Not carried over: the multi-process cases
-(``init_distributed`` is not ported).
+between batches.
+
+Across processes (``init_distributed``), as the JAX package's
+killed-worker leg (``tests/elastic_worker.py``): a survivor attributes
+the failed collective itself (:func:`attribute`; nothing attributes
+automatically), bounds it with ``resilience.with_deadline``, and calls
+:func:`rescue_session`, which shrinks onto the survivors when every one
+of them is a rank of this process (``Runtime.local_ranks``).  The new
+runtime is a single-process one on those ranks' devices.  The fates
+come from this process's rows and the checkpoint file alone, never
+from a gather (a peer may be dead): every rank another process owns
+counts as lost, so a container whose segments all lie on this
+process's surviving ranks is rescued, one with a segment elsewhere is
+restored from its checkpoint (this process's live segments over the
+file's values) or lost.  The process group stays as it was: no barrier
+and no ``destroy_process_group`` (``runtime.left_group`` says why; a
+later ``init_distributed`` refuses, classified, until the caller
+destroys the group).  A loss that leaves survivors in several processes
+is refused classified at ``mesh.shrink``: passing ``lost_ranks`` that
+cover every rank of the other processes downgrades this process to its
+own ranks.  A grow re-admits no process (the JAX package's cannot
+either): :func:`grow_session` refuses in a multi-process runtime, and
+:func:`maybe_grow` there is a no-op while the grow poll is disarmed;
+the single-process runtime a shrink leaves grows as any other.
 """
 
 from __future__ import annotations
@@ -376,20 +398,28 @@ def _owned_ranks(container, P: int) -> set:
     return set(range(P))
 
 
-def _plan_fate(c, lost_set: set, P: int, reason: str):
+def _plan_fate(c, lost_set: set, P: int, reason: str, local: bool):
     """One container's fate, decided on the old runtime with the host
-    state the apply step needs: ``("rescue", (meta, arrays))``,
-    ``("restore", ("merge", values))`` for a vector,
-    ``("restore", ("snap", (meta, arrays)))`` for a dense or sparse
-    matrix, ``("restore", ("ckpt", path))`` for other kinds, or
-    ``("lost", reason)``."""
+    state the apply step needs (:func:`_apply_restore`'s payloads):
+    ``("rescue", ("snap", (meta, arrays)))``, ``("restore", ("merge",
+    values))`` for a vector, ``("restore", ("snap", (meta, arrays)))``
+    for a dense or sparse matrix, ``("restore", ("ckpt", path))`` for
+    other kinds, or ``("lost", reason)``.  ``local``: read this
+    process's rows alone (a multi-process rescue, where every rank of
+    another process is in ``lost_set``); a rescue then merges them as a
+    restore does, over no checkpoint."""
     from ..containers.distributed_vector import distributed_vector
     from ..containers.dense_matrix import dense_matrix
     from ..containers.sparse_matrix import sparse_matrix
 
     if not (_owned_ranks(c, P) & lost_set):
-        from . import checkpoint as _ck
-        return "rescue", _ck.snapshot(c)
+        if not local:
+            from . import checkpoint as _ck
+            return "rescue", ("snap", _ck.snapshot(c))
+        if isinstance(c, distributed_vector):
+            return "rescue", ("merge", _merge_vector_values(c, lost_set,
+                                                            None))
+        return "rescue", ("snap", _merge_matrix_snapshot(c, lost_set, None))
     path = checkpoint_path(c)
     if path is None:
         return "lost", reason
@@ -401,21 +431,25 @@ def _plan_fate(c, lost_set: set, P: int, reason: str):
     return "restore", ("ckpt", path)
 
 
-def _merge_vector_values(c, lost_set: set, path: str) -> torch.Tensor:
+def _merge_vector_values(c, lost_set: set, path) -> torch.Tensor:
     """The per-segment value: the checkpoint's logical array with every
     surviving rank's window overwritten by its live values (read rank by
-    rank: nothing is read from a lost rank)."""
+    rank: nothing is read from a lost rank).  ``path`` None: no lost
+    rank holds a segment, and the live windows cover the value."""
     from . import checkpoint as _ck
 
-    meta, arrays = _ck.read(path)
-    if meta.get("kind") != "vector":
-        raise ValueError(f"checkpoint at {path} holds a "
-                         f"{meta.get('kind')!r}, not this vector")
-    base = torch.as_tensor(_ck._from_raw(np.asarray(arrays["data"])))
-    if tuple(base.shape) != (len(c),):
-        raise ValueError(f"checkpoint length {tuple(base.shape)} != live "
-                         f"vector ({len(c)},)")
-    base = base.to(c.dtype).clone()
+    if path is None:
+        base = torch.zeros(len(c), dtype=c.dtype)
+    else:
+        meta, arrays = _ck.read(path)
+        if meta.get("kind") != "vector":
+            raise ValueError(f"checkpoint at {path} holds a "
+                             f"{meta.get('kind')!r}, not this vector")
+        base = torch.as_tensor(_ck._from_raw(np.asarray(arrays["data"])))
+        if tuple(base.shape) != (len(c),):
+            raise ValueError(f"checkpoint length {tuple(base.shape)} != "
+                             f"live vector ({len(c)},)")
+        base = base.to(c.dtype).clone()
     for r in range(c.nshards):
         if r in lost_set:
             continue
@@ -425,15 +459,37 @@ def _merge_vector_values(c, lost_set: set, path: str) -> torch.Tensor:
     return base
 
 
-def _merge_matrix_snapshot(c, lost_set: set, path: str):
-    """The per-tile ``(meta, arrays)`` snapshot of a dense or sparse
-    matrix: the checkpoint's state with every tile of a surviving rank
-    overwritten by its live values (nothing is read from a lost rank);
-    tiles of lost ranks rewind to the checkpoint."""
+def _blank_state(c):
+    """A ``(meta, arrays)`` state of a dense or sparse matrix of ``c``'s
+    shape holding no value: the base that live tiles cover when none
+    lies on a lost rank (a multi-process rescue, which reads no other
+    process)."""
     from . import checkpoint as _ck
     from ..containers.dense_matrix import dense_matrix
 
-    meta, arrays = _ck.read(path)
+    if isinstance(c, dense_matrix):
+        return ({"kind": "dense_matrix",
+                 "grid": [int(g) for g in c.grid_shape],
+                 "tile": [int(t) for t in c.partition.tile]},
+                {"data": _ck._raw_host(torch.zeros(tuple(c.shape),
+                                                   dtype=c.dtype))})
+    none = np.zeros(0, np.int64)
+    return ({"kind": "sparse_matrix", "shape": [int(s) for s in c.shape],
+             "grid": [int(g) for g in c.grid_shape]},
+            {"rows": none, "cols": none,
+             "vals": _ck._raw_host(torch.zeros(0, dtype=c.dtype))})
+
+
+def _merge_matrix_snapshot(c, lost_set: set, path):
+    """The per-tile ``(meta, arrays)`` snapshot of a dense or sparse
+    matrix: the checkpoint's state with every tile of a surviving rank
+    overwritten by its live values (nothing is read from a lost rank);
+    tiles of lost ranks rewind to the checkpoint.  ``path`` None: no
+    lost rank holds a tile, and the live tiles cover the state."""
+    from . import checkpoint as _ck
+    from ..containers.dense_matrix import dense_matrix
+
+    meta, arrays = _ck.read(path) if path is not None else _blank_state(c)
     want = "dense_matrix" if isinstance(c, dense_matrix) else "sparse_matrix"
     if meta.get("kind") != want:
         raise ValueError(f"checkpoint at {path} holds a "
@@ -504,8 +560,11 @@ def rescue_session(err=None, *, lost_ranks: Optional[Sequence[int]] = None,
     on an impossible rescue (an invalid rank, the
     ``DR_GPU_ELASTIC_MIN_DEVICES`` floor, a loss during a rescue, a fault
     at ``mesh.shrink``); on success the global runtime is the shrunken
-    one and the report says what happened to every container."""
-    _rt_mod.require_single_process("rescue_session", _rt_mod.HOST_LAYERS)
+    one and the report says what happened to every container.
+
+    In a multi-process runtime the survivors must all be this process's
+    ranks (see the module docstring): the shrink reads nothing from
+    another process and leaves the process group untouched."""
     global _shrinks, _rescued, _restored, _lost, _wall_s, _rescuing
     global _last_report
     from .. import obs as _obs
@@ -551,6 +610,17 @@ def rescue_session(err=None, *, lost_ranks: Optional[Sequence[int]] = None,
                    error=type(err).__name__ if err is not None
                    else "requested")
         _faults.fire("mesh.shrink", lost=tuple(ranks))
+        if rt.multi_process and not set(keep) <= set(rt.local_ranks):
+            away = sorted(r for r in keep if not rt.is_local(r))
+            raise _resilience.ProgramError(
+                f"elastic: the loss of rank(s) {ranks} leaves survivors in "
+                f"several processes (rank(s) {away} live in other "
+                f"processes than this one, process {rt.process_index} of "
+                f"{rt.process_count}); a shrink builds a single-process "
+                "runtime and cannot span the process group. Pass "
+                "lost_ranks covering every rank of the other processes "
+                "to downgrade this process to its own ranks",
+                site="mesh.shrink")
         if len(survivors) < max(1, min_dev):
             raise _resilience.DeviceLostError(
                 f"elastic: cannot shrink below DR_GPU_ELASTIC_MIN_DEVICES="
@@ -562,7 +632,7 @@ def rescue_session(err=None, *, lost_ranks: Optional[Sequence[int]] = None,
         for c in rt.live_containers():
             tc = time.perf_counter()
             try:
-                fate = _plan_fate(c, lost_set, P, reason)
+                fate = _plan_fate(c, lost_set, P, reason, rt.multi_process)
             except Exception as e:
                 # a failed gather (a second fault on a dispatch, say)
                 # must not take the rest of the session down: a
@@ -572,6 +642,11 @@ def rescue_session(err=None, *, lost_ranks: Optional[Sequence[int]] = None,
                     else ("lost", f"{reason}; rescue gather failed: {e!r}")
             fates.append((c,) + fate + (time.perf_counter() - tc,))
         new_rt = _rt.init(survivors)
+        if rt.multi_process:
+            # no collective: a peer may be dead
+            _rt._leave_group(
+                f"shrank from {P} ranks over {rt.process_count} processes "
+                f"onto rank(s) {keep} of process {rt.process_index}")
         new_rt.slots = [rt.slots[r] for r in keep]
         new_rt.dropped = sorted(rt.dropped + [(rt.slots[r], rt.devices[r])
                                               for r in ranks],
@@ -580,12 +655,7 @@ def rescue_session(err=None, *, lost_ranks: Optional[Sequence[int]] = None,
             name = type(c).__name__
             ta = time.perf_counter()
             try:
-                if fate == "rescue":
-                    from . import checkpoint as _ck
-                    meta, arrays = payload
-                    _swap_state(c, _ck.rebuild(meta, arrays, runtime=new_rt,
-                                               reblock=True), new_rt)
-                elif fate == "restore":
+                if fate != "lost":
                     _apply_restore(c, payload, new_rt)
             except Exception as e:
                 # a container that cannot land on the smaller runtime (a
@@ -697,7 +767,8 @@ def grow_session(devices=None, *, reason: str = "",
     runtime, value intact; a container a shrink poisoned stays poisoned.
     On success the global runtime is the grown one and the
     ``_DR_GPU_ELASTIC_GROW_*`` markers are published."""
-    _rt_mod.require_single_process("grow_session", _rt_mod.HOST_LAYERS)
+    _rt_mod.require_single_process("grow_session",
+                                   _rt_mod.NO_READMISSION)
     global _grows, _moved, _kept, _grow_wall_s, _rescuing, _last_grow
     from .. import obs as _obs
     from ..parallel import runtime as _rt
@@ -870,11 +941,12 @@ def _probe_and_grow() -> Optional[GrowReport]:
 def maybe_grow() -> Optional[GrowReport]:
     """The between-flushes poll: with ``DR_GPU_ELASTIC_GROW=1`` and a
     shrunken session, poll the supervisor and grow back when a dropped
-    slot answers.  One environment check when disarmed; never raises."""
-    _rt_mod.require_single_process("maybe_grow", _rt_mod.HOST_LAYERS)
+    slot answers.  One environment check when disarmed; raises only its
+    classified refusal, when armed in a multi-process runtime."""
     global _grow_sup, _grow_sup_epoch
     if not grow_enabled() or _rescuing or _shrinks == 0:
         return None
+    _rt_mod.require_single_process("maybe_grow", _rt_mod.NO_READMISSION)
     from ..parallel import runtime as _rt
     if not _rt.is_initialized():
         return None

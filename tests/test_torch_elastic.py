@@ -34,8 +34,11 @@ Elsewhere or left out:
   device; the port's daemon never leaves its requested route, so there
   is no degraded route to pin or to leave (``tests/test_torch_serve.py::
   test_serve_flush_relay_down_fails_classified_same_ranks``);
-* ``test_multihost_killed_worker_downgrades_mesh`` needs
-  ``init_distributed``, which is not carried over.
+* ``test_multihost_killed_worker_downgrades_mesh`` (two processes, a
+  killed worker, the survivor's shrink) is carried over in
+  ``tests/test_torch_multiprocess_host.py``, which spawns its own gloo
+  processes: ``test_killed_worker_shrinks_survivors`` and
+  ``test_killed_worker_flush_replays``.
 """
 
 import gc

@@ -1779,7 +1779,8 @@ def test_two_processes_on_one_card_over_gloo(cuda, tmp_path):
     """Two processes, each owning one rank on cuda:0 (gloo between
     them), run the multi-process main path at a small size: every
     result of each has the bits of one controller on two ranks of the
-    card, and every path outside the slice refuses."""
+    card, and the serving daemon and the router refuse (one process
+    serves)."""
     import test_torch_multiprocess as mp
     got = mp._spawn(2, str(tmp_path / "res"), device="cuda:0",
                     deadline_s=300.0)
@@ -1815,6 +1816,36 @@ def test_two_processes_on_one_card_launch_k5_k6_k7_k9(cuda, tmp_path):
     assert got["p0_launches"]["stencil2d_blocked"] == \
         single["stencil2d_blocked"]
     assert got["p1_launches"]["stencil2d_blocked"] == 0
+
+
+def test_two_processes_on_one_card_deferred_region(cuda, tmp_path):
+    """Two processes, each owning one rank on cuda:0 (gloo between
+    them), run ``chip_smoke.py``'s phase 31 at its CPU-rehearsal sizes:
+    the deferred region with K1, K2 and K4 opaque, K3 and K8 fused and
+    ``dot_n`` (K3) after the flush, the joins under the tuning DB and
+    the killed-worker leg.  Every digest of each process equals one
+    controller's on two ranks of the card, each launches its rank's
+    share of K1-K4 and K8, their ``Plan.stats()`` agree, and the
+    survivor's K3 / K4 digests equal one controller's
+    (``mp31_phase`` raises otherwise)."""
+    import importlib.util
+    import dr_tpu_torch as dt
+    from pathlib import Path
+    script = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", script)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    try:
+        got = cs.mp31_phase(dt, kernels, 5, "test", device="cuda:0",
+                            small=True, out_dir=str(tmp_path))
+    finally:
+        dt.final()
+    single = got["single_launches"]
+    for k in ("stencil_matmul", "stencil_blocked", "chunked_dot",
+              "chunked_cumsum", "hist"):
+        assert single[k] > 0 and got["p0_region_s"] > 0, single
+    assert got["p0_stats"] == got["p1_stats"]
+    assert got["kill_launches"]["chunked_dot"] > 0
 
 
 def test_two_processes_on_one_card_launch_k6_k7_k8(cuda, tmp_path):

@@ -15,8 +15,9 @@ The parent holds each process's results to the port's single-controller
 run of the same path on ``dt.init(["cpu"] * P)`` bit for bit, and to the
 JAX package on P shards with the same numpy inputs: data movement and
 integer results bit for bit, float sums within the tolerance stated
-beside each.  In the multi-process runtime every path outside the slice
-raises a classified ``ProgramError`` at its entry.  Each spawn has its
+beside each.  In the multi-process runtime the paths that run in one
+process by design (serving) raise a classified ``ProgramError`` at
+their entry.  Each spawn has its
 own deadline and process-group timeout, and kills stragglers, as
 ``tests/test_multihost.py`` does.
 """
@@ -188,23 +189,29 @@ def _torch_shards(v):
     return v.rows
 
 
-def _out_of_slice(dt):
-    """Every path outside the slice refuses, classified, at its entry;
+def _out_of_slice(dt, tmp):
+    """The paths that run in one process by design (a serving daemon and
+    a router: one process serves) refuse, classified, at their entry;
     returns the names that did."""
+    from dr_tpu_torch import serve
     from dr_tpu_torch.utils import resilience
     n, _ = _sizes(dt.nprocs())
     v = dt.distributed_vector(n)
     dt.iota(v, 0)
+    pid = dt.runtime().process_index
     calls = {
-        "deferred": lambda: dt.deferred().__enter__(),
-        "tuning": lambda: dt.tuning.lookup("spmv", "format"),
+        "Server.start": lambda: serve.Server(
+            os.path.join(tmp, f"mp{pid}.sock"), cpu=True).start(),
+        "Router.start": lambda: serve.Router(
+            os.path.join(tmp, f"mp{pid}"), replicas=2, cpu=True).start(),
     }
     refused = []
     for name, call in calls.items():
         try:
             call()
         except resilience.ProgramError as e:
-            assert "multi-process slice of" in str(e), (name, e)
+            assert "one long-lived process serves" in str(e), (name, e)
+            assert e.site == "runtime.multi_process", (name, e)
             assert resilience.classify(e) is resilience.ProgramError
             refused.append(name)
     return refused
@@ -223,7 +230,7 @@ def _worker(pid, nproc, port, out, device="cpu"):
                         _torch_rows, _torch_shards)
         g.verify()
     assert len(g.trace) > 20
-    refused = _out_of_slice(dt)
+    refused = _out_of_slice(dt, os.path.dirname(out))
     res["refused"] = np.asarray(sorted(refused))
     logdir = os.path.dirname(out)
     dt.drlog.set_file(os.path.join(logdir, "mp.log"))
@@ -285,7 +292,7 @@ def test_multi_process_main_path(nproc, tmp_path, _reset_port):
         for key, want in single.items():
             assert same_bits(res[key], want), (pid, key, res[key], want)
         assert bool(res["log"]), pid
-        assert set(res["refused"]) == {"deferred", "tuning"}, \
+        assert set(res["refused"]) == {"Server.start", "Router.start"}, \
             res["refused"]
     for key, want in ref.items():
         mine = single[key]

@@ -315,13 +315,45 @@ def _port_paths(dt, local):
     return paths(dt, _torch_host, _torch_rows, local, True)
 
 
-def _refusals(dt, tmp):
+def _armed(dt, tmp):
+    """The auto tier and the join with the tuning layer armed (a DB in
+    ``tmp``, ``DR_GPU_PLAN_OPT=all``: the ``capinfer`` and ``joinroute``
+    passes read it), which refused across processes before the tuning
+    layer ran there; returns their counts, routes and rows under keys
+    ending in ``_armed``."""
+    from dr_tpu_torch.algorithms import relational
+    P = dt.nprocs()
+    v = dt.distributed_vector.from_array(np.arange(4 * P, dtype=np.float32))
+    env = {"DR_GPU_TUNING_DB": os.path.join(tmp, "tuning_db.json"),
+           "DR_GPU_PLAN_OPT": "all"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    out = {}
+    try:
+        res = dt.join_auto(v, v, v, v)
+        out["capinfer_count_armed"] = np.asarray(int(res.count))
+        for name, c in zip("klr", res.arrays()):
+            out[f"capinfer_{name}_armed"] = dt.to_numpy(c)
+        outs = [dt.distributed_vector(8 * P) for _ in range(3)]
+        out["joinroute_count_armed"] = np.asarray(dt.join(v, v, v, v, *outs))
+        out["joinroute_impl_armed"] = np.asarray(
+            relational.last_join_route()["impl"])
+        for name, c in zip("klr", outs):
+            out[f"joinroute_{name}_armed"] = dt.to_numpy(c)
+    finally:
+        for k, val in saved.items():
+            if val is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = val
+    return out
+
+
+def _refusals(dt):
     """What still refuses across processes, classified: a ghost buffer
-    of another process's rank, a re-layout onto a runtime outside the
-    process group, and the auto tier and the join route with the tuning
-    layer armed (``HOST_LAYERS``); and a faulted re-layout, which raises
-    on every process and leaves each one's layout and rows as they
-    were."""
+    of another process's rank and a re-layout onto a runtime outside the
+    process group; and a faulted re-layout, which raises on every
+    process and leaves each one's layout and rows as they were."""
     import torch
     from dr_tpu_torch.parallel.runtime import Runtime
     from dr_tpu_torch.utils import resilience
@@ -359,23 +391,6 @@ def _refusals(dt, tmp):
                 torch.equal(a, b) for a, b in zip(
                     [r for r in v.rows if r is not None], before[1]))):
         got["rollback"] = "rows changed"
-    env = {"DR_GPU_TUNING_DB": os.path.join(tmp, "tuning_db.json"),
-           "DR_GPU_PLAN_OPT": "all"}
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        refused("join_auto_capinfer",
-                lambda: dt.join_auto(v, v, v, v), "deferred plans, elastic")
-        refused("join_joinroute",
-                lambda: dt.join(v, v, v, v, *(dt.distributed_vector(8 * P)
-                                              for _ in range(3))),
-                "deferred plans, elastic")
-    finally:
-        for k, val in saved.items():
-            if val is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = val
     return got
 
 
@@ -390,7 +405,8 @@ def _worker(pid, nproc, port, out, device="cpu"):
         res = _port_paths(dt, rt.local_ranks)
         g.verify()
     assert len(g.trace) > 40, len(g.trace)
-    got = _refusals(dt, os.path.dirname(out))
+    res.update(_armed(dt, os.path.dirname(out)))
+    got = _refusals(dt)
     res["refusals"] = np.asarray([f"{k}={v}" for k, v in sorted(got.items())])
     np.savez(f"{out}.{pid}.npz", **res)
     dt.barrier()
@@ -400,11 +416,13 @@ def _worker(pid, nproc, port, out, device="cpu"):
 
 # ----------------------------------------------------------------- parent
 
-def _single_controller(P):
+def _single_controller(P, tmp):
     import dr_tpu_torch as dt
     dt.init(["cpu"] * P)
     try:
-        return _port_paths(dt, range(P))
+        out = _port_paths(dt, range(P))
+        out.update(_armed(dt, tmp))
+        return out
     finally:
         dt.final()
 
@@ -442,14 +460,16 @@ def _reset_port():
 def test_multi_process_relational(nproc, tmp_path, _reset_port):
     """P processes over gloo: every process's results have the single
     controller's bits, its ghost buffers those of its own rank, and the
-    refusals stay classified; the JAX package on P shards agrees bit for
-    bit on everything but float groupby sums and means, which hold to
-    FLOAT_TOL; the halo's folds equal numpy's."""
+    refusals stay classified (the auto tier and the join with the
+    tuning layer armed run, with the single controller's bits); the JAX
+    package on P shards agrees bit for bit on everything but float
+    groupby sums and means, which hold to FLOAT_TOL; the halo's folds
+    equal numpy's."""
     with ThreadPoolExecutor(1) as pool:
         spawned = pool.submit(spawn, HERE, nproc, str(tmp_path / "res"),
                               deadline_s=DEADLINE_S)
         ref = _jax_reference(nproc)
-        single = _single_controller(nproc)
+        single = _single_controller(nproc, str(tmp_path))
         got = spawned.result()
     for pid, res in enumerate(got):
         mine = {k: w for k, w in single.items()
@@ -459,7 +479,7 @@ def test_multi_process_relational(nproc, tmp_path, _reset_port):
             assert same_bits(res[key], want), (pid, key, res[key], want)
         assert all(r.endswith("=refused") for r in res["refusals"]), \
             (pid, res["refusals"])
-        assert len(res["refusals"]) == 6, res["refusals"]
+        assert len(res["refusals"]) == 4, res["refusals"]
     # the routes the joins took, and the host-staged re-layout's rows
     for how in HOWS:
         assert single[f"join_{how}_default_impl"] == "broadcast", how
@@ -471,7 +491,7 @@ def test_multi_process_relational(nproc, tmp_path, _reset_port):
     for op in UH_OPS + ("second",):
         assert same_bits(single[f"uh_{op}"], _numpy_fold(inp, op)), op
     assert sorted(ref) == sorted(k for k in single if not k.endswith(
-        ("_impl", "_host_rows", "uh_second")))
+        ("_impl", "_host_rows", "uh_second", "_armed")))
     for key, want in ref.items():
         mine = single[key]
         if key in FLOAT:

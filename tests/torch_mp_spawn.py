@@ -1,7 +1,7 @@
 """Spawning helpers shared by the port's multi-process test files
-(``test_torch_multiprocess.py``, ``test_torch_multiprocess_paths.py``):
-each of those files is its own worker, started once a process with
-``python <file> <pid> <nproc> <port> <out> [device]``.  Imports neither
+(``test_torch_multiprocess*.py``): each of those files is its own
+worker, started once a process with ``python <file> <pid> <nproc>
+<port> <out> [device] [args...]``.  Imports neither
 ``jax`` nor ``dr_tpu``."""
 
 import os
@@ -23,18 +23,23 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def spawn(script, nproc, out, device="cpu", deadline_s=120.0):
+def spawn(script, nproc, out, device="cpu", deadline_s=120.0, args=(),
+          exits=None):
     """Run ``nproc`` copies of the worker ``script`` with their ranks on
-    ``device``; they have ``deadline_s`` together, and a failed or hung
-    one gets its peers killed so every worker's output is reported.
-    Each worker must print ``MP-OK`` and write ``<out>.<pid>.npz``;
-    returns those files' contents, in process order."""
+    ``device`` (``args`` follow it on each command line); they have
+    ``deadline_s`` together, and a failed or hung one gets its peers
+    killed so every worker's output is reported.  Each worker must print
+    ``MP-OK`` and write ``<out>.<pid>.npz``, except a pid of ``exits``,
+    which must end with the exit code given there (a worker that kills
+    itself) and writes nothing.  Returns the files' contents in process
+    order (None for a pid of ``exits``)."""
+    exits = exits or {}
     port = free_port()
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
     procs = [subprocess.Popen(
         [sys.executable, str(script), str(pid), str(nproc), str(port), out,
-         device],
+         device] + [str(a) for a in args],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         env=env, cwd=REPO) for pid in range(nproc)]
     outs = [None] * nproc
@@ -50,7 +55,8 @@ def spawn(script, nproc, out, device="cpu", deadline_s=120.0):
     while time.monotonic() < deadline:
         if all(p.poll() is not None for p in procs):
             break
-        if any(p.poll() not in (None, 0) for p in procs):
+        if any(p.poll() not in (None, exits.get(i, 0))
+               for i, p in enumerate(procs)):
             time.sleep(1)  # let the peers fail and flush on their own
             break
         time.sleep(0.1)
@@ -60,10 +66,16 @@ def spawn(script, nproc, out, device="cpu", deadline_s=120.0):
     for t in threads:
         t.join(timeout=30)
     for pid, (p, o) in enumerate(zip(procs, outs)):
+        if pid in exits:
+            assert p.returncode == exits[pid], \
+                f"process {pid} of {nproc} ended with {p.returncode}, " \
+                f"not {exits[pid]}:\n{(o or '')[-3000:]}"
+            continue
         assert p.returncode == 0 and "MP-OK" in (o or ""), \
             f"process {pid} of {nproc} failed ({p.returncode}):\n" \
             f"{(o or '')[-3000:]}"
-    return [dict(np.load(f"{out}.{pid}.npz")) for pid in range(nproc)]
+    return [None if pid in exits else dict(np.load(f"{out}.{pid}.npz"))
+            for pid in range(nproc)]
 
 
 def same_bits(a, b) -> bool:
