@@ -321,6 +321,35 @@ checks the kernels at small shapes only).  Phases:
     the same values; the seconds from the failed call to the finished
     rescue, the restore's GB/s and how the dead peer's receive ended.
     ``--phase31`` runs phases 1-3 and this one.
+32. the C++ bridge across processes: two processes, each owning one
+    rank on cuda:0 over gloo (``thp::session(const distributed&)``, over
+    ``init_distributed``).  32.1: ``bridge_mp_demo`` passes in both, and
+    each launches its rank's share of the same calls made directly on
+    one controller on two ranks of cuda:0 (K3 from ``dot``, K7 from the
+    int32 ``reduce``, K6 from the sorts).  32.2: ``bridge_parity --mp``
+    from a checkpoint of 2^24 f32 (cut from 27.2's 2^28: every
+    ``to_host`` gathers the whole vector through gloo), windowed sorts
+    of 2^14 keys (K6), two runs: each process's digests equal
+    ``parity_direct``'s on one controller on two ranks of cuda:0 (held
+    to the csr sparse route, the one across processes) bit for bit, each
+    launches its rank's share of K3, K4, K6 and K7; each process's start
+    and each call's least host ms against the direct call's.  A process
+    that fails, hangs past its deadline or disagrees fails the phase.
+    ``--phase32`` runs phases 1-3 and this one (with ``--phase33``,
+    both).
+33. the examples (``dr_tpu_torch.examples``, the JAX package's
+    ``examples/`` scripts): all 15 through ``main([...])`` in this
+    process at their defaults on one rank of cuda:0 (33.1) and on 4
+    logical ranks (``--ranks 4``; ``sort_example -n 65536``, so its
+    sort and ``windows_example``'s put 16384 keys on a rank, K6's
+    geometry) (33.2), each returning 0; again under the plain versions,
+    which launch nothing and print the same results within the
+    examples' own oracles; K3 in ``dot_product`` (one a rank) and CG
+    (one a rank a ``dot``), K4 in ``inclusive_scan_example`` and
+    ``windows_example``'s windowed scan, K6 in 33.2's sorts and in
+    ``windows_example``'s key-value sort (2^15 keys) on one rank too;
+    every example's launches and seconds.  ``--phase33`` runs phases 1-3 and
+    this one.
 
 ``--halo-ab DIR`` times phase 17's halo p50 with the ``dr_tpu_torch`` of
 another checkout at ``DIR`` and this one's, in turns, and stops.
@@ -8192,6 +8221,417 @@ def mp31_phase(dt, kernels, seed, card, nproc=2, device="cuda:0",
     return out
 
 
+# --------------------------- phase 32: the C++ bridge across processes
+
+#: phase 32.2: ``bridge_parity --mp``'s input, cut from 27.2's 2^28 f32
+#: (every ``to_host`` gathers the whole vector onto each process through
+#: gloo), its windowed sorts (27.2's 2^14 keys, K6) and its runs
+MP32_LOG2, MP32_REPS = 24, 2
+#: seconds the C++ processes of one step of phase 32 may take together
+MP32_DEADLINE = 240.0
+#: the kernels phase 32's processes are held to
+MP32_KERNELS = ("chunked_dot", "chunked_cumsum", "bitonic_sort", "segred")
+
+
+def rank_share(single, nproc):
+    """The launches each of ``nproc`` processes (one rank each, one
+    device) must make, from one controller's on ``nproc`` ranks of that
+    device: K6 sorts a device's ranks in one batch, one launch a sort on
+    one controller and in each process alike; every other kernel
+    launches once a rank a call, so each process makes its rank's
+    share."""
+    out = {}
+    for k, c in single.items():
+        if k == "bitonic_sort":
+            out[k] = c
+            continue
+        if c % nproc:
+            raise AssertionError(f"{k} launched {c} times on {nproc} "
+                                 "ranks: not once a rank a call")
+        out[k] = c // nproc
+    return out
+
+
+def spawn_programs(argvs, tag, workdir, deadline=MP32_DEADLINE):
+    """Start one C++ bridge program a process (``argvs``, all at once,
+    with ``native.env()``), each writing into ``workdir/<pid>.out``;
+    wait for all under ``deadline``.  A process that fails gets its
+    peers killed (they would wait in a collective), and so does the
+    deadline.  Raises unless every process exits 0; returns their
+    outputs and the seconds they took."""
+    from dr_tpu_torch import native
+    env = native.env()
+    files = [open(os.path.join(workdir, f"{pid}.out"), "w+",
+                  encoding="utf-8") for pid in range(len(argvs))]
+    t0 = time.perf_counter()
+    try:
+        procs = [subprocess.Popen([str(a) for a in argv], env=env,
+                                  stdout=fh, stderr=subprocess.STDOUT,
+                                  cwd=HERE)
+                 for argv, fh in zip(argvs, files)]
+        end = time.monotonic() + deadline
+        failed = False
+        while time.monotonic() < end:
+            if all(p.poll() is not None for p in procs):
+                break
+            if any(p.poll() not in (None, 0) for p in procs):
+                failed = True
+                time.sleep(2)  # let the peers fail and flush on their own
+                break
+            time.sleep(0.1)
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        seconds = time.perf_counter() - t0
+        outs = []
+        for fh in files:
+            fh.seek(0)
+            outs.append(fh.read())
+    finally:
+        for fh in files:
+            fh.close()
+    for pid, (p, o) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            why = "failed" if failed else f"missed the {deadline} s deadline"
+            raise AssertionError(f"{tag}: process {pid} {why} (exit "
+                                 f"{p.returncode}): {o[-3000:]}")
+    return outs, seconds
+
+
+def mp_demo_direct(dt, nproc):
+    """``bridge_mp_demo``'s device calls made directly from Python on one
+    controller, in its order and with its sizes (host reads that launch
+    nothing left out)."""
+    from dr_tpu_torch.utils.expr import op_from_expr as E
+
+    def vec(k, **kw):
+        return dt.distributed_vector(k, dtype=kw.pop("dtype", np.float32),
+                                     **kw)
+
+    n = 4 * nproc
+    v = vec(n)
+    dt.iota(v, 1.0)
+    dt.reduce(v)
+    w = vec(n)
+    dt.fill(w, 2.0)
+    dt.dot(v, w)
+    out = vec(n)
+    dt.transform(v, out, E("((x0 * 2) + 1)", 1))
+    keys = vec(n)
+    dt.transform(v, keys, E("(0 - x0)", 1))
+    dt.sort(keys, descending=False)
+    dt.is_sorted(keys)
+    iv = vec(n, dtype=np.int32)
+    dt.iota(iv, 0.0)
+    dt.reduce(iv)
+    wv = vec(n)
+    dt.transform(v, wv, E("(0 - x0)", 1))
+    dt.sort(wv[1:n - 1], descending=False)
+    dt.is_sorted(wv[1:n - 1])
+    sizes = [0] * nproc
+    sizes[0] = n - 1
+    sizes[-1] += 1
+    uv = vec(n, distribution=sizes)
+    dt.iota(uv, 1.0)
+    dt.reduce(uv)
+
+
+def check_shares(tag, outs, direct, nproc, device):
+    """Each process's launch counts (its ``launches`` line) equal its
+    rank's share of ``direct``, one controller's on ``nproc`` ranks."""
+    share = rank_share(direct, nproc)
+    for pid, text in enumerate(outs):
+        got = child_counts(text)
+        log(f"  {tag} process {pid} launches {got}")
+        if got != share:
+            raise AssertionError(f"{tag}: process {pid} launched {got}, its "
+                                 f"rank's share {share} of one "
+                                 f"controller's {direct}")
+    log(f"  {tag}: each process launched its rank's share {share} of one "
+        f"controller's {direct}")
+    if device != "cpu" and not any(share[k] for k in MP32_KERNELS):
+        raise AssertionError(f"{tag}: no kernel launched from the C++ "
+                             "processes")
+    return share
+
+
+def bridge_mp_phase(dt, kernels, seed, card, device="cuda:0", nproc=2,
+                    log2=MP32_LOG2, window=BRIDGE_WINDOW, reps=MP32_REPS,
+                    parity=True):
+    """Phase 32: the C++ bridge across processes, ``nproc`` processes
+    each owning one rank on ``device`` over gloo.  32.1
+    ``bridge_mp_demo``: every process passes and launches its rank's
+    share of ``mp_demo_direct`` on one controller; 32.2 (``parity``)
+    ``bridge_parity --mp`` at 2^``log2`` f32 from one checkpoint: each
+    process's digests equal ``parity_direct``'s on one controller bit
+    for bit (the sparse product held to the csr route, the one across
+    processes), its launches its rank's share, each call's least host ms
+    both ways and each process's start.  Returns its numbers."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    import torch
+    from dr_tpu_torch import native
+    on_card = device != "cpu"
+    out = {"card": card, "processes": nproc}
+    t0 = time.perf_counter()
+    log(f"phase 32: the C++ bridge across {nproc} processes (gloo), one "
+        f"rank each on {device}: bridge_mp_demo, bridge_parity --mp at "
+        f"2^{log2} f32 (windowed sorts of {window} keys, {reps} runs)")
+    progs = ["bridge_mp_demo"] + (["bridge_parity"] if parity else [])
+    with ThreadPoolExecutor(len(progs)) as ex:
+        demo, *par = ex.map(native.build,
+                            [native.HERE / f"{p}.cpp" for p in progs])
+    out["build_s"] = time.perf_counter() - t0
+    log(f"  [{card}] {' and '.join(progs)} built in "
+        f"{out['build_s']:.1f} s")
+    devices = [device] * nproc
+    with tempfile.TemporaryDirectory() as td:
+        port = free_port()
+        outs, out["demo_s"] = spawn_programs(
+            [[demo, pid, nproc, port, "cuda" if on_card else "cpu"]
+             for pid in range(nproc)], "32.1 bridge_mp_demo", td)
+        for pid, text in enumerate(outs):
+            if f"bridge_mp_demo pid={pid}/{nproc}: PASSED" not in text:
+                raise AssertionError(f"32.1: process {pid} did not pass: "
+                                     f"{text[-3000:]}")
+        log(f"  [{card}] 32.1 {nproc} bridge_mp_demo processes passed in "
+            f"{out['demo_s']:.2f} s")
+        dt.init(devices)
+        kernels.reset_counts()
+        mp_demo_direct(dt, nproc)
+        direct = dict(kernels.launches)
+        dt.final()
+        out["demo_launches"] = direct
+        check_shares("32.1 bridge_mp_demo", outs, direct, nproc, device)
+        if not parity:
+            out["seconds"] = time.perf_counter() - t0
+            return out
+
+        n = 1 << log2
+        ckpt = os.path.join(td, "x.npz")
+        dt.init(devices)
+        gen = torch.Generator(device=device).manual_seed(seed + 32)
+        x = torch.randn(n, generator=gen, device=device)
+        dt.checkpoint.save(ckpt, dt.distributed_vector.from_array(x))
+        del x
+        dt.final()
+        release(torch)
+        port = free_port()
+        outs, out["parity_s"] = spawn_programs(
+            [[par[0], 0 if on_card else 1, ckpt, "-", "--window", window,
+              "--reps", reps, "--seed", seed % 1000, "--sync", BRIDGE_SYNC,
+              "--after", BRIDGE_COUNTS, "--mp", pid, nproc, port]
+             for pid in range(nproc)], "32.2 bridge_parity --mp", td)
+        dt.init(devices)
+        kernels.reset_counts()
+        t1 = time.perf_counter()
+        with env_set(DR_GPU_SPMV_FORMAT="csr"):  # the route across processes
+            want, d_times = parity_direct(dt, ckpt, seed % 1000, window, reps,
+                                          sync=dt.fence)
+        out["direct_s"] = time.perf_counter() - t1
+        direct = dict(kernels.launches)
+        dt.final()
+        release(torch)
+    for pid, text in enumerate(outs):
+        got = child_lines(text, "digest")
+        if got != want:
+            bad = sorted(k for k in set(got) | set(want)
+                         if got.get(k) != want.get(k))
+            raise AssertionError(f"32.2: process {pid}'s digests differ "
+                                 f"from one controller's at {bad}")
+        if f"nprocs {nproc}" not in text:
+            raise AssertionError(f"32.2: process {pid} saw another rank "
+                                 f"count: {text[-2000:]}")
+        log(f"  32.2 process {pid}: {len(got)} digests of 2^{log2} equal "
+            f"to one controller's bit for bit")
+    out["parity_launches"] = direct
+    check_shares("32.2 bridge_parity --mp", outs, direct, nproc, device)
+    if on_card:
+        for k in MP32_KERNELS:
+            if direct[k] <= 0:
+                raise AssertionError(f"32.2: kernel {k} never launched on "
+                                     f"one controller's sequence {direct}")
+    calls = {}
+    for pid, text in enumerate(outs):
+        b_times = {k: float(v) for k, v in child_lines(text, "time").items()}
+        out[f"p{pid}_start_ms"] = b_times.pop("start")
+        log(f"  [{card}] 32.2 process {pid} start (Py_Initialize, import "
+            f"torch, init_distributed): {out[f'p{pid}_start_ms']!r} ms")
+        for k, ms in b_times.items():
+            calls.setdefault(k, {"direct_ms": d_times[k]})[f"p{pid}_ms"] = ms
+    for k, v in calls.items():
+        log(f"  [{card}] 32.2 {k}: " + ", ".join(
+            f"process {pid} {v[f'p{pid}_ms']!r} ms" for pid in range(nproc))
+            + f"; one controller {v['direct_ms']!r} ms")
+    out.update(calls=calls, digests=want, seconds=time.perf_counter() - t0)
+    log(f"  [{card}] phase 32 {out['seconds']:.1f} s")
+    return out
+
+
+# ------------------------------------------------ phase 33: the examples
+
+#: the arguments phase 33 gives an example beyond its defaults, by rank
+#: count: 2^16 keys over 4 ranks put 16384 on each, K6's geometry
+EX_ARGV = {4: {"sort_example": ["-n", "65536"]}}
+#: floats on an example's printed lines: one run's against another's
+#: within the loosest bound of the example's own oracle (dot: 1e-3
+#: relative; CG: resid 1e-3, max_err 1e-2; ring attention: 1e-3)
+EX_RTOL, EX_ATOL = 1e-3, 1e-2
+#: printed numbers that the order of f32 additions moves beyond that:
+#: CG's iteration count (within one), the scan's f32 total printed as an
+#: integer (its oracle's 1e-3)
+EX_LOOSE = {"iters": (0, 1), "total": (1e-3, 0)}
+_TOKEN = re.compile(r"[-+]?(?:\d+\.\d*|\.\d+|\d+)(?:[eE][-+]?\d+)?"
+                    r"|[A-Za-z_]+|\S")
+
+
+def result_tokens(text):
+    """The tokens of an example's printed lines, one list a line: numbers
+    (int or float), words and single symbols."""
+    lines = []
+    for line in text.splitlines():
+        toks = []
+        for t in _TOKEN.findall(line):
+            if re.fullmatch(r"[-+]?\d+", t):
+                toks.append(int(t))
+            elif t[-1].isdigit() or t[-1] == ".":
+                toks.append(float(t))
+            else:
+                toks.append(t)
+        lines.append(toks)
+    return lines
+
+
+def tokens_differ(a, b, rtol, atol, loose=None):
+    """Where two examples' printed lines differ (None where they agree):
+    equal words, equal integers, floats within ``rtol`` / ``atol``; the
+    numbers after a word of ``loose`` (word -> (rtol, atol)) within that
+    word's bound instead, integers too."""
+    ta, tb = result_tokens(a), result_tokens(b)
+    if len(ta) != len(tb):
+        return f"{len(ta)} lines against {len(tb)}"
+    for i, (la, lb) in enumerate(zip(ta, tb)):
+        if len(la) != len(lb):
+            return f"line {i}: {la} against {lb}"
+        word = None
+        for x, y in zip(la, lb):
+            if isinstance(x, str) or isinstance(y, str):
+                if x != y:
+                    return f"line {i}: {x!r} against {y!r}"
+                if isinstance(x, str) and x.isalpha():
+                    word = x
+                continue
+            if word in (loose or {}):
+                rt, at = loose[word]
+            elif isinstance(x, int) and isinstance(y, int):
+                rt, at = 0, 0
+            else:
+                rt, at = rtol, atol
+            if not abs(x - y) <= at + rt * abs(y):
+                return f"line {i}: {word} {x!r} against {y!r}"
+    return None
+
+
+def run_example(name, argv):
+    """``dr_tpu_torch.examples.<name>.main(argv)`` in this process;
+    returns its exit code, what it printed and its seconds."""
+    import importlib
+    import io
+    mod = importlib.import_module(f"dr_tpu_torch.examples.{name}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = mod.main(list(argv))
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+def ex_prediction(name, P, text):
+    """The kernels an example is predicted to launch on ``P`` CUDA ranks
+    (``text``: what it printed): {kernel: exact count, or None for at
+    least one}."""
+    if name == "dot_product":
+        return {"chunked_dot": P}
+    if name == "conjugate_gradient":  # one dot before the loop, two in it
+        its = int(re.search(r"iters=(\d+)", text).group(1))
+        return {"chunked_dot": P * (1 + 2 * its)}
+    if name == "inclusive_scan_example":
+        return {"chunked_cumsum": P}
+    if name == "windows_example":  # its key-value sort of 2^15 keys: K6
+        return {"chunked_cumsum": P, "bitonic_sort": None}
+    if name == "sort_example" and P > 1:
+        return {"bitonic_sort": None}
+    return {}
+
+
+def examples_phase(dt, kernels, card, device="cuda:0", ranks=(1, 4),
+                   argv=None):
+    """Phase 33: every example of ``dr_tpu_torch.examples`` through its
+    ``main`` in this process, at its defaults (``argv``: {name: extra
+    arguments}, for a CPU rehearsal), on 1 and on 4 logical ranks of
+    ``device`` (33.1, 33.2), the counts reset before each; then again
+    under ``plain_versions``.  Each run returns 0, the plain one launches
+    nothing, the two print the same results (within the examples' own
+    oracles), and each example launches what ``ex_prediction`` says
+    (other launches are logged as outside the prediction).  Returns the
+    launches and seconds of every example."""
+    import torch
+    from dr_tpu_torch.examples import NAMES
+    on_card = device != "cpu"
+    out = {"card": card}
+    t0 = time.perf_counter()
+    for step, P in zip(("33.1", "33.2"), ranks):
+        log(f"phase {step}: the {len(NAMES)} examples on {P} rank(s) of "
+            f"{device}")
+        dev_arg = ["--ranks", str(P)] if on_card else ["--cpu", str(P)]
+        for name in NAMES:
+            args = list((argv or {}).get(name, [])) + \
+                EX_ARGV.get(P, {}).get(name, []) + dev_arg
+            kernels.reset_counts()
+            rc, text, secs = run_example(name, args)
+            counts = {k: c for k, c in kernels.launches.items() if c}
+            dt.final()
+            release(torch)
+            if rc != 0:
+                raise AssertionError(f"{step} {name} {args} returned {rc}: "
+                                     f"{text[-2000:]}")
+            with plain_versions(kernels):
+                kernels.reset_counts()
+                prc, ptext, psecs = run_example(name, args)
+                plain_counts = {k: c for k, c in kernels.launches.items()
+                                if c}
+            dt.final()
+            release(torch)
+            if prc != 0 or plain_counts:
+                raise AssertionError(f"{step} {name} under the plain "
+                                     f"versions returned {prc}, launched "
+                                     f"{plain_counts}: {ptext[-2000:]}")
+            why = tokens_differ(text, ptext, EX_RTOL, EX_ATOL, EX_LOOSE)
+            if why:
+                raise AssertionError(f"{step} {name}: the kernels' run and "
+                                     f"the plain versions' differ: {why}")
+            pred = ex_prediction(name, P, text) if on_card else {}
+            for k, want in pred.items():
+                got = counts.get(k, 0)
+                if (want is None and got <= 0) or (want is not None
+                                                    and got != want):
+                    raise AssertionError(
+                        f"{step} {name}: {k} launched {got} times, "
+                        f"predicted {'some' if want is None else want}")
+            extra = {k: c for k, c in counts.items() if k not in pred}
+            lines = text.strip().splitlines() or [""]
+            shown = " | ".join(dict.fromkeys((lines[0], lines[-1])))
+            log(f"  [{card}] {step} {name} {' '.join(args)}: {secs!r} s "
+                f"(plain versions {psecs!r} s), launches {counts}"
+                + (f", outside the prediction {extra}" if extra else "")
+                + f"; {shown}")
+            out[f"{step} {name}"] = {"seconds": secs, "plain_s": psecs,
+                                     "launches": counts, "args": args}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  [{card}] phase 33 {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv):
     if argv[:1] == ["--mp-child"]:  # one process of phase 28
         return mp_child(argv[1:])
@@ -8279,8 +8719,11 @@ def main(argv):
     only29 = "--phase29" in argv
     only30 = "--phase30" in argv
     only31 = "--phase31" in argv
+    only32 = "--phase32" in argv
+    only33 = "--phase33" in argv
     short = (quick or only22 or only23 or only24 or only25 or only26
-             or only27 or only28 or only29 or only30 or only31)
+             or only27 or only28 or only29 or only30 or only31 or only32
+             or only33)
     n = 1 << (20 if short else 30)
     m2d = 2048 if short else M2D
     gen = torch.Generator(device="cuda").manual_seed(seed)
@@ -8333,6 +8776,14 @@ def main(argv):
     if only31:  # a short run: the checks above, small, then phase 31
         log("  phase 31 numbers: " + json.dumps(
             mp31_phase(dt, kernels, seed, card)))
+        return 0
+    if only32 or only33:  # the checks above, small, then 32 and / or 33
+        if only32:
+            log("  phase 32 numbers: " + json.dumps(
+                bridge_mp_phase(dt, kernels, seed, card)))
+        if only33:
+            log("  phase 33 numbers: " + json.dumps(
+                examples_phase(dt, kernels, card)))
         return 0
 
     log(f"phase 4: main path, 1 rank on cuda:0, n={n}")
@@ -8592,6 +9043,12 @@ def main(argv):
     g31 = mp31_phase(dt, kernels, seed, card)
     log(f"  phase 31 {time.perf_counter() - t0:.1f} s")
     log("  phase 31 numbers: " + json.dumps(g31))
+
+    g32 = bridge_mp_phase(dt, kernels, seed, card)
+    log("  phase 32 numbers: " + json.dumps(g32))
+
+    g33 = examples_phase(dt, kernels, card)
+    log("  phase 33 numbers: " + json.dumps(g33))
 
     log(f"peak device memory (1-D main path): {peak} bytes "
         f"({peak / 2 ** 30:.2f} GiB)")

@@ -1,8 +1,9 @@
 """The C++ bridge of the port: ``thp::session`` over ``dr_tpu_torch``.
 
-``thp_bridge.hpp`` is the ``thp::`` surface of ``native/bridge/``
-(without its multi-process session), ``thp_bridge.cpp`` embeds CPython
-and calls ``dr_tpu_torch``, ``thp_expr.cpp`` serializes the op DSL.
+``thp_bridge.hpp`` is the ``thp::`` surface of ``native/bridge/``, its
+multi-process session (``thp::distributed``, over ``init_distributed``)
+included, ``thp_bridge.cpp`` embeds CPython and calls ``dr_tpu_torch``,
+``thp_expr.cpp`` serializes the op DSL.
 :func:`build` compiles them with one ``main`` source into a program (the
 counterpart of ``native/Makefile:6-20``), and :func:`env` is the
 environment to run it with::
@@ -12,7 +13,11 @@ environment to run it with::
     subprocess.run([str(exe), "4"], env=native.env(), check=True)
 
 ``bridge_demo 4`` drives 4 CPU ranks; ``bridge_demo 0`` the visible
-CUDA devices (``session(0)`` raises without one).  The compiler and
+CUDA devices (``session(0)`` raises without one).  ``bridge_mp_demo PID
+NPROC PORT [cpu|cuda]`` is one process of NPROC, each owning one rank
+(a CPU rank, or the card by default) over gloo; start all NPROC with one
+PORT.  ``bridge_parity ... --mp PID NPROC PORT`` runs its sequence the
+same way.  The compiler and
 linker flags come from ``sysconfig`` of the running interpreter (no
 ``python3-config``), so the program embeds the same libpython.
 """

@@ -6,7 +6,10 @@
 //
 // Usage: bridge_parity RANKS CHECKPOINT OUT [--seed S] [--window W]
 //                      [--reps R] [--sync STMT] [--after STMT]
-//   RANKS       session(RANKS): CPU ranks, 0 = the card(s)
+//                      [--mp PID NPROC PORT]
+//   RANKS       session(RANKS): CPU ranks, 0 = the card(s); with --mp
+//               the process's thp::distributed::ncpu_devices (1 = a CPU
+//               rank, 0 = the card)
 //   CHECKPOINT  a checkpoint of one f32 vector: the input x, length n
 //   OUT         a directory: each result's to_host() is written to
 //               OUT/<name>.f64 (raw little-endian doubles); "-" prints
@@ -19,6 +22,12 @@
 //   --sync      a statement run (untimed) after every timed call, e.g.
 //               one that waits for the device
 //   --after     a statement run before the program exits
+//   --mp        process PID of NPROC, joined at localhost:PORT (over
+//               gloo where the bridge has the backend field, so the
+//               processes may share one card): every process runs the
+//               sequence, every to_host() gathers the whole result onto
+//               each process, so each prints or writes the whole
+//               results (give each its own OUT directory)
 // Every timed call prints "time <name> <ms>" (host clock, the call
 // alone, the least of the runs), and the session's start
 // "time start <ms>" (Py_Initialize, the imports and init()).
@@ -30,6 +39,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <functional>
+#include <memory>
 #include <random>
 #include <stdexcept>
 #include <string>
@@ -74,6 +84,8 @@ struct options {
   std::size_t window = 0;
   int reps = 1;
   std::string sync, after;
+  int mp_pid = 0, mp_nproc = 0;  // mp_nproc > 0: --mp
+  std::string mp_port;
 };
 
 class runner {
@@ -313,19 +325,32 @@ void runner::sequence(bool last) {
   }
 }
 
+[[noreturn]] void usage() {
+  std::fprintf(stderr,
+               "usage: bridge_parity RANKS CHECKPOINT OUT [--seed S] "
+               "[--window W] [--reps R] [--sync STMT] [--after STMT] "
+               "[--mp PID NPROC PORT]\n");
+  std::exit(2);
+}
+
 options parse(int argc, char** argv) {
-  if (argc < 4) {
-    std::fprintf(stderr,
-                 "usage: bridge_parity RANKS CHECKPOINT OUT [--seed S] "
-                 "[--window W] [--reps R] [--sync STMT] [--after STMT]\n");
-    std::exit(2);
-  }
+  if (argc < 4) usage();
   options o;
   o.ranks = std::atoi(argv[1]);
   o.ckpt = argv[2];
   o.out = argv[3];
-  for (int i = 4; i + 1 < argc; i += 2) {
+  for (int i = 4; i < argc;) {
     std::string key = argv[i];
+    if (key == "--mp") {
+      if (i + 3 >= argc) usage();
+      o.mp_pid = std::atoi(argv[i + 1]);
+      o.mp_nproc = std::atoi(argv[i + 2]);
+      o.mp_port = argv[i + 3];
+      if (o.mp_nproc < 1) usage();
+      i += 4;
+      continue;
+    }
+    if (i + 1 >= argc) usage();
     const char* val = argv[i + 1];
     if (key == "--seed") o.seed = std::strtoull(val, nullptr, 10);
     else if (key == "--window") o.window = std::strtoull(val, nullptr, 10);
@@ -336,12 +361,27 @@ options parse(int argc, char** argv) {
       std::fprintf(stderr, "bridge_parity: unknown option %s\n", key.c_str());
       std::exit(2);
     }
+    i += 2;
   }
-  if ((argc - 4) % 2 != 0 || o.reps < 1) {
+  if (o.reps < 1) {
     std::fprintf(stderr, "bridge_parity: bad options\n");
     std::exit(2);
   }
   return o;
+}
+
+// session(RANKS), or with --mp a member of the processes' group
+std::unique_ptr<thp::session> open_session(const options& o) {
+  if (o.mp_nproc == 0) return std::make_unique<thp::session>(o.ranks);
+  thp::distributed d;
+  d.coordinator = "localhost:" + o.mp_port;
+  d.num_processes = o.mp_nproc;
+  d.process_id = o.mp_pid;
+  d.ncpu_devices = o.ranks;
+#ifdef THP_DISTRIBUTED_BACKEND
+  d.backend = "gloo";
+#endif
+  return std::make_unique<thp::session>(d);
 }
 
 }  // namespace
@@ -350,7 +390,8 @@ int main(int argc, char** argv) {
   options o = parse(argc, argv);
   try {
     auto t0 = clock_type::now();
-    thp::session s(o.ranks);
+    std::unique_ptr<thp::session> sp = open_session(o);
+    thp::session& s = *sp;
     std::printf("time start %.6f\n", ms_since(t0));
     std::printf("nprocs %zu\n", s.nprocs());
     runner r(s, o);

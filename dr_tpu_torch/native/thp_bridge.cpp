@@ -4,7 +4,6 @@
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
 
-#include <cstring>
 #include <stdexcept>
 
 namespace thp {
@@ -132,23 +131,14 @@ struct session::impl {
     return arr;
   }
 
-  // the interpreter, the package and its runtime: CPU ranks when asked
-  // for, else dr_tpu_torch.init() (the visible CUDA devices; it raises
-  // without one)
-  void boot(int ncpu_ranks) {
+  // step 1: the interpreter and the package
+  void start() {
     if (!Py_IsInitialized()) Py_InitializeEx(0);
     dr = must(PyImport_ImportModule("dr_tpu_torch"), "import dr_tpu_torch");
-    PyObject* r;
-    if (ncpu_ranks > 0) {
-      PyObject* devs = must(PyList_New(ncpu_ranks), "device list");
-      for (int i = 0; i < ncpu_ranks; ++i)
-        PyList_SET_ITEM(devs, i, PyUnicode_FromString("cpu"));
-      r = PyObject_CallMethod(dr, "init", "O", devs);
-      Py_DECREF(devs);
-    } else {
-      r = PyObject_CallMethod(dr, "init", nullptr);
-    }
-    Py_DECREF(must(r, "dr_tpu_torch.init()"));
+  }
+
+  // step 2 follows the runtime: the modules the calls use
+  void import_modules() {
     views = must(PyImport_ImportModule("dr_tpu_torch.views.views"),
                  "import dr_tpu_torch.views.views");
     stencil_mod = must(
@@ -159,25 +149,104 @@ struct session::impl {
     np = must(PyImport_ImportModule("numpy"), "import numpy");
   }
 
-  // contiguous f64 copy-out of any numpy-convertible object
+  // f64 copy-out of a numpy-convertible object: one pass from the
+  // array's own C-contiguous buffer (f32, f64, i32, i64: every element
+  // type a container of the bridge holds) into the vector's storage
   std::vector<double> to_host_f64(PyObject* arr_like) {
     PyObject* asc = must(
-        PyObject_CallMethod(np, "ascontiguousarray", "Os", arr_like,
-                            "float64"),
+        PyObject_CallMethod(np, "ascontiguousarray", "O", arr_like),
         "ascontiguousarray");
     Py_buffer view;
-    if (PyObject_GetBuffer(asc, &view, PyBUF_CONTIG_RO) != 0)
+    if (PyObject_GetBuffer(asc, &view, PyBUF_C_CONTIGUOUS | PyBUF_FORMAT)
+        != 0) {
+      Py_DECREF(asc);
       fail("buffer protocol");
-    std::vector<double> out((std::size_t)view.len / sizeof(double));
-    std::memcpy(out.data(), view.buf, (std::size_t)view.len);
+    }
+    const std::string fmt = view.format ? view.format : "B";
+    const std::size_t n =
+        view.itemsize ? (std::size_t)(view.len / view.itemsize) : 0;
+    std::vector<double> out;
+    if (fmt == "f" && view.itemsize == 4) {
+      const float* p = static_cast<const float*>(view.buf);
+      out.assign(p, p + n);
+    } else if (fmt == "d" && view.itemsize == 8) {
+      const double* p = static_cast<const double*>(view.buf);
+      out.assign(p, p + n);
+    } else if (fmt == "i" && view.itemsize == 4) {
+      const std::int32_t* p = static_cast<const std::int32_t*>(view.buf);
+      out.assign(p, p + n);
+    } else if ((fmt == "l" || fmt == "q") && view.itemsize == 8) {
+      const std::int64_t* p = static_cast<const std::int64_t*>(view.buf);
+      out.assign(p, p + n);
+    } else {
+      PyBuffer_Release(&view);
+      Py_DECREF(asc);
+      throw std::runtime_error("thp_bridge: to_host: element format '" +
+                               fmt + "' has no conversion to double");
+    }
     PyBuffer_Release(&view);
     Py_DECREF(asc);
     return out;
   }
 };
 
+// CPU ranks when asked for, else dr_tpu_torch.init() (the visible CUDA
+// devices; it raises without one)
 session::session(int ncpu_ranks) : impl_(new impl) {
-  impl_->boot(ncpu_ranks);
+  impl_->start();
+  PyObject* r;
+  if (ncpu_ranks > 0) {
+    PyObject* devs = must(PyList_New(ncpu_ranks), "device list");
+    for (int i = 0; i < ncpu_ranks; ++i)
+      PyList_SET_ITEM(devs, i, PyUnicode_FromString("cpu"));
+    r = PyObject_CallMethod(impl_->dr, "init", "O", devs);
+    Py_DECREF(devs);
+  } else {
+    r = PyObject_CallMethod(impl_->dr, "init", nullptr);
+  }
+  Py_DECREF(must(r, "dr_tpu_torch.init()"));
+  impl_->import_modules();
+}
+
+session::session(const distributed& d) : impl_(new impl) {
+  if (d.ncpu_devices != 0 && d.ncpu_devices != 1)
+    throw std::runtime_error(
+        "thp_bridge: distributed.ncpu_devices = " +
+        std::to_string(d.ncpu_devices) +
+        ": the port runs one rank a process (1 = a CPU rank, 0 = the "
+        "card); start more processes for more ranks");
+  if (d.num_processes < 1 || d.process_id < 0 ||
+      d.process_id >= d.num_processes)
+    throw std::runtime_error(
+        "thp_bridge: distributed.process_id = " +
+        std::to_string(d.process_id) + " of num_processes = " +
+        std::to_string(d.num_processes) +
+        ": one rank a process, process_id in [0, num_processes)");
+  impl_->start();
+  PyObject* fn = must(PyObject_GetAttrString(impl_->dr, "init_distributed"),
+                      "init_distributed");
+  PyObject* args = Py_BuildValue("(sii)", d.coordinator.c_str(),
+                                 d.num_processes, d.process_id);
+  PyObject* kwargs = PyDict_New();
+  if (d.ncpu_devices == 1) {
+    PyObject* cpu = PyUnicode_FromString("cpu");
+    PyDict_SetItemString(kwargs, "device", cpu);
+    Py_DECREF(cpu);
+  }
+  if (!d.backend.empty()) {
+    PyObject* be = PyUnicode_FromString(d.backend.c_str());
+    PyDict_SetItemString(kwargs, "backend", be);
+    Py_DECREF(be);
+  }
+  PyObject* r = PyObject_Call(fn, args, kwargs);
+  Py_DECREF(kwargs);
+  Py_DECREF(args);
+  Py_DECREF(fn);
+  Py_DECREF(must(r, "dr_tpu_torch.init_distributed(...)"));
+  impl_->import_modules();
+  if (nprocs() != (std::size_t)d.num_processes)
+    fail("the distributed runtime's rank count differs from "
+         "num_processes (one rank a process)");
 }
 
 session::~session() {

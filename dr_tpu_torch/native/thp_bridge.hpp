@@ -8,7 +8,8 @@
 // API directly (no pybind11): one interpreter, the GIL held by the
 // calling thread, CUDA work queued asynchronously by PyTorch
 // underneath.  The surface and names are those of native/bridge/
-// thp_bridge.hpp, without its multi-process session.
+// thp_bridge.hpp, its multi-process session included: each process
+// builds a session from one thp::distributed and owns one rank.
 //
 // User ops are expressed in a small arithmetic DSL (thp::expr over
 // placeholders thp::x0..x3) serialized to a canonical string and
@@ -20,6 +21,7 @@
 // Surface (mirrors the Python dr_tpu_torch API; reference parity
 // targets: include/dr/shp/shp.hpp:8-26, include/dr/mhp.hpp:41-59):
 //   thp::session s(ncpu_ranks /*0 = the visible CUDA devices*/);
+//   thp::session s(thp::distributed{"localhost:29500", 2, pid, 0});
 //   thp::vector v = s.make_vector(n, halo_prev, halo_next, periodic);
 //   thp::vector u = s.make_vector_blocks({10, 0, 24, 23});  // teams
 //   v.iota(0); v.fill(1.0);
@@ -60,6 +62,32 @@ class session;
 // alike.  A container the bridge did not make (argsort's permutation,
 // load_vector's result) reports its real dtype.
 enum class dtype { f32, f64, i32 };
+
+// Multi-process SPMD membership: every process builds a session from the
+// SAME coordinator and runs the SAME program in the same order (the
+// discipline the reference gets from MPI, mhp/global.hpp:24-28).  Backed
+// by dr_tpu_torch.init_distributed over torch.distributed: process p
+// owns rank p, one rank a process, so the runtime has num_processes
+// ranks.  The first four fields are those of native/bridge/
+// thp_bridge.hpp, with ncpu_devices read under the one-rank-a-process
+// rule:
+//   1   a CPU rank (gloo between the processes);
+//   0   the card, cuda:<process_id % device_count> (throws without one);
+//   any other value throws: a process never holds several ranks.
+// A field only this bridge has is declared behind a macro it defines,
+// so a program can set it under #ifdef and still compile against the
+// other bridge.
+#define THP_DISTRIBUTED_BACKEND 1
+struct distributed {
+  std::string coordinator;   // "host:port" (process 0 binds it)
+  int num_processes = 1;
+  int process_id = 0;
+  int ncpu_devices = 1;      // 1 = a CPU rank, 0 = the card
+  // torch.distributed backend; empty = torch's mapping (gloo for a CPU
+  // rank, nccl for a card).  Processes that share one card pass "gloo":
+  // nccl refuses two ranks on one device.
+  std::string backend;
+};
 
 // ---------------------------------------------------------------------
 // expression DSL: value-semantics nodes serializing to canonical strings
@@ -151,9 +179,10 @@ class vector : public detail::handle {
   void fill(double value);
   double reduce() const;
   void halo_exchange();
-  // host copy: one device-to-host copy of the container, then ONE
-  // contiguous memcpy through the buffer protocol, no element boxing;
-  // non-f64 dtypes convert numpy-side on the way out
+  // host copy: one device-to-host copy of the container (a gather onto
+  // every process in a multi-process session), then ONE pass from the
+  // array's own buffer into the result, converting f32, i32 and i64 to
+  // double on the way; no element boxing
   std::vector<double> to_host() const;
 
  private:
@@ -240,6 +269,13 @@ class session {
   // (dr_tpu_torch.init()).  Without a CUDA device the session throws;
   // it never falls back to the CPU.
   explicit session(int ncpu_ranks = 0);
+  // multi-process SPMD member (see thp::distributed): joins the
+  // coordinator's process group through dr_tpu_torch.init_distributed.
+  // Throws on a field outside the rules, on a failed join (with
+  // Python's message; nothing retries on another backend or device) and
+  // when the runtime's rank count is not num_processes.  The destructor
+  // leaves the process group alone, as the Python runtime does.
+  explicit session(const distributed& d);
   ~session();
   session(const session&) = delete;
   session& operator=(const session&) = delete;

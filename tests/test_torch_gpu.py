@@ -1749,6 +1749,30 @@ def test_bridge_demo_on_the_card_launches_k3_k4_k6_k7(cuda):
         assert counts[k] > 0, (k, counts)
 
 
+def test_bridge_mp_demo_two_processes_on_one_card(cuda):
+    """The C++ bridge across processes: two ``bridge_mp_demo`` processes,
+    each owning one rank on cuda:0 over gloo
+    (``thp::session(const distributed&)``), pass, and each launches its
+    rank's share of the same calls made directly on two ranks of the
+    card: K3 from ``dot``, K6 from the sorts, K7 from the int32
+    ``reduce`` (``bridge_mp_phase`` raises otherwise)."""
+    import importlib.util
+    import dr_tpu_torch as dt
+    from pathlib import Path
+    script = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", script)
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    try:
+        got = cs.bridge_mp_phase(dt, kernels, 5, "test", device="cuda:0",
+                                 parity=False)
+    finally:
+        dt.final()
+    single = got["demo_launches"]
+    for k in ("chunked_dot", "bitonic_sort", "segred"):
+        assert single[k] > 0, single
+
+
 def test_float_to_integer_writes_same_bits_on_cpu_and_cuda_ranks(cuda):
     """A float written into an integer container converts as XLA's
     convert does on both kinds of rank: the CPU's and the card's

@@ -81,7 +81,15 @@ def test_port_files_exist():
     assert (REPO / "dr_tpu_torch" / "native" / "__init__.py") in PORT_FILES
     assert {p.name for p in NATIVE_FILES} == {
         "thp_bridge.hpp", "thp_bridge.cpp", "thp_expr.cpp",
-        "bridge_demo.cpp", "bridge_parity.cpp"}
+        "bridge_demo.cpp", "bridge_parity.cpp", "bridge_mp_demo.cpp"}
+    # the JAX package's examples/ scripts, one module each
+    for name in ("__init__", "conjugate_gradient", "dot_product",
+                 "gemv_example", "heat_2d", "inclusive_scan_example",
+                 "matrix_example", "ring_attention_example", "sort_example",
+                 "spmm_example", "stencil_1d", "top_k", "transpose",
+                 "vector_add", "views_example", "windows_example"):
+        assert (REPO / "dr_tpu_torch" / "examples" / f"{name}.py") in \
+            PORT_FILES, name
 
 
 #: the names of ``dr_tpu.__all__`` the port does not have: ``mesh``, the
