@@ -8,7 +8,8 @@ checks the kernels at small shapes only).  Phases:
 2. build the eight CUDA sources from ``dr_tpu_torch/csrc`` (``nvcc``;
    K8 runs on K7's library);
 3. hold each kernel against its plain PyTorch version at the main-path
-   shapes, on the card (K2 bit for bit, also on one partial tile with
+   shapes, on the card (K1 the same bits on a second launch; K2 bit for
+   bit, also on one partial tile with
    17 taps and on its shared-memory route; K4 the same bits on a second
    call, and on inputs 4 (f32) and 6 (bf16) bytes past a 16-byte
    boundary; K5 also on
@@ -39,8 +40,10 @@ checks the kernels at small shapes only).  Phases:
    against a float64 product, and a ``distributed_mdarray`` transpose and
    ``submdspan``, bit-exact;
 8. per-kernel times from CUDA events beside their bounds, the plain
-   versions' and one library call's times, K2's floor without FMAs, and
-   K2's and K5's ptxas registers and spills;
+   versions' and one library call's times, K1's TFLOP/s and share of
+   its bound (three bf16 passes at the tensor-core rate) and the
+   ``HGMMA`` instructions in its SASS, K2's floor without FMAs, and
+   K1's, K2's and K5's ptxas registers and spills;
 9. the sort path on one rank at 2^28 f32 keys: ``sort`` (ascending and
    descending), ``is_sorted``, ``sort_by_key`` with an int32 iota
    payload, ``argsort``, ``reduce`` min / max / int32 sum; launch counts
@@ -372,6 +375,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -581,17 +585,23 @@ def kernel_checks(dt, n, m2d, gen, results):
                                   stencil_pallas)
     dev = torch.device("cuda", 0)
 
-    # K1 at the main path's row: tolerance — the kernel sums 1025 taps
-    # in f32 FMA order, the plain version goes through an f32 matmul;
-    # both are weighted averages of O(1) data, so 1e-5 absolute covers
-    # the two rounding orders
+    # K1 at the main path's row: tolerance — the kernel takes the TPU
+    # kernel's three bf16 products on the tensor cores (taps and data
+    # split into hi and lo, each product off by ~2^-16 of itself), the
+    # plain version an f32 matmul; over 1025 taps of O(1) data the
+    # errors average to a few 1e-6, so 1e-5 absolute covers them; and a
+    # second launch gives the same bits
     row = torch.randn((1, n + 2 * MM_HALO), generator=gen, device=dev)
     got = stencil_matmul.matmul_stencil_row(row, n, MM_HALO, W5, K_BLOCK)
     ref = stencil_matmul.plain_apply(row, n, MM_HALO, W5, K_BLOCK)
     torch.cuda.synchronize()
     results["stencil_matmul"]["max_abs_err"] = e = max_err(got, ref)
     check("K1 stencil_matmul", e, 1e-5)
-    del got, ref, row
+    del ref
+    check_true("K1 stencil_matmul: a second launch, the same bits",
+               torch.equal(got, stencil_matmul.matmul_stencil_row(
+                   row, n, MM_HALO, W5, K_BLOCK)))
+    del got, row
 
     # K2: the same separately rounded products and sums in the same
     # order as the plain version, so the same bits: at the main path's
@@ -1471,9 +1481,18 @@ def timings(n, gen, results):
     # one library call computing the same banded sum: conv1d (a
     # cross-correlation, so the taps as they are) over the row
     r["library_ms"] = events_ms(lambda: F.conv1d(row[None], taps), 3)
+    # the TPU kernel's work: three bf16 passes over the band, at the
+    # tensor-core rate
     ntaps = 2 * K_BLOCK * 2 + 1
-    r["bound_ms"], r["bound_by"] = bound(2 * (n + 2 * MM_HALO) * f,
-                                         2.0 * ntaps * n)
+    work = 3 * 2.0 * ntaps * n
+    r["bound_ms"], r["bound_by"] = bound(2 * (n + 2 * MM_HALO) * f, work,
+                                         BF16_TC_FLOP_PER_S)
+    log(f"  K1 {work / r['ms'] / 1e9!r} TFLOP/s (three bf16 passes), "
+        f"{r['bound_ms'] / r['ms']!r} of its bound; "
+        f"{stencil_matmul.kernel_parts(W5, K_BLOCK)} bf16 parts")
+    for line in ptxas_lines("stencil_matmul"):
+        log(f"  K1 ptxas: {line}")
+    log(f"  K1 SASS: {sass_count('stencil_matmul', 'HGMMA')} HGMMA")
     del row
 
     row = torch.randn((1, n + 2 * BLK_HALO), generator=gen, device=dev)
@@ -1561,6 +1580,22 @@ def ptxas_lines(name):
         return ["not found"]
     return [line.strip() for line in p.read_text().splitlines()
             if "registers" in line or "spill" in line]
+
+
+def sass_count(name, op):
+    """How many instructions of kind ``op`` one kernel's built library
+    holds (``cuobjdump -sass``), or why that cannot be read."""
+    from dr_tpu_torch.ops import kernels
+    so = kernels._target(kernels.CSRC / kernels.SOURCES[name])
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return "not counted (no cuobjdump)"
+    out = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                         text=True, timeout=120)
+    if out.returncode != 0:
+        return f"not counted (cuobjdump exit {out.returncode})"
+    return sum(f" {op}." in line or f" {op} " in line
+               for line in out.stdout.splitlines())
 
 
 def bitonic_ops(M):

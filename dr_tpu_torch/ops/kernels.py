@@ -61,7 +61,7 @@ SOURCES = {
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: argtypes of every C entry point; each returns its cudaGetLastError()
 _SIGNATURES = {
-    "dr_stencil_matmul": [_P, _P, _P, _L, _L, _L, _I, _I, _P],
+    "dr_stencil_matmul": [_P, _P, _P, _L, _L, _L, _I, _I, _I, _P],
     "dr_stencil_blocked": [_P, _P, ctypes.POINTER(ctypes.c_float), _I,
                            _L, _L, _L, _I, _P],
     "dr_chunked_dot": [_P, _P, _L, _I, _P, _P, _I, _P, _P],

@@ -37,20 +37,54 @@ def _launched(name, fn):
     return out
 
 
-@pytest.mark.parametrize("seg,halo,k", [(1 << 16, 512, 256), (4096, 128, 8),
-                                        (8192, 256, 100)])
-def test_k1_kernel_matches_plain(cuda, seg, halo, k):
+W3A = (0.1, 0.2, 0.7)
+W17 = tuple(k / 153.0 for k in range(1, 18))  # r = 8, asymmetric
+TILE1 = 16384  # cells in one of K1's tiles (256 block rows of 64)
+
+
+@pytest.mark.parametrize("seg,halo,k,w", [
+    (1 << 16, 512, 256, W5), (4096, 128, 8, W5), (8192, 256, 100, W5),
+    (TILE1 + 256, 128, 1, W5),           # r = 2, k = 1; a partial tile
+    (128, 512, 256, W5),                 # two block rows: under a tile
+    (TILE1, 256, 256, W3A),              # r = 1, k = 256
+    (4 * TILE1 + 4096, 128, 1, W3A),     # r = 1, k = 1; a partial tile
+    (4224, 512, 512, W3A),               # r = 1 at max_ksteps(1)
+    (1 << 16, 128, 100, W3A),            # r = 1, k = 100
+    (2 * TILE1 + 8192, 128, 8, W17),     # r = 8, k = 8
+    (3 * TILE1 + 128, 512, 64, W17)])    # r = 8 at max_ksteps(8)
+def test_k1_kernel_matches_plain(cuda, seg, halo, k, w):
     dev, gen = cuda
+    assert k <= stencil_matmul.max_ksteps((len(w) - 1) // 2)
     row = torch.randn((1, 2 * halo + seg), generator=gen, device=dev)
     got = _launched("stencil_matmul", lambda: stencil_matmul.
-                    matmul_stencil_row(row, seg, halo, W5, k))
-    ref = stencil_matmul.plain_apply(row, seg, halo, W5, k)
-    # direct f32 FMA band vs f32 matmul: weighted averages of O(1) data
+                    matmul_stencil_row(row, seg, halo, w, k))
+    ref = stencil_matmul.plain_apply(row, seg, halo, w, k)
+    # bf16x3 tensor-core products (the TPU kernel's HIGH emulation, rel.
+    # error ~2^-16 a product) vs an f32 matmul: weighted averages of O(1)
+    # data
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-5)
 
 
-W3A = (0.1, 0.2, 0.7)
-W17 = tuple(k / 153.0 for k in range(1, 18))  # r = 8, asymmetric
+@pytest.mark.parametrize("w,k", [(W5, 256), (W3A, 100), (W17, 64)])
+def test_k1_kernel_bits(cuda, w, k):
+    """K1's bits depend on a cell's inputs alone: two launches agree, a
+    sub-row cut at another 128-aligned offset (its ghosts from the same
+    data) gives the cells it shares the same bits, ghosts come back
+    stale."""
+    dev, gen = cuda
+    seg, halo = 3 * TILE1 + 640, 512
+    row = torch.randn((1, 2 * halo + seg), generator=gen, device=dev)
+    got = stencil_matmul.matmul_stencil_row(row, seg, halo, w, k)
+    assert torch.equal(got, stencil_matmul.matmul_stencil_row(
+        row, seg, halo, w, k))
+    assert torch.equal(got[:, :halo], row[:, :halo])
+    assert torch.equal(got[:, halo + seg:], row[:, halo + seg:])
+    for cut, sub in ((128, TILE1), (4096 + 384, TILE1 + 8320),
+                     (seg - 256, 256)):
+        part = stencil_matmul.matmul_stencil_row(
+            row[:, cut:cut + 2 * halo + sub], sub, halo, w, k)
+        assert torch.equal(part[:, halo:halo + sub],
+                           got[:, halo + cut:halo + cut + sub])
 
 
 @pytest.mark.parametrize("seg,halo,T,w", [

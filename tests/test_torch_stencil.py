@@ -74,12 +74,53 @@ def test_k1_helpers_match_reference():
         assert t_sm.band_cols(40, r) == j_sm.band_cols(40, r)
 
 
+W17 = [k / 153.0 for k in range(1, 18)]  # r = 8, asymmetric
+W3N = [-0.1, 1.25, -0.15]                # signed taps
+
+
+def _bf16_bits(x):
+    return np.asarray(x).view(np.uint16)
+
+
+# K1's kernel takes the composed taps pre-split into bf16 halves: the
+# split is the TPU kernel's own (_bf16_split of the f32 taps), bit for
+# bit, subnormal taps and residuals included (flushed as XLA flushes them)
+@pytest.mark.parametrize("w,k", [(W5, 1), (W5, 8), (W5, 256), (W3A, 100),
+                                 (W3A, 512), (W17, 7), (W17, 64), (W3N, 9)])
+def test_k1_split_taps_match_bf16_split(w, k):
+    hi, lo = t_sm.split_taps(w, k)
+    c = t_sm.composed_taps(w, k).astype(np.float32)
+    j_hi, j_lo = j_sm._bf16_split(jnp.asarray(c))
+    np.testing.assert_array_equal(_bf16_bits(hi.view(torch.int16)),
+                                  _bf16_bits(j_hi))
+    np.testing.assert_array_equal(_bf16_bits(lo.view(torch.int16)),
+                                  _bf16_bits(j_lo))
+    # hi + lo rebuilds each tap within 2^-16 of it; below f32's smallest
+    # normal (2^-126) the flush drops lo, so that is the floor
+    err = np.abs(hi.double().numpy() + lo.double().numpy() - c)
+    assert np.all(err <= 2.0 ** -16 * np.abs(c) + 2.0 ** -126)
+    # the three-part split (narrow bands) extends the same split by one
+    # part and rebuilds every normal tap exactly
+    parts = t_sm.split_taps(w, k, 3)
+    assert torch.equal(parts[0], hi) and torch.equal(parts[1], lo)
+    err = np.abs(sum(p.double().numpy() for p in parts) - c)
+    assert np.all(err <= 2.0 ** -126)
+
+
+def test_k1_kernel_parts():
+    """Two bf16 parts (the TPU kernel's HIGH) where the composed taps'
+    2-norm is at most 0.15, three below; the main path's k = 256 of the
+    5-point stencil takes two."""
+    for w, k in ((W5, 256), (W3A, 512), (W17, 64)):
+        assert t_sm.kernel_parts(w, k) == 2
+    for w, k in ((W5, 1), (W5, 8), (W5, 100), (W3A, 256), (W17, 8),
+                 (W3N, 9)):
+        assert t_sm.kernel_parts(w, k) == 3
+
+
 # K2: both sides step in f32 with the products and sums in the same
 # order; 1e-6 absolute allows for a fused multiply-add in XLA's CPU code
 K2_TOL = dict(rtol=0, atol=1e-6)
-
-
-W17 = [k / 153.0 for k in range(1, 18)]  # r = 8, asymmetric
 
 
 @pytest.mark.parametrize("seg,halo,T,w", [(2048, 1024, 4, W5),
