@@ -54,6 +54,7 @@ from typing import Callable, Optional
 
 import torch
 
+from .. import obs as _obs
 from ._common import MONOID_COMBINE, f32_accumulable, identity_for, \
     window_cols
 from .elementwise import (_apply_chain_ops, _apply_ops, _chain_scalars,
@@ -317,15 +318,22 @@ def reduce(r, init=None, op: Callable = None):
     """Collective reduction; returns a host scalar (inside
     ``dt.deferred()``, a lazy ``PlanScalar`` that resolves on
     ``float()`` / ``item()``)."""
-    val = reduce_async(r, op)
+    return _host_result(reduce_async(r, op), init, op, "sync.reduce")
+
+
+def _host_result(val, init, op, site: str):
+    """The host scalar of a reduction's device result ``val`` (folded
+    with ``init``), read under the span ``site``; a ``PlanScalar``
+    stays lazy."""
     from ..plan import PlanScalar
     if isinstance(val, PlanScalar):
         if init is not None:
             return val.with_post(lambda t: _fold_init(init, t, op))
         return val
-    if init is not None:
-        return _fold_init(init, val, op)
-    return val.item()
+    with _obs.span(site, cat="sync"):
+        if init is not None:
+            return _fold_init(init, val, op)
+        return val.item()
 
 
 def _identity(x):
@@ -352,8 +360,7 @@ def transform_reduce_async(r, reduce_op=None, transform_op=None,
 
 def dot(a, b, init=None):
     """Dot product: zip | transform(*) | reduce (dot_product.cpp:11-18)."""
-    return reduce(_v.transform(_v.zip_view(a, b), _multiply2), init,
-                  operator.add)
+    return _host_result(dot_async(a, b), init, operator.add, "sync.dot")
 
 
 def dot_async(a, b) -> torch.Tensor:

@@ -289,36 +289,43 @@ def _pack_out_row(vals, live, layout, r):
     """Rank r's full padded row: its slots' ``vals`` where ``live``,
     zero elsewhere (pad and halo cells included)."""
     _, _, cap, prev, nxt, _, _, sizes = working_geometry(layout)
-    row = torch.zeros((1, prev + cap + nxt), dtype=vals.dtype,
-                      device=vals.device)
     sz = int(sizes[r])
-    row[0, prev:prev + sz] = torch.where(live[:sz], vals[:sz], 0)
+    with _obs.span("rows.copy", cat="rows"):
+        row = torch.zeros((1, prev + cap + nxt), dtype=vals.dtype,
+                          device=vals.device)
+        row[0, prev:prev + sz] = torch.where(live[:sz], vals[:sz], 0)
     return row
 
 
-def _sorted_scratch(chain: _InChain, vchain=None, *, sid=0,
-                    phase="sort"):
+def _phase(label: str, phase: str, **attrs):
+    """The span of one phase of a relational op: ``relational.phase``
+    (attribute ``phase``) in the ring, ``label``
+    (``relational.<op>.<phase>``) in a profiler trace."""
+    return _obs.span("relational.phase", cat="relational", label=label,
+                     phase=phase, **attrs)
+
+
+def _sorted_scratch(chain: _InChain, vchain=None, *, phase="sort",
+                    label="relational.groupby.sort"):
     """Copy key (and value) chains into fresh uniform scratch containers
     on the key runtime and stable-sort by key: the non-mutating step
-    every relational op starts from, recorded as ``phase`` under span
-    ``sid``.  Returns ``(skeys, svals_or_None, n)``; for ``n == 0`` the
-    scratch is one cell, masked off."""
-    t0 = _obs.now()
+    every relational op starts from, the phase ``phase`` (profiler range
+    ``label``).  Returns ``(skeys, svals_or_None, n)``; for ``n == 0``
+    the scratch is one cell, masked off."""
     n = chain.n
-    rt = chain.cont.runtime
-    cap = max(n, 1)
-    sk = distributed_vector(cap, dtype=chain.cont.dtype, runtime=rt)
-    sv = None if vchain is None else \
-        distributed_vector(cap, dtype=vchain.cont.dtype, runtime=rt)
-    if n:
-        _copy(chain.view, sk)
-        if sv is not None:
-            _copy(vchain.view, sv)
-            _sort_by_key(sk, sv)
-        else:
-            _sort(sk)
-    _obs.complete("relational.phase", t0, cat="relational", parent=sid,
-                  phase=phase, n=n)
+    with _phase(label, phase, n=n):
+        rt = chain.cont.runtime
+        cap = max(n, 1)
+        sk = distributed_vector(cap, dtype=chain.cont.dtype, runtime=rt)
+        sv = None if vchain is None else \
+            distributed_vector(cap, dtype=vchain.cont.dtype, runtime=rt)
+        if n:
+            _copy(chain.view, sk)
+            if sv is not None:
+                _copy(vchain.view, sv)
+                _sort_by_key(sk, sv)
+            else:
+                _sort(sk)
     return sk, sv, n
 
 
@@ -422,7 +429,9 @@ def _run_sums(v, segid, nseg):
     ends = torch.searchsorted(segid, torch.arange(
         1, nseg + 1, dtype=segid.dtype, device=segid.device))
     lengths = torch.diff(ends, prepend=ends.new_zeros(1))
-    x, d, longest = v.clone(), 1, int(lengths.max())
+    x, d = v.clone(), 1
+    with _obs.span("sync.groupby.longest_run", cat="sync"):
+        longest = int(lengths.max())
     while d < longest:
         # the right side is read whole before the in-place add
         x[d:] += torch.where(segid[d:] == segid[:-d], x[:-d], 0)
@@ -461,12 +470,19 @@ def _combine(kind, x):
     return acc
 
 
-def _groupby_sorted(sid, sk, sv, n, ok_cont, ov_cont, agg) -> int:
+def _groupby_sorted(sk, sv, n, ok_cont, ov_cont, agg) -> int:
     """The aggregate half of a groupby over the already-sorted scratch
     (shared with the auto tier); rebuilds the out containers' rows and
     returns the group count.  Capacity enforcement stays with the
     caller."""
-    t0 = _obs.now()
+    with _phase("relational.groupby.aggregate", "aggregate") as sp:
+        ng = _aggregate(sk, sv, n, ok_cont, ov_cont, agg)
+        sp.set(groups=ng)
+    return ng
+
+
+def _aggregate(sk, sv, n, ok_cont, ov_cont, agg) -> int:
+    """:func:`_groupby_sorted`'s work, in its ``aggregate`` phase."""
     p, S, *_ = working_geometry(sk.layout)
     rt = sk.runtime
     devs = rt.devices
@@ -545,18 +561,18 @@ def _groupby_sorted(sid, sk, sv, n, ok_cont, ov_cont, agg) -> int:
         if vrows is not None:
             ov_cont._rows[r] = vrows[r]
     # the gathered counts are the same on every process
-    ng = int(ngs[local[0]])
-    _obs.complete("relational.phase", t0, cat="relational", parent=sid,
-                  phase="aggregate", groups=ng)
-    return ng
+    with _obs.span("sync.count", cat="sync"):
+        return int(ngs[local[0]])
 
 
 def _group_count(sk, n) -> int:
     """The distinct-key count of the sorted scratch (the auto tier's
     probe): the boundary flags' run counts, summed."""
     runs, _ = _runs(sk, n)
-    return int(collectives.psum([None if run is None else run[3]
-                                 for run in runs], sk.runtime.home))
+    total = collectives.psum([None if run is None else run[3]
+                              for run in runs], sk.runtime.home)
+    with _obs.span("sync.count", cat="sync"):
+        return int(total)
 
 
 def _check_groupby(keys, values, out_keys, out_values):
@@ -611,19 +627,20 @@ def _groupby_eager(keys, values, out_keys, out_values, agg) -> int:
     _rel_tap("relgb", kc.cont.runtime, _chain_key(kc), _chain_key(vc),
              okc.cont.layout, ovc.cont.layout if ovc is not None else None,
              agg)
-    sid = _obs.begin("relational.groupby", cat="relational", agg=agg,
-                     n=kc.n)
     ng = -1
-    try:
-        sk, sv, n = _sorted_scratch(kc, vc, sid=sid)
-        ng = _groupby_sorted(sid, sk, sv, n, okc.cont,
-                             ovc.cont if ovc is not None else None, agg)
-        if ng > okc.n:
-            _raise_capacity("unique" if ovc is None else f"groupby[{agg}]",
-                            ng, okc.n)
-        return ng
-    finally:
-        _obs.end(sid, groups=ng)
+    with _obs.span("relational.groupby", cat="relational", agg=agg,
+                   n=kc.n) as sp:
+        try:
+            sk, sv, n = _sorted_scratch(kc, vc)
+            ng = _groupby_sorted(sk, sv, n, okc.cont,
+                                 ovc.cont if ovc is not None else None, agg)
+            if ng > okc.n:
+                _raise_capacity(
+                    "unique" if ovc is None else f"groupby[{agg}]", ng,
+                    okc.n)
+            return ng
+        finally:
+            sp.set(groups=ng)
 
 
 def groupby_aggregate(keys, values, out_keys, out_values,
@@ -801,8 +818,11 @@ def _merge_broadcast(slk, slv, nl, srk, srv, nr, outs, left_outer,
             LK, LV, RK, RV = (t.to(dev) for t in (LK0, LV0, RK0, RV0))
             lo, cnt, em = _broadcast_plan(LK, RK, nl, nr, left_outer,
                                           right_outer)
+            # a copy from pageable host memory: it waits for the device
+            with _obs.span("sync.join.fill", cat="sync"):
+                fill = fillv.to(dev)
             plans[dev] = (em, lo, cnt, LK.numel(), RK.numel(), _channels(
-                outs, LK, LV, RK, RV, fillv.to(dev)))
+                outs, LK, LV, RK, RV, fill))
         em, lo, cnt, NL, NR, chans = plans[dev]
         for cont, left, right in chans:
             j = _slots(cont.layout, r, dev)
@@ -810,7 +830,8 @@ def _merge_broadcast(slk, slv, nl, srk, srv, nr, outs, left_outer,
                               cont.dtype)
             cont._rows[r] = _pack_out_row(vals, j < em.total, cont.layout,
                                           r)
-    return int(plans[home][0].total)
+    with _obs.span("sync.count", cat="sync"):
+        return int(plans[home][0].total)
 
 
 def _tuned(domain: str, param: str):
@@ -901,7 +922,7 @@ def _partition_bounds(kl, krows, nvr, p, rt, outer, nl, Sl):
     return firsts, lasts, starts, ends, last_ne, ne
 
 
-def _merge_partition(sid, slk, slv, nl, srk, srv, nr, outs, left_outer,
+def _merge_partition(slk, slv, nl, srk, srv, nr, outs, left_outer,
                      right_outer, fillv):
     """The repartition merge: the sorted left side stays where it is,
     each rank's right partition (at most ``rcap`` rows, sized by one host
@@ -910,118 +931,119 @@ def _merge_partition(sid, slk, slv, nl, srk, srv, nr, outs, left_outer,
     the out windows are assembled producer-side through one masked
     ``all_to_all`` per channel (each slot selects its one producer).
     Rows and count are those of the broadcast merge, bit for bit.
-    Records the ``partition_plan`` and ``merge`` phases under span
-    ``sid``.  Returns ``(count, rcap)``."""
+    Records the ``partition_plan`` and ``merge`` phases.  Returns
+    ``(count, rcap)``."""
     fire_ppermute(what="join.partition")
     _rel_tap("reljoinpart", slk.runtime, slk.layout, dtype_name(slk.dtype),
              srk.layout, dtype_name(srv.dtype), left_outer, right_outer)
-    t0 = _obs.now()
-    p, Sl, *_ = working_geometry(slk.layout)
-    _, Sr, *_ = working_geometry(srk.layout)
-    rt = slk.runtime
-    devs, local = rt.devices, rt.local_ranks
-    lraw, rraw = _rows_of(slk), _rows_of(srk)
-    nvl = [_nvalid(nl, r, Sl) for r in range(p)]
-    nvr = [_nvalid(nr, r, Sr) for r in range(p)]
-    klq, kl, krows = [None] * p, [None] * p, [None] * p
-    for r in local:
-        kq, _ = _masked_keys(lraw[r], nvl[r])
-        klq[r] = kq
-        # the range row ends at the last REAL key, not the pad key
-        k = kq.clone()
-        k[Sl - 1] = kq[max(nvl[r] - 1, 0)]
-        kl[r] = k
-        krows[r], bigr = _masked_keys(rraw[r], nvr[r])
-    firsts, lasts, starts, ends, last_ne, ne = _partition_bounds(
-        kl, krows, nvr, p, rt, right_outer, nl, Sl)
-    # the planner's one host read: the widest partition (the summed
-    # bounds are the same on every process)
-    h = local[0]
-    mx = max(int((ends[h] - starts[h]).max()), 1)
-    rcap = min(1 << (mx - 1).bit_length(), p * Sr)
-    _obs.complete("relational.phase", t0, cat="relational", parent=sid,
-                  phase="partition_plan", rcap=rcap)
-    t0 = _obs.now()
-
-    # rotate the right blocks; each rank scatters the rows of its slice
-    # at their offset into rcap-sized buffers (a trash slot at rcap takes
-    # the rest): positions are unique, so the result is schedule-free
-    def scatter(t, r, carry, blocks):
-        s = (r - t) % p
-        g = torch.arange(s * Sr, (s + 1) * Sr, device=devs[r])
-        s0 = starts[r][r]
-        if right_outer:
-            inr = (g < nr) & (g >= s0) & (g < ends[r][r])
-        else:
-            inr = (g < nr) & (blocks[0] >= firsts[r][r]) \
-                & (blocks[0] <= lasts[r][r])
-        idx = torch.where(inr, g - s0, rcap)
-        for buf, blk in zip(carry, blocks):
-            buf.scatter_(0, idx, blk)
-        return carry
-
-    carry, blocks = [None] * p, [None] * p
-    rvals, lvals = _rows_of(srv), _rows_of(slv)
-    for r in local:
-        dev = devs[r]
-        carry[r] = (torch.full((rcap + 1,), bigr, dtype=krows[r].dtype,
-                               device=dev),
-                    torch.zeros(rcap + 1, dtype=srv.dtype, device=dev),
-                    torch.zeros(rcap + 1, dtype=srk.dtype, device=dev))
-        blocks[r] = (krows[r], rvals[r], rraw[r])
-    parts = ring_pipeline(devs, carry, blocks, scatter)
-
-    ems, los, cnts, chans = [None] * p, [None] * p, [None] * p, [None] * p
-    for r in local:
-        dev = devs[r]
-        rbk, rbv, rbraw = (b[:rcap] for b in parts[r])
-        size_me = ends[r][r] - starts[r][r]
-        lo, cnt, rows = _counts(kl[r], rbk, nvl[r], size_me, left_outer)
-        if right_outer:
-            # an owned key inside my left range is in my partition iff it
-            # is present at all; one outside it matches nowhere
-            owned = torch.arange(rcap, device=dev) < size_me
-            if not ne[r]:
-                owned = torch.zeros_like(owned)
-            if r:
-                owned = owned & (rbk > lasts[r][r - 1])
-            if r != last_ne:
-                owned = owned & (rbk <= lasts[r][r])
-            em = _Emitters(rows, _unmatched(klq[r], rbk, nvl[r], owned),
-                           torch.cat([klq[r], rbk]))
-        else:
-            em = _Emitters(rows)
-        ems[r], los[r], cnts[r] = em, lo, cnt
-        chans[r] = _channels(outs, lraw[r], lvals[r], rbraw, rbv,
-                             fillv.to(dev))
-    # every rank's row count: one gather a process
-    ctots = [None if g is None else torch.cumsum(g, 0)
-             for g in collectives.all_gather_each(
-                 [None if em is None else em.total for em in ems], devs)]
-    bases = {r: ctots[r][r] - ems[r].total for r in local}
-
-    for c in range(3):
-        cont = outs[c]
-        So = working_geometry(cont.layout)[1]
-        sends = [None] * p
+    with _phase("relational.join.partition_plan", "partition_plan") as sp:
+        p, Sl, *_ = working_geometry(slk.layout)
+        _, Sr, *_ = working_geometry(srk.layout)
+        rt = slk.runtime
+        devs, local = rt.devices, rt.local_ranks
+        lraw, rraw = _rows_of(slk), _rows_of(srk)
+        nvl = [_nvalid(nl, r, Sl) for r in range(p)]
+        nvr = [_nvalid(nr, r, Sr) for r in range(p)]
+        klq, kl, krows = [None] * p, [None] * p, [None] * p
         for r in local:
-            _, left, right = chans[r][c]
-            jl = _all_slots(cont.layout, devs[r]) - bases[r]
-            mine = (jl >= 0) & (jl < ems[r].total)
-            vals = _emit_rows(ems[r], jl, los[r], cnts[r], Sl, rcap, left,
-                              right, cont.dtype)
-            sends[r] = torch.where(mine, vals, 0)
-        for r, recv in _local(collectives.all_to_all(
-                sends, devs, ((So,), cont.dtype))):
-            jt = _slots(cont.layout, r, devs[r])
-            ps = torch.searchsorted(ctots[r], jt, right=True) \
-                .clamp(0, p - 1)
-            got = recv.gather(0, ps[None])[0]
-            cont._rows[r] = _pack_out_row(got, jt < ctots[r][-1],
-                                          cont.layout, r)
-    m = int(ctots[h][-1])
-    _obs.complete("relational.phase", t0, cat="relational", parent=sid,
-                  phase="merge", rows=m, route="partition")
+            kq, _ = _masked_keys(lraw[r], nvl[r])
+            klq[r] = kq
+            # the range row ends at the last REAL key, not the pad key
+            k = kq.clone()
+            k[Sl - 1] = kq[max(nvl[r] - 1, 0)]
+            kl[r] = k
+            krows[r], bigr = _masked_keys(rraw[r], nvr[r])
+        firsts, lasts, starts, ends, last_ne, ne = _partition_bounds(
+            kl, krows, nvr, p, rt, right_outer, nl, Sl)
+        # the planner's one host read: the widest partition (the summed
+        # bounds are the same on every process)
+        h = local[0]
+        with _obs.span("sync.join.partition_max", cat="sync"):
+            mx = max(int((ends[h] - starts[h]).max()), 1)
+        rcap = min(1 << (mx - 1).bit_length(), p * Sr)
+        sp.set(rcap=rcap)
+
+    with _phase("relational.join.merge", "merge", route="partition") as sp:
+        # rotate the right blocks; each rank scatters the rows of its slice
+        # at their offset into rcap-sized buffers (a trash slot at rcap takes
+        # the rest): positions are unique, so the result is schedule-free
+        def scatter(t, r, carry, blocks):
+            s = (r - t) % p
+            g = torch.arange(s * Sr, (s + 1) * Sr, device=devs[r])
+            s0 = starts[r][r]
+            if right_outer:
+                inr = (g < nr) & (g >= s0) & (g < ends[r][r])
+            else:
+                inr = (g < nr) & (blocks[0] >= firsts[r][r]) \
+                    & (blocks[0] <= lasts[r][r])
+            idx = torch.where(inr, g - s0, rcap)
+            for buf, blk in zip(carry, blocks):
+                buf.scatter_(0, idx, blk)
+            return carry
+
+        carry, blocks = [None] * p, [None] * p
+        rvals, lvals = _rows_of(srv), _rows_of(slv)
+        for r in local:
+            dev = devs[r]
+            carry[r] = (torch.full((rcap + 1,), bigr, dtype=krows[r].dtype,
+                                   device=dev),
+                        torch.zeros(rcap + 1, dtype=srv.dtype, device=dev),
+                        torch.zeros(rcap + 1, dtype=srk.dtype, device=dev))
+            blocks[r] = (krows[r], rvals[r], rraw[r])
+        parts = ring_pipeline(devs, carry, blocks, scatter)
+
+        ems, los, cnts, chans = [None] * p, [None] * p, [None] * p, [None] * p
+        for r in local:
+            dev = devs[r]
+            rbk, rbv, rbraw = (b[:rcap] for b in parts[r])
+            size_me = ends[r][r] - starts[r][r]
+            lo, cnt, rows = _counts(kl[r], rbk, nvl[r], size_me, left_outer)
+            if right_outer:
+                # an owned key inside my left range is in my partition iff it
+                # is present at all; one outside it matches nowhere
+                owned = torch.arange(rcap, device=dev) < size_me
+                if not ne[r]:
+                    owned = torch.zeros_like(owned)
+                if r:
+                    owned = owned & (rbk > lasts[r][r - 1])
+                if r != last_ne:
+                    owned = owned & (rbk <= lasts[r][r])
+                em = _Emitters(rows, _unmatched(klq[r], rbk, nvl[r], owned),
+                               torch.cat([klq[r], rbk]))
+            else:
+                em = _Emitters(rows)
+            ems[r], los[r], cnts[r] = em, lo, cnt
+            with _obs.span("sync.join.fill", cat="sync"):
+                fill = fillv.to(dev)
+            chans[r] = _channels(outs, lraw[r], lvals[r], rbraw, rbv, fill)
+        # every rank's row count: one gather a process
+        ctots = [None if g is None else torch.cumsum(g, 0)
+                 for g in collectives.all_gather_each(
+                     [None if em is None else em.total for em in ems], devs)]
+        bases = {r: ctots[r][r] - ems[r].total for r in local}
+
+        for c in range(3):
+            cont = outs[c]
+            So = working_geometry(cont.layout)[1]
+            sends = [None] * p
+            for r in local:
+                _, left, right = chans[r][c]
+                jl = _all_slots(cont.layout, devs[r]) - bases[r]
+                mine = (jl >= 0) & (jl < ems[r].total)
+                vals = _emit_rows(ems[r], jl, los[r], cnts[r], Sl, rcap, left,
+                                  right, cont.dtype)
+                sends[r] = torch.where(mine, vals, 0)
+            for r, recv in _local(collectives.all_to_all(
+                    sends, devs, ((So,), cont.dtype))):
+                jt = _slots(cont.layout, r, devs[r])
+                ps = torch.searchsorted(ctots[r], jt, right=True) \
+                    .clamp(0, p - 1)
+                got = recv.gather(0, ps[None])[0]
+                cont._rows[r] = _pack_out_row(got, jt < ctots[r][-1],
+                                              cont.layout, r)
+        with _obs.span("sync.count", cat="sync"):
+            m = int(ctots[h][-1])
+        sp.set(rows=m)
     return m, rcap
 
 
@@ -1066,8 +1088,7 @@ def _no_rows(how, nl, nr) -> bool:
         or (how == "inner" and nr == 0)
 
 
-def _merge_sorted(sid, slk, slv, nl, srk, srv, nr, outs, how,
-                  fill) -> int:
+def _merge_sorted(slk, slv, nl, srk, srv, nr, outs, how, fill) -> int:
     """The merge half of a join over the already-sorted sides: routes,
     rebuilds the out containers' rows and returns the row count."""
     p, Sl, *_ = working_geometry(slk.layout)
@@ -1077,18 +1098,17 @@ def _merge_sorted(sid, slk, slv, nl, srk, srv, nr, outs, how,
     # the fill in the right value's dtype (the left fill casts from it)
     fillv = torch.tensor(fill, dtype=outs[2].dtype)
     if p > 1 and nl > 0 and nr > 0 and nl + nr > _broadcast_max():
-        m, rcap = _merge_partition(sid, slk, slv, nl, srk, srv, nr, outs,
+        m, rcap = _merge_partition(slk, slv, nl, srk, srv, nr, outs,
                                    left_outer, right_outer, fillv)
         _set_join_route(impl="partition", nl=nl, nr=nr, nshards=p,
                         rcap=rcap, gathered_rows_per_device=Sl + rcap)
         return m
-    t0 = _obs.now()
-    m = _merge_broadcast(slk, slv, nl, srk, srv, nr, outs, left_outer,
-                         right_outer, fillv)
-    _set_join_route(impl="broadcast", nl=nl, nr=nr, nshards=p,
-                    gathered_rows_per_device=p * (Sl + Sr))
-    _obs.complete("relational.phase", t0, cat="relational", parent=sid,
-                  phase="merge", rows=m, route="broadcast")
+    with _phase("relational.join.merge", "merge", route="broadcast") as sp:
+        m = _merge_broadcast(slk, slv, nl, srk, srv, nr, outs, left_outer,
+                             right_outer, fillv)
+        _set_join_route(impl="broadcast", nl=nl, nr=nr, nshards=p,
+                        gathered_rows_per_device=p * (Sl + Sr))
+        sp.set(rows=m)
     return m
 
 
@@ -1103,28 +1123,29 @@ def _join_eager(lk, lv, rk, rv, out_keys, out_lv, out_rv, how,
         lk, lv, rk, rv, out_keys, out_lv, out_rv)
     _rel_tap("reljoin", lkc.cont.runtime, _chain_key(lkc), _chain_key(lvc),
              _chain_key(rkc), _chain_key(rvc), okc.cont.layout, how)
-    sid = _obs.begin("relational.join", cat="relational", how=how,
-                     n_left=lkc.n, n_right=rkc.n)
     m = -1
-    try:
-        if _no_rows(how, lkc.n, rkc.n):
-            t0 = _obs.now()
-            for oc in (out_keys, out_lv, out_rv):
-                _fill(oc, 0)
-            m = 0
-            _obs.complete("relational.phase", t0, cat="relational",
-                          parent=sid, phase="empty")
-            return 0
-        slk, slv, nl = _sorted_scratch(lkc, lvc, sid=sid, phase="sort_left")
-        srk, srv, nr = _sorted_scratch(rkc, rvc, sid=sid,
-                                       phase="sort_right")
-        m = _merge_sorted(sid, slk, slv, nl, srk, srv, nr,
-                          (okc.cont, olc.cont, orc.cont), how, fill)
-        if m > okc.n:
-            _raise_capacity(f"join[{how}]", m, okc.n)
-        return m
-    finally:
-        _obs.end(sid, rows=m)
+    with _obs.span("relational.join", cat="relational", how=how,
+                   n_left=lkc.n, n_right=rkc.n) as sp:
+        try:
+            if _no_rows(how, lkc.n, rkc.n):
+                with _phase("relational.join.empty", "empty"):
+                    for oc in (out_keys, out_lv, out_rv):
+                        _fill(oc, 0)
+                m = 0
+                return 0
+            slk, slv, nl = _sorted_scratch(
+                lkc, lvc, phase="sort_left",
+                label="relational.join.sort_left")
+            srk, srv, nr = _sorted_scratch(
+                rkc, rvc, phase="sort_right",
+                label="relational.join.sort_right")
+            m = _merge_sorted(slk, slv, nl, srk, srv, nr,
+                              (okc.cont, olc.cont, orc.cont), how, fill)
+            if m > okc.n:
+                _raise_capacity(f"join[{how}]", m, okc.n)
+            return m
+        finally:
+            sp.set(rows=m)
 
 
 def _check_how(how):
@@ -1289,42 +1310,48 @@ def _join_auto_eager(lk, lv, rk, rv, how, fill):
     _rel_tap("reljoincnt", rt, _chain_key(lkc), _chain_key(lvc),
              _chain_key(rkc), _chain_key(rvc), how)
     dtypes = (lkc.cont.dtype, lvc.cont.dtype, rvc.cont.dtype)
-    sid = _obs.begin("relational.join", cat="relational", how=how,
-                     auto=True, n_left=lkc.n, n_right=rkc.n)
     m = -1
-    try:
-        if _no_rows(how, lkc.n, rkc.n):
-            m = 0
-            return _fresh_outs(rt, dtypes, 1), 0
-        slk, slv, nl = _sorted_scratch(lkc, lvc, sid=sid, phase="sort_left")
-        srk, srv, nr = _sorted_scratch(rkc, rvc, sid=sid,
-                                       phase="sort_right")
-        base = nl + nr
-        cap = _cap_hint("join_" + how, base) if _capinfer_enabled() \
-            else None
-        if cap is None:
-            # the exact count: the broadcast merge's row arithmetic on
-            # one device
-            t0 = _obs.now()
-            cap = int(_broadcast_plan(
-                _gather_side(slk, rt.home), _gather_side(srk, rt.home), nl,
-                nr, how in ("left", "outer"), how == "outer")[-1].total)
-            _obs.complete("relational.phase", t0, cat="relational",
-                          parent=sid, phase="cap_probe", rows=cap)
-        cap = _pow2_cap(cap)
-        conts = _fresh_outs(rt, dtypes, cap)
-        m = _merge_sorted(sid, slk, slv, nl, srk, srv, nr, conts, how, fill)
-        if m > cap:
-            # a hinted capacity undershot: merge again at the exact
-            # count, never a capacity error on the auto tier
-            conts = _fresh_outs(rt, dtypes, _pow2_cap(m))
-            m2 = _merge_sorted(sid, slk, slv, nl, srk, srv, nr, conts, how,
-                               fill)
-            assert m2 == m, "join count drifted between merges"
-        _note_ratio("join_" + how, base, m)
-        return conts, m
-    finally:
-        _obs.end(sid, rows=m)
+    with _obs.span("relational.join", cat="relational", how=how, auto=True,
+                   n_left=lkc.n, n_right=rkc.n) as sp:
+        try:
+            if _no_rows(how, lkc.n, rkc.n):
+                m = 0
+                return _fresh_outs(rt, dtypes, 1), 0
+            slk, slv, nl = _sorted_scratch(
+                lkc, lvc, phase="sort_left",
+                label="relational.join.sort_left")
+            srk, srv, nr = _sorted_scratch(
+                rkc, rvc, phase="sort_right",
+                label="relational.join.sort_right")
+            base = nl + nr
+            cap = _cap_hint("join_" + how, base) if _capinfer_enabled() \
+                else None
+            if cap is None:
+                # the exact count: the broadcast merge's row arithmetic
+                # on one device
+                with _phase("relational.join.cap_probe",
+                            "cap_probe") as probe:
+                    em = _broadcast_plan(
+                        _gather_side(slk, rt.home),
+                        _gather_side(srk, rt.home), nl, nr,
+                        how in ("left", "outer"), how == "outer")[-1]
+                    with _obs.span("sync.count", cat="sync"):
+                        cap = int(em.total)
+                    probe.set(rows=cap)
+            cap = _pow2_cap(cap)
+            conts = _fresh_outs(rt, dtypes, cap)
+            m = _merge_sorted(slk, slv, nl, srk, srv, nr, conts, how, fill)
+            if m > cap:
+                # a hinted capacity undershot: merge again at the exact
+                # count, never a capacity error on the auto tier
+                conts = _fresh_outs(rt, dtypes, _pow2_cap(m))
+                m2 = _merge_sorted(slk, slv, nl, srk, srv, nr, conts, how,
+                                   fill)
+                assert m2 == m, "join count drifted between merges"
+            _note_ratio("join_" + how, base, m)
+            return conts, m
+        finally:
+            sp.set(rows=m)
 
 
 def _groupby_auto_eager(keys, values, agg, keys_only=False):
@@ -1343,29 +1370,29 @@ def _groupby_auto_eager(keys, values, agg, keys_only=False):
     else:
         vdt = vc.cont.dtype
     _rel_tap("relgbcnt", rt, _chain_key(kc), _chain_key(vc), agg)
-    sid = _obs.begin("relational.groupby", cat="relational", agg=agg,
-                     auto=True, n=kc.n)
     ng = -1
-    try:
-        sk, sv, n = _sorted_scratch(kc, vc, sid=sid)
-        cap = _cap_hint("groupby", n) if _capinfer_enabled() else None
-        if cap is None:
-            t0 = _obs.now()
-            cap = _group_count(sk, n)
-            _obs.complete("relational.phase", t0, cat="relational",
-                          parent=sid, phase="cap_probe", groups=cap)
-        cap = _pow2_cap(min(cap, max(n, 1)))
-        while True:
-            ok = _fresh_outs(rt, (kc.cont.dtype,), cap)[0]
-            ov = None if keys_only else _fresh_outs(rt, (vdt,), cap)[0]
-            ng = _groupby_sorted(sid, sk, sv, n, ok, ov, agg)
-            if ng <= cap:
-                break
-            cap = _pow2_cap(ng)  # a hinted capacity undershot
-        _note_ratio("groupby", n, ng)
-        return ((ok,) if ov is None else (ok, ov)), ng
-    finally:
-        _obs.end(sid, groups=ng)
+    with _obs.span("relational.groupby", cat="relational", agg=agg,
+                   auto=True, n=kc.n) as sp:
+        try:
+            sk, sv, n = _sorted_scratch(kc, vc)
+            cap = _cap_hint("groupby", n) if _capinfer_enabled() else None
+            if cap is None:
+                with _phase("relational.groupby.cap_probe",
+                            "cap_probe") as probe:
+                    cap = _group_count(sk, n)
+                    probe.set(groups=cap)
+            cap = _pow2_cap(min(cap, max(n, 1)))
+            while True:
+                ok = _fresh_outs(rt, (kc.cont.dtype,), cap)[0]
+                ov = None if keys_only else _fresh_outs(rt, (vdt,), cap)[0]
+                ng = _groupby_sorted(sk, sv, n, ok, ov, agg)
+                if ng <= cap:
+                    break
+                cap = _pow2_cap(ng)  # a hinted capacity undershot
+            _note_ratio("groupby", n, ng)
+            return ((ok,) if ov is None else (ok, ov)), ng
+        finally:
+            sp.set(groups=ng)
 
 
 def join_auto(left_keys, left_values, right_keys, right_values, *,
@@ -1445,16 +1472,13 @@ def histogram(r, out, lo, hi):
         return out
     _rel_tap("relhist", chain.cont.runtime, _chain_key(chain), oc.n,
              dtype_name(oc.cont.dtype))
-    sid = _obs.begin("relational.histogram", cat="relational", n=chain.n,
-                     bins=oc.n)
-    try:
+    with _obs.span("relational.histogram", cat="relational", n=chain.n,
+                   bins=oc.n):
         oc.cont._rows = _histogram_rows(
             chain.cont._rows, chain.cont.layout, chain.off, chain.n,
             chain.ops, _chain_scalars([chain]), oc.cont.layout,
             oc.cont.dtype, oc.n, lo, hi)
-        return out
-    finally:
-        _obs.end(sid)
+    return out
 
 
 def _histogram_rows(in_rows, in_layout, off, n, ops, chain_sc, out_layout,
@@ -1554,9 +1578,8 @@ def top_k(r, out_vals, out_idx=None, *, largest: bool = True,
         return out_vals
     _rel_tap("reltopk", chain.cont.runtime, _chain_key(chain), ovc.n,
              dtype_name(ovc.cont.dtype), oic is not None, largest, merge)
-    sid = _obs.begin("relational.top_k", cat="relational", n=chain.n,
-                     k=ovc.n, largest=largest, merge=merge)
-    try:
+    with _obs.span("relational.top_k", cat="relational", n=chain.n,
+                   k=ovc.n, largest=largest, merge=merge):
         new_v, new_i = _top_k_rows(
             chain.cont._rows, chain.cont.layout, chain.off, chain.n,
             chain.ops, _chain_scalars([chain]), ovc.cont._rows,
@@ -1567,9 +1590,7 @@ def top_k(r, out_vals, out_idx=None, *, largest: bool = True,
         ovc.cont._rows = new_v
         if oic is not None:
             oic.cont._rows = new_i
-        return out_vals
-    finally:
-        _obs.end(sid)
+    return out_vals
 
 
 def _top_k_rows(in_rows, in_layout, off, n, ops, chain_sc, ov_rows,

@@ -38,6 +38,7 @@ from typing import Callable
 
 import torch
 
+from .. import obs as _obs
 from ._common import (MONOID_COMBINE, f32_accumulable, identity_for,
                       uniform_layout, window_cols, window_geometry,
                       working_geometry)
@@ -156,22 +157,23 @@ def _scan_rows(cont, rows, kind, exclusive, dtype, ops=(), window=None,
                 lc = torch.cat([_fill(lc, kind, lc.dtype), lc[:-1]])
             scanned.append(lc if carry is None else combine(carry, lc))
     out = []
-    for r, s in enumerate(scanned):
-        if s is None:
-            out.append(None)
-            continue
-        s = s.to(dtype)
-        if window is not None:
-            a, b = window_cols(layout, off, wn, r)
-            row = keep_rows[r].clone()
-            row[0, a:b] = s[a - prev:b - prev]
-        elif prev == 0 and nxt == 0 and cap == S:
-            row = s[None]
-        else:
-            row = torch.zeros((1, prev + cap + nxt), dtype=dtype,
-                              device=s.device)
-            row[0, prev:prev + S] = s
-        out.append(row)
+    with _obs.span("rows.copy", cat="rows"):
+        for r, s in enumerate(scanned):
+            if s is None:
+                out.append(None)
+                continue
+            s = s.to(dtype)
+            if window is not None:
+                a, b = window_cols(layout, off, wn, r)
+                row = keep_rows[r].clone()
+                row[0, a:b] = s[a - prev:b - prev]
+            elif prev == 0 and nxt == 0 and cap == S:
+                row = s[None]
+            else:
+                row = torch.zeros((1, prev + cap + nxt), dtype=dtype,
+                                  device=s.device)
+                row[0, prev:prev + S] = s
+            out.append(row)
     return out
 
 

@@ -31,6 +31,7 @@ from typing import Callable, Optional, Sequence, Union
 
 import torch
 
+from .. import obs as _obs
 from ._common import uniform_layout
 from .elementwise import (_op_key, _out_chain, _plan_active, _prog_cache,
                           _resolve)
@@ -63,7 +64,8 @@ def _step_rows(layout, devices, in_rows, out_rows, op, prev, nxt,
     were, as in the JAX program."""
     nshards, seg, hprev, hnxt, n = layout
     assert hprev >= prev and hnxt >= nxt, "halo narrower than stencil radius"
-    rows = [None if r is None else r.clone() for r in in_rows]
+    with _obs.span("rows.copy", cat="rows"):
+        rows = [None if r is None else r.clone() for r in in_rows]
     if (hprev or hnxt) and (nshards > 1 or periodic):
         exchange_rows(rows, devices, layout, periodic)
     lo_g, hi_g = (0, n) if periodic else (prev, n - nxt)
@@ -77,7 +79,8 @@ def _step_rows(layout, devices, in_rows, out_rows, op, prev, nxt,
         vals = op(*shifted)
         a = max(lo_g - idx * seg, 0)
         b = min(hi_g - idx * seg, seg)
-        out = out.clone()
+        with _obs.span("rows.copy", cat="rows"):
+            out = out.clone()
         if a < b:
             out[0, hprev + a: hprev + b] = vals[a:b].to(out.dtype)
         new.append(out)
@@ -177,18 +180,19 @@ def stencil_iterate(a_dv, b_dv, op: Union[Callable, Sequence[float]],
 def _ring_exchange_full(rows, devices, seg: int, halo_w: int) -> None:
     """Periodic full-width ghost refresh for the blocked paths, in place:
     both edge slices of every owned block move one hop around the ring."""
-    # both slices are owned cells and every write a ghost cell, so the
-    # two shifts travel together
-    fwd, bwd = collectives.ring_shifts(
-        [([None if r is None else r[:, seg: halo_w + seg].clone()
-           for r in rows], +1),
-         ([None if r is None else r[:, halo_w: 2 * halo_w].clone()
-           for r in rows], -1)], devices, True,
-        like=((1, halo_w), collectives.present(rows).dtype))
-    for r, g, h in zip(rows, fwd, bwd):
-        if r is not None:
-            r[:, :halo_w] = g
-            r[:, r.shape[-1] - halo_w:] = h
+    with _obs.span("halo.exchange", cat="halo"):
+        # both slices are owned cells and every write a ghost cell, so the
+        # two shifts travel together
+        fwd, bwd = collectives.ring_shifts(
+            [([None if r is None else r[:, seg: halo_w + seg].clone()
+               for r in rows], +1),
+             ([None if r is None else r[:, halo_w: 2 * halo_w].clone()
+               for r in rows], -1)], devices, True,
+            like=((1, halo_w), collectives.present(rows).dtype))
+        for r, g, h in zip(rows, fwd, bwd):
+            if r is not None:
+                r[:, :halo_w] = g
+                r[:, r.shape[-1] - halo_w:] = h
 
 
 def _blocked_drive(cont, key, steps, block, apply):

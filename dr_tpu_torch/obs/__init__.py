@@ -1,13 +1,22 @@
 """``dr_tpu_torch.obs``: tracing and metrics (counterpart of
 ``dr_tpu/obs``).
 
-* **spans and events** (``recorder``): a thread-aware span recorder over
-  a bounded ring, armed by ``DR_GPU_TRACE=1`` or :func:`arm`.  The
-  relational ops (``relational.join`` / ``groupby`` / ``histogram`` /
-  ``top_k`` with their ``relational.phase`` children), the re-layout
-  (``redistribute`` with its ``redistribute.phase`` children) and the
-  ``drlog`` debug lines record into it.  Timestamps are the host's
-  clock: device time comes from ``dr_tpu_torch.utils.profiling``.
+* **spans and events** (``recorder``): a thread-aware span recorder
+  with two sinks, each with its own switch.  The ring, while armed
+  (``DR_GPU_TRACE=1`` or :func:`arm`), takes every span and event on the
+  host's clock.  The profiler, while a ``torch.profiler`` capture
+  records, armed or not, takes each :func:`span` as a
+  ``record_function`` range on the profiler's clock, where the device
+  time of the work launched inside it and the idle gaps that begin
+  inside it are read (cross-thread :func:`begin` / :func:`end` spans
+  and events reach the ring alone).  The relational ops
+  (``relational.join`` / ``groupby`` / ``histogram`` / ``top_k`` with
+  their ``relational.phase`` children, ranges
+  ``relational.<op>.<phase>``), the host reads of device values
+  (``sync.<site>``), the ghost exchanges (``halo.exchange``), the row
+  copies (``rows.copy``), the re-layout (``redistribute`` with its
+  ``redistribute.phase`` children) and the ``drlog`` debug lines record
+  into it.
 * **metrics** (``metrics``): counters, gauges, bucketed histograms.
   Handles always record; :func:`count` / :func:`gauge_set` /
   :func:`observe` here are armed-gated.
@@ -15,9 +24,9 @@
   ``DR_GPU_TRACE_DIR`` (written at process exit when armed from the
   environment) and the compact :func:`snapshot`.
 
-With tracing off every entry point is one check of a module global and
-allocates nothing per event (``recorder.events_recorded`` does not
-move).
+With both sinks off every entry point is one or two checks of module
+globals and allocates nothing per event (``recorder.events_recorded``
+does not move).
 """
 
 from __future__ import annotations

@@ -1,25 +1,38 @@
 """In-process span and event recorder, the tracing half of
 ``dr_tpu_torch.obs`` (counterpart of ``dr_tpu/obs/recorder.py``).
 
-One bounded ring of trace events (a ``collections.deque`` whose
-``maxlen`` is read from ``DR_GPU_TRACE_BUF`` each time :func:`arm` runs,
-floor 16), ``time.perf_counter_ns`` for every timestamp, and thread-aware
-nesting: each thread keeps its own span stack (the implicit parent),
-while a span that another thread closes uses an explicit id
-(:func:`begin` / :func:`end`, ``parent=``) and Chrome flow events
-(:func:`flow`).
+Two sinks, each behind its own switch:
 
-Overhead: with tracing off (the default) every entry point is one check
-of the module guard ``_armed`` and allocates nothing: :func:`span`
-returns a shared null context manager, :func:`begin` returns 0 and
+* **the ring**, while armed (:func:`arm`, or ``DR_GPU_TRACE=1`` at
+  import): one bounded ring of trace events (a ``collections.deque``
+  whose ``maxlen`` is read from ``DR_GPU_TRACE_BUF`` each time
+  :func:`arm` runs, floor 16), ``time.perf_counter_ns`` for every
+  timestamp, and thread-aware nesting: each thread keeps its own span
+  stack (the implicit parent), while a span that another thread closes
+  uses an explicit id (:func:`begin` / :func:`end`, ``parent=``) and
+  Chrome flow events (:func:`flow`);
+* **the profiler**, while a ``torch.profiler`` capture records
+  (``torch.autograd.profiler._is_profiler_enabled``), armed or not: a
+  :func:`span` also opens a ``record_function`` range, named after the
+  span or its ``label``.  The range lands in the profiler's trace as a
+  ``user_annotation`` on the profiler's clock, beside the CUPTI kernel
+  and memcpy events, and the launches made inside it carry its
+  correlation ids: the device time of a span's work, and the idle gaps
+  that begin inside it, are read there.  :func:`begin` / :func:`end`,
+  :func:`complete` and the instant events reach the ring alone.
+
+Overhead: with both off (the default) every entry point is one or two
+checks of module globals and allocates nothing: :func:`span` returns a
+shared null context manager, :func:`begin` returns 0 and
 :func:`event` / :func:`complete` / :func:`end` return at once.
 :func:`events_recorded` counts every event ever recorded and must not
-move while tracing is off.
+move while the ring is off.
 
-Clock: timestamps are the host's.  A span adds no
-``torch.cuda.synchronize`` of its own, so on the card a span around an
-op that does not wait for the device measures when the op was queued,
-not how long it ran; device time comes from ``utils/profiling``.
+Clock: the ring's timestamps are the host's.  A span adds no
+``torch.cuda.synchronize`` of its own, so on the card a ring span around
+an op that does not wait for the device measures when the op was queued,
+not how long it ran; the device time of the work comes from the
+profiler's trace (the mirrored ranges) or ``utils/profiling``.
 
 Arming: :func:`install` (run when ``dr_tpu_torch`` is imported) arms
 when ``DR_GPU_TRACE=1`` and registers the Chrome-trace export into
@@ -41,6 +54,8 @@ import time
 from collections import deque
 from itertools import islice
 from typing import List, Optional
+
+from torch.autograd import profiler as _tprof
 
 from ..utils.env import env_flag, env_int
 
@@ -126,7 +141,8 @@ def _record(ev: dict) -> None:
 # ---------------------------------------------------------------------------
 
 class _NullSpan:
-    """Shared no-op context manager handed out while tracing is off."""
+    """Shared no-op context manager handed out while both sinks are
+    off."""
 
     __slots__ = ()
 
@@ -143,20 +159,46 @@ class _NullSpan:
 _NULL = _NullSpan()
 
 
+class _Range:
+    """A disarmed span while the profiler records: its profiler range
+    alone."""
+
+    __slots__ = ("rf",)
+
+    def __init__(self, label: str):
+        self.rf = _tprof.record_function(label)
+
+    def __enter__(self) -> "_Range":
+        self.rf.__enter__()
+        return self
+
+    def __exit__(self, etype, evalue, tb) -> bool:
+        self.rf.__exit__(etype, evalue, tb)
+        return False
+
+    def set(self, **attrs) -> None:
+        pass
+
+
 class Span:
     """An armed context-manager span: nested through the thread's stack,
-    recorded as one complete ("X") event on exit.  ``set(**attrs)`` adds
-    attributes before the record."""
+    recorded as one complete ("X") event on exit, and mirrored as a
+    profiler range named ``label`` while the profiler records.
+    ``set(**attrs)`` adds attributes before the record."""
 
-    __slots__ = ("name", "cat", "attrs", "sid", "parent", "t0")
+    __slots__ = ("name", "cat", "attrs", "sid", "parent", "t0", "label",
+                 "rf")
 
-    def __init__(self, name: str, cat: str, parent: int, attrs: dict):
+    def __init__(self, name: str, cat: str, parent: int, attrs: dict,
+                 label: str):
         self.name = name
         self.cat = cat
         self.attrs = attrs
         self.parent = parent
         self.sid = _alloc_id()
         self.t0 = 0
+        self.label = label
+        self.rf = None
 
     def set(self, **attrs) -> None:
         self.attrs.update(attrs)
@@ -165,11 +207,16 @@ class Span:
         if self.parent == 0:
             self.parent = current()
         _stack().append((self.sid, self))
+        if _tprof._is_profiler_enabled:
+            self.rf = _tprof.record_function(self.label)
+            self.rf.__enter__()
         self.t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, etype, evalue, tb) -> bool:
         t1 = time.perf_counter_ns()
+        if self.rf is not None:
+            self.rf.__exit__(etype, evalue, tb)
         st = _stack()
         if st and st[-1][0] == self.sid:
             st.pop()
@@ -184,12 +231,18 @@ class Span:
         return False
 
 
-def span(name: str, cat: str = "", parent: int = 0, **attrs):
-    """Context-manager span; the shared no-op when tracing is off.
-    ``parent=0`` nests under this thread's current span."""
+def span(name: str, cat: str = "", parent: int = 0, *,
+         label: Optional[str] = None, **attrs):
+    """Context-manager span.  Armed, it is recorded into the ring
+    (``parent=0`` nests under this thread's current span); while a
+    ``torch.profiler`` capture records, armed or not, it opens a profiler
+    range named ``label`` (default ``name``).  With both off it is the
+    shared no-op."""
     if not _armed:
-        return _NULL
-    return Span(name, cat, parent, attrs)
+        if not _tprof._is_profiler_enabled:
+            return _NULL
+        return _Range(label or name)
+    return Span(name, cat, parent, attrs, label or name)
 
 
 def begin(name: str, cat: str = "", parent: int = 0, **attrs) -> int:

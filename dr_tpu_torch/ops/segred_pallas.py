@@ -36,6 +36,7 @@ import ctypes
 import torch
 
 from . import kernels, order_keys
+from .. import obs as _obs
 
 __all__ = ["OPS", "KERNEL_DTYPES", "eligible", "identity", "segmented",
            "plain_segmented"]
@@ -142,8 +143,10 @@ def plain_segmented(segid, nseg: int, cols):
         else:
             ids = segid.to(torch.int64)
             keep = (ids >= 0) & (ids < nseg)
-            acc.scatter_reduce_(0, ids[keep], src[keep], _SCATTER[op],
-                                include_self=True)
+            # a boolean mask's selection reads its count on the host
+            with _obs.span("sync.segred.mask", cat="sync"):
+                ids, src = ids[keep], src[keep]
+            acc.scatter_reduce_(0, ids, src, _SCATTER[op], include_self=True)
         if v.dtype.is_floating_point:
             acc = order_keys.from_keys(acc, v.dtype, nk)
         elif v.dtype.itemsize < 4:

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from . import kernels
+from .. import obs as _obs
 
 __all__ = ["LANES", "composed_taps", "max_ksteps", "band_cols",
            "split_taps", "kernel_parts", "matmul_stencil_row",
@@ -155,7 +156,8 @@ def plain_apply(row: torch.Tensor, seg: int, halo: int, weights: tuple,
                                                         torch.float32)
     hc, segc = halo // LANES, seg // LANES
     R0 = row.reshape(width // LANES, LANES)
-    out = R0.clone()
+    with _obs.span("rows.copy", cat="rows"):
+        out = R0.clone()
     for lo in range(0, segc, _CHUNK_ROWS):
         cr = min(_CHUNK_ROWS, segc - lo)
         src = R0[hc - D + lo: hc + lo + cr + D].to(torch.float32)
@@ -179,9 +181,10 @@ def _kernel_apply(row: torch.Tensor, seg: int, halo: int, weights: tuple,
         raise ValueError(f"the K1 kernel takes a band half-width up to "
                          f"{_BAND_COLS * LANES}, not {R}")
     parts, taps = _device_taps(weights, ksteps, row.device)
-    out = torch.empty_like(row)
-    out[..., :halo] = row[..., :halo]            # ghosts pass through stale
-    out[..., halo + seg:] = row[..., halo + seg:]
+    with _obs.span("rows.copy", cat="rows"):
+        out = torch.empty_like(row)
+        out[..., :halo] = row[..., :halo]        # ghosts pass through stale
+        out[..., halo + seg:] = row[..., halo + seg:]
     kernels.launch("stencil_matmul", "dr_stencil_matmul", row.device,
                    row.data_ptr(), out.data_ptr(), taps.data_ptr(), halo,
                    seg, width, R, taps.shape[1], parts,

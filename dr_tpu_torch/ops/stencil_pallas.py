@@ -20,6 +20,7 @@ from typing import Sequence
 import torch
 
 from . import kernels
+from .. import obs as _obs
 
 __all__ = ["blocked_stencil_row", "plain_blocked", "LANES", "ROW_ALIGN"]
 
@@ -44,8 +45,9 @@ def plain_blocked(row: torch.Tensor, seg: int, halo: int, weights: tuple,
         for d in range(1, 2 * r + 1):
             acc.add_(x[d:L - 2 * r + d] * weights[d])
         x, y = y, x
-    out = row.clone()
-    out[0, halo:halo + seg] = x[halo:halo + seg]
+    with _obs.span("rows.copy", cat="rows"):
+        out = row.clone()
+        out[0, halo:halo + seg] = x[halo:halo + seg]
     return out
 
 
@@ -56,9 +58,10 @@ def _kernel_blocked(row: torch.Tensor, seg: int, halo: int, weights: tuple,
         raise ValueError("the K2 kernel takes a contiguous float32 row")
     if not 1 <= r <= _MAX_RADIUS:
         raise ValueError(f"the K2 kernel takes radius 1..{_MAX_RADIUS}")
-    out = torch.empty_like(row)
-    out[..., :halo] = row[..., :halo]            # ghosts pass through stale
-    out[..., halo + seg:] = row[..., halo + seg:]
+    with _obs.span("rows.copy", cat="rows"):
+        out = torch.empty_like(row)
+        out[..., :halo] = row[..., :halo]        # ghosts pass through stale
+        out[..., halo + seg:] = row[..., halo + seg:]
     w = (ctypes.c_float * len(weights))(*weights)  # read on the host
     kernels.launch("stencil_blocked", "dr_stencil_blocked", row.device,
                    row.data_ptr(), out.data_ptr(), w, r, halo, seg,

@@ -33,6 +33,7 @@ import weakref
 from dataclasses import dataclass
 
 from . import collectives
+from .. import obs as _obs
 from ..core.pinning import pinned_id
 from ..utils import faults as _faults
 from ..utils.spmd_guard import TappedCache
@@ -105,27 +106,28 @@ def _shift_both(rows, devices, ring, a, b):
 def exchange_rows(rows, devices, layout, periodic):
     """One ghost exchange over the rank rows, in place.  ``layout`` is
     the uniform container layout (nshards, seg, prev, nxt, n)."""
-    nshards, seg, prev, nxt, n = layout
-    # a one-rank ring exchanges with itself only when periodic
-    ring = periodic or nshards == 1
-    use = periodic or not ring
-    valid = [_valid(nshards, seg, n, r) for r in range(nshards)]
-    # last `prev` valid owned cells -> next rank's ghost_prev; first
-    # `nxt` owned cells -> prev rank's ghost_next
-    got_p, got_n = _shift_both(
-        rows, devices, ring,
-        prev and (lambda r: rows[r][:, prev + valid[r] - prev:
-                                    prev + valid[r]], +1, prev),
-        nxt and (lambda r: rows[r][:, prev: prev + nxt], -1, nxt))
-    # the sends are owned cells and the writes ghost cells, so views
-    # taken above stay valid while the ghosts are written
-    for r in range(nshards):
-        if rows[r] is None:
-            continue
-        if prev and use and got_p[r] is not None:
-            rows[r][:, :prev] = got_p[r]
-        if nxt and use and got_n[r] is not None:
-            rows[r][:, prev + valid[r]: prev + valid[r] + nxt] = got_n[r]
+    with _obs.span("halo.exchange", cat="halo"):
+        nshards, seg, prev, nxt, n = layout
+        # a one-rank ring exchanges with itself only when periodic
+        ring = periodic or nshards == 1
+        use = periodic or not ring
+        valid = [_valid(nshards, seg, n, r) for r in range(nshards)]
+        # last `prev` valid owned cells -> next rank's ghost_prev; first
+        # `nxt` owned cells -> prev rank's ghost_next
+        got_p, got_n = _shift_both(
+            rows, devices, ring,
+            prev and (lambda r: rows[r][:, prev + valid[r] - prev:
+                                        prev + valid[r]], +1, prev),
+            nxt and (lambda r: rows[r][:, prev: prev + nxt], -1, nxt))
+        # the sends are owned cells and the writes ghost cells, so views
+        # taken above stay valid while the ghosts are written
+        for r in range(nshards):
+            if rows[r] is None:
+                continue
+            if prev and use and got_p[r] is not None:
+                rows[r][:, :prev] = got_p[r]
+            if nxt and use and got_n[r] is not None:
+                rows[r][:, prev + valid[r]: prev + valid[r] + nxt] = got_n[r]
 
 
 def reduce_rows(rows, devices, layout, periodic, op):

@@ -871,3 +871,161 @@ def test_serve_daemon_samples_untraced(tmp_path):
     assert m["histograms"]["serve.queue_wait_ms"]["count"] >= 1
     assert not m["trace_armed"]
     assert tobs.events() == []
+
+
+# ---------------------------------------------------------------------------
+# the profiler mirror: the port's spans as torch.profiler ranges, armed or
+# not, over the calls of the benchmark's paths
+# ---------------------------------------------------------------------------
+
+W5 = (0.05, 0.25, 0.4, 0.25, 0.05)
+#: ranges the mirror must put into a profiler trace of _mirror_calls
+MIRRORED = ["halo.exchange", "rows.copy", "sync.dot", "sync.count",
+            "relational.join.sort_left", "relational.join.sort_right",
+            "relational.join.merge", "relational.groupby.aggregate"]
+
+
+def _mirror_calls():
+    """A plain stencil step, a blocked pass, ``dot``, ``inclusive_scan``,
+    an inner ``join`` and a ``groupby_aggregate`` on 8 CPU ranks; returns
+    the host results and every output as numpy."""
+    rng = np.random.default_rng(31)
+    n = P * 2048
+    hb = dt.halo_bounds(1024, 1024, periodic=True)
+    a = dt.distributed_vector.from_array(
+        rng.standard_normal(n).astype(np.float32), halo=hb)
+    b = dt.distributed_vector(n, np.float32, hb)
+    s = dt.distributed_vector(n, np.float32, hb)
+    lk = dt.distributed_vector.from_array(
+        rng.integers(0, 40, 64).astype(np.int32))
+    lv = dt.distributed_vector.from_array(
+        rng.standard_normal(64).astype(np.float32))
+    rk = dt.distributed_vector.from_array(np.arange(0, 48, 2,
+                                                    dtype=np.int32))
+    rv = dt.distributed_vector.from_array(
+        rng.standard_normal(24).astype(np.float32))
+    outs = [dt.distributed_vector(64, t)
+            for t in (np.int32, np.float32, np.float32)]
+    gk, gv = dt.distributed_vector(64, np.int32), \
+        dt.distributed_vector(64, np.float32)
+    dt.stencil_iterate(a, b, W5, 1)
+    dt.stencil_iterate_blocked(a, W5, 8, time_block=4)
+    d = dt.dot(a, a)
+    dt.inclusive_scan(a, s)
+    m = dt.join(lk, lv, rk, rv, *outs)
+    g = dt.groupby_aggregate(lk, lv, gk, gv)
+    return [d, m, g] + [dt.to_numpy(x) for x in (a, b, s, *outs, gk, gv)]
+
+
+def _profiled(path):
+    """``_mirror_calls`` inside a ``caller`` range under the CPU
+    profiler; returns its results and the exported trace's events."""
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("caller"):
+            got = _mirror_calls()
+    prof.export_chrome_trace(str(path))
+    with open(path, encoding="utf-8") as fh:
+        return got, json.load(fh)["traceEvents"]
+
+
+@pytest.fixture(scope="module")
+def mirrored(tmp_path_factory):
+    """One disarmed profiled run of ``_mirror_calls``."""
+    dt.init(["cpu"] * P)
+    try:
+        assert not tobs.armed()
+        e0 = tobs.events_recorded()
+        got = _profiled(tmp_path_factory.mktemp("mirror") / "t.json")
+        assert tobs.events_recorded() == e0
+        return got
+    finally:
+        dt.final()
+
+
+def test_spans_off_record_nothing_and_open_no_range(monkeypatch):
+    """Ring disarmed and no profiler: the calls record no event and never
+    enter ``record_function``."""
+    from torch.autograd import profiler as tprof
+
+    def boom(*a, **k):
+        raise AssertionError("record_function entered with both sinks off")
+    monkeypatch.setattr(tprof, "record_function", boom)
+    assert not tobs.armed() and not tprof._is_profiler_enabled
+    e0 = tobs.events_recorded()
+    _mirror_calls()
+    assert tobs.events_recorded() == e0
+    assert tobs.events() == []
+
+
+@pytest.mark.parametrize("name", MIRRORED)
+def test_profiler_carries_the_port_ranges_disarmed(mirrored, name):
+    """Disarmed, under the CPU profiler: each span is a
+    ``user_annotation`` nested inside the caller's own range (and each
+    join or groupby phase inside its op's range)."""
+    _got, evs = mirrored
+    ua = [e for e in evs if e.get("cat") == "user_annotation"]
+    caller, = [e for e in ua if e["name"] == "caller"]
+    hits = [e for e in ua if e["name"] == name]
+    assert hits, sorted({e["name"] for e in ua})
+
+    def inside(e, outer):
+        return outer["ts"] <= e["ts"] and \
+            e["ts"] + e["dur"] <= outer["ts"] + outer["dur"] and \
+            e["tid"] == outer["tid"]
+    assert all(inside(e, caller) for e in hits)
+    if name.startswith("relational."):
+        op = [e for e in ua if e["name"] == ".".join(name.split(".")[:2])]
+        assert all(any(inside(e, o) for o in op) for e in hits)
+
+
+@pytest.mark.parametrize("profiled", [False, True])
+def test_armed_ring_keeps_its_events_beside_the_profiler(traced, tmp_path,
+                                                         profiled):
+    """Armed, with or without the profiler: the ring holds the same
+    ``relational.phase`` events (phase attributes as before) and the new
+    ``sync`` / ``rows`` / ``halo`` spans; the profiler's trace holds the
+    ranges too."""
+    tobs.reset()
+    if profiled:
+        _got, evs = _profiled(tmp_path / "t.json")
+        names = {e["name"] for e in evs
+                 if e.get("cat") == "user_annotation"}
+        assert set(MIRRORED) <= names
+    else:
+        _mirror_calls()
+    ring = tobs.events()
+    rel = [e for e in ring if e.get("cat") == "relational"]
+    assert _phases(rel, "relational.phase") == [
+        "sort_left", "sort_right", "merge", "sort", "aggregate"]
+    assert [e["name"] for e in rel
+            if e["name"] != "relational.phase"] == [
+        "relational.join", "relational.groupby"]
+    phases = [e for e in rel if e["name"] == "relational.phase"]
+    assert [sorted(e["args"]) for e in phases] == [
+        ["n", "parent", "phase"], ["n", "parent", "phase"],
+        ["parent", "phase", "route", "rows"], ["n", "parent", "phase"],
+        ["groups", "parent", "phase"]]
+    cats = {e["name"]: e["cat"] for e in ring
+            if e.get("cat") in ("sync", "rows", "halo")}
+    assert cats == {"sync.dot": "sync", "sync.count": "sync",
+                    "sync.join.fill": "sync", "sync.segred.mask": "sync",
+                    "sync.groupby.longest_run": "sync",
+                    "rows.copy": "rows", "halo.exchange": "halo"}
+
+
+@pytest.mark.parametrize("mode", ["profiler", "armed", "both"])
+def test_spans_change_no_result(tmp_path, mode):
+    """Results bit for bit with the spans off and with each sink on."""
+    off = _mirror_calls()
+    tobs.arm(mode != "profiler")
+    try:
+        on = _profiled(tmp_path / "t.json")[0] if mode != "armed" \
+            else _mirror_calls()
+    finally:
+        tobs.arm(False)
+        tobs.reset()
+    assert off[:3] == on[:3]
+    for a, b in zip(off[3:], on[3:]):
+        _assert_bits(b, a)
