@@ -582,7 +582,7 @@ def kernel_checks(dt, n, m2d, gen, results):
     import torch
     from dr_tpu_torch.ops import (reduce_pallas, scan_pallas,
                                   stencil2d_pallas, stencil_matmul,
-                                  stencil_pallas)
+                                  stencil_pallas, stencil_step)
     dev = torch.device("cuda", 0)
 
     # K1 at the main path's row: tolerance — the kernel takes the TPU
@@ -621,6 +621,20 @@ def kernel_checks(dt, n, m2d, gen, results):
             results["stencil_blocked"]["max_abs_err"] = e
         check_equal(f"K2 stencil_blocked{tag}", got, ref)
         del got, ref, row
+
+    # the plain step's kernel: the plain version's separately rounded
+    # products and sums in its order, so the same bits, at the main
+    # path's row with received ghosts and with ragged ends
+    row = torch.randn((1, n + 4), generator=gen, device=dev)
+    out = torch.randn((1, n + 4), generator=gen, device=dev)
+    ghosts = (row[:, n:n + 2], row[:, 2:4])
+    for a, b in ((0, n), (3, n - 5)):
+        got = stencil_step.step_row(row, out, W5, 2, n, a, b, *ghosts)
+        ref = stencil_step.plain_step_row(row, out, W5, 2, n, a, b, *ghosts)
+        torch.cuda.synchronize()
+        check_equal(f"stencil_step [{a}, {b})", got, ref)
+        del got, ref
+    del row, out, ghosts
 
     # K3: positive data, so the sum has no cancellation.  Two f32
     # reductions of these terms in different orders differ by ~1 absolute
@@ -3212,7 +3226,7 @@ def analyse_trace(path, gk, top=5):
     def label(e):
         base = kernel_base(e["name"])
         if e["cat"] == "kernel" and base in gk:
-            return f"{K_OF[gk[base]]} {base}"
+            return f"{K_OF.get(gk[base], gk[base])} {base}"
         return f"{e['cat']} {e['name'][:70]}"
 
     by = {}
@@ -3844,7 +3858,8 @@ def kernel_build_faults(kernels, gen, device="cuda:0", n=1 << 20, m=2048):
     from dr_tpu_torch.ops import (flash_attention as fa, hist_pallas,
                                   reduce_pallas, scan_pallas, segred_pallas,
                                   sort_pallas, stencil2d_pallas,
-                                  stencil_matmul, stencil_pallas)
+                                  stencil_matmul, stencil_pallas,
+                                  stencil_step)
     from dr_tpu_torch.utils import faults, resilience as R
     dev = torch.device(device)
     w2 = ((0.0, 0.25, 0.0), (0.25, 0.0, 0.25), (0.0, 0.25, 0.0))
@@ -3880,6 +3895,8 @@ def kernel_build_faults(kernels, gen, device="cuda:0", n=1 << 20, m=2048):
                                                            K8_BINS)),
         "flash_update": (fa, lambda: fa.flash_update(
             q, k, v, *st, 0, 0, causal=True)[2]),
+        "stencil_step": (stencil_step, lambda: stencil_step.step_row(
+            row2, row2, W5, BLK_HALO, n, 0, n)),
     }
     for name, (mod, call) in calls.items():
         clean = call()
@@ -8596,6 +8613,9 @@ def ex_prediction(name, P, text):
         return {"chunked_cumsum": P, "bitonic_sort": None}
     if name == "sort_example" and P > 1:
         return {"bitonic_sort": None}
+    if name == "stencil_1d":  # the plain step's kernel, a rank a step
+        its = int(re.search(r"steps=(\d+)", text).group(1))
+        return {"stencil_step": P * its}
     return {}
 
 

@@ -4,7 +4,11 @@ framework's north-star workload (counterpart of
 ``examples/mhp/stencil-1d.cpp:47-66``).
 
 * ``stencil_transform`` / ``stencil_iterate``: one exchange and one
-  weighted (or user-op) step per step, in plain PyTorch.
+  weighted (or user-op) step per step.  A weight vector of radius 1..8
+  on float32 CUDA rows steps in one pass of ``ops/stencil_step.py``'s
+  kernel, its ghosts read from the exchange's received slices; a
+  callable op, another dtype, a wider radius or CPU rows step with
+  torch ops on copies of the rows.
 * ``stencil_iterate_matmul``: ``k_block`` steps composed into one banded
   operator per pass (K1, ``ops/stencil_matmul.py``), one full-width ring
   exchange per block.
@@ -40,30 +44,78 @@ from ..utils import spmd_guard
 from ..utils.spmd_guard import dtype_name
 from ..parallel import collectives
 from ..parallel import runtime as _rt
-from ..parallel.halo import exchange_rows
+from ..parallel.halo import _valid, exchange_rows, ghost_slices
+from ..ops import kernels, stencil_step
 
 __all__ = ["stencil_transform", "stencil_iterate", "build_stencil_step",
            "stencil_iterate_blocked", "stencil_iterate_matmul"]
 
 
 def _weights_op(weights):
+    """The op of a weight vector (:func:`stencil_step.plain_step` over
+    the shifted neighbourhoods); it carries its weights as ``.weights``,
+    which routes its steps to the kernel."""
     w = tuple(float(x) for x in weights)
 
     def op(*shifted):
-        acc = shifted[0] * w[0]
-        for wi, s in zip(w[1:], shifted[1:]):
-            acc = acc + s * wi
-        return acc
+        return stencil_step.plain_step(shifted, w)
+    op.weights = w
     return op, w
 
 
-def _step_rows(layout, devices, in_rows, out_rows, op, prev, nxt,
-               periodic):
-    """One fused exchange + transform step: returns the new output rows.
-    The exchange works on copies: the input rows' ghosts stay as they
-    were, as in the JAX program."""
+def _kernel_weights(op, prev, nxt):
+    """The weights of an op whose steps the kernel takes, else None: an
+    op carrying 2r + 1 weights, r in 1..8, stepping its own radius."""
+    w = getattr(op, "weights", None)
+    if w is None:
+        return None
+    r = stencil_step.radius(w)
+    if len(w) != 2 * r + 1 or not 1 <= r <= stencil_step.MAX_RADIUS \
+            or prev != r or nxt != r:
+        return None
+    return w
+
+
+def _kernel_rows(in_rows, out_rows):
+    """True where the kernel takes the rows: float32, every one on CUDA
+    (a mix of devices keeps the torch-op step), and ``kernels.on_cuda``,
+    the rule every wrapper routes by, sends them to a kernel."""
+    rows = [t for t in list(in_rows) + list(out_rows) if t is not None]
+    return bool(rows) and all(t.dtype == torch.float32
+                              and t.device.type == "cuda"
+                              for t in rows) and kernels.on_cuda(*rows)
+
+
+def _kernel_step(layout, devices, in_rows, out_rows, w, periodic):
+    """The kernel route of :func:`_step_rows`: the ghosts as slices
+    (``ghost_slices``), one ``stencil_step`` pass a rank into a fresh out
+    row; no row is cloned and the in rows are not written."""
     nshards, seg, hprev, hnxt, n = layout
-    assert hprev >= prev and hnxt >= nxt, "halo narrower than stencil radius"
+    r = stencil_step.radius(w)
+    none = [None] * nshards
+    got_p, got_n = (ghost_slices(in_rows, devices, layout, periodic)
+                    if (hprev or hnxt) and (nshards > 1 or periodic)
+                    else (none, none))
+    lo_g, hi_g = (0, n) if periodic else (r, n - r)
+    new = []
+    for idx, (row, out) in enumerate(zip(in_rows, out_rows)):
+        if row is None:  # another process steps this rank
+            new.append(None)
+            continue
+        a = max(lo_g - idx * seg, 0)
+        b = min(hi_g - idx * seg, seg)
+        new.append(stencil_step.step_row(
+            row, out, w, hprev, _valid(nshards, seg, n, idx), a, b,
+            got_p[idx], got_n[idx]))
+    return new
+
+
+def _torch_step(layout, devices, in_rows, out_rows, op, prev, nxt,
+                periodic):
+    """The torch-op route of :func:`_step_rows`: the exchange into
+    clones of the in rows, ``op`` over the shifted slices, the stepped
+    cells written into a clone of each out row."""
+    nshards, seg, hprev, hnxt, n = layout
     with _obs.span("rows.copy", cat="rows"):
         rows = [None if r is None else r.clone() for r in in_rows]
     if (hprev or hnxt) and (nshards > 1 or periodic):
@@ -85,6 +137,27 @@ def _step_rows(layout, devices, in_rows, out_rows, op, prev, nxt,
             out[0, hprev + a: hprev + b] = vals[a:b].to(out.dtype)
         new.append(out)
     return new
+
+
+def _step_rows(layout, devices, in_rows, out_rows, op, prev, nxt,
+               periodic):
+    """One fused exchange + transform step: returns the new output rows;
+    the input rows and their ghosts stay as they were, as in the JAX
+    program.  A weight-vector op (``_weights_op``) of radius 1..8 over
+    float32 CUDA rows takes the ``stencil_step`` kernel, one launch a
+    rank (:func:`_kernel_step`).  A callable op, another dtype, a radius
+    above 8, a ``radius`` other than the weights' and CPU rows keep the
+    torch-op step (:func:`_torch_step`); on CUDA rows an armed
+    ``stencil.step.torch`` count marks each such step."""
+    nshards, seg, hprev, hnxt, n = layout
+    assert hprev >= prev and hnxt >= nxt, "halo narrower than stencil radius"
+    w = _kernel_weights(op, prev, nxt)
+    if w is not None and _kernel_rows(in_rows, out_rows):
+        return _kernel_step(layout, devices, in_rows, out_rows, w, periodic)
+    if any(r is not None and r.device.type == "cuda" for r in in_rows):
+        _obs.count("stencil.step.torch")
+    return _torch_step(layout, devices, in_rows, out_rows, op, prev, nxt,
+                       periodic)
 
 
 def build_stencil_step(layout, periodic, op, prev, nxt, devices=None):

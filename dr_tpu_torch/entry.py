@@ -31,15 +31,6 @@ ENTRY_N = 1 << 16
 ENTRY_WEIGHTS = (0.05, 0.25, 0.4, 0.25, 0.05)
 
 
-def _weights_op(w):
-    def op(*shifted):
-        acc = shifted[0] * w[0]
-        for wi, s in zip(w[1:], shifted[1:]):
-            acc = acc + s * wi
-        return acc
-    return op
-
-
 def entry(device=None):
     """The flagship step on one rank of ``device`` (default: the first
     CUDA device; raises without one).  Returns ``(fn, args)``:
@@ -47,7 +38,7 @@ def entry(device=None):
     from ``a_rows`` into ``b_rows`` and returns ``(out_rows, total)``,
     ``total`` the sum of the owned cells as a device scalar."""
     import dr_tpu_torch as dt
-    from .algorithms.stencil import build_stencil_step
+    from .algorithms.stencil import _weights_op, build_stencil_step
     dev = device if device is not None else _rt.get_duplicated_devices(1)[0]
     rt = dt.init([dev])
     hb = dt.halo_bounds(2, 2)
@@ -55,7 +46,7 @@ def entry(device=None):
     dt.fill(a, 1.0)
     b = dt.distributed_vector(ENTRY_N, np.float32, halo=hb)
     layout = a.layout
-    step = build_stencil_step(layout, False, _weights_op(ENTRY_WEIGHTS),
+    step = build_stencil_step(layout, False, _weights_op(ENTRY_WEIGHTS)[0],
                               2, 2, rt.devices)
 
     def fn(a_rows, b_rows):

@@ -56,6 +56,7 @@ SOURCES = {
     "bitonic_sort": "bitonic_sort.cu",
     "segred": "segred.cu",
     "flash_update": "flash_attention.cu",
+    "stencil_step": "stencil_step.cu",
 }
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -73,6 +74,8 @@ _SIGNATURES = {
                   ctypes.POINTER(_I), ctypes.POINTER(_L), _P, _P],
     "dr_segred_workspace_ints": [],
     "dr_flash_update": [_P] * 9 + [_I] * 5 + [_L, _L, _I, _P],
+    "dr_stencil_step": [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_float), _I,
+                        _L, _L, _L, _L, _P],
 }
 
 #: the launch counters: one per source, and K8 on segred's library

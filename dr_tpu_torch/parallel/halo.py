@@ -21,7 +21,9 @@ slices across the process boundary.
 ``halo.reduce`` fault sites and then look up ``_program_cache`` (the
 dispatch tap) before any row is touched, as the JAX package does; the
 stencils' fused exchanges call :func:`exchange_rows` directly, like the
-JAX stencil programs, and fire neither.  Inside ``dt.deferred()`` the
+JAX stencil programs, and fire neither (the plain step's kernel route
+calls :func:`ghost_slices`, the same exchange returning the received
+slices and writing nothing).  Inside ``dt.deferred()`` the
 exchange, ``exchange_n`` and reduce record into the plan
 (``Plan.record_halo``: the same row functions at the flush, no fault
 site of their own), and the ``*_finalize`` calls flush it.
@@ -103,31 +105,54 @@ def _shift_both(rows, devices, ring, a, b):
     return (next(got) if a else None), (next(got) if b else None)
 
 
+def _received(rows, devices, layout, periodic):
+    """The ghosts one exchange delivers: per rank, the ``(1, prev)``
+    slice for its ghost_prev and the ``(1, nxt)`` slice for its
+    ghost_next, None where that ghost keeps its old values (a
+    non-periodic edge, a zero width, another process's rank)."""
+    nshards, seg, prev, nxt, n = layout
+    # a one-rank ring exchanges with itself only when periodic
+    ring = periodic or nshards == 1
+    use = periodic or not ring
+    valid = [_valid(nshards, seg, n, r) for r in range(nshards)]
+    # last `prev` valid owned cells -> next rank's ghost_prev; first
+    # `nxt` owned cells -> prev rank's ghost_next
+    got_p, got_n = _shift_both(
+        rows, devices, ring,
+        prev and (lambda r: rows[r][:, prev + valid[r] - prev:
+                                    prev + valid[r]], +1, prev),
+        nxt and (lambda r: rows[r][:, prev: prev + nxt], -1, nxt))
+    none = [None] * nshards
+    return ((got_p if prev and use else none),
+            (got_n if nxt and use else none))
+
+
+def ghost_slices(rows, devices, layout, periodic):
+    """One ghost exchange that writes nothing: returns the per-rank
+    ghost_prev and ghost_next slices :func:`exchange_rows` would write
+    (None where it writes nothing).  A slice may be a view of a
+    neighbour's row (one device), so the rows must not change while the
+    slices are in use."""
+    with _obs.span("halo.exchange", cat="halo"):
+        return _received(rows, devices, layout, periodic)
+
+
 def exchange_rows(rows, devices, layout, periodic):
     """One ghost exchange over the rank rows, in place.  ``layout`` is
     the uniform container layout (nshards, seg, prev, nxt, n)."""
     with _obs.span("halo.exchange", cat="halo"):
         nshards, seg, prev, nxt, n = layout
-        # a one-rank ring exchanges with itself only when periodic
-        ring = periodic or nshards == 1
-        use = periodic or not ring
-        valid = [_valid(nshards, seg, n, r) for r in range(nshards)]
-        # last `prev` valid owned cells -> next rank's ghost_prev; first
-        # `nxt` owned cells -> prev rank's ghost_next
-        got_p, got_n = _shift_both(
-            rows, devices, ring,
-            prev and (lambda r: rows[r][:, prev + valid[r] - prev:
-                                        prev + valid[r]], +1, prev),
-            nxt and (lambda r: rows[r][:, prev: prev + nxt], -1, nxt))
+        got_p, got_n = _received(rows, devices, layout, periodic)
         # the sends are owned cells and the writes ghost cells, so views
         # taken above stay valid while the ghosts are written
         for r in range(nshards):
             if rows[r] is None:
                 continue
-            if prev and use and got_p[r] is not None:
+            if got_p[r] is not None:
                 rows[r][:, :prev] = got_p[r]
-            if nxt and use and got_n[r] is not None:
-                rows[r][:, prev + valid[r]: prev + valid[r] + nxt] = got_n[r]
+            if got_n[r] is not None:
+                v = _valid(nshards, seg, n, r)
+                rows[r][:, prev + v: prev + v + nxt] = got_n[r]
 
 
 def reduce_rows(rows, devices, layout, periodic, op):

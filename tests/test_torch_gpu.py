@@ -11,7 +11,8 @@ import torch
 
 from dr_tpu_torch.ops import (flash_attention, kernels, reduce_pallas,
                               scan_pallas, segred_pallas, sort_pallas,
-                              stencil2d_pallas, stencil_matmul, stencil_pallas)
+                              stencil2d_pallas, stencil_matmul, stencil_pallas,
+                              stencil_step)
 
 pytestmark = pytest.mark.gpu
 
@@ -126,6 +127,177 @@ def test_k2_kernel_misaligned_row(cuda):
                     blocked_stencil_row(row, seg, halo, W5, 64))
     assert torch.equal(got, stencil_pallas.plain_blocked(row, seg, halo, W5,
                                                          64))
+
+
+# ------------------------------------------------ the plain step's kernel
+
+W9 = tuple(k / 45.0 for k in range(1, 10))  # r = 4, asymmetric
+
+
+def _step_vectors(dt, gen, n, halo, periodic, dtype=torch.float32):
+    """Two vectors with random owned AND ghost cells on the card."""
+    hb = dt.halo_bounds(halo, halo, periodic=periodic)
+    vs = [dt.distributed_vector(n, dtype, halo=hb) for _ in range(2)]
+    for v in vs:
+        for row in v.rows:
+            row.copy_(torch.randn(row.shape, generator=gen,
+                                  device=row.device, dtype=dtype))
+    return vs
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("ranks", [1, 4])
+@pytest.mark.parametrize("w,halo", [(W3A, 1), (W3A, 3), (W5, 2), (W5, 8),
+                                    (W9, 4), (W9, 8), (W17, 8)])
+def test_stencil_step_kernel_equals_the_torch_step(cuda, ranks, periodic, w,
+                                                   halo):
+    """The kernel route of the plain step gives the torch-op step's rows
+    bit for bit, halo equal to the radius and wider, on 1 and 4 ranks of
+    one card, n a multiple of neither 4 nor the ranks; one launch a rank;
+    the in rows and the old out rows, ghosts included, unchanged."""
+    import dr_tpu_torch as dt
+    from dr_tpu_torch.algorithms import stencil
+    dev, gen = cuda
+    dt.init(dt.get_duplicated_devices(ranks, [dev]))
+    try:
+        a, b = _step_vectors(dt, gen, (1 << 20) + 4093, halo, periodic)
+        ins = [r.clone() for r in a.rows]
+        outs = [r.clone() for r in b.rows]
+        op, wt = stencil._weights_op(w)
+        r = (len(w) - 1) // 2
+        got = _launched_n("stencil_step", ranks, lambda: stencil._step_rows(
+            a.layout, a.runtime.devices, a.rows, b.rows, op, r, r,
+            periodic))
+        want = stencil._torch_step(a.layout, a.runtime.devices, a.rows,
+                                   b.rows, op, r, r, periodic)
+        assert all(torch.equal(g, e) for g, e in zip(got, want))
+        assert all(torch.equal(x, y) for x, y in zip(a.rows, ins))
+        assert all(torch.equal(x, y) for x, y in zip(b.rows, outs))
+    finally:
+        dt.final()
+
+
+def _launched_n(name, count, fn):
+    before = kernels.launches[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert kernels.launches[name] == before + count
+    return out
+
+
+@pytest.mark.parametrize("shift_in,shift_out", [(1, 0), (2, 0), (0, 3),
+                                                (1, 1)])
+def test_stencil_step_kernel_rows_off_16_bytes(cuda, shift_in, shift_out):
+    """Rows 4-12 bytes past a 16-byte boundary take the kernel's scalar
+    route, with the plain version's bits (the plain version on the
+    card), given ghosts included; ragged [a, b) ends."""
+    dev, gen = cuda
+    hprev, valid, w = 8, (1 << 18) + 77, W17
+    width = hprev + valid + 8
+    base = torch.randn((2, width + 4), generator=gen, device=dev)
+    row = base[:1, shift_in:shift_in + width]
+    out = base[1:, shift_out:shift_out + width]
+    gp = torch.randn((1, hprev), generator=gen, device=dev)
+    gn = torch.randn((1, 8), generator=gen, device=dev)
+    for a, b in ((0, valid), (5, valid - 9)):
+        got = _launched("stencil_step", lambda: stencil_step.step_row(
+            row, out, w, hprev, valid, a, b, gp, gn))
+        assert torch.equal(got, stencil_step.plain_step_row(
+            row, out, w, hprev, valid, a, b, gp, gn))
+
+
+@pytest.mark.parametrize("kind", ["callable", "float64"])
+def test_stencil_steps_off_the_kernel_count_the_torch_route(cuda, kind):
+    """A callable op and a float64 row take the torch-op step: no
+    launch, and the armed ``stencil.step.torch`` count moves once a
+    step; a float32 weight step leaves it at 0."""
+    import dr_tpu_torch as dt
+    from dr_tpu_torch import obs
+    from dr_tpu_torch.algorithms import stencil
+    dev, gen = cuda
+    dt.init([dev])
+    obs.arm(True)
+    obs.reset()
+    try:
+        dtype = torch.float64 if kind == "float64" else torch.float32
+        a, b = _step_vectors(dt, gen, (1 << 16) + 3, 2, True, dtype)
+        op = stencil._weights_op(W5)[0]
+        if kind == "callable":
+            def op(*s, _w=op):
+                return _w(*s)
+        want = stencil._torch_step(a.layout, a.runtime.devices, a.rows,
+                                   b.rows, op, 2, 2, True)
+        _launched_n("stencil_step", 0, lambda: dt.stencil_transform(
+            a, b, op if kind == "callable" else W5))
+        assert obs.metrics.counter("stencil.step.torch").value == 1
+        assert all(torch.equal(g, e) for g, e in zip(b.rows, want))
+        f, g = _step_vectors(dt, gen, (1 << 16) + 3, 2, True)
+        _launched_n("stencil_step", 1, lambda: dt.stencil_transform(f, g,
+                                                                    W5))
+        assert obs.metrics.counter("stencil.step.torch").value == 1
+    finally:
+        obs.arm(False)
+        obs.reset()
+        dt.final()
+
+
+def test_stencil_iterate_on_card_has_the_cpu_ranks_bits(cuda):
+    """Five periodic W5 steps of ``stencil_iterate`` on 4 ranks of the
+    card (the kernel, 20 launches) and on 4 CPU ranks (the torch ops)
+    give the same bits."""
+    import dr_tpu_torch as dt
+    dev, gen = cuda
+    n = (1 << 18) + 6
+    src = torch.randn(n, generator=gen, device=dev)
+    got = []
+    for devs in (dt.get_duplicated_devices(4, [dev]), ["cpu"] * 4):
+        dt.init(devs)
+        try:
+            hb = dt.halo_bounds(2, 2, periodic=True)
+            a = dt.distributed_vector.from_array(src.to(devs[0]), halo=hb)
+            b = dt.distributed_vector(n, torch.float32, halo=hb)
+            before = kernels.launches["stencil_step"]
+            dt.stencil_iterate(a, b, W5, 5)
+            torch.cuda.synchronize()
+            assert kernels.launches["stencil_step"] - before == (
+                20 if devs[0] != "cpu" else 0)
+            got.append(a.to_array().cpu())
+        finally:
+            dt.final()
+    assert torch.equal(got[0], got[1])
+
+
+def test_plan_fused_stencil_takes_the_kernel_with_the_eager_bits(cuda):
+    """``stencil_transform`` recorded in a deferred region (the plan's
+    fused exchange + step, flushed, then replayed) launches the kernel
+    once a rank and gives the eager call's bits."""
+    import dr_tpu_torch as dt
+    dev, gen = cuda
+    dt.init(dt.get_duplicated_devices(4, [dev]))
+    try:
+        src = torch.randn((1 << 16) + 5, generator=gen, device=dev)
+        hb = dt.halo_bounds(2, 2, periodic=True)
+        ea, da = (dt.distributed_vector.from_array(src, halo=hb)
+                  for _ in range(2))
+        eb, db = (dt.distributed_vector(len(src), torch.float32, halo=hb)
+                  for _ in range(2))
+        plan = dt.plan.Plan()
+        for _ in range(3):
+            kernels.reset_counts()
+            dt.stencil_transform(ea, eb, W5)
+            dt.for_each(ea, _pl_shift, 0.25)
+            want_counts = dict(kernels.launches)
+            assert want_counts["stencil_step"] == 4
+            kernels.reset_counts()
+            with plan.record():
+                dt.stencil_transform(da, db, W5)
+                dt.for_each(da, _pl_shift, 0.25)
+            torch.cuda.synchronize()
+            assert dict(kernels.launches) == want_counts
+            assert _rows_equal(da, ea) and _rows_equal(db, eb)
+    finally:
+        dt.plan._plan_cache.clear()
+        dt.final()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,

@@ -11,6 +11,7 @@ import weakref
 import jax
 import numpy as np
 import pytest
+import torch
 
 import dr_tpu
 import dr_tpu_torch as dt
@@ -49,6 +50,41 @@ def test_exchange_bit_exact(mesh_size, n, prev, nxt, periodic):
     dr_tpu.halo(j).exchange()
     dt.halo(t).exchange()
     _same(j, t)
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("n,prev,nxt", [(61, 2, 2), (53, 3, 1), (78, 8, 8),
+                                        (45, 0, 2)])
+def test_ghost_slices_are_the_ghosts_exchange_rows_writes(mesh_size, n, prev,
+                                                          nxt, periodic):
+    """``ghost_slices`` writes nothing and returns, rank by rank, the
+    cells ``exchange_rows`` writes into each ghost (None where the ghost
+    keeps its old values), for halos as wide as a stencil's radius and
+    wider (78 cells with 8 a side)."""
+    from dr_tpu_torch.parallel import halo as th
+    dt.init(["cpu"] * mesh_size)
+    t = dt.distributed_vector(n, np.float32,
+                              halo=dt.halo_bounds(prev, nxt, periodic))
+    gen = torch.Generator().manual_seed(n + prev)
+    for row in t.rows:  # random owned AND ghost cells
+        row.copy_(torch.randn(row.shape, generator=gen))
+    before = [row.clone() for row in t.rows]
+    got_p, got_n = th.ghost_slices(t.rows, t.runtime.devices, t.layout,
+                                   periodic)
+    assert all(torch.equal(a, b) for a, b in zip(t.rows, before))
+    rows = [row.clone() for row in t.rows]
+    th.exchange_rows(rows, t.runtime.devices, t.layout, periodic)
+    nshards, seg = t.layout[:2]
+    for r, (row, old) in enumerate(zip(rows, before)):
+        v = th._valid(nshards, seg, n, r)
+        for got, cut in ((got_p[r], slice(0, prev)),
+                         (got_n[r], slice(prev + v, prev + v + nxt))):
+            want = old[:, cut] if got is None else got
+            assert torch.equal(row[:, cut], want)
+        assert torch.equal(row[:, prev:prev + v], old[:, prev:prev + v])
+    moved = periodic or mesh_size > 1
+    assert any(g is not None for g in got_p + got_n) == (
+        moved and (prev + nxt) > 0)
 
 
 @pytest.mark.parametrize("op", OPS)

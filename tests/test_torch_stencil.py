@@ -18,8 +18,10 @@ from dr_tpu.algorithms.stencil import (stencil_iterate_blocked as j_blocked,
                                        stencil_iterate_matmul as j_matmul)
 from dr_tpu.ops import stencil_matmul as j_sm
 from dr_tpu.ops import stencil_pallas as j_sp
+from dr_tpu_torch.algorithms import stencil as t_st
 from dr_tpu_torch.ops import stencil_matmul as t_sm
 from dr_tpu_torch.ops import stencil_pallas as t_sp
+from dr_tpu_torch.ops import stencil_step as t_ss
 
 W5 = [0.05, 0.25, 0.4, 0.25, 0.05]
 W3A = [0.1, 0.2, 0.7]  # asymmetric: catches a flipped band or ring
@@ -165,6 +167,120 @@ def test_stencil_transform_and_iterate(mesh_size, periodic):
     tr = dt.stencil_iterate(ta, tb, W5, steps=7)
     np.testing.assert_allclose(dt.to_numpy(tr), dr_tpu.to_numpy(jr),
                                **STEP_TOL)
+
+
+W9 = [k / 45.0 for k in range(1, 10)]  # r = 4, asymmetric
+
+
+def _old_weights_op(w):
+    """The weight-vector op as the step ran it before the kernel: the
+    bits every route must keep."""
+    def op(*shifted):
+        acc = shifted[0] * w[0]
+        for wi, s in zip(w[1:], shifted[1:]):
+            acc = acc + s * wi
+        return acc
+    return op
+
+
+def _random_vector(n, halo, periodic, seed, dtype=torch.float32):
+    """A port vector with random owned AND ghost cells."""
+    v = dt.distributed_vector(n, dtype,
+                              halo=dt.halo_bounds(halo, halo, periodic))
+    gen = torch.Generator().manual_seed(seed)
+    for row in v.rows:
+        row.copy_(torch.randn(row.shape, generator=gen, dtype=dtype))
+    return v
+
+
+def _same_rows(xs, ys):
+    return all(torch.equal(x, y) for x, y in zip(xs, ys))
+
+
+def test_weights_op_carries_its_weights():
+    """``_weights_op``'s op carries its weights, which is what routes a
+    step to the kernel, and sums the shifted slices with today's bits."""
+    op, w = t_st._weights_op(W5)
+    assert op.weights == w == tuple(W5)
+    gen = torch.Generator().manual_seed(3)
+    shifted = [torch.randn(257, generator=gen) for _ in W5]
+    assert torch.equal(op(*shifted), _old_weights_op(w)(*shifted))
+    assert t_st._kernel_weights(op, 2, 2) == tuple(W5)
+    W17 = [k / 153.0 for k in range(1, 18)]
+    assert t_st._kernel_weights(t_st._weights_op(W17)[0], 8, 8) == \
+        tuple(W17)
+    # a ``radius`` other than the weights', a callable, r = 9, an even
+    # number of weights: the torch-op step
+    assert t_st._kernel_weights(op, 3, 3) is None
+    assert t_st._kernel_weights(_old_weights_op(w), 2, 2) is None
+    assert t_st._kernel_weights(t_st._weights_op([0.05] * 19)[0], 9,
+                                9) is None
+    assert t_st._kernel_weights(t_st._weights_op([0.25] * 4)[0], 1,
+                                1) is None
+
+
+@pytest.mark.parametrize("kind", ["weights", "callable", "float64"])
+def test_cpu_steps_keep_the_torch_step_and_its_bits(monkeypatch, kind):
+    """CPU rows never take the kernel route: a weight vector steps with
+    the plain version (``stencil_step.plain_step``) inside the torch-op
+    step, f32 or f64, with today's bits; a callable runs itself."""
+    dt.init(["cpu"] * 3)
+    dtype = torch.float64 if kind == "float64" else torch.float32
+    a = _random_vector(50, 2, True, 1, dtype)
+    b = _random_vector(50, 2, True, 2, dtype)
+    assert not t_st._kernel_rows(a.rows, b.rows)
+    want = t_st._torch_step(a.layout, a.runtime.devices, a.rows, b.rows,
+                            _old_weights_op(tuple(W5)), 2, 2, True)
+    calls = []
+    real = t_ss.plain_step
+    monkeypatch.setattr(t_ss, "plain_step",
+                        lambda s, w: (calls.append(w), real(s, w))[1])
+
+    def refuse(*a, **k):
+        raise AssertionError("a CPU step took the kernel route")
+    monkeypatch.setattr(t_st, "_kernel_step", refuse)
+    op = _old_weights_op(tuple(W5)) if kind == "callable" else W5
+    dt.stencil_transform(a, b, op)
+    assert _same_rows(b.rows, want)
+    assert (calls == []) == (kind == "callable")
+
+
+@pytest.mark.parametrize("periodic", [False, True])
+@pytest.mark.parametrize("w,halo", [(W3A, 1), (W3A, 3), (W5, 2), (W5, 8),
+                                    (W9, 4), (W9, 8)])
+def test_kernel_route_host_side_matches_the_torch_step(mesh_size, w, halo,
+                                                       periodic):
+    """The kernel route's host side on CPU rows (the ghosts as slices,
+    ``step_row``'s plain version a rank) gives the torch-op step's rows
+    bit for bit at 1-8 ranks, halo equal to the radius and wider, n =
+    101 (a multiple of neither 4 nor the ranks), and writes neither the
+    in rows nor the old out rows, ghosts included."""
+    dt.init(["cpu"] * mesh_size)
+    a = _random_vector(101, halo, periodic, 1)
+    b = _random_vector(101, halo, periodic, 2)
+    ins, outs = [r.clone() for r in a.rows], [r.clone() for r in b.rows]
+    r = (len(w) - 1) // 2
+    wt = tuple(w)
+    got = t_st._kernel_step(a.layout, a.runtime.devices, a.rows, b.rows, wt,
+                            periodic)
+    want = t_st._torch_step(a.layout, a.runtime.devices, a.rows, b.rows,
+                            _old_weights_op(wt), r, r, periodic)
+    assert _same_rows(got, want)
+    assert _same_rows(a.rows, ins) and _same_rows(b.rows, outs)
+    assert all(g.data_ptr() != o.data_ptr() for g, o in zip(got, b.rows))
+
+
+def test_kernel_route_host_side_steps_nothing_on_a_short_last_rank():
+    """13 cells on 4 ranks, not periodic: the last rank owns one cell,
+    inside the radius of the edge, so its new row is the old one."""
+    dt.init(["cpu"] * 4)
+    a = _random_vector(13, 2, False, 3)
+    b = _random_vector(13, 2, False, 4)
+    got = t_st._kernel_step(a.layout, a.runtime.devices, a.rows, b.rows,
+                            tuple(W5), False)
+    want = t_st._torch_step(a.layout, a.runtime.devices, a.rows, b.rows,
+                            _old_weights_op(tuple(W5)), 2, 2, False)
+    assert _same_rows(got, want) and torch.equal(got[3], b.rows[3])
 
 
 def test_stencil_iterate_matmul_matches_reference(mesh_size):
