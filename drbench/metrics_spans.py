@@ -5,8 +5,10 @@ capture records, so a traced call carries the port's ranges
 (``sync.<site>``, ``rows.copy``, ``halo.exchange``,
 ``relational.<op>[.<phase>]``) as ``user_annotation`` events on the
 device trace's clock, nested inside the benchmark's ``drbench.<op>``
-ranges.  The readers take the device time of the work launched under a
-set of ranges, or the idle gaps that begin inside one.
+ranges.  A family whose ops open ranges of other names lists their
+prefixes as ``SPANS`` in ``families/<kind>.py``.  The readers take the
+device time of the work launched under a set of ranges, or the idle gaps
+that begin inside one.
 
 A trace with no device events (a run on the CPU), or with none of the
 port's ranges at all (a program without them), reads None.  A trace that
@@ -16,15 +18,27 @@ the metric disagree.
 
 from bisect import bisect_right
 
+from drbench import harness
 from drbench.trace import LAUNCH_CATS, _union
 
-#: name prefixes of the port's profiler ranges
+#: name prefixes of the port's profiler ranges in every family
 PORT = ("sync.", "rows.", "halo.", "relational.")
 
 
-def _port_ranges(view):
-    return [s for s in view.host if s["cat"] == "user_annotation"
-            and s["name"].startswith(PORT)]
+def prefixes(ctx):
+    """The port's range prefixes in a run of ``ctx``: ``PORT`` and the
+    ``SPANS`` that the configuration's family names."""
+    cfg = getattr(ctx, "config", None)
+    if not cfg:
+        return PORT
+    fam = harness.family(harness.ROOT, cfg["kind"])
+    return PORT + tuple(getattr(fam, "SPANS", ()))
+
+
+def _port_ranges(ctx):
+    names = prefixes(ctx)
+    return [s for s in ctx.trace.host if s["cat"] == "user_annotation"
+            and s["name"].startswith(names)]
 
 
 def _ranges(ctx, match, what):
@@ -33,7 +47,7 @@ def _ranges(ctx, match, what):
     there are port ranges but none for ``what``."""
     if ctx.trace is None or not ctx.trace.dev:
         return None
-    port = _port_ranges(ctx.trace)
+    port = _port_ranges(ctx)
     if not port:
         return None
     got = [s for s in port if match(s["name"])]

@@ -156,6 +156,30 @@ def test_a_trace_without_port_ranges_or_device_reads_none(metric):
         is None
 
 
+def test_a_family_names_range_prefixes_of_its_own(monkeypatch):
+    """A family's ``SPANS`` make its ranges the port's: the shared
+    readers read under them, where without the family they read None."""
+    from drbench import metrics_spans
+    events = [_ev("user_annotation", "drbench.sort", 0, 100),
+              _ev("user_annotation", "sort.merge", 10, 40),
+              _ev("user_annotation", "sync.sort.count", 60, 10),
+              _launch(12, 1), _kernel(20, 25, 1),
+              _launch(61, 2), _kernel(62, 3, 2), _kernel(90, 5, 3)]
+    stencil = SimpleNamespace(trace=TraceView(events), traced_calls=1,
+                              config={"kind": "stencil1d"})
+    assert metrics_spans.prefixes(stencil) == metrics_spans.PORT
+    with pytest.raises(ValueError):
+        metrics_spans.device_ms(stencil, lambda n: n == "sort.merge", "x")
+    monkeypatch.setattr(harness, "family",
+                        lambda root, kind: SimpleNamespace(SPANS=("sort.",)))
+    ctx = SimpleNamespace(trace=TraceView(events), traced_calls=1,
+                          config={"kind": "sort"})
+    assert metrics_spans.prefixes(ctx) == metrics_spans.PORT + ("sort.",)
+    assert metrics_spans.device_ms(ctx, lambda n: n == "sort.merge",
+                                   "x") == pytest.approx(25 / 1e3)
+    assert metrics_spans.sync_idle_ms(ctx) == pytest.approx(25 / 1e3)
+
+
 def test_the_port_records_every_range_the_readers_name(tmp_path):
     """A profiler trace of the port's own calls on the CPU carries the
     ranges each reader names (one stand-in device event makes it read)."""

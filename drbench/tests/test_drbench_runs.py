@@ -1,26 +1,77 @@
 """Whole runs of every cell on the CPU at a tiny size, against the
 plain reference: sound runs come out correct; the control and the
-faults a cell can have come out not correct."""
+faults a cell can have come out not correct.
+
+What belongs to one configuration or family is found by name: its CPU
+size in ``tiny/<config>.json`` (``conftest.TINY``), its planted faults
+in ``faults/<kind>.py``.  A cell whose file is missing is left out of
+the runs here, and one named test says which file to add.
+"""
 
 import json
 import os
 import shutil
 import subprocess
 import sys
+import xml.etree.ElementTree as ET
 from pathlib import Path
 
 import pytest
 
+from drbench import harness
 from drbench.tests.conftest import TINY
 
 ROOT = Path(__file__).resolve().parents[2]
 MAN = json.loads((ROOT / "BENCHMARK.json").read_text())
 CELLS = [w["name"] for w in MAN["workloads"]]
 STENCIL = [c for c in CELLS if c.startswith("stencil1d-1g.")]
+FAULTS_DIR = ROOT / "drbench" / "tests" / "faults"
+
+
+def _of(w):
+    """A cell's configuration name, family and traffic mix."""
+    cfg = next(c for c in MAN["configs"] if c["name"] == w["config"])
+    kind = json.loads((ROOT / cfg["file"]).read_text())["kind"]
+    return w["config"], kind, harness.traffic(ROOT, w["traffic"])
+
+
+OF = {w["name"]: _of(w) for w in MAN["workloads"]}
+#: the cells whose configuration has a CPU size
+SIZED = [c for c in CELLS if OF[c][0] in TINY]
+#: each family's faults module, None where it has none
+PLANTS = {kind: (harness.load_module(FAULTS_DIR / f"{kind}.py", "faults")
+                 if (FAULTS_DIR / f"{kind}.py").is_file() else None)
+          for _, kind, _ in OF.values()}
+FAULTS = [(c, f) for c in SIZED if PLANTS[OF[c][1]] is not None
+          for f in PLANTS[OF[c][1]].faults(OF[c][2])]
+
+
+def test_every_configuration_has_a_cpu_size():
+    missing = [f"drbench/tests/tiny/{c['name']}.json" for c in MAN["configs"]
+               if c["name"] not in TINY]
+    assert not missing, ("no CPU size, so these configurations' cells do "
+                         "not run here; add (the keys a run on the CPU "
+                         f"overrides): {', '.join(missing)}")
+
+
+def test_every_family_has_a_faults_module():
+    missing = sorted(f"drbench/tests/faults/{kind}.py"
+                     for kind, mod in PLANTS.items() if mod is None)
+    assert not missing, ("no planted faults, so no test shows that these "
+                         "families' checks can fail; add (faults(traffic), "
+                         f"plant(monkeypatch, fault)): {', '.join(missing)}")
+
+
+def test_every_cell_has_a_planted_fault():
+    bare = [c for c in CELLS if PLANTS[OF[c][1]] is not None
+            and not PLANTS[OF[c][1]].faults(OF[c][2])]
+    assert not bare, ("a cell that no fault can break guards nothing; "
+                      "name a fault for these cells' traffic in their "
+                      f"family's faults module: {', '.join(bare)}")
 
 
 @pytest.mark.parametrize("trace", [False, True])
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", SIZED)
 def test_cell_runs_correct_on_the_cpu(run_cpu, cell, trace):
     r = run_cpu(cell, trace=trace)
     assert r["correct"], r["checks"]
@@ -34,7 +85,7 @@ def test_cell_runs_correct_on_the_cpu(run_cpu, cell, trace):
         assert m["value"] > 0
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", SIZED)
 def test_control_is_not_correct(run_cpu, cell):
     r = run_cpu(cell, control=True)
     assert r["correct"], r["checks"]
@@ -42,78 +93,11 @@ def test_control_is_not_correct(run_cpu, cell):
                for v in r["control_checks"].values()), r["control_checks"]
 
 
-def _fault(monkeypatch, cell, fault):
-    """Break the timed path underneath the harness."""
-    import dr_tpu_torch as dt
-    from dr_tpu_torch.algorithms import stencil
-    if fault == "state_unchanged":
-        for name in ("stencil_iterate_matmul", "stencil_iterate_blocked",
-                     "stencil_iterate"):
-            monkeypatch.setattr(dt, name, lambda a, *x, **k: a)
-    elif fault == "exchange_left_out":
-        monkeypatch.setattr(stencil, "_ring_exchange_full",
-                            lambda *a, **k: None)
-        monkeypatch.setattr(stencil, "exchange_rows", lambda *a, **k: None)
-    elif fault == "dot_altered":
-        real = dt.dot
-        monkeypatch.setattr(dt, "dot", lambda a, b: real(a, b) * 1.001)
-    elif fault == "scan_altered":
-        real = dt.inclusive_scan
-
-        def scan(a, out):
-            real(a, out)
-            row = out._rows[0]
-            row[0, row.shape[-1] // 2] += 1.0
-        monkeypatch.setattr(dt, "inclusive_scan", scan)
-    elif fault == "join_row_altered":
-        real = dt.join
-
-        def join(lk, lv, rk, rv, ok, ol, orr, **kw):
-            m = real(lk, lv, rk, rv, ok, ol, orr, **kw)
-            ol._rows[0][0, m // 2] += 1
-            return m
-        monkeypatch.setattr(dt, "join", join)
-    elif fault == "half_the_rows":
-        real = dt.join
-
-        def join(lk, lv, rk, rv, ok, ol, orr, **kw):
-            h = len(lk) // 2
-            return real(lk[0:h], lv[0:h], rk, rv, ok, ol, orr, **kw)
-        monkeypatch.setattr(dt, "join", join)
-    elif fault == "sum_altered":
-        real = dt.groupby_aggregate
-
-        def groupby(k, v, ok, ov, agg):
-            g = real(k, v, ok, ov, agg=agg)
-            if agg == "sum":
-                ov._rows[0][0, g // 3] *= 1.01
-            return g
-        monkeypatch.setattr(dt, "groupby_aggregate", groupby)
-    elif fault == "top_altered":
-        real = dt.top_k
-
-        def top_k(r, out_vals, out_idx=None, **kw):
-            real(r, out_vals, out_idx, **kw)
-            out_vals._rows[0][0, 3] *= 0.999
-            return out_vals
-        monkeypatch.setattr(dt, "top_k", top_k)
-    else:
-        raise ValueError(fault)
-
-
-FAULTS = ([(c, f) for c in STENCIL
-           for f in ("state_unchanged", "exchange_left_out", "dot_altered")]
-          + [(c, "scan_altered") for c in STENCIL
-             if c.endswith((".composed", ".blocked"))]
-          + [("tpch-sf30.q3", f) for f in ("join_row_altered",
-                                           "half_the_rows", "sum_altered",
-                                           "top_altered")])
-
-
 @pytest.mark.parametrize("cell,fault", FAULTS)
 def test_a_broken_timed_path_is_not_correct(run_cpu, monkeypatch, cell,
                                             fault):
-    _fault(monkeypatch, cell, fault)
+    """Break the timed path underneath the harness."""
+    PLANTS[OF[cell][1]].plant(monkeypatch, fault)
     r = run_cpu(cell)
     assert not r["correct"], r["checks"]
 
@@ -274,6 +258,104 @@ def test_new_files_are_found_by_name(tmp_path):
     assert taxes["correct"], taxes["checks"]
     assert set(taxes["metrics"]) == {"rows_s", "call_ms_p90", "setup_s"}
     assert taxes["control_checks"]["total_gap"]["value"] > 1e-5
+
+
+def _pytest_in_copy(tmp_path, expr):
+    """This file's tests that ``-k expr`` selects, run in the copy;
+    returns ``{test id: message of its failure or error, or None}``."""
+    xml = tmp_path / "pytest.xml"
+    subprocess.run(
+        [sys.executable, "-m", "pytest", "drbench/tests/test_drbench_runs.py",
+         "-q", "-p", "no:cacheprovider", "-p", "no:randomly", "-m",
+         "not gpu", "-k", expr, f"--junitxml={xml}"], cwd=tmp_path,
+        capture_output=True, text=True, timeout=900)
+    out = {}
+    for case in ET.parse(xml).iter("testcase"):
+        bad = [c for c in case if c.tag in ("failure", "error", "skipped")]
+        out[case.get("name")] = (bad[0].tag + ": " + bad[0].get("message", "")
+                                 if bad else None)
+    return out
+
+
+def _contents(root):
+    """Every file under ``root`` (caches aside) -> its bytes."""
+    return {str(p.relative_to(root)): p.read_bytes()
+            for p in sorted(root.rglob("*")) if p.is_file()
+            and "__pycache__" not in p.parts and ".cache" not in p.parts}
+
+
+def test_a_new_family_is_new_files_only(tmp_path):
+    """A configuration of a family of its own (the 1-D stencil's family,
+    op, reference and faults files renamed), its CPU size and its
+    manifest entries, added in a copy, make a cell whose sound runs,
+    control and planted faults pass this file's tests there; no file that
+    was in the tree changes but ``BENCHMARK.json``."""
+    man = _copy(tmp_path)
+    before = _contents(tmp_path)
+    b = tmp_path / "drbench"
+    for part in ("families/{}.py", "ops/{}", "reference/{}.py",
+                 "reference/{}", "tests/faults/{}.py"):
+        src, dst = b / part.format("stencil1d"), b / part.format("ring1d")
+        for f in sorted(src.rglob("*.py")) if src.is_dir() else [src]:
+            to = dst / f.relative_to(src) if src.is_dir() else dst
+            to.parent.mkdir(parents=True, exist_ok=True)
+            to.write_text(f.read_text().replace("stencil1d", "ring1d"))
+    cfg = json.loads((b / "configs" / "stencil1d-1g.json").read_text())
+    cfg.update(name="ring1d-1g", kind="ring1d")
+    (b / "configs" / "ring1d-1g.json").write_text(json.dumps(cfg))
+    (b / "tests" / "tiny" / "ring1d-1g.json").write_text(
+        json.dumps(TINY["stencil1d-1g"]))
+    tr = json.loads((b / "traffic" / "composed.json").read_text())
+    tr["family"] = "ring1d"
+    (b / "traffic" / "ring1d-composed.json").write_text(json.dumps(tr))
+    cell = "ring1d-1g.composed"
+    man["configs"].append({"name": "ring1d-1g", "source": "test",
+                           "file": "drbench/configs/ring1d-1g.json",
+                           "reduced": [], "why": "test"})
+    man["workloads"].append({"name": cell, "config": "ring1d-1g",
+                             "traffic": "ring1d-composed", "chips": 1,
+                             "why": "test"})
+    next(m for m in man["end_to_end"]
+         if m["name"] == "cell_updates_s")["workloads"].append(cell)
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(man))
+    got = _pytest_in_copy(tmp_path, cell)
+    faults = ("state_unchanged", "exchange_left_out", "dot_altered",
+              "scan_altered")
+    assert got == {
+        **{f"test_cell_runs_correct_on_the_cpu[{cell}-{t}]": None
+           for t in (False, True)},
+        f"test_control_is_not_correct[{cell}]": None,
+        **{f"test_a_broken_timed_path_is_not_correct[{cell}-{f}]": None
+           for f in faults}}
+    after = _contents(tmp_path)
+    assert [p for p in before if after.get(p) != before[p]] == \
+        ["BENCHMARK.json"]
+
+
+def test_a_missing_size_or_faults_file_fails_one_named_test(tmp_path):
+    """With one configuration's CPU size and one family's faults module
+    taken out of a copy, the cells they served leave the runs, and each
+    missing file fails one named test that names it."""
+    _copy(tmp_path)
+    config = MAN["configs"][-1]["name"]
+    kind = next(k for c, k, _ in OF.values()
+                if c == MAN["configs"][0]["name"])
+    size = f"drbench/tests/tiny/{config}.json"
+    plants = f"drbench/tests/faults/{kind}.py"
+    (tmp_path / size).unlink()
+    (tmp_path / plants).unlink()
+    cells = [c for c in CELLS if OF[c][0] == config or OF[c][1] == kind]
+    got = _pytest_in_copy(tmp_path, " or ".join(["every_"] + cells))
+    failed = {t: m for t, m in got.items() if m is not None}
+    assert set(failed) == {"test_every_configuration_has_a_cpu_size",
+                           "test_every_family_has_a_faults_module"}, failed
+    assert size in failed["test_every_configuration_has_a_cpu_size"]
+    assert plants in failed["test_every_family_has_a_faults_module"]
+    left_out = [c for c in cells if OF[c][0] == config]
+    for t in got:
+        assert not any(f"[{c}-" in t or f"[{c}]" in t for c in left_out), t
+        assert not t.startswith("test_a_broken_timed_path"), t
+    assert any(m is None and "[" in t for t, m in got.items())
 
 
 @pytest.mark.gpu
